@@ -1,0 +1,126 @@
+"""Fused error-feedback + stochastic int8 quantization (CUDA kernel).
+
+Counterpart of `repro.kernels.quantize` (the Pallas TPU kernel
+`_quantize_ef_kernel`). Per row of C elements, one scale block:
+
+    m = g + e;  s = rowmax|m| + 1e-20
+    q = floor(m/s*L) + (rand < frac);  e' = m - q*s/L
+
+The kernel is `csrc/quantize_ef.cu` (one block per row, the row held in
+registers, every byte across device memory once; its note gives the
+bound). Randomness stays an operand, so the kernel and its plain version
+(`kernels.ref.quantize_ef_ref`) agree given the same `rand`.
+
+Dispatch is by device: a CPU tensor goes to the plain version, a CUDA
+tensor to the kernel, which raises on anything it does not take. There
+is no fallback from one to the other. `launches` counts kernel launches
+(CPU calls do not count); `reset_launches()` zeroes it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import quantize_ef_ref
+
+launches = 0
+_fn = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("quantize_ef").quantize_ef_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(g, e, rand, levels):
+    global launches
+    if not isinstance(levels, int):
+        raise NotImplementedError(
+            "quantize_ef on CUDA takes a Python int `levels`; levels as a "
+            "device operand (the Pallas _quantize_ef_kernel_dyn) comes with "
+            "the multi-worker slice (ROADMAP §B2)")
+    for name, t in (("g", g), ("e", e), ("rand", rand)):
+        if t.device != g.device or t.device.type != "cuda":
+            raise ValueError(
+                f"quantize_ef: {name} is on {t.device}, the kernel needs "
+                f"every operand on the same CUDA device as g ({g.device})")
+        if t.dtype != torch.float32:
+            raise TypeError(f"quantize_ef: {name} must be float32 on CUDA, "
+                            f"got {t.dtype}")
+        if t.shape != g.shape:
+            raise ValueError(f"quantize_ef: {name} has shape "
+                             f"{tuple(t.shape)}, g has {tuple(g.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"quantize_ef: {name} must be contiguous and "
+                             f"16-byte aligned")
+    R, C = g.shape
+    codes = torch.empty((R, C), dtype=torch.int8, device=g.device)
+    scale = torch.empty((R, 1), dtype=torch.float32, device=g.device)
+    e_new = torch.empty_like(e)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = _kernel()(g.data_ptr(), e.data_ptr(), rand.data_ptr(),
+                   codes.data_ptr(), scale.data_ptr(), e_new.data_ptr(),
+                   R, C, float(levels), None, stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize_ef kernel launch failed: CUDA error "
+                           f"{rc} at shape ({R}, {C})")
+    launches += 1
+    return codes, scale, e_new
+
+
+def quantize_ef_blocked(g, e, rand, *, levels=127, block_rows: int = 256):
+    """g, e, rand: (R, C) with C % 128 == 0 and R % block_rows == 0 (the
+    TPU tiling contract, kept so both packages accept the same shapes).
+    Returns (codes int8 (R, C), scale f32 (R, 1), e_new (R, C) in e's
+    dtype)."""
+    R, C = g.shape
+    if C % 128:
+        raise ValueError(f"quantize_ef: lane-align C to 128, got {C}")
+    br = min(block_rows, R)
+    if br <= 0 or R % br:
+        raise ValueError(f"quantize_ef: R={R} is not a multiple of "
+                         f"block_rows={br}")
+    if g.device.type == "cpu":
+        codes, scale, e_new = quantize_ef_ref(g, e, rand, levels)
+        return codes, scale, e_new.to(e.dtype)
+    return _launch(g, e, rand, levels)
+
+
+def bucket_tile_shape(n: int):
+    """(R, C, block_rows) tiling for a flat comm bucket of n elements.
+    Buckets are padded to a multiple of n_workers·1024, so C = 1024 always
+    divides; block_rows is the largest divisor of R up to 256."""
+    C = 1024 if n % 1024 == 0 else 128
+    if n % C:
+        raise ValueError(f"bucket size {n} not lane-aligned")
+    R = n // C
+    br = min(256, R)
+    while R % br:
+        br -= 1
+    return R, C, br
+
+
+def quantize_ef_flat(g, e, rand, *, levels=127):
+    """Fused quantize+EF over a flat comm bucket (1-D, lane-aligned size),
+    tiled as (R, 1024) rows, one scale each.
+    Returns (codes (n,) int8, scales (R,) f32, e_new (n,))."""
+    n = g.shape[0]
+    R, C, br = bucket_tile_shape(n)
+    codes, scale, e_new = quantize_ef_blocked(
+        g.reshape(R, C), e.reshape(R, C), rand.reshape(R, C),
+        levels=levels, block_rows=br)
+    return codes.reshape(n), scale.reshape(R), e_new.reshape(n)
