@@ -6,21 +6,31 @@
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
-  1. build   every CUDA kernel of the port from its source (nvcc, parallel)
-  2. kernel  hold each kernel against its plain PyTorch version on the card,
-             at the trainer's shapes and at edge cases, and time both
-  3. train   drive the trainer's main path through its CLI entry point:
-             single-worker DQGAN on dcgan32 at full width, batch 64,
-             omd/update, qsgd8_block1024 over uniform buckets; the launch
-             count of every kernel is zeroed just before and read just after
-  4. parity  one trainer step with the kernel and the same step with the
-             plain quantizer, same draws, compared
+  1. build    every CUDA kernel of the port from its source (nvcc, parallel)
+  2. kernel   hold each kernel against its plain PyTorch version on the
+              card, at the trainer's shapes and at edge cases, and time
+              both: B1 (quantize_ef, static levels) at one worker's bucket
+              rows, B2 (quantize_ef_dyn, levels read from device memory)
+              at four workers' stacked bucket rows
+  3. train    drive each path of the trainer through its CLI entry point,
+              dcgan32 at full width, omd/update, with the launch count of
+              every kernel zeroed just before and read just after:
+              (a) one worker, batch 64, qsgd8_block1024 over uniform
+                  buckets: B1 three times a step;
+              (b) four workers stacked on the card, batch 256, half of
+                  them reporting each round, adaptive delta_budget at
+                  0.75 MiB, sim exchange: B2 three times a step; then 5
+                  steps of the same with the two_phase exchange
+  4. parity   trainer steps with the kernels and the same steps with the
+              plain quantizer, same draws, compared (one worker; four)
+  5. profile  device time by kernel and the device's busy share, for each
+              path (reported)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
-its launches on the main path, its error against the plain version, its
-time, the plain version's, and the least time the card could take (bytes
-over 3.35 TB/s or flops over 67 TFLOP/s f32, the H100 SXM data sheet's
-peaks). The last line is {"ok": true, "device": {...}}.
+its launches on its path, its error against the plain version, its time,
+the plain version's, and the least time the card could take (bytes over
+3.35 TB/s or flops over 67 TFLOP/s f32, the H100 SXM data sheet's peaks).
+The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -38,7 +48,17 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12     # H100 SXM, float32 outside the tensor cores
-STEPS, BATCH = 20, 64
+STEPS, BATCH = 10, 64       # the single-worker path
+WORKERS, W_STEPS, W_BATCH, N_PART = 4, 20, 256, 2   # the four-worker path
+TWO_PHASE_STEPS = 5
+W_ARGS = ["--arch", "dcgan32", "--workers", str(WORKERS), "--batch",
+          str(W_BATCH), "--optimizer", "omd", "--lr", "1e-4",
+          "--compressor", "qsgd8_block1024", "--comm-plan", "delta_budget",
+          "--comm-budget-mb", "0.75", "--comm-adaptive",
+          "--participation", "0.5", "--log-every", "1", "--device", "cuda"]
+# a code flip needs rand within float rounding of the fractional part:
+# expected ~1e-7 of elements, allow 1e-5
+MAX_MISMATCH = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -82,6 +102,40 @@ def time_ms(fn, iters, flush):
     return statistics.fmean(a.elapsed_time(b) for a, b in pairs)
 
 
+def workers_strategy(kind="sim"):
+    """The four-worker path's strategy (what W_ARGS select)."""
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      Participation, Strategy)
+    return Strategy(
+        compression=Compression(compressor="qsgd8_block1024",
+                                plan="delta_budget", budget_mb=0.75,
+                                adaptive=True),
+        exchange=ExchangePlan(kind=kind, worker_axes=("data",)),
+        participation=Participation(fraction=0.5))
+
+
+def single_strategy():
+    from repro_torch.strategy import Compression, Strategy
+    return Strategy(compression=Compression(compressor="qsgd8_block1024",
+                                            plan="uniform"))
+
+
+def make_trainer(dev, strat, workers, seed):
+    """(trainer, initial state, bucket layout) of dcgan32 at full width."""
+    import torch
+    from repro_torch.configs import DQConfig, get
+    from repro_torch.core import dqgan
+    from repro_torch.models import gan
+    cfg = get("dcgan32")
+    dq = DQConfig.from_strategy(strat, optimizer="omd", lr=1e-4,
+                                message="update")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    trainer = dqgan.DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=dev,
+                          workers=workers)
+    params = gan.init(cfg, generator=gen, device=dev)
+    return trainer, trainer.init(params), trainer._comm(params)[0], gen
+
+
 # --------------------------------------------------------------------------- #
 def phase_build():
     from repro_torch.kernels import _build
@@ -96,8 +150,9 @@ def phase_build():
 
 
 def compare_quantize(g, e, r, levels):
-    """Kernel vs plain on the same CUDA tensors. Returns (max |Δe'|, code
-    mismatch fraction, list of failed checks)."""
+    """Kernel vs plain on the same CUDA tensors; `levels` an int (B1) or a
+    one-element device tensor (B2). Returns (max |Δe'|, code mismatch
+    fraction, list of failed checks)."""
     import torch
     from repro_torch.kernels import quantize as Q
     from repro_torch.kernels.ref import quantize_ef_ref
@@ -105,7 +160,9 @@ def compare_quantize(g, e, r, levels):
     ck, sk, ek = Q.quantize_ef_blocked(g, e, r, levels=levels, block_rows=R)
     cp, sp, ep = quantize_ef_ref(g, e, r, levels)
     torch.cuda.synchronize()
-    step = sk / sk.new_tensor(float(levels))
+    lvl = (levels.reshape(1, 1) if isinstance(levels, torch.Tensor)
+           else sk.new_tensor(float(levels)))
+    step = sk / lvl
     err = (ek - ep).abs()
     same = ck == cp
     failed = [msg for ok, msg in (
@@ -121,11 +178,19 @@ def compare_quantize(g, e, r, levels):
     return err.max().item(), (~same).float().mean().item(), failed
 
 
-def phase_kernel(dev, bucket_rows):
+def phase_kernel(dev, bucket_rows, levels_row, dyn):
+    """Hold B1 (dyn=False: levels a Python int) or B2 (dyn=True: levels a
+    device tensor) against its plain version at `bucket_rows` × 1024 with
+    each of {127, 7, 1} levels and at the edge cases; time one step's
+    launches, one per bucket at `levels_row`. Returns the kernel record."""
     import torch
     from repro_torch.kernels import quantize as Q
     from repro_torch.kernels.ref import quantize_ef_ref
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(3 if dyn else 0)
+    name = "quantize_ef_dyn" if dyn else "quantize_ef"
+
+    def lv(L):
+        return torch.full((1,), float(L), device=dev) if dyn else L
 
     def operands(R, C):
         g = 0.3 * torch.randn((R, C), generator=gen, device=dev)
@@ -133,9 +198,9 @@ def phase_kernel(dev, bucket_rows):
         r = torch.rand((R, C), generator=gen, device=dev)
         return g, e, r
 
-    # (label, R, C, levels, edit): the trainer's bucket rows, then edges
-    cases = [("bucket", R, 1024, 127, None) for R in
-             sorted(set(bucket_rows))]
+    # (label, R, C, levels, edit): the path's bucket rows, then edges
+    cases = [("bucket", R, 1024, L, None) for R in sorted(set(bucket_rows))
+             for L in sorted(set(levels_row) | {127, 7, 1}, reverse=True)]
     cases += [
         ("zero row", 8, 1024, 127, "zero"),
         ("one huge value", 8, 1024, 127, "huge"),
@@ -147,9 +212,6 @@ def phase_kernel(dev, bucket_rows):
         ("wide rows", 64, 4096, 127, None),
         ("rows past the register cache", 16, 12288, 127, None),
     ]
-    # a code flip needs rand within float rounding of the fractional part:
-    # expected ~1e-7 of elements, allow 1e-5
-    max_mismatch = 1e-5
     worst, bad = 0.0, []
     for label, R, C, L, edit in cases:
         g, e, r = operands(R, C)
@@ -158,52 +220,65 @@ def phase_kernel(dev, bucket_rows):
             e[3].zero_()
         elif edit == "huge":
             g[5, 17] = 3.0e20
-        err, mism, failed = compare_quantize(g, e, r, L)
-        if mism > max_mismatch:
-            failed.append(f"code mismatch {mism:.2e} > {max_mismatch:.0e}")
+        err, mism, failed = compare_quantize(g, e, r, lv(L))
+        if mism > MAX_MISMATCH:
+            failed.append(f"code mismatch {mism:.2e} > {MAX_MISMATCH:.0e}")
         if label == "bucket":
             worst = max(worst, err)
-        print(f"# kernel quantize_ef [{label}] R={R} C={C} L={L}: "
+        print(f"# kernel {name} [{label}] R={R} C={C} L={L}: "
               f"max|de'|={err:.3e} "
               f"code mismatch={mism:.2e}"
               + (f" FAILED: {'; '.join(failed)}" if failed else ""))
         bad += [f"{label}: {f}" for f in failed]
-    check(not bad, "quantize_ef disagrees with its plain version: "
+    check(not bad, f"{name} disagrees with its plain version: "
           + "; ".join(bad))
 
-    # time one step's work: one launch per bucket at the trainer's shapes
-    ops = [operands(R, 1024) for R in bucket_rows]
+    # time one step's work: one launch per bucket at the path's shapes
+    ops = [operands(R, 1024) + (lv(L),)
+           for R, L in zip(bucket_rows, levels_row)]
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
 
     def run_kernel():
-        for g, e, r in ops:
-            Q.quantize_ef_blocked(g, e, r, block_rows=g.shape[0])
+        for g, e, r, L in ops:
+            Q.quantize_ef_blocked(g, e, r, levels=L, block_rows=g.shape[0])
 
     def run_plain():
-        for g, e, r in ops:
-            quantize_ef_ref(g, e, r)
+        for g, e, r, L in ops:
+            quantize_ef_ref(g, e, r, L)
 
     ms = time_ms(run_kernel, 50, flush)
     plain_ms = time_ms(run_plain, 50, flush)
     n = sum(R * 1024 for R in bucket_rows)
     rows = sum(bucket_rows)
-    nbytes = n * (4 + 4 + 4 + 1 + 4) + rows * 4  # g, e, rand; codes, e'; s
+    # g, e, rand read; codes, e' written; a scale per row; B2 also reads
+    # its one f32 level count per launch
+    nbytes = n * (4 + 4 + 4 + 1 + 4) + rows * 4 + (4 * len(ops) if dyn else 0)
     flops = 11 * n  # add, abs, max, div, mul, floor, sub, cmp, add, mul, sub
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
-    print(f"# kernel quantize_ef timing, {len(bucket_rows)} launches "
-          f"({n} elements, {nbytes / 1e6:.2f} MB): kernel {ms:.4f} ms, "
+    print(f"# kernel {name} timing, {len(bucket_rows)} launches "
+          f"(rows {list(bucket_rows)}, levels {list(levels_row)}, {n} "
+          f"elements, {nbytes / 1e6:.2f} MB): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
-    return {"name": "quantize_ef", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/quantize_ef.cu",
-            "replaces": "src/repro/kernels/quantize.py:42",
+            "replaces": ("src/repro/kernels/quantize.py:51" if dyn
+                         else "src/repro/kernels/quantize.py:42"),
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
 
 
+def check_rows(history, steps):
+    check(len(history) == steps, f"{len(history)} log rows for {steps} steps")
+    for rec in history:
+        for k in ("loss", "grad_norm", "error_norm"):
+            check(math.isfinite(rec[k]), f"step {rec['step']}: {k} = {rec[k]}")
+
+
 def phase_train():
+    """Path (a): one worker, B1."""
     from repro_torch.kernels import quantize as Q
     from repro_torch.launch import train
     argv = ["--arch", "dcgan32", "--steps", str(STEPS), "--batch", str(BATCH),
@@ -212,117 +287,157 @@ def phase_train():
             "--log-every", "1", "--device", "cuda"]
     Q.reset_launches()
     history = train.main(argv)
-    launches = Q.launches
-    check(len(history) == STEPS, f"{len(history)} log rows for {STEPS} steps")
-    for rec in history:
-        for k in ("loss", "grad_norm", "error_norm"):
-            check(math.isfinite(rec[k]), f"step {rec['step']}: {k} = {rec[k]}")
-    check(launches == STEPS * 3,
-          f"quantize_ef launched {launches} times in {STEPS} steps, "
-          f"expected {STEPS * 3} (3 buckets per step)")
+    launches, launches_dyn = Q.launches, Q.launches_dyn
+    check_rows(history, STEPS)
+    check(launches == STEPS * 3 and launches_dyn == 0,
+          f"one worker: quantize_ef launched {launches} times and "
+          f"quantize_ef_dyn {launches_dyn} times in {STEPS} steps, expected "
+          f"{STEPS * 3} and 0 (3 buckets per step)")
     step_ms = statistics.median(r["step_s"] for r in history[1:]) * 1e3
-    print(f"# train dcgan32 full width, batch {BATCH}: {STEPS} steps, "
-          f"quantize_ef launches {launches}, median step {step_ms:.3f} ms "
-          f"(first step {history[0]['step_s'] * 1e3:.1f} ms)")
-    return launches, step_ms
+    print(f"# train dcgan32 full width, 1 worker, batch {BATCH}: {STEPS} "
+          f"steps, quantize_ef launches {launches}, median step "
+          f"{step_ms:.3f} ms (first step {history[0]['step_s'] * 1e3:.1f} ms)")
+    return launches
 
 
-def phase_parity(dev):
-    """The same trainer step with the kernel and with the plain quantizer."""
+def phase_train_workers(dev):
+    """Path (b): four stacked workers, half reporting, adaptive family, B2;
+    sim for W_STEPS steps, then two_phase for TWO_PHASE_STEPS. Every row
+    bills the ledger's round_bytes(N_PART): the selected member's bytes."""
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    runs = {}
+    for kind, steps in (("sim", W_STEPS), ("two_phase", TWO_PHASE_STEPS)):
+        tr, st, _, _ = make_trainer(dev, workers_strategy(kind), WORKERS, 0)
+        wire_mb = round(tr.comm_ledger(st.params).round_bytes(N_PART)[0]
+                        / 1e6, 3)
+        del tr, st
+        argv = W_ARGS + ["--exchange", kind, "--steps", str(steps)]
+        Q.reset_launches()
+        history = train.main(argv)
+        launches, launches_dyn = Q.launches, Q.launches_dyn
+        check_rows(history, steps)
+        check(launches_dyn == steps * 3 and launches == 0,
+              f"{WORKERS} workers, {kind}: quantize_ef_dyn launched "
+              f"{launches_dyn} times and quantize_ef {launches} times in "
+              f"{steps} steps, expected {steps * 3} and 0")
+        for rec in history:
+            check(rec.get("participants") == N_PART,
+                  f"{kind} step {rec['step']}: participants "
+                  f"{rec.get('participants')}, expected {N_PART}")
+            check(rec["wire_mb_step"] == wire_mb,
+                  f"{kind} step {rec['step']}: wire_mb_step "
+                  f"{rec['wire_mb_step']} != the ledger's round_bytes"
+                  f"({N_PART}) {wire_mb}")
+        step_ms = statistics.median(r["step_s"] for r in history[1:]) * 1e3
+        print(f"# train dcgan32 full width, {WORKERS} workers ({N_PART} "
+              f"reporting), batch {W_BATCH}, adaptive delta_budget 0.75 MiB, "
+              f"{kind}: {steps} steps, quantize_ef_dyn launches "
+              f"{launches_dyn}, median step {step_ms:.3f} ms (first step "
+              f"{history[0]['step_s'] * 1e3:.1f} ms), wire {wire_mb} MB/step")
+        runs[kind] = launches_dyn
+    return runs["sim"]
+
+
+def phase_parity(dev, workers):
+    """The same trainer steps with the kernel and with the plain quantizer:
+    one worker through B1, or four through B2 with two reporting."""
     import torch
     from repro_torch import tree as T
-    from repro_torch.configs import DQConfig, get
-    from repro_torch.core import dqgan, error_feedback
+    from repro_torch.configs import get
+    from repro_torch.core import error_feedback
     from repro_torch.data import procedural_images
     from repro_torch.kernels.ref import quantize_ef_ref
-    from repro_torch.models import gan
-    from repro_torch.strategy import Compression, Strategy
 
     torch.backends.cudnn.deterministic = True  # same field in both runs
     torch.backends.cudnn.benchmark = False
     cfg = get("dcgan32")
-    strat = Strategy(compression=Compression(compressor="qsgd8_block1024",
-                                             plan="uniform"))
-    dq = DQConfig.from_strategy(strat, optimizer="omd", lr=1e-4,
-                                message="update")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    params = gan.init(cfg, generator=gen, device=dev)
-    trainer = dqgan.DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=dev)
-    state = trainer.init(params)
-    layout, _ = trainer._comm(params)
+    W = workers
+    batch_size = BATCH if W == 1 else W_BATCH
+    strat = single_strategy() if W == 1 else workers_strategy()
+    trainer, state, layout, gen = make_trainer(dev, strat, W, 1)
+    mask = None
+    if W > 1:
+        mask = torch.zeros((W,), device=dev)
+        mask[::W // N_PART] = 1.0
+    n = W if mask is None else N_PART
+    qsteps = []
+
+    def plain_flat(g, e, rand, *, levels=127):
+        m = g.shape[0]
+        c, s, en = quantize_ef_ref(g.reshape(-1, 1024), e.reshape(-1, 1024),
+                                   rand.reshape(-1, 1024), levels)
+        # one quantization step of this launch's largest row scale
+        qsteps.append(float(s.max() / (levels.reshape(()) if
+                                       isinstance(levels, torch.Tensor)
+                                       else float(levels))))
+        return c.reshape(m), s.reshape(-1), en.reshape(m)
+
     results = []
     for _ in range(2):  # a second step so that e_prev is not zero
-        batch = {"real": procedural_images(BATCH, 32, 3, generator=gen,
+        batch = {"real": procedural_images(batch_size, 32, 3, generator=gen,
                                            device=dev)}
-        draws = {"z": torch.randn((BATCH, cfg.latent_dim), generator=gen,
-                                  device=dev),
-                 "rand": {b.bid: torch.rand((b.size,), generator=gen,
+        draws = {"z": torch.randn((W, batch_size // W, cfg.latent_dim),
+                                  generator=gen, device=dev),
+                 "rand": {b.bid: torch.rand((W, b.size), generator=gen,
                                             device=dev)
                           for b in layout.buckets}}
+        if mask is not None:
+            draws["mask"] = mask
         kern = trainer.step(state, batch, draws)
-
-        def plain_flat(g, e, rand, *, levels=127):
-            n = g.shape[0]
-            c, s, en = quantize_ef_ref(g.reshape(-1, 1024),
-                                       e.reshape(-1, 1024),
-                                       rand.reshape(-1, 1024), levels)
-            return c.reshape(n), s.reshape(-1), en.reshape(n)
-
+        qsteps.clear()
         with mock.patch.object(error_feedback, "quantize_ef_flat",
                                plain_flat):
             plain = trainer.step(state, batch, draws)
-        w0 = T.leaves(state.params)
+        check(len(qsteps) == len(layout.buckets),
+              f"the plain step quantized {len(qsteps)} times, expected "
+              f"{len(layout.buckets)}")
+        # a code flipped at a rounding boundary moves one worker's p̂ by
+        # s/L and the average by s/(L·n)
+        qstep = max(qsteps) / n
         pk, pp = T.leaves(kern.state.params), T.leaves(plain.state.params)
-        ek = [x[0] for x in T.leaves(kern.state.ef["leaf"])]
-        ep = [x[0] for x in T.leaves(plain.state.ef["leaf"])]
-        # the quantized message m = p̂ + e' = (w − w') + e', and one
-        # quantization step of the largest row scale: max|m|/127
-        qstep = max(((w - a) + x).abs().max().item()
-                    for w, a, x in zip(w0, pk, ek)) / 127
+        ek, ep = T.leaves(kern.state.ef["leaf"]), T.leaves(
+            plain.state.ef["leaf"])
         d_par = max((a - b).abs().max().item() for a, b in zip(pk, pp))
         n_diff = sum(int((a != b).sum()) for a, b in zip(pk, pp))
         n_all = sum(a.numel() for a in pk)
-        # p̂ + e' = m: params − e1 cancels a code flipped at a boundary
-        d_inv = max(((a - x) - (b - y)).abs().max().item()
-                    for a, b, x, y in zip(pk, pp, ek, ep))
+        # p̂ + e' = m for a participant and a sitting worker's e1 is the
+        # same in both runs, so params − (1/n)·Σ_w e1_w cancels a flip
+        d_inv = max(((a - x.sum(0) / n) - (b - y.sum(0) / n)).abs().max()
+                    .item() for a, b, x, y in zip(pk, pp, ek, ep))
         results.append((d_par, d_inv, qstep, n_diff / n_all))
         state = kern.state
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
     for i, (d_par, d_inv, qstep, frac) in enumerate(results):
         # params within one quantization step (a code flipped at a rounding
-        # boundary) on at most 1e-5 of the elements; params − e1 to float32
-        # rounding of the parameters (|w| < 1)
-        check(d_par <= qstep * 1.001, f"step {i}: params differ by "
-              f"{d_par:.3e} > one quantization step {qstep:.3e}")
-        check(frac <= 1e-5, f"step {i}: {frac:.2e} of the params differ")
-        check(d_inv <= 1e-6, f"step {i}: params - e1 differ by {d_inv:.3e}")
-        print(f"# parity kernel vs plain, trainer step {i}: max|dparams|="
-              f"{d_par:.3e} (quantization step {qstep:.3e}), params "
-              f"differing {frac:.2e}, max|d(params - e1)|={d_inv:.3e}")
+        # boundary) on at most 1e-5 of the elements; params − (1/n)·Σ e1 to
+        # float32 rounding of the parameters (|w| < 1)
+        check(d_par <= qstep * 1.001, f"{W} worker(s), step {i}: params "
+              f"differ by {d_par:.3e} > one quantization step {qstep:.3e}")
+        check(frac <= 1e-5, f"{W} worker(s), step {i}: {frac:.2e} of the "
+              f"params differ")
+        check(d_inv <= 1e-6, f"{W} worker(s), step {i}: params - e1 differ "
+              f"by {d_inv:.3e}")
+        print(f"# parity kernel vs plain, {W} worker(s), trainer step {i}: "
+              f"max|dparams|={d_par:.3e} (quantization step {qstep:.3e}), "
+              f"params differing {frac:.2e}, max|d(params - e1/n)|="
+              f"{d_inv:.3e}")
 
 
-def phase_profile(dev, steps=10):
+def phase_profile(dev, workers, steps=10):
     """Where the trainer's step time goes: torch.profiler over a window of
     steps, device time by kernel and the device's busy share. Reported,
     not checked (the profiler's device tracing is not relied on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import DQConfig, get
-    from repro_torch.core import dqgan
     from repro_torch.data import procedural_images
-    from repro_torch.models import gan
-    from repro_torch.strategy import Compression, Strategy
 
-    cfg = get("dcgan32")
-    strat = Strategy(compression=Compression(compressor="qsgd8_block1024",
-                                             plan="uniform"))
-    dq = DQConfig.from_strategy(strat, optimizer="omd", lr=1e-4,
-                                message="update")
-    gen = torch.Generator(device=dev).manual_seed(2)
-    trainer = dqgan.DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=dev)
-    state = trainer.init(gan.init(cfg, generator=gen, device=dev))
-    batches = [{"real": procedural_images(BATCH, 32, 3, generator=gen,
+    W = workers
+    batch_size = BATCH if W == 1 else W_BATCH
+    strat = single_strategy() if W == 1 else workers_strategy()
+    trainer, state, _, gen = make_trainer(dev, strat, W, 2)
+    batches = [{"real": procedural_images(batch_size, 32, 3, generator=gen,
                                           device=dev)}
                for _ in range(steps + 3)]
     for b in batches[:3]:
@@ -343,12 +458,12 @@ def phase_profile(dev, steps=10):
                             kern.get(ev.key, (0, 0))[1] + ev.count)
     busy_ms = sum(t for t, _ in kern.values())
     if not kern:
-        print("# profile: the profiler recorded no device time (not "
-              "measured)")
+        print(f"# profile {W} worker(s): the profiler recorded no device "
+              f"time (not measured)")
         return
-    print(f"# profile {steps} steps: wall {wall_ms / steps:.3f} ms/step "
-          f"(profiler on), device busy {busy_ms / steps:.3f} ms/step, "
-          f"busy share {busy_ms / wall_ms:.3f}, "
+    print(f"# profile {W} worker(s), batch {batch_size}, {steps} steps: wall "
+          f"{wall_ms / steps:.3f} ms/step (profiler on), device busy "
+          f"{busy_ms / steps:.3f} ms/step, busy share {busy_ms / wall_ms:.3f}, "
           f"{sum(c for _, c in kern.values()) / steps:.0f} kernels/step")
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (t, c) in top:
@@ -380,24 +495,33 @@ def main():
     t0 = time.perf_counter()
     try:
         phase_build()
-        from repro_torch.configs import get
-        from repro_torch.comm import build_layout
-        from repro_torch import tree as T
-        from repro_torch.models import gan
-        shapes = T.tree_map(lambda x: tuple(x.shape),
-                            gan.init(get("dcgan32"), device="meta"))
-        rows = [b.size // 1024 for b in build_layout(shapes).buckets]
-        record = phase_kernel(dev, rows)
-        launches, step_ms = phase_train()
-        record["launches"] = launches
-        phase_parity(dev)
-        phase_profile(dev)
+        # the bucket rows and, for four workers with two reporting, the
+        # adaptive family's level counts, as the trainer derives them
+        t1, s1, layout1, _ = make_trainer(dev, single_strategy(), 1, 0)
+        rows = [b.size // 1024 for b in layout1.buckets]
+        tw, sw, layoutw, _ = make_trainer(dev, workers_strategy(), WORKERS, 0)
+        family = tw._family(sw.params)
+        levels_sel = list(family.levels_table()[N_PART - 1])
+        print(f"# comm ({WORKERS} workers): {family.describe()}; levels "
+              f"with {N_PART} reporting {levels_sel}")
+        check(levels_sel != list(family.levels_table()[-1]),
+              "the selected family member equals the full plan")
+        rows_w = [WORKERS * b.size // 1024 for b in layoutw.buckets]
+        del t1, s1, tw, sw
+        b1 = phase_kernel(dev, rows, [127] * len(rows), dyn=False)
+        b2 = phase_kernel(dev, rows_w, levels_sel, dyn=True)
+        b1["launches"] = phase_train()
+        b2["launches"] = phase_train_workers(dev)
+        phase_parity(dev, 1)
+        phase_parity(dev, WORKERS)
+        phase_profile(dev, 1)
+        phase_profile(dev, WORKERS)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(f"# all phases passed in {time.perf_counter() - t0:.1f} s")
     print(f"# gpu: {gpu}")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [b1, b2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

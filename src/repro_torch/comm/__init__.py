@@ -20,7 +20,9 @@ from .planner import (  # noqa: F401
     BucketAssignment,
     CommPlan,
     POLICIES,
+    PlanFamily,
     analytic_delta,
     plan_comm,
+    plan_family,
     quant_ladder,
 )

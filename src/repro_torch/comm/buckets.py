@@ -141,27 +141,37 @@ def build_layout(
                         n_workers=n_workers, align=align, n_leaves=len(shapes))
 
 
+def _lead(x, slot):
+    """The leading (worker) dims of leaf `x` in front of its slot shape."""
+    return tuple(x.shape[:x.dim() - len(slot.shape)])
+
+
 def pack(layout: BucketLayout, leaves, dtype=torch.float32):
-    """One zero-padded 1-D tensor per bucket from the flat leaf list."""
+    """One zero-padded flat tensor per bucket from the flat leaf list. A
+    leaf stacked over workers, (W, *shape), packs into (W, size)."""
     flats = []
     for b in layout.buckets:
-        parts = [leaves[s.index].reshape(-1).to(dtype) for s in b.slots]
+        lead = _lead(leaves[b.slots[0].index], b.slots[0])
+        parts = [leaves[s.index].reshape(lead + (-1,)).to(dtype)
+                 for s in b.slots]
         if b.padding:
-            parts.append(torch.zeros((b.padding,), dtype=dtype,
+            parts.append(torch.zeros(lead + (b.padding,), dtype=dtype,
                                      device=parts[0].device))
-        flats.append(torch.cat(parts) if len(parts) > 1 else parts[0])
+        flats.append(torch.cat(parts, dim=-1) if len(parts) > 1
+                     else parts[0])
     return flats
 
 
 def unpack_into(layout: BucketLayout, flats, leaves):
     """Scatter bucket contents over a copy of the flat leaf list; skipped
-    leaves keep their entries. The new leaves are views of the buckets."""
+    leaves keep their entries. The new leaves are views of the buckets; a
+    (W, size) bucket unpacks into (W, *shape) leaves."""
     out = list(leaves)
     for b in layout.buckets:
         flat = flats[b.bid]
         for s in b.slots:
             like = leaves[s.index]
-            out[s.index] = flat[s.offset:s.offset + s.size].reshape(
-                s.shape).to(like.dtype if hasattr(like, "dtype")
-                            else flat.dtype)
+            out[s.index] = flat[..., s.offset:s.offset + s.size].reshape(
+                tuple(flat.shape[:-1]) + tuple(s.shape)).to(
+                like.dtype if hasattr(like, "dtype") else flat.dtype)
     return out

@@ -78,16 +78,22 @@ class CommLedger:
     """Accumulates per-step wire cost. Register entries once (at plan
     time), then ``tick()`` each training step; read ``summary()``. Steps
     and exchange rounds are counted apart (a schedule may skip rounds).
-    Billing a round at fewer participants, against a PlanFamily member,
-    arrives with the multi-worker slice (ROADMAP §A slice 2)."""
+
+    Participation-aware: ``tick(participants=n)`` bills the round at the
+    bytes the n reporting workers move, the fleet average (n/M)·payload,
+    with the payload of the round-adaptive ``family`` member for n when
+    one is attached."""
     entries: List[LedgerEntry] = field(default_factory=list)
     steps: int = 0
     rounds: int = 0          # exchange rounds actually executed
     sim_clock_s: float = 0.0  # accumulated simulated wall clock
     n_workers: int = 0       # fleet size M (0 = unknown)
+    family: Optional[object] = None   # planner.PlanFamily | None
     cum_wire: float = 0.0
     cum_carried: float = 0.0
     budget_bytes: float = 0.0  # delta_budget payload target/worker (0 = none)
+    last_participants: Optional[int] = None
+    _round_memo: dict = field(default_factory=dict, repr=False)
 
     # -- registration ------------------------------------------------------- #
     def register(self, tag, strategy, comp: C.Compressor, shape,
@@ -106,15 +112,20 @@ class CommLedger:
     @classmethod
     def from_plan(cls, layout: BucketLayout, plan: CommPlan, strategy: str,
                   n_workers: int, base_compressor: str,
-                  leaf_plans: Optional[list] = None,
+                  leaf_plans: Optional[list] = None, family=None,
                   budget_bytes: float = 0.0) -> "CommLedger":
         """Ledger for the bucketed path: one entry per bucket (its assigned
         compressor) + one per skipped leaf on the per-tensor path.
         ``leaf_plans`` are the exchange.plan_leaf dicts of the skipped
         leaves; without them they are billed as sim fallbacks
-        (full-precision wire). ``budget_bytes`` is the delta_budget target
-        the per-bucket rows report utilization against."""
-        led = cls(n_workers=max(n_workers, 1),
+        (full-precision wire). ``family`` attaches the round-adaptive
+        PlanFamily, so that rounds billed at participants=n price the
+        buckets under the member for n. ``budget_bytes`` is the
+        delta_budget target the per-bucket rows report utilization
+        against (the family's when not given)."""
+        if not budget_bytes and family is not None:
+            budget_bytes = float(getattr(family, "budget_bytes", 0) or 0)
+        led = cls(n_workers=max(n_workers, 1), family=family,
                   budget_bytes=float(budget_bytes))
         W = max(n_workers, 2)  # collective multipliers degenerate at W=1
         for b, a in zip(layout.buckets, plan.assignments):
@@ -149,14 +160,46 @@ class CommLedger:
         return led
 
     # -- accumulation ------------------------------------------------------- #
-    def tick(self, n: int = 1, exchanged: bool = True, wall_s: float = 0.0):
+    def round_bytes(self, participants: Optional[int] = None):
+        """(wire, carried) bytes one exchange round moves, fleet-averaged
+        per worker. With ``participants=n < M`` only n workers ship a
+        payload, and under an attached PlanFamily they ship the n-member
+        plan, not the full-M plan."""
+        n, M = participants, self.n_workers
+        if n is None or not M or n >= M:
+            return self.wire_bytes_per_step, self.carried_bytes_per_step
+        hit = self._round_memo.get(n)
+        if hit is not None:
+            return hit
+        frac = n / M
+        plan = self.family.plan_for(n) if self.family is not None else None
+        wire = carried = 0.0
+        for e in self.entries:
+            if plan is not None and e.bucket >= 0:
+                comp = C.get(plan.assignments[e.bucket].compressor)
+            else:
+                comp = C.get(e.compressor)
+            wire += frac * strategy_wire_bytes(
+                e.strategy, comp, (e.elems,), e.n_workers)
+            carried += frac * strategy_wire_bytes(
+                e.strategy, comp, (e.elems,), e.n_workers, carried=True)
+        self._round_memo[n] = (wire, carried)
+        return wire, carried
+
+    def tick(self, n: int = 1, exchanged: bool = True, wall_s: float = 0.0,
+             participants: Optional[int] = None):
         """Advance `n` steps; ``exchanged=False`` records steps that moved
-        no bytes; ``wall_s`` adds simulated wall clock."""
+        no bytes; ``wall_s`` adds simulated wall clock; ``participants``
+        bills the rounds at what the reporting workers moved
+        (round_bytes)."""
         self.steps += n
         if exchanged:
             self.rounds += n
-            self.cum_wire += n * self.wire_bytes_per_step
-            self.cum_carried += n * self.carried_bytes_per_step
+            w, c = self.round_bytes(participants)
+            self.cum_wire += n * w
+            self.cum_carried += n * c
+        if participants is not None:
+            self.last_participants = participants
         self.sim_clock_s += wall_s
 
     # -- readouts ----------------------------------------------------------- #
@@ -193,26 +236,47 @@ class CommLedger:
         hits = [e for e in self.entries if e.skipped]
         return len(hits), sum(e.wire_bytes for e in hits)
 
-    def per_bucket(self) -> list:
+    def effective_budget(self, participants: Optional[int] = None) -> float:
+        """The per-participant payload budget of a round: B at full
+        participation, B·M/n when only n of M workers report. 0 when no
+        budget."""
+        if not self.budget_bytes:
+            return 0.0
+        n, M = participants, self.n_workers
+        if n is None or not M or n >= M:
+            return self.budget_bytes
+        return self.budget_bytes * M / max(n, 1)
+
+    def per_bucket(self, participants: Optional[int] = None) -> list:
         """One row per comm bucket: bits, payload, analytic δ and, under a
-        budget, its share of the budget."""
+        budget, its share of the round's effective budget, priced under
+        the plan the round selected (the family member for
+        ``participants=n``, else the static full plan)."""
+        n, M = participants, self.n_workers
+        plan = None
+        if n is not None and M and n < M and self.family is not None:
+            plan = self.family.plan_for(n)
+        eff = self.effective_budget(participants)
         rows = []
         for e in self.entries:
             if e.bucket < 0:
                 continue
-            comp = C.get(e.compressor)
+            name = (plan.assignments[e.bucket].compressor if plan is not None
+                    else e.compressor)
+            comp = C.get(name)
             payload = int(comp.wire_bytes((e.elems,)))
             row = {
                 "bucket": e.bucket,
-                "compressor": e.compressor,
+                "compressor": name,
                 "bits": getattr(comp, "bits", None),
                 "elems": e.elems,
                 "payload_bytes": payload,
-                "wire_bytes": round(e.wire_bytes, 1),
+                "wire_bytes": round(strategy_wire_bytes(
+                    e.strategy, comp, (e.elems,), e.n_workers), 1),
                 "delta": round(analytic_delta(comp, e.elems), 4),
             }
-            if self.budget_bytes:
-                row["budget_share"] = round(payload / self.budget_bytes, 4)
+            if eff:
+                row["budget_share"] = round(payload / eff, 4)
             rows.append(row)
         return rows
 
@@ -233,12 +297,14 @@ class CommLedger:
         if n_skip:
             out["skipped_leaves"] = n_skip
             out["skipped_leaf_bytes_per_step"] = round(skip_bytes)
-        rows = self.per_bucket()
+        if self.last_participants is not None:
+            out["participants"] = self.last_participants
+        rows = self.per_bucket(self.last_participants)
         if rows:
             out["per_bucket"] = rows
             if self.budget_bytes:
+                eff = self.effective_budget(self.last_participants)
                 out["budget_bytes"] = round(self.budget_bytes)
                 out["budget_utilization"] = round(
-                    sum(r["payload_bytes"] for r in rows)
-                    / self.budget_bytes, 4)
+                    sum(r["payload_bytes"] for r in rows) / eff, 4)
         return out

@@ -12,8 +12,9 @@ One compressor per bucket, from three policies:
                  (quant_ladder), base → qsgd4_linf → sign otherwise.
 
 δ for the stochastic quantizers uses a Gaussian heuristic, enough to rank
-buckets. The round-adaptive PlanFamily arrives with the multi-worker
-slice (ROADMAP §A, slice 2).
+buckets. A round-adaptive `PlanFamily` holds one delta_budget plan per
+participant count n, each cut from the same descent at the effective
+budget B·M/n (`plan_family`).
 """
 from __future__ import annotations
 
@@ -243,3 +244,130 @@ def quant_ladder(base_compressor: str) -> List[str]:
             f"adaptive plan families start at a registry 8/4/2-bit rung; "
             f"got base {base_compressor!r}")
     return out
+
+
+@dataclass(frozen=True)
+class PlanFamily:
+    """One `CommPlan` per participation count n ∈ {1..n_workers}.
+
+    Built by `plan_family` from one descent trajectory, cut at the
+    *effective* per-round budget ``budget_bytes · M / n`` for each n —
+    when only n of M workers report, each reporting worker may spend the
+    absent workers' share on finer quantization. Because every member is
+    a prefix cut of the same trajectory the family is monotone by
+    construction: fewer participants ⇒ per-bucket bit-widths
+    non-decreasing and min_delta non-increasing in n (finer plans for
+    smaller rounds), and every member's payload fits its effective
+    budget (or sits at the ladder floor). Frozen and hashable; built once
+    on the host.
+    """
+    plans: Tuple[CommPlan, ...]     # index n-1 → plan for n participants
+    n_workers: int
+    budget_bytes: int
+    base_compressor: str
+
+    def __post_init__(self):
+        if len(self.plans) != self.n_workers:
+            raise ValueError(f"PlanFamily: {len(self.plans)} plans for "
+                             f"{self.n_workers} workers")
+
+    def plan_for(self, n: int) -> CommPlan:
+        if not 1 <= n <= self.n_workers:
+            raise ValueError(
+                f"participant count {n} outside 1..{self.n_workers}")
+        return self.plans[n - 1]
+
+    @property
+    def full(self) -> CommPlan:
+        """The full-participation (n = M) plan — today's static plan."""
+        return self.plans[-1]
+
+    @property
+    def n_distinct(self) -> int:
+        return len({p.assignments for p in self.plans})
+
+    def effective_budget(self, n: int) -> int:
+        return int(self.budget_bytes * self.n_workers / max(n, 1))
+
+    def levels_table(self) -> Tuple[Tuple[int, ...], ...]:
+        """(n_workers, n_buckets) quantization level counts: the table the
+        step copies to the device once and indexes there with the round's
+        participant count (row n-1 is the plan for n participants)."""
+        return tuple(
+            tuple(C.get(a.compressor).levels for a in p.assignments)
+            for p in self.plans)
+
+    def bits_table(self) -> Tuple[Tuple[int, ...], ...]:
+        return tuple(
+            tuple(C.get(a.compressor).bits for a in p.assignments)
+            for p in self.plans)
+
+    def diff(self, other: "PlanFamily") -> List[str]:
+        """Field-level differences, naming the participation count whose
+        sub-plan differs (the strategy-CLI / resume-guard rendering)."""
+        out = []
+        if self.n_workers != other.n_workers:
+            out.append(f"plan_family.n_workers: {self.n_workers} != "
+                       f"{other.n_workers}")
+        if self.budget_bytes != other.budget_bytes:
+            out.append(f"plan_family.budget_bytes: {self.budget_bytes} != "
+                       f"{other.budget_bytes}")
+        for n in range(1, min(self.n_workers, other.n_workers) + 1):
+            a, b = self.plan_for(n), other.plan_for(n)
+            if len(a.assignments) != len(b.assignments):
+                out.append(
+                    f"plan_family[n={n}]: {len(a.assignments)} buckets "
+                    f"!= {len(b.assignments)} buckets (different layouts)")
+                continue
+            for aa, bb in zip(a.assignments, b.assignments):
+                if aa.compressor != bb.compressor:
+                    out.append(
+                        f"plan_family[n={n}].bucket{aa.bid}: "
+                        f"{aa.compressor!r} != {bb.compressor!r}")
+        return out
+
+    def describe(self) -> str:
+        cuts = " | ".join(
+            f"n={n}:{self.plan_for(n).payload_bytes}B"
+            for n in range(1, self.n_workers + 1))
+        return (f"family[{self.n_workers}] base={self.base_compressor} "
+                f"budget={self.budget_bytes}B distinct={self.n_distinct} "
+                f"({cuts})")
+
+
+def plan_family(
+    layout: BucketLayout,
+    base_compressor: str,
+    budget_bytes: int,
+    n_workers: int,
+) -> PlanFamily:
+    """Precompute the delta_budget plan for every participation count.
+
+    One `_descent_trajectory` walk; member n is the first trajectory
+    state fitting ``budget_bytes · M / n``. Monotonicity (fewer
+    participants ⇒ finer or equal bits everywhere) holds because smaller
+    n ⇒ larger effective budget ⇒ an earlier (finer) prefix cut of the
+    same descent.
+    """
+    if budget_bytes <= 0:
+        raise ValueError(
+            "plan_family needs a positive per-round byte budget")
+    M = max(n_workers, 1)
+    ladder = quant_ladder(base_compressor)
+    states = _descent_trajectory(layout, ladder)
+    # the n = M member has the tightest effective budget; if even the
+    # floor overruns it, say so once for the whole family
+    _warn_floor_overrun(layout, _cut_trajectory(states, budget_bytes),
+                        ladder, budget_bytes)
+    plans = []
+    for n in range(1, M + 1):
+        eff = int(budget_bytes * M / n)
+        names = _cut_trajectory(states, eff)
+        plans.append(CommPlan(
+            policy="delta_budget",
+            assignments=tuple(_assign(b.bid, names[b.bid], b.size)
+                              for b in layout.buckets),
+            base_compressor=base_compressor))
+    return PlanFamily(plans=tuple(plans), n_workers=M,
+                      budget_bytes=int(budget_bytes),
+                      base_compressor=base_compressor)

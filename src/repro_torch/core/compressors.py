@@ -223,6 +223,40 @@ class StochasticQuant(Compressor):
         return True
 
 
+class TracedQuant:
+    """`StochasticQuant(norm="linf")` whose level count is a device tensor
+    (counterpart of `repro.core.compressors.TracedQuant`).
+
+    The adaptive PlanFamily (comm.planner) picks each bucket's bit-width
+    per round from a table indexed by the round's participant count. Every
+    member shares one payload layout (int8 codes + f32 scales, shapes set
+    by ``per_block``), so only the level count varies; it stays on the
+    device as a 0-d or one-element float32 tensor (or a Python int), and
+    `error_feedback.compress_with_ef` hands it to the fused kernel's
+    dynamic-levels variant. Built per step; not a registry entry.
+    """
+
+    norm = "linf"
+    bits = None          # not known on the host
+    unbiased = True
+    _blocked = StochasticQuant._blocked
+
+    def __init__(self, levels, per_block: int = 0,
+                 name: str = "adaptive_linf"):
+        self.levels = levels
+        self.per_block = per_block
+        self.name = name
+
+    def compress(self, v, rand=None, generator=None):
+        fb, _ = self._blocked(_flat(v).float())
+        s = fb.abs().amax(dim=-1, keepdim=True) + _EPS
+        codes = _stochastic_round_codes(fb, s, self.levels, rand, generator)
+        return {"codes": codes, "scale": s.float()}
+
+    def decompress(self, payload, shape, dtype):
+        return _dequantize_codes(payload, shape, dtype, self.levels)
+
+
 # --------------------------------------------------------------------------- #
 # registry: names usable in DQConfig.compressor (same as repro's)
 # --------------------------------------------------------------------------- #

@@ -1,26 +1,35 @@
-"""DQGAN (paper Algorithm 2), single worker (counterpart of
+"""DQGAN (paper Algorithm 2) over W workers (counterpart of
 `repro.core.dqgan`).
 
-    w_{t-1/2} = w_{t-1} - [η F(w_{t-3/2}; ξ_{t-1}) + e_{t-1}]   (omd, local)
-    g_t       = F(w_{t-1/2}; ξ_t)
-    p_t       = η g_t + e_{t-1};   p̂_t = Q(p_t);   e_t = p_t - p̂_t
-    w_t       = w_{t-1} - p̂_t
+    w_{t-1/2}^m = w_{t-1} - [η F(w_{t-3/2}^m; ξ_{t-1}^m) + e_{t-1}^m]
+    g_t^m       = F(w_{t-1/2}^m; ξ_t^m)                  (each worker m)
+    p_t^m       = η g_t^m + e_{t-1}^m;  p̂_t^m = Q(p_t^m);  e_t^m = p_t^m - p̂_t^m
+    w_t         = w_{t-1} - (1/M) Σ_m p̂_t^m               (the server)
 
-With one worker the server's average is the worker's own p̂, so the
-exchange is (EF-)compression, per leaf or over flat comm buckets, where
-`qsgd8_block1024` runs the fused quantize+EF CUDA kernel. The baselines
-are configurations: CPOAdam = oadam + identity, CPOAdam-GQ = oadam +
-quantizer without EF, DQGAN = omd + quantizer + EF.
+The JAX package maps the M workers onto its devices (a `data` mesh axis
+under `shard_map`). Here they are a leading axis of size W on one device
+(`core.exchange.StackedWorkers`): per-worker state (prev_grad, ef) is
+stacked (W, ...), the global batch splits W ways in order, each worker
+evaluates its own field at its own w_{t-1/2}, the exchange is a tensor
+operation over the worker axis, and the server update runs once on the
+replicated state. There is no model axis, so no leaf is sharded and the
+bucket layout skips none. With one worker the exchange is
+(EF-)compression, per leaf or over flat comm buckets.
 
-State mirrors the JAX package's `DQState`: per-worker leaves (prev_grad,
-ef) keep a leading worker axis of size 1, parameters keep the JAX layout
-and leaf order. Randomness comes from the trainer's `torch.Generator` on
-its device, or from `draws` handed to `step` (the tests replay the JAX
+Partial participation masks the sitting workers' messages and residuals
+to zero, rescales q̂ by W/n and folds their messages into their EF. An
+adaptive PlanFamily selects each bucket's level count by the round's
+participant count, on the device, and the bucket's `TracedQuant` runs
+the fused kernel's dynamic-levels variant (B2) once per bucket over all
+W workers' rows; a static `*_block1024` plan runs B1 the same way.
+
+State mirrors the JAX package's `DQState`, parameters keep its layout and
+leaf order. Randomness comes from the trainer's `torch.Generator` on its
+device, or from `draws` handed to `step` (the tests replay the JAX
 package's draws that way).
 
-Multiple workers, the other schedules, partial participation, fsdp,
-overlap and observability are refused at construction, each naming the
-ROADMAP slice that ports it.
+The other schedules, fsdp, spmd='vmap', overlap and observability are
+refused at construction, each naming the ROADMAP slice that ports it.
 """
 from __future__ import annotations
 
@@ -33,20 +42,21 @@ from repro_torch import tree as T
 from repro_torch.comm import CommLedger
 from repro_torch.comm import buckets as B
 from repro_torch.configs.base import DQConfig
+from repro_torch.sched.participation import round_count
 from repro_torch.strategy import Strategy
 
 from . import compressors as C
 from . import exchange as X
-from .error_feedback import compress_with_ef
+from .error_feedback import compress_with_ef_stacked
 
 
 class DQState(NamedTuple):
     """Optimizer state; the fields of `repro.core.dqgan.DQState`. Trees are
     nested dicts in the parameters' structure; per-worker trees (prev_grad,
-    ef) have a leading axis of size 1. `step` is a Python int."""
+    ef) have a leading worker axis of size W. `step` is a Python int."""
     step: int
     params: Any
-    prev_grad: Any       # F(w_{t-3/2}; ξ_{t-1}) (omd, local) | None
+    prev_grad: Any       # F(w_{t-3/2}; ξ_{t-1}) per worker (omd, local) | None
     prev_update: Any     # q̂_{t-1} (omd, global) or Adam prev direction | None
     ef: Any              # exchange EF state dicts | None
     m: Any               # Adam first moment | None
@@ -67,15 +77,10 @@ def _unported(strategy: Strategy) -> Optional[str]:
     checks = (
         (s.schedule.kind != "every_step",
          f"schedule {s.schedule.kind!r}", "slice 3 (schedules)"),
-        (s.participation.partial,
-         f"participation {s.participation.fraction}",
-         "slice 2 (multiple workers, participation)"),
         (s.exchange.fsdp, "parallelism 'fsdp'", "slice 5 (FSDP)"),
         (s.exchange.spmd == "vmap", "spmd 'vmap'",
-         "slice 2 (multiple workers, stacked workers)"),
+         "slice 2 (multiple workers: the spmd='vmap' path)"),
         (s.exchange.overlap, "overlap=True", "slice 3 (schedules, overlap)"),
-        (s.compression.adaptive, "an adaptive PlanFamily",
-         "slice 2 (multiple workers, PlanFamily)"),
         (s.observability.on or s.observability.spans
          or s.observability.profile,
          "observability (metrics/spans/profile)", "slice 4 (observability)"),
@@ -87,11 +92,12 @@ def _unported(strategy: Strategy) -> Optional[str]:
     return None
 
 
-def _global_norm(tensors):
+def _worker_norms(tensors, W):
+    """(W,) per-worker global L2 norm over a list of (W, ...) tensors."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
-        return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+        return torch.zeros((W,))
+    return torch.sqrt(sum(torch.square(t.float()).reshape(W, -1).sum(dim=1)
                           for t in tensors))
 
 
@@ -104,22 +110,31 @@ def _ef_tensors(ef):
     return out
 
 
+def _bcast(mask, x):
+    """A (W,) mask shaped to broadcast over a (W, ...) stack."""
+    return mask.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+
+
 @dataclasses.dataclass
 class DQGAN:
-    """Single-worker DQGAN trainer. Build once per (field, strategy,
-    device); then `init(params)` and `step(state, batch)`.
+    """DQGAN trainer over `workers` stacked workers. Build once per
+    (field, strategy, device, workers); then `init(params)` and
+    `step(state, batch)`.
 
     `field_fn(params, batch, z=None, generator=None) -> (grads, metrics)`.
     `dq` carries the optimizer knobs and the strategy (or pass `strategy`
-    alone, like the JAX package). `device` is where the generator draws:
-    the parameters' device. On CUDA, constructing the trainer turns TF32
-    off for matmuls and convolutions (process-wide PyTorch flags)."""
+    alone, like the JAX package). `workers` > 1 stands for the JAX
+    package's device count and needs `strategy.exchange.worker_axes`.
+    `device` is where the generator draws: the parameters' device. On
+    CUDA, constructing the trainer turns TF32 off for matmuls and
+    convolutions (process-wide PyTorch flags)."""
 
     field_fn: Callable
     dq: Optional[DQConfig] = None
     strategy: Optional[Strategy] = None
     device: Any = "cuda"
     seed: int = 0
+    workers: int = 1
     generator: torch.Generator = dataclasses.field(init=False, repr=False)
     _comm_cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                           compare=False)
@@ -135,6 +150,13 @@ class DQGAN:
         why = _unported(self.strategy)
         if why:
             raise NotImplementedError(why)
+        if self.workers < 1:
+            raise ValueError(f"DQGAN: workers must be >= 1, got "
+                             f"{self.workers}")
+        if self.workers > 1 and not self.strategy.exchange.worker_axes:
+            raise ValueError(
+                "DQGAN: workers > 1 needs strategy.exchange.worker_axes "
+                "(the JAX package runs one worker without them)")
         self.device = torch.device(self.device)
         if self.device.type == "cuda":
             # the reference computes in float32; cuDNN convolutions would
@@ -143,11 +165,12 @@ class DQGAN:
             torch.backends.cudnn.allow_tf32 = False
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+        self._workers = X.StackedWorkers(self.workers)
 
     # ------------------------------------------------------------------ #
     @property
     def n_workers(self) -> int:
-        return 1
+        return self.workers
 
     @property
     def compressor(self) -> C.Compressor:
@@ -162,31 +185,59 @@ class DQGAN:
         return self.strategy.compression.bucketing
 
     @property
+    def adaptive(self) -> bool:
+        return self.strategy.compression.adaptive
+
+    @property
     def ef_dtype(self) -> torch.dtype:
         return getattr(torch, self.strategy.compression.ef_dtype)
 
-    def _comm(self, params):
-        """(BucketLayout, CommPlan), derived from leaf shapes, memoized."""
+    def _comm_full(self, params):
+        """(BucketLayout, CommPlan, PlanFamily | None, device levels table
+        | None), derived from leaf shapes, memoized. An adaptive
+        strategy's CommPlan is its family's full-participation member."""
         shapes = T.tree_map(lambda x: tuple(x.shape), params)
         key = tuple(zip(*T.flatten(shapes)))
         hit = self._comm_cache.get(key)
         if hit is None:
-            hit = self.strategy.compression.build(shapes, None,
-                                                  self.n_workers)
+            comp = self.strategy.compression
+            table = None
+            if self.adaptive:
+                layout, family = comp.build_family(shapes, None,
+                                                   self.n_workers)
+                plan = family.full
+                if family.n_distinct > 1:
+                    # (M, n_buckets) level counts, on the device once
+                    table = torch.tensor(family.levels_table(),
+                                         dtype=torch.float32,
+                                         device=self.device)
+            else:
+                layout, plan = comp.build(shapes, None, self.n_workers)
+                family = None
+            hit = (layout, plan, family, table)
             self._comm_cache[key] = hit
         return hit
+
+    def _comm(self, params):
+        """(BucketLayout, CommPlan): the static (full-participation) view."""
+        return self._comm_full(params)[:2]
+
+    def _family(self, params):
+        """The PlanFamily, or None for a non-adaptive strategy."""
+        return self._comm_full(params)[2]
 
     def comm_ledger(self, params) -> CommLedger:
         """Per-step wire cost of this trainer (launch.train's log fields)."""
         strat = self.strategy
         shapes = T.tree_map(lambda x: tuple(x.shape), params)
         if self.bucketed:
-            layout, cplan = self._comm(params)
+            layout, cplan, family, _ = self._comm_full(params)
             budget = (int(strat.compression.budget_mb * (1 << 20))
                       if strat.compression.plan == "delta_budget" else 0)
             return CommLedger.from_plan(
                 layout, cplan, strat.exchange.kind, self.n_workers,
-                strat.compression.compressor, budget_bytes=budget)
+                strat.compression.compressor, family=family,
+                budget_bytes=budget)
         return CommLedger.from_tree(strat.exchange.kind,
                                     strat.compression.compressor, shapes,
                                     None, self.n_workers)
@@ -227,6 +278,7 @@ class DQGAN:
     def init(self, params) -> DQState:
         """Zero state around `params` (a nested dict of tensors)."""
         dq = self.dq
+        W = self.n_workers
         self._validate_lr_mults(params)
         paths, leaves = T.flatten(params)
         plans = self._plans(params)
@@ -241,7 +293,7 @@ class DQGAN:
 
         prev_grad = prev_update = m = v = None
         if dq.optimizer == "omd" and dq.extrapolation == "local":
-            prev_grad = tree(lambda x: zeros(x, (1,)))
+            prev_grad = tree(lambda x: zeros(x, (W,)))
         if (dq.optimizer == "omd" and dq.extrapolation == "global"
                 or dq.optimizer == "oadam"):
             prev_update = tree(zeros)
@@ -251,11 +303,11 @@ class DQGAN:
         def ef_leaf(x, plan):
             st = {}
             if dq.error_feedback:
-                st["e1"] = zeros(x, (1,), ef_dtype)
+                st["e1"] = zeros(x, (W,), ef_dtype)
             if X.plan_has_owner_ef(plan):
                 cs = list(x.shape)
-                cs[plan["chunk_axis"]] //= self.n_workers
-                st["e2"] = torch.zeros((1, *cs), dtype=ef_dtype,
+                cs[plan["chunk_axis"]] //= W
+                st["e2"] = torch.zeros((W, *cs), dtype=ef_dtype,
                                        device=x.device)
             return st or None
 
@@ -266,7 +318,7 @@ class DQGAN:
             if self.strategy.exchange.owner_ef:
                 for b in layout.buckets:
                     bucket_ef[str(b.bid)] = {"e2": torch.zeros(
-                        (1, b.size // self.n_workers), dtype=ef_dtype,
+                        (W, b.size // W), dtype=ef_dtype,
                         device=leaves[0].device)}
             ef = {"leaf": ef, "bucket": bucket_ef}
         return DQState(step=0, params=params, prev_grad=prev_grad,
@@ -275,113 +327,208 @@ class DQGAN:
     # ------------------------------------------------------------------ #
     # the step
     # ------------------------------------------------------------------ #
+    def _split_batch(self, batch):
+        """The global batch split W ways in order (the JAX package's
+        batch_spec P(('data',)))."""
+        W = self.n_workers
+
+        def split(x):
+            if x.shape[0] % W:
+                raise ValueError(f"batch of {x.shape[0]} does not split "
+                                 f"over {W} workers")
+            return x.reshape((W, x.shape[0] // W) + tuple(x.shape[1:]))
+
+        stacked = {k: split(x) for k, x in batch.items()}
+        return [{k: x[w] for k, x in stacked.items()} for w in range(W)]
+
     @torch.no_grad()
     def step(self, state: DQState, batch,
              draws: Optional[Dict[str, Any]] = None) -> StepOutput:
-        """One Algorithm-2 iteration.
+        """One Algorithm-2 iteration over the W workers.
 
-        `draws` (optional) replaces the generator: {"z": the field's
-        latent draw, "rand": {stream: uniform draw}} where a stream is the
-        leaf index on the per-leaf path and the bucket id on the bucketed
-        path, as the JAX package folds them into its key."""
+        `draws` (optional) replaces the generator. Each draw holds the W
+        workers' draws in worker order, split W ways like the batch: a
+        (W, ...) stack, or with one worker the worker's draw itself.
+          "z":    (W, B/W, latent) or (B, latent), the latent draws;
+          "rand": {stream: draw}, a stream being the leaf index on the
+                  per-leaf path and the bucket id on the bucketed path,
+                  as the JAX package folds them into its key; for
+                  two_phase with W > 1 {"phase1": (W, W, ...), "phase2":
+                  (W, ...)} (see core.exchange);
+          "mask": (W,) float32 participation mask of the round (partial
+                  participation only)."""
         dq = self.dq
         eta = dq.lr
+        W = self.n_workers
         draws = draws or {}
         rand = draws.get("rand", {})
         paths, params = T.flatten(state.params)
         plans = self._plans(state.params)
-        prev_grad = ([g[0] for g in T.flatten_up_to(paths, state.prev_grad)]
+        prev_grad = (T.flatten_up_to(paths, state.prev_grad)
                      if state.prev_grad is not None else None)
         ef = state.ef
         ef_leaf_tree = ef["leaf"] if self.bucketed else ef
-        ef_leaves = [{k: x[0] for k, x in e.items()} if e else {}
+        ef_leaves = [dict(e) if e else {}
                      for e in T.flatten_up_to(paths, ef_leaf_tree)]
+        part = self.strategy.participation.round_setup(
+            W, self.generator, draws.get("mask"))
 
-        # ---------- extrapolation to w_{t-1/2} ---------------------------- #
+        # ---------- extrapolation to w_{t-1/2}, per worker ------------- #
         if dq.optimizer == "omd" and dq.extrapolation == "local":
             w_half = []
             for w, g, e in zip(params, prev_grad, ef_leaves):
                 upd = eta * g
                 if dq.error_feedback and "e1" in e:
                     upd = upd + e["e1"].to(w.dtype)
-                w_half.append(w - upd.to(w.dtype))
-        elif dq.optimizer == "omd":
-            w_half = [w - u.to(w.dtype) for w, u in zip(
-                params, T.flatten_up_to(paths, state.prev_update))]
+                w_half.append(w - upd.to(w.dtype))      # (W, ...)
+            worker_params = [T.unflatten(paths, [x[i] for x in w_half])
+                             for i in range(W)]
         else:
-            w_half = params  # adam/oadam/sgd evaluate at current params
+            if dq.optimizer == "omd":   # global: the last applied update
+                w_half = [w - u.to(w.dtype) for w, u in zip(
+                    params, T.flatten_up_to(paths, state.prev_update))]
+            else:   # adam/oadam/sgd evaluate at the current params
+                w_half = params
+            worker_params = [T.unflatten(paths, w_half)] * W
 
-        # ---------- local stochastic field -------------------------------- #
-        grads, metrics = self.field_fn(T.unflatten(paths, w_half), batch,
-                                       z=draws.get("z"),
-                                       generator=self.generator)
-        grads = T.flatten_up_to(paths, grads)
-
+        # ---------- each worker's stochastic field --------------------- #
+        z = draws.get("z")
+        if z is not None:
+            z = z.reshape((W, -1, z.shape[-1]))
+        grads_w, losses = [], []
+        for i, b in enumerate(self._split_batch(batch)):
+            g, met = self.field_fn(worker_params[i], b,
+                                   z=None if z is None else z[i],
+                                   generator=self.generator)
+            grads_w.append(T.flatten_up_to(paths, g))
+            losses.append(met.get("loss", torch.zeros(())))
+        grads = [torch.stack(gs) for gs in zip(*grads_w)]   # (W, ...)
         if dq.message == "update" and dq.optimizer == "omd":
             message = [(eta * g).float() for g in grads]
         else:
             message = [g.float() for g in grads]
 
-        # ---------- exchange (one worker: EF-compression) + update -------- #
-        if self.bucketed:
-            qhat, new_ef = self._exchange_bucketed(state.params, message,
-                                                   ef, ef_leaves, rand)
+        # ---------- exchange + server update ---------------------------- #
+        if part is not None:
+            qhat, new_ef = self._exchange_with_participation(
+                state.params, paths, message, ef, ef_leaves, plans, rand,
+                part)
         else:
-            qhat, new_ef = self._exchange_leaves(paths, message, ef_leaves,
-                                                 plans, rand)
+            qhat, new_ef = self._exchange(state.params, paths, message, ef,
+                                          ef_leaves, plans, rand)
         new_params, new_m, new_v, new_prev_update = self._server_update(
             state, paths, qhat)
 
         new_prev_grad = None
         if prev_grad is not None:
             new_prev_grad = T.unflatten(
-                paths, [g.to(o.dtype)[None] for o, g in zip(prev_grad, grads)])
+                paths, [g.to(o.dtype) for o, g in zip(prev_grad, grads)])
 
-        gn = _global_norm(grads)
-        en = _global_norm(_ef_tensors(new_ef))
+        # metrics: the mean over workers of each worker's value (the JAX
+        # package's pmean)
+        gn = _worker_norms(grads, W).mean()
+        en = _worker_norms(_ef_tensors(new_ef), W).to(gn.device).mean()
         zero = torch.zeros((), device=gn.device)
         new_state = DQState(step=state.step + 1, params=new_params,
                             prev_grad=new_prev_grad,
                             prev_update=new_prev_update, ef=new_ef,
                             m=new_m, v=new_v)
-        out_metrics = {"loss": metrics.get("loss", zero), "grad_norm": gn,
+        out_metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gn,
                        "error_norm": en, "staleness_max": zero,
                        "staleness_mean": zero}
         return StepOutput(state=new_state, metrics=out_metrics)
 
-    def _single_worker_leaf(self, comp, plan, p, e, rand):
-        """One worker's exchange of one tensor or bucket: (p̂, new EF)."""
+    # ------------------------------------------------------------------ #
+    # exchange
+    # ------------------------------------------------------------------ #
+    def _exchange_one(self, comp, plan, p, e, rand):
+        """(q̂, new EF) of one stacked (W, ...) tensor or bucket. One
+        worker: (EF-)compression, whatever the strategy."""
+        if self.n_workers > 1:
+            exch = self.strategy.exchange
+            return exch.finish(exch.start(comp, plan, p, e, rand,
+                                          self._workers,
+                                          self.dq.error_feedback,
+                                          self.generator))
         if plan["strategy"] == "exact" or comp.name == "identity":
-            return p, dict(e)
+            return p[0], dict(e)
         e1 = e.get("e1", torch.zeros_like(p))
-        _, p_hat, e_new = compress_with_ef(comp, p, e1, rand, self.generator,
-                                           use_ef=self.dq.error_feedback)
+        _, p_hat, e_new = compress_with_ef_stacked(
+            comp, p, e1, rand, self.generator, use_ef=self.dq.error_feedback)
         ne = dict(e)
         if self.dq.error_feedback:
             ne["e1"] = e_new
-        return p_hat, ne
+        return p_hat[0], ne
 
-    def _exchange_leaves(self, paths, message, ef_leaves, plans, rand):
+    def _exchange(self, params_tree, paths, message, ef, ef_leaves, plans,
+                  rand, plan_sel=None):
+        if self.bucketed:
+            return self._exchange_bucketed(params_tree, paths, message, ef,
+                                           ef_leaves, rand, plan_sel)
         comp = self.compressor
         qhat, new_ef = [], []
         for i, (p, plan, e) in enumerate(zip(message, plans, ef_leaves)):
-            q, ne = self._single_worker_leaf(comp, plan, p, e, rand.get(i))
+            q, ne = self._exchange_one(comp, plan, p, e, rand.get(i))
             qhat.append(q)
-            new_ef.append({k: x[None] for k, x in ne.items()} or None)
+            new_ef.append(ne or None)
         return qhat, T.unflatten(paths, new_ef)
 
-    def _exchange_bucketed(self, params_tree, message, ef, ef_leaves, rand):
-        """Pack the message (and e1) into the flat buckets, EF-compress each
-        with its planned compressor, unpack q̂ and e1 back into leaves."""
+    def _exchange_with_participation(self, params_tree, paths, message, ef,
+                                     ef_leaves, plans, rand, part):
+        """Partial participation: the sitting workers' messages and
+        residuals are masked to zero before the exchange (every compressor
+        maps 0 to a zero payload), q̂ is rescaled from 1/W to 1/n, and the
+        sitting workers fold their message into their residual. Under an
+        adaptive family the round's participant count selects the plan,
+        on the device."""
+        mask, n_part = part
+        W = self.n_workers
+        msg_in = [m * _bcast(mask, m) for m in message]
+        ef_in = [{**e, "e1": e["e1"] * _bcast(mask, e["e1"])}
+                 if "e1" in e else e for e in ef_leaves]
+        plan_sel = round_count(mask) - 1 if self.adaptive else None
+        qhat, new_ef = self._exchange(params_tree, paths, msg_in, ef, ef_in,
+                                      plans, rand, plan_sel)
+        scale = W / n_part
+        qhat = [(q * scale).to(q.dtype) for q in qhat]
+        if not self.dq.error_feedback:
+            return qhat, new_ef
+        # EF merge: participants keep the exchange's residual, the rest
+        # accumulate the unsent message on top of their old one
+        new_leaf = new_ef["leaf"] if self.bucketed else new_ef
+        news = [dict(n) if n else n
+                for n in T.flatten_up_to(paths, new_leaf)]
+        for m, o, n in zip(message, ef_leaves, news):
+            if "e1" in o:
+                keep = o["e1"].float() + m
+                mk = _bcast(mask, keep)
+                n["e1"] = (mk * n["e1"].float()
+                           + (1.0 - mk) * keep).to(o["e1"].dtype)
+        merged = T.unflatten(paths, news)
+        if self.bucketed:
+            return qhat, {"leaf": merged, "bucket": new_ef["bucket"]}
+        return qhat, merged
+
+    def _exchange_bucketed(self, params_tree, paths, message, ef, ef_leaves,
+                           rand, plan_sel=None):
+        """Pack the message (and e1) into the flat buckets, (W, size) each,
+        exchange each with its planned compressor, unpack q̂ and e1 back
+        into leaves. `plan_sel` (a device tensor: participants − 1)
+        selects the adaptive family's level counts: each bucket's
+        compressor becomes a `TracedQuant` over one element of the
+        device table, so no value crosses to the host."""
         dq = self.dq
         ef_dtype = self.ef_dtype
+        W = self.n_workers
         exch = self.strategy.exchange
-        layout, cplan = self._comm(params_tree)
+        layout, cplan, family, table = self._comm_full(params_tree)
         if layout.skipped:
-            raise NotImplementedError(
-                "sharded leaves off the bucket path need multiple workers "
-                "(ROADMAP §A slice 2)")
-        paths = T.flatten(params_tree)[0]
+            raise ValueError(f"{len(layout.skipped)} leaves bypass the "
+                             f"buckets; the port shards no leaf")
+        levels = None
+        if plan_sel is not None and table is not None:
+            levels = table.index_select(0, plan_sel.reshape(1))[0]
+            block = C.get(family.base_compressor).per_block
         flats = B.pack(layout, message)
         e1_leaves = e1_flats = None
         if dq.error_feedback:
@@ -393,26 +540,30 @@ class DQGAN:
 
         out_flats, new_e1_flats, new_bucket_ef = [], [], {}
         for b, assign in zip(layout.buckets, cplan.assignments):
-            plan_b = exch.bucket_plan(b.size, self.n_workers)
+            if levels is not None:
+                comp = C.TracedQuant(levels[b.bid:b.bid + 1],
+                                     per_block=block)
+            else:
+                comp = C.get(assign.compressor)
+            plan_b = exch.bucket_plan(b.size, W)
             est = {}
             if dq.error_feedback:
                 est["e1"] = e1_flats[b.bid]
             if X.plan_has_owner_ef(plan_b):
-                est["e2"] = bucket_ef[str(b.bid)]["e2"][0]
-            q, ne = self._single_worker_leaf(C.get(assign.compressor), plan_b,
-                                             flats[b.bid], est,
-                                             rand.get(b.bid))
+                est["e2"] = bucket_ef[str(b.bid)]["e2"]
+            q, ne = self._exchange_one(comp, plan_b, flats[b.bid], est,
+                                       rand.get(b.bid))
             out_flats.append(q)
             if dq.error_feedback:
                 new_e1_flats.append(ne.get("e1", est.get("e1")))
             if X.plan_has_owner_ef(plan_b):
-                new_bucket_ef[str(b.bid)] = {"e2": ne["e2"].to(ef_dtype)[None]}
+                new_bucket_ef[str(b.bid)] = {"e2": ne["e2"].to(ef_dtype)}
 
-        qhat = B.unpack_into(layout, out_flats, message)
+        qhat = B.unpack_into(layout, out_flats, [m[0] for m in message])
         new_leaf_ef = [None] * len(message)
         if dq.error_feedback:
             new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
-            new_leaf_ef = [{"e1": x[None]} for x in new_e1]
+            new_leaf_ef = [{"e1": x} for x in new_e1]
         return qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
                       "bucket": new_bucket_ef}
 

@@ -2,10 +2,16 @@
 // Hopper (sm_90a). Built by repro_torch/kernels/_build.py with plain nvcc
 // into a shared library with a C interface, loaded with ctypes.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/quantize.py
-// `_quantize_ef_kernel` (tile body `_qef_body`). The level count is a kernel
-// argument; `levels_dev`, when not null, is read instead, which is the shape
-// `_quantize_ef_kernel_dyn` (levels as a device operand) needs later.
+// Replaces two Pallas TPU kernels of src/repro/kernels/quantize.py (tile
+// body `_qef_body`), one instantiation each:
+//   * `_quantize_ef_kernel` (B1): the level count L is a kernel argument;
+//     exported as quantize_ef_f32.
+//   * `_quantize_ef_kernel_dyn` (B2): L is read from a one-element f32
+//     array in device memory (a row of the adaptive PlanFamily's levels
+//     table, selected on the device by the round's participant count), so
+//     one launch serves every family member without a host sync; exported
+//     as quantize_ef_dyn_f32. Thread 0 of each block reads L once into
+//     shared memory.
 //
 // Per row of C elements (one scale block):
 //     m  = g + e
@@ -18,7 +24,8 @@
 // its code and e' (5 B), 17 B per element plus 4 B of scale per row, for
 // about ten flops: far below the card's flop-per-byte ridge. At dcgan32
 // (buckets of 648, 648 and 512 rows) that is 31.5 MB per training step
-// over the 3 launches, 9.4 us at the H100's 3.35 TB/s. The design
+// over the 3 launches, 9.4 us at the H100's 3.35 TB/s; B2 over four
+// stacked workers moves four times that. The design
 // moves every byte across DRAM once: one block of 256 threads per row, each
 // thread keeps its float4 slices of m in registers between the row-max
 // reduction and the quantize pass, loads and stores are 16 B per thread
@@ -98,12 +105,18 @@ __device__ __forceinline__ float block_max(float v) {
 
 // NV > 0: the row's m stays in registers (NV float4 per thread).
 // NV == 0: rows longer than kMaxCached; the second pass recomputes m.
-template <int NV>
+// kDyn: L is *levels_dev (B2) instead of `levels` (B1).
+template <int NV, bool kDyn>
 __global__ void __launch_bounds__(kThreads)
 quantize_ef_rows(const float* __restrict__ g, const float* __restrict__ e,
                  const float* __restrict__ rand, signed char* __restrict__ codes,
                  float* __restrict__ scale, float* __restrict__ e_new, int cols,
                  float levels, const float* __restrict__ levels_dev) {
+  __shared__ float levels_sh;
+  if constexpr (kDyn) {
+    // one read per block; block_max's barriers publish it to every thread
+    if (threadIdx.x == 0) levels_sh = *levels_dev;
+  }
   const size_t base = static_cast<size_t>(blockIdx.x) * cols;
   const int nvec = cols / 4;
   const float4* g4 = reinterpret_cast<const float4*>(g + base);
@@ -129,7 +142,7 @@ quantize_ef_rows(const float* __restrict__ g, const float* __restrict__ e,
   }
 
   const float s = __fadd_rn(block_max(amax), 1e-20f);
-  const float L = levels_dev != nullptr ? *levels_dev : levels;
+  const float L = kDyn ? levels_sh : levels;
   const float step = __fdiv_rn(s, L);
 
   if constexpr (NV > 0) {
@@ -145,40 +158,55 @@ quantize_ef_rows(const float* __restrict__ g, const float* __restrict__ e,
   if (threadIdx.x == 0) scale[blockIdx.x] = s;
 }
 
-}  // namespace
-
-// C interface. Pointers are device pointers of contiguous row-major (rows,
-// cols) arrays, 16-byte aligned, cols % 4 == 0 (the Python wrapper checks
-// all of this). `stream` is a cudaStream_t. Returns cudaGetLastError() after
-// the launch: 0 when the kernel was accepted.
-extern "C" int quantize_ef_f32(const float* g, const float* e,
-                               const float* rand, signed char* codes,
-                               float* scale, float* e_new, int rows, int cols,
-                               float levels, const float* levels_dev,
-                               void* stream) {
-  if (rows <= 0 || cols <= 0 || cols % 4 != 0)
+template <bool kDyn>
+int launch(const float* g, const float* e, const float* rand,
+           signed char* codes, float* scale, float* e_new, int rows, int cols,
+           float levels, const float* levels_dev, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols % 4 != 0 || (kDyn && !levels_dev))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(rows), block(kThreads);
   const int nvec = cols / 4;
   if (nvec <= kThreads)
-    quantize_ef_rows<1><<<grid, block, 0, st>>>(g, e, rand, codes, scale,
-                                                 e_new, cols, levels,
-                                                 levels_dev);
+    quantize_ef_rows<1, kDyn><<<grid, block, 0, st>>>(
+        g, e, rand, codes, scale, e_new, cols, levels, levels_dev);
   else if (nvec <= 2 * kThreads)
-    quantize_ef_rows<2><<<grid, block, 0, st>>>(g, e, rand, codes, scale,
-                                                 e_new, cols, levels,
-                                                 levels_dev);
+    quantize_ef_rows<2, kDyn><<<grid, block, 0, st>>>(
+        g, e, rand, codes, scale, e_new, cols, levels, levels_dev);
   else if (nvec <= 4 * kThreads)
-    quantize_ef_rows<4><<<grid, block, 0, st>>>(g, e, rand, codes, scale,
-                                                 e_new, cols, levels,
-                                                 levels_dev);
+    quantize_ef_rows<4, kDyn><<<grid, block, 0, st>>>(
+        g, e, rand, codes, scale, e_new, cols, levels, levels_dev);
   else if (cols <= kMaxCached)
-    quantize_ef_rows<kMaxVecs><<<grid, block, 0, st>>>(
+    quantize_ef_rows<kMaxVecs, kDyn><<<grid, block, 0, st>>>(
         g, e, rand, codes, scale, e_new, cols, levels, levels_dev);
   else
-    quantize_ef_rows<0><<<grid, block, 0, st>>>(g, e, rand, codes, scale,
-                                                 e_new, cols, levels,
-                                                 levels_dev);
+    quantize_ef_rows<0, kDyn><<<grid, block, 0, st>>>(
+        g, e, rand, codes, scale, e_new, cols, levels, levels_dev);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface. Pointers are device pointers of contiguous row-major (rows,
+// cols) arrays, 16-byte aligned, cols % 4 == 0 (the Python wrapper checks
+// all of this). `stream` is a cudaStream_t. Each returns cudaGetLastError()
+// after the launch: 0 when the kernel was accepted.
+
+// B1: the level count as an argument.
+extern "C" int quantize_ef_f32(const float* g, const float* e,
+                               const float* rand, signed char* codes,
+                               float* scale, float* e_new, int rows, int cols,
+                               float levels, void* stream) {
+  return launch<false>(g, e, rand, codes, scale, e_new, rows, cols, levels,
+                       nullptr, stream);
+}
+
+// B2: the level count read on the device from levels_dev (one f32).
+extern "C" int quantize_ef_dyn_f32(const float* g, const float* e,
+                                   const float* rand, signed char* codes,
+                                   float* scale, float* e_new, int rows,
+                                   int cols, const float* levels_dev,
+                                   void* stream) {
+  return launch<true>(g, e, rand, codes, scale, e_new, rows, cols, 0.0f,
+                      levels_dev, stream);
 }

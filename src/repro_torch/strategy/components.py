@@ -12,10 +12,13 @@ comparable, and serializable field-by-field (strategy.py holds the JSON
 round-trip and the cross-field validation of the composed `Strategy`).
 
 `Compression.build` produces the bucket layout + per-bucket compressor
-plan and `ExchangePlan.leaf_plans` plans the per-tensor exchange. The
-in-step methods of the other schedules, participation and observability
-arrive with the slices that port them (ROADMAP §A); `core.dqgan` refuses
-those settings until then.
+plan (`build_family` the round-adaptive PlanFamily),
+`ExchangePlan.leaf_plans` plans the per-tensor exchange and
+`start`/`finish` run it across the workers, and
+`Participation.round_setup` draws the round's participation mask. The
+in-step methods of the other schedules and observability arrive with the
+slices that port them (ROADMAP §A); `core.dqgan` refuses those settings
+until then.
 
 Every field that is a CLI knob carries ``metadata`` with its legacy flag
 spelling — `strategy.cli` generates the `launch.train` argparse surface
@@ -180,6 +183,21 @@ class Compression:
             budget_bytes=int(self.budget_mb * (1 << 20)))
         return layout, plan
 
+    def build_family(self, shapes_tree, param_specs, n_workers: int):
+        """(BucketLayout, PlanFamily): one delta_budget plan per
+        participation count n ∈ {1..n_workers}, each cut against the
+        effective budget B·M/n. Only valid when ``adaptive`` is set."""
+        if not self.adaptive:
+            raise ValueError("build_family needs compression.adaptive")
+        from repro_torch import comm as RC
+        layout = RC.build_layout(
+            shapes_tree, param_specs, max(n_workers, 1),
+            bucket_bytes=int(self.bucket_mb * (1 << 20)))
+        fam = RC.plan_family(layout, self.compressor,
+                             int(self.budget_mb * (1 << 20)),
+                             max(n_workers, 1))
+        return layout, fam
+
 # --------------------------------------------------------------------------- #
 @dataclass(frozen=True)
 class ExchangePlan:
@@ -276,6 +294,20 @@ class ExchangePlan:
                     f"owners are laid out along the worker axes")
 
     # ------------------------------------------------------------------ #
+    def start(self, compressor, plan: dict, p, ef_state: dict, rand,
+              workers, use_ef: bool, generator=None):
+        """Start the exchange of one stacked (W, ...) tensor across
+        `workers` (a `core.exchange.StackedWorkers`); returns a
+        `core.exchange.ExchangeHandle`."""
+        from repro_torch.core import exchange as X
+        return X.start_exchange(compressor, plan, p, ef_state, rand,
+                                workers, use_ef, generator)
+
+    def finish(self, handle):
+        """(q̂, new_ef_state) from a handle returned by `start`."""
+        from repro_torch.core import exchange as X
+        return X.finish_exchange(handle)
+
     def leaf_plans(self, shapes_tree, specs_tree, n_workers: int):
         """Per-tensor collective plans (core.exchange.plan_leaf over the
         tree)."""
@@ -494,6 +526,20 @@ class Participation:
     @property
     def partial(self) -> bool:
         return self.fraction < 1.0
+
+    def round_setup(self, n_workers: int, generator=None, mask=None):
+        """(mask (W,) float32, n_participants) for this round, or None for
+        full participation or a single worker. The mask is drawn from
+        `generator` on its device, or is the given (injected) `mask`."""
+        if not self.partial or n_workers <= 1:
+            return None
+        from repro_torch.sched import participation as SP
+        n_part = SP.n_participants(self.fraction, n_workers)
+        if n_part >= n_workers:
+            return None
+        if mask is None:
+            mask = SP.round_mask(generator, n_workers, n_part)
+        return mask, n_part
 
 # --------------------------------------------------------------------------- #
 METRIC_LEVELS = ("off", "wire", "full")

@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: it imports neither jax nor the JAX package,
-its launcher never falls back to the CPU on its own, it refuses what it
-does not run yet, and its CLI trains on the CPU when asked."""
+"""Guards of the PyTorch port: neither it nor `chip_smoke.py` imports jax
+or the JAX package, its launcher never falls back to the CPU on its own,
+it refuses what it does not run yet, and its CLI trains on the CPU when
+asked, with one worker or several."""
 import json
 import math
 import os
@@ -14,6 +15,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 PORT = os.path.join(SRC, "repro_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+JAX_OR_REPRO = re.compile(r"^\s*(import jax|from jax|import repro(\.|\s|$)|"
+                          r"from repro(\.|\s))", re.M)
 
 TRAIN = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "dcgan32"]
@@ -43,8 +47,6 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_no_port_source_names_jax_or_repro():
-    pat = re.compile(r"^\s*(import jax|from jax|import repro(\.|\s|$)|"
-                     r"from repro(\.|\s))", re.M)
     hits = []
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -52,8 +54,32 @@ def test_no_port_source_names_jax_or_repro():
                 path = os.path.join(root, f)
                 with open(path) as fh:
                     hits += [(path, m.group(0)) for m in
-                             pat.finditer(fh.read())]
+                             JAX_OR_REPRO.finditer(fh.read())]
     assert not hits, hits
+
+
+def test_chip_smoke_names_neither_jax_nor_repro():
+    with open(SMOKE) as fh:
+        src = fh.read()
+    assert not [m.group(0) for m in JAX_OR_REPRO.finditer(src)]
+    # and nothing it imports does: run it here, where it must fail on the
+    # missing GPU, and list what it loaded
+    script = (
+        "import runpy, sys\n"
+        f"sys.argv = [{SMOKE!r}]\n"
+        "try:\n"
+        f"    runpy.run_path({SMOKE!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('rc', e.code)\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.')))\n")
+    out = _run([sys.executable, "-c", script])
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    if not torch.cuda.is_available():
+        assert lines[-2] != "rc 0" and "ok" not in out.stdout
+    assert lines[-1] == "[]", lines[-1]
 
 
 def test_cli_without_a_gpu_refuses_instead_of_falling_back():
@@ -67,7 +93,7 @@ def test_cli_without_a_gpu_refuses_instead_of_falling_back():
 
 @pytest.mark.parametrize("flags,slice_", [
     (["--schedule", "local_k", "--local-k", "2"], "slice 3"),
-    (["--participation", "0.5"], "slice 2"),
+    (["--spmd", "vmap"], "slice 2"),
     (["--preset", "fsdp_zero3"], "slice 5"),
     (["--obs-metrics", "wire"], "slice 4"),
     (["--straggler-profile", "mild"], "slice 3"),
@@ -81,9 +107,9 @@ def test_cli_refuses_unported_features(flags, slice_):
 @pytest.mark.parametrize("name,ported", [
     ("paper_dqgan", True), ("exact_baseline", True),
     ("quantized_no_ef", True), ("byte_budget", True),
-    ("low_bandwidth", False), ("adaptive_budget", False),
+    ("low_bandwidth", False), ("adaptive_budget", True),
     ("overlap", False), ("ssp_server", False),
-    ("partial_participation", False), ("fsdp_vmap", False),
+    ("partial_participation", True), ("fsdp_vmap", False),
     ("fsdp_zero2", False), ("fsdp_zero3", False),
 ])
 def test_trainer_runs_or_refuses_each_preset(name, ported):
@@ -108,3 +134,35 @@ def test_cli_trains_on_the_cpu_when_asked():
                   "cum_wire_mb", "comm_ratio", "step_s"):
             assert math.isfinite(r[k]), (k, r)
     assert "3 buckets (1849988 elems, 0.1% pad)" in out.stdout
+
+
+ADAPTIVE = ["--workers", "4", "--batch", "8", "--optimizer", "omd",
+            "--compressor", "qsgd8_block1024", "--comm-plan", "delta_budget",
+            "--comm-budget-mb", "0.75", "--comm-adaptive",
+            "--participation", "0.5"]
+
+
+@pytest.mark.parametrize("flags,slice_", [
+    (["--spmd", "vmap"], "slice 2"),
+    (["--schedule", "local_k", "--local-k", "2"], "slice 3"),
+])
+def test_cli_with_workers_still_refuses(flags, slice_):
+    out = _run(TRAIN + ["--device", "cpu", "--steps", "1", "--workers",
+                        "4", "--batch", "8"] + flags)
+    assert out.returncode == 2
+    assert "ROADMAP" in out.stderr and slice_ in out.stderr
+
+
+def test_cli_trains_four_workers_adaptive_on_the_cpu():
+    out = _run(TRAIN + ["--device", "cpu", "--steps", "3"] + ADAPTIVE)
+    assert out.returncode == 0, out.stderr
+    assert "ROADMAP" not in out.stderr
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    assert [r["step"] for r in rows] == [0, 1, 2]
+    for r in rows:
+        assert r["participants"] == 2
+        for k in ("loss", "grad_norm", "error_norm", "wire_mb_step",
+                  "cum_wire_mb", "comm_ratio", "step_s"):
+            assert math.isfinite(r[k]), (k, r)
+    assert "family[4] base=qsgd8_block1024" in out.stdout
