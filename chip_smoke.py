@@ -8,10 +8,12 @@ result line):
 
   1. build    every CUDA kernel of the port from its source (nvcc, parallel)
   2. kernel   hold each kernel against its plain PyTorch version on the
-              card, at the trainer's shapes and at edge cases, and time
+              card, at its path's shapes and at edge cases, and time
               both: B1 (quantize_ef, static levels) at one worker's bucket
               rows, B2 (quantize_ef_dyn, levels read from device memory)
-              at four workers' stacked bucket rows
+              at four workers' stacked bucket rows, B3 (paged decode
+              attention) at the serving engine's shapes in bfloat16 and
+              float32, with the library call (SDPA on the gathered view)
   3. train    drive each path of the trainer through its CLI entry point,
               dcgan32 at full width, omd/update, with the launch count of
               every kernel zeroed just before and read just after:
@@ -21,16 +23,27 @@ result line):
                   them reporting each round, adaptive delta_budget at
                   0.75 MiB, sim exchange: B2 three times a step; then 5
                   steps of the same with the two_phase exchange
-  4. parity   trainer steps with the kernels and the same steps with the
-              plain quantizer, same draws, compared (one worker; four)
-  5. profile  device time by kernel and the device's busy share, for each
-              path (reported)
+  4. serve    drive the serving launcher, gemma-2b at full width in
+              bfloat16 (18 layers, d_model 2048, vocab 256,000), 16
+              requests of 256 prompt tokens and 64 generated, through the
+              engine with --attn-impl kernel: B3 once per layer per decode
+              step (63 x 18), B1 and B2 never; then the same with
+              --attn-impl gather
+  5. parity   trainer steps with the kernels and the same steps with the
+              plain quantizer, same draws, compared (one worker; four);
+              gemma-2b at full width in float32 served to 6 requests of
+              ragged prompts with churn: kernel-path tokens equal to
+              gather-path tokens, engine tokens equal to sequential ones
+  6. profile  device time by kernel and the device's busy share, for each
+              training path and for the engine's decode step (reported)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
-the plain version's, and the least time the card could take (bytes over
-3.35 TB/s or flops over 67 TFLOP/s f32, the H100 SXM data sheet's peaks).
-The last line is {"ok": true, "device": {...}}.
+the plain version's, the library call's where one computes the same
+function, and the least time the card could take (bytes over 3.35 TB/s, or
+operations over 67 TFLOP/s for float32 and 989 TFLOP/s for bfloat16
+inputs, the H100 SXM data sheet's peaks). The last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12     # H100 SXM, float32 outside the tensor cores
+PEAK_BF16_FLOP_S = 989e12   # H100 SXM, bfloat16 tensor cores, dense
 STEPS, BATCH = 10, 64       # the single-worker path
 WORKERS, W_STEPS, W_BATCH, N_PART = 4, 20, 256, 2   # the four-worker path
 TWO_PHASE_STEPS = 5
@@ -59,6 +73,10 @@ W_ARGS = ["--arch", "dcgan32", "--workers", str(WORKERS), "--batch",
 # a code flip needs rand within float rounding of the fractional part:
 # expected ~1e-7 of elements, allow 1e-5
 MAX_MISMATCH = 1e-5
+# the serving path: gemma-2b full width, 16 requests of 256 + 64 tokens
+S_BATCH, S_PROMPT, S_GEN = 16, 256, 64
+S_ARGS = ["--arch", "gemma-2b", "--batch", str(S_BATCH), "--prompt-len",
+          str(S_PROMPT), "--gen", str(S_GEN), "--device", "cuda"]
 
 
 class SmokeFailure(Exception):
@@ -450,6 +468,15 @@ def phase_profile(dev, workers, steps=10):
             state = trainer.step(state, b).state
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, f"{W} worker(s), batch {batch_size}", steps,
+                   wall_ms, "quantize_ef")
+
+
+def report_profile(prof, label, steps, wall_ms, ours):
+    """Print device time by kernel over a profiled window of `steps` steps:
+    busy share, kernels a step, the largest ops, and the time of the
+    port's kernels whose names contain `ours`."""
+    import torch
     kern = {}
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total", 0) or 0
@@ -458,19 +485,300 @@ def phase_profile(dev, workers, steps=10):
                             kern.get(ev.key, (0, 0))[1] + ev.count)
     busy_ms = sum(t for t, _ in kern.values())
     if not kern:
-        print(f"# profile {W} worker(s): the profiler recorded no device "
-              f"time (not measured)")
+        print(f"# profile {label}: the profiler recorded no device time "
+              f"(not measured)")
         return
-    print(f"# profile {W} worker(s), batch {batch_size}, {steps} steps: wall "
+    print(f"# profile {label}, {steps} steps: wall "
           f"{wall_ms / steps:.3f} ms/step (profiler on), device busy "
           f"{busy_ms / steps:.3f} ms/step, busy share {busy_ms / wall_ms:.3f}, "
           f"{sum(c for _, c in kern.values()) / steps:.0f} kernels/step")
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (t, c) in top:
         print(f"#   {t / steps:8.4f} ms/step {c / steps:5.1f}x  {name[:90]}")
-    q = sum(t for n, (t, _) in kern.items() if "quantize_ef" in n)
-    print(f"#   quantize_ef kernels: {q / steps:.4f} ms/step "
+    q = sum(t for n, (t, _) in kern.items() if ours in n)
+    print(f"#   {ours} kernels: {q / steps:.4f} ms/step "
           f"({q / busy_ms:.3f} of device busy time)")
+
+
+# --------------------------------------------------------------------------- #
+# B3 and the serving path
+# --------------------------------------------------------------------------- #
+def paged_operands(dev, seed, B, Kh, G, D, bs, maxb, NB, lengths, dtype,
+                   parked=()):
+    """q and pools random from `seed`; each row's live blocks distinct pool
+    blocks (never block 0); rows in `parked` point every table entry at
+    block 0, the engine's scratch block, as its inactive slots do."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = (torch.randperm(NB - 1, generator=torch.Generator()
+                           .manual_seed(seed)) + 1).tolist()
+    table = torch.zeros((B, maxb), dtype=torch.int32)
+    off = 0
+    for b, L in enumerate(lengths):
+        nb = -(-L // bs)
+        if b not in parked:
+            table[b, :nb] = torch.tensor(perm[off:off + nb])
+            off += nb
+    q, pk, pv = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, Kh, G, D), (NB, bs, Kh, D),
+                               (NB, bs, Kh, D)))
+    return (q, pk, pv, table.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at the magnitude of max|x|."""
+    m = float(x.abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def phase_paged_kernel(dev, scfg, lengths):
+    """Hold B3 against its plain version at the engine's shapes (gemma-2b:
+    K=1, G=8, D=256; the launcher's ServeConfig: bs 16, `scfg.num_blocks`
+    pool blocks, `lengths` ragged up to the run's context) in bfloat16 and
+    float32 and at edge cases; time B3, its plain version, and the library
+    call (SDPA on the gathered view, the gather apart). Returns the
+    kernel record (bfloat16, the serving path's type)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    B, K, G, D = S_BATCH, 1, 8, 256
+    bs, maxb, NB = scfg.block_size, scfg.max_blocks_per_seq, scfg.num_blocks
+    ctx = bs * maxb
+    cases = [("engine", B, K, G, D, bs, maxb, NB, lengths, ())]
+    cases += [("edges: L=0, 1, bs, 2bs, max_context, parked", 8, K, G, D,
+               bs, maxb, NB, [0, 1, bs, 2 * bs, ctx, ctx - 7, 1, 5], (6, 7)),
+              ("the JAX test's shape", 3, 2, 2, 16, 4, 5, 12, [1, 7, 20], ()),
+              ("D=64", 4, 1, 4, 64, bs, 8, 40, [9, 64, 128, 50], ()),
+              ("D=128, bs=32", 3, 2, 8, 128, 32, 4, 16, [100, 128, 5], ())]
+    bad, worst = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (label, *shape, lens, parked) in enumerate(cases):
+            ops = paged_operands(dev, 10 + i, *shape, lens, dtype, parked)
+            got = FA.paged_flash_attention(*ops)
+            want = paged_attention_ref(*ops)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = 2e-5 if dtype == torch.float32 else bf16_ulp(want.float())
+            zeros = all(float(got[b].abs().max()) == 0.0
+                        for b, L in enumerate(lens) if L == 0)
+            failed = [m for ok, m in ((err <= tol, f"error {err:.3e} > "
+                                       f"{tol:.3e}"),
+                                      (zeros, "an L = 0 row is not zero"),
+                                      (got.dtype == dtype, "output dtype"))
+                      if not ok]
+            name = str(dtype)[6:]
+            if label == "engine":
+                worst[dtype] = err
+            print(f"# kernel paged_attention [{label}] {name} B={shape[0]} "
+                  f"K={shape[1]} G={shape[2]} D={shape[3]} bs={shape[4]} "
+                  f"L={min(lens)}..{max(lens)}: max|err|={err:.3e} "
+                  f"(tolerance {tol:.3e})"
+                  + (f" FAILED: {'; '.join(failed)}" if failed else ""))
+            bad += [f"{label} {name}: {f}" for f in failed]
+    check(not bad, "paged_attention disagrees with its plain version: "
+          + "; ".join(bad))
+
+    # time the engine's call: one layer's B3 launch at the engine's shapes
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, pk, pv, table, lens = paged_operands(dev, 10, B, K, G, D, bs, maxb,
+                                                NB, lengths, dtype)
+        S = maxb * bs
+        tl = table.long()
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def gather():
+            return (pk[tl].reshape(B, S, K, D).transpose(1, 2),
+                    pv[tl].reshape(B, S, K, D).transpose(1, 2))
+
+        kg, vg = gather()
+        # SDPA's "heads" are the K kv heads and its query rows the G heads
+        lib = F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+        want = paged_attention_ref(q, pk, pv, table, lens)
+        lib_err = float((lib.float() - want.float()).abs().max())
+        ms = time_ms(lambda: FA.paged_flash_attention(q, pk, pv, table, lens),
+                     100, flush)
+        plain_ms = time_ms(lambda: paged_attention_ref(q, pk, pv, table,
+                                                       lens), 100, flush)
+        gather_ms = time_ms(gather, 100, flush)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask), 100, flush)
+        esize = q.element_size()
+        live = sum(lengths)
+        nbytes = (2 * live * K * D * esize        # live keys and values
+                  + 2 * q.numel() * esize         # q read, out written
+                  + sum(-(-L // bs) for L in lengths) * 4 + B * 4)
+        flops = 4 * G * D * live * K              # q.k and p.v
+        peak = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else \
+            PEAK_F32_FLOP_S
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / peak * 1e3
+        name = str(dtype)[6:]
+        print(f"# kernel paged_attention timing {name}, one launch (B={B}, "
+              f"K={K}, G={G}, D={D}, bs={bs}, L={min(lengths)}..{max(lengths)}"
+              f", {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library: gather "
+              f"{gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms (SDPA max|err| "
+              f"{lib_err:.3e}), bound {max(t_bytes, t_ops):.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+        if dtype == torch.bfloat16:
+            rec = {"name": "paged_attention", "route": "cuda",
+                   "source": "src/repro_torch/csrc/paged_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:83",
+                   "max_abs_err": worst[dtype], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": sdpa_ms}
+    return rec
+
+
+def phase_serve():
+    """Serve gemma-2b at full width through the launcher, with B3 (kernel)
+    and with the gather path; returns B3's launches on the kernel run."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import serve
+    from repro_torch.configs import get
+    layers = get("gemma-2b").num_layers
+    runs = {}
+    for impl in ("kernel", "gather"):
+        FA.reset_launches()
+        Q.reset_launches()
+        res = serve.main(S_ARGS + ["--attn-impl", impl])
+        b3, b1, b2 = FA.launches, Q.launches, Q.launches_dyn
+        row, steps = res["row"], res["stats"]["steps"]
+        # prompt 256 is a bucket: the prefill yields token 0, then one
+        # decode step per further token, all 16 requests in one batch
+        check(row["generated"] == S_BATCH * S_GEN,
+              f"serve {impl}: generated {row['generated']} tokens, expected "
+              f"{S_BATCH * S_GEN}")
+        check(steps == S_GEN - 1, f"serve {impl}: {steps} engine steps, "
+              f"expected {S_GEN - 1}")
+        check(b3 == (steps * layers if impl == "kernel" else 0),
+              f"serve {impl}: paged_attention launched {b3} times in {steps} "
+              f"steps of {layers} layers")
+        check(b1 == b2 == 0, f"serve {impl}: quantize_ef launched {b1}, "
+              f"quantize_ef_dyn {b2} times, expected 0")
+        print(f"# serve gemma-2b full width bf16, --attn-impl {impl}: "
+              f"{row['generated']} tokens in {steps} engine steps, "
+              f"{row['tokens_per_s']} tokens/s, median decode step "
+              f"{row['decode_step_s'] * 1e3:.3f} ms, paged_attention "
+              f"launches {b3}, sample {row['sample_tokens']}")
+        runs[impl] = (b3, res["outputs"])
+        del res
+        torch.cuda.empty_cache()
+    same = sum(a == b for r in runs["kernel"][1]
+               for a, b in zip(runs["kernel"][1][r], runs["gather"][1][r]))
+    print(f"# serve bf16: kernel and gather paths agree on {same} of "
+          f"{S_BATCH * S_GEN} tokens (reported; the float32 parity phase "
+          f"checks)")
+    return runs["kernel"][0]
+
+
+def phase_serve_parity(dev):
+    """gemma-2b at full width in float32: 6 requests of ragged prompts
+    (below every bucket, floor-bucket prefill with a tail, a prompt equal
+    to a bucket), 4 slots, requests joining mid-stream; the kernel path
+    gives the gather path's greedy tokens, and the engine the sequential
+    baseline's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as lm
+    from repro_torch.serve import (Engine, Request, SequentialGenerator,
+                                   ServeConfig)
+
+    cfg = dataclasses.replace(get("gemma-2b"), param_dtype="float32")
+    params = lm.init(cfg, generator=torch.Generator(device=dev).manual_seed(
+        5), device=dev)
+    scfg = ServeConfig(max_batch=4, block_size=16, num_blocks=4 * 20 + 2,
+                       max_blocks_per_seq=20,
+                       prompt_buckets=(16, 32, 64, 128, 256))
+    rs = np.random.RandomState(7)
+    reqs = [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size, P).tolist(),
+                    max_new=G)
+            for i, (P, G) in enumerate([(20, 8), (300, 8), (12, 6),
+                                        (150, 8), (256, 5), (77, 8)])]
+
+    def churn(impl):
+        eng = Engine(cfg, scfg, params, attn_impl=impl)
+        for r in reqs[:3]:
+            eng.submit(r)
+        for r in reqs[3:]:
+            eng.step()
+            eng.submit(r)
+        while not eng.idle:
+            eng.step()
+        return eng.outputs, eng.steps
+
+    t0 = time.perf_counter()
+    FA.reset_launches()
+    out_k, steps = churn("kernel")
+    b3 = FA.launches
+    out_g, _ = churn("gather")
+    check(b3 == steps * cfg.num_layers, f"parity: paged_attention launched "
+          f"{b3} times in {steps} steps")
+    diff = [r.rid for r in reqs if out_k[r.rid] != out_g[r.rid]]
+    check(not diff, f"parity f32: kernel and gather paths differ on requests "
+          f"{diff}: {[(out_k[i], out_g[i]) for i in diff]}")
+    seq = SequentialGenerator(cfg, scfg, params)
+    diff = [r.rid for r in reqs
+            if seq.generate(list(r.prompt), r.max_new, rid=r.rid)
+            != out_g[r.rid]]
+    check(not diff, f"parity f32: engine and sequential differ on requests "
+          f"{diff}")
+    print(f"# parity serve gemma-2b full width f32, TF32 off: 6 requests "
+          f"(prompts {[len(r.prompt) for r in reqs]}), 4 slots, churn: "
+          f"kernel path == gather path == sequential, token for token "
+          f"({sum(len(v) for v in out_g.values())} tokens, {steps} engine "
+          f"steps, {b3} paged_attention launches, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del params, seq
+    torch.cuda.empty_cache()
+
+
+def phase_serve_profile(dev, steps=10):
+    """Where the engine's decode step goes: torch.profiler over 10 steps of
+    the serving path (gemma-2b full width bf16, 16 live rows, kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import build_serve_config
+    from repro_torch.models import model as lm
+    from repro_torch.serve import Engine, Request
+
+    cfg = get("gemma-2b")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = lm.init(cfg, generator=gen, device=dev)
+    eng = Engine(cfg, build_serve_config(S_PROMPT, S_GEN, S_BATCH), params,
+                 attn_impl="kernel")
+    prompts = torch.randint(0, cfg.vocab_size, (S_BATCH, S_PROMPT),
+                            generator=gen, device=dev).tolist()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=S_GEN))
+    for _ in range(3):        # admission (16 prefills) and warm-up
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, f"serve gemma-2b decode, {S_BATCH} rows", steps,
+                   wall_ms, "paged_decode")
+    del eng, params
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -481,6 +789,7 @@ def main():
         return 1
     try:
         from repro_torch.kernels import quantize  # noqa: F401
+        from repro_torch.launch.serve import build_serve_config
     except ImportError as e:
         print(f"chip_smoke: FAIL: the port is not importable ({e}); run "
               f"from the repository root", file=sys.stderr)
@@ -510,18 +819,27 @@ def main():
         del t1, s1, tw, sw
         b1 = phase_kernel(dev, rows, [127] * len(rows), dyn=False)
         b2 = phase_kernel(dev, rows_w, levels_sel, dyn=True)
+        # the serving launcher's shapes; contexts 257..319 over its decode
+        scfg = build_serve_config(S_PROMPT, S_GEN, S_BATCH)
+        ctx = S_PROMPT + S_GEN - 1
+        lengths = [S_PROMPT + 1 + (ctx - S_PROMPT - 1) * i // (S_BATCH - 1)
+                   for i in range(S_BATCH)]
+        b3 = phase_paged_kernel(dev, scfg, lengths)
         b1["launches"] = phase_train()
         b2["launches"] = phase_train_workers(dev)
+        b3["launches"] = phase_serve()
         phase_parity(dev, 1)
         phase_parity(dev, WORKERS)
+        phase_serve_parity(dev)
         phase_profile(dev, 1)
         phase_profile(dev, WORKERS)
+        phase_serve_profile(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(f"# all phases passed in {time.perf_counter() - t0:.1f} s")
     print(f"# gpu: {gpu}")
-    print(json.dumps({"kernels": [b1, b2]}))
+    print(json.dumps({"kernels": [b1, b2, b3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,197 @@
-"""Run configuration: `DQConfig`, the DQGAN optimizer knobs plus the flat
-strategy fields (counterpart of `repro.configs.base`; the LM `ModelConfig`s
-arrive with the LM slice, ROADMAP §A slice 6)."""
+"""Configuration dataclasses (counterpart of `repro.configs.base`): the LM
+`ModelConfig` with its sub-configs, and `DQConfig`, the DQGAN optimizer
+knobs plus the flat strategy fields.
+
+The sub-configs (`MoEConfig`, `SSMConfig`, `RGLRUConfig`, `EncDecConfig`)
+are plain data with the JAX package's fields and defaults; the model code
+of the port refuses each of them until the slice that brings its mixer or
+expert layer (ROADMAP §A slice 6).
+"""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block settings (qwen3-moe, arctic)."""
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    dense_residual_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 1e-2
+    router_z_coef: float = 1e-3
+    dispatch: str = "global"         # "global" | "per_row"
+
+    @property
+    def has_dense_residual(self) -> bool:
+        return self.dense_residual_d_ff > 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD settings."""
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma / Griffin recurrent-block settings."""
+    conv_width: int = 4
+    expand: int = 1
+    c_constant: float = 8.0
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (whisper) settings; inputs are precomputed frame
+    embeddings of shape (B, enc_seq, d_model)."""
+    enc_layers: int = 4
+    enc_seq: int = 1500
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A decoder LM of the zoo, with the JAX package's fields, defaults,
+    `param_count()` and `reduced()`."""
+    name: str
+    arch_type: str                      # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                   # 0 -> d_model // num_heads
+    # layer pattern, cycled over the depth: 'attn' | 'rglru' | 'ssd'
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    activation: str = "silu"            # silu | geglu | gelu (geglu/silu are gated)
+    norm: str = "rmsnorm"               # rmsnorm | layernorm
+    use_rope: bool = True
+    rope_theta: float = 10_000.0
+    attention_window: int = 0           # 0 -> global attention
+    use_bias: bool = False
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    embedding_inputs: bool = False
+    source: str = ""                    # citation for the assigned spec
+    param_dtype: str = "float32"        # "bfloat16" at full width
+    scan_layers: bool = True            # params["scan"]: a leading layer axis
+    remat: str = "full"
+    xent_chunk: int = 0
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_heads % max(self.num_kv_heads, 1):
+            raise ValueError(f"{self.name}: num_heads {self.num_heads} is not "
+                             f"a multiple of num_kv_heads "
+                             f"{self.num_kv_heads}")
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encdec is not None
+
+    @property
+    def positional(self) -> str:
+        """rope | learned | none."""
+        if self.use_rope:
+            return "rope"
+        if self.is_encdec:
+            return "learned"
+        return "none"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the JAX package's formula)."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d
+        if not self.tie_embeddings:
+            total += v * d
+        hd = self.head_dim
+        per_layer = {"attn": (d * self.num_heads * hd
+                              + 2 * d * self.num_kv_heads * hd
+                              + self.num_heads * hd * d)}
+        if self.rglru is not None:
+            w = self.rglru.expand * d
+            per_layer["rglru"] = (2 * d * w + w * d + 2 * w * w
+                                  + w * self.rglru.conv_width)
+        if self.ssm is not None:
+            di = self.ssm.expand * d
+            nheads = di // self.ssm.head_dim
+            conv_ch = di + 2 * self.ssm.state_dim
+            per_layer["ssd"] = (
+                d * (2 * di + 2 * self.ssm.state_dim + nheads)
+                + conv_ch * (self.ssm.conv_width + 1)
+                + di * d + di
+                + 3 * nheads)
+        n_norm = 2 * d
+        if self.moe is not None:
+            ff = (3 * d * self.moe.d_ff_expert * self.moe.num_experts
+                  + d * self.moe.num_experts)
+            if self.moe.has_dense_residual:
+                ff += 3 * d * self.moe.dense_residual_d_ff
+        else:
+            mult = 3 if self.activation in ("silu", "geglu") else 2
+            ff = mult * d * self.d_ff
+        for i in range(self.num_layers):
+            kind = self.layer_pattern[i % len(self.layer_pattern)]
+            block_ff = ff if (kind != "ssd" or self.d_ff > 0) else 0
+            total += per_layer[kind] + block_ff + n_norm
+        total += d  # final norm
+        if self.encdec is not None:
+            enc = self.encdec.enc_layers * (per_layer["attn"] + ff + n_norm)
+            cross = self.num_layers * (per_layer["attn"] + d)
+            total += enc + cross
+        return int(total)
+
+    def reduced(self) -> "ModelConfig":
+        """Small same-family variant for CPU tests: 2 layers, d_model <=
+        256, <= 4 experts (the JAX package's cuts)."""
+        d = min(self.d_model, 256)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, heads)
+        while heads % kv:
+            kv -= 1
+        changes = dict(
+            name=self.name + "-smoke",
+            num_layers=(max(2, len(self.layer_pattern))
+                        if len(self.layer_pattern) > 1 else 2),
+            d_model=d,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=max(d // heads, 8),
+            d_ff=min(self.d_ff, 4 * d) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            param_dtype="float32",
+            xent_chunk=0,
+        )
+        if self.moe is not None:
+            changes["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=min(self.moe.top_k, 2),
+                d_ff_expert=min(self.moe.d_ff_expert, 2 * d),
+                dense_residual_d_ff=(2 * d if self.moe.has_dense_residual
+                                     else 0),
+                capacity_factor=8.0)
+        if self.ssm is not None:
+            changes["ssm"] = dataclasses.replace(
+                self.ssm, state_dim=16, head_dim=16, chunk_size=32)
+        if self.encdec is not None:
+            changes["encdec"] = dataclasses.replace(
+                self.encdec, enc_layers=2, enc_seq=64)
+        if self.attention_window:
+            changes["attention_window"] = min(self.attention_window, 32)
+        return dataclasses.replace(self, **changes)
 
 
 @dataclass(frozen=True)

@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"quantize_ef": CSRC / "quantize_ef.cu"}
+SOURCES = {"quantize_ef": CSRC / "quantize_ef.cu",
+           "paged_attention": CSRC / "paged_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]  # registers, shared memory and spills per kernel

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels: the CPU path of each
 wrapper, and the reference `chip_smoke.py` holds each kernel against.
 
-Counterpart of `repro.kernels.ref`; the attention references arrive with
-the kernels that need them (ROADMAP §B)."""
+Counterpart of `repro.kernels.ref`; the reference of B4 (causal prefill
+flash attention) arrives with its kernel (ROADMAP §B)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -34,3 +36,28 @@ def quantize_ef_ref(g, e, rand, levels=127):
     codes = (low + (rand < (lv - low)).float()).to(torch.int8)
     deq = codes.float() * (scale / lvl)
     return codes, scale, m - deq
+
+
+def paged_attention_ref(q, pool_k, pool_v, table, lengths):
+    """Plain version of `kernels.flash_attention.paged_flash_attention`
+    (B3): gather the block pool through the table into a dense per-row
+    view, mask by length, plain softmax, all in float32.
+
+    q: (B, K, G, D); pool_k/v: (NB, bs, K, D); table: (B, MAXB) int32;
+    lengths: (B,) int32. Returns (B, K, G, D) in q's dtype."""
+    B, Kh, G, D = q.shape
+    bs = pool_k.shape[1]
+    S = table.shape[1] * bs
+    tl = table.long()
+    ck = pool_k[tl].reshape(B, S, Kh, D).float()
+    cv = pool_v[tl].reshape(B, S, Kh, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), ck)
+    s = s / math.sqrt(D)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < lengths[:, None].to(q.device))
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    # rows with length 0 have an all-masked softmax (uniform probs); zero
+    # them explicitly to match the kernel's empty-loop output
+    p = torch.where(lengths.to(q.device)[:, None, None, None] > 0, p, 0.0)
+    return torch.einsum("bkgs,bskd->bkgd", p, cv).to(q.dtype)

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels against their
-plain versions, and the trainer's path through them. They import torch and
+plain versions, and the trainer's and the serving engine's paths through
+them. They import torch and
 the port only (no jax), so they run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -9,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import quantize as Q
-from repro_torch.kernels.ref import quantize_ef_ref
+from repro_torch.kernels.ref import paged_attention_ref, quantize_ef_ref
 
 
 def _device():
@@ -148,3 +150,129 @@ def test_four_worker_adaptive_step_goes_through_b2():
         state = out.state
     assert (Q.launches, Q.launches_dyn) == (before[0], before[1] + 6)
     assert torch.isfinite(out.metrics["loss"]).item()
+
+
+def _paged_operands(seed, B, Kh, G, D, bs, maxb, lengths, dtype, dev,
+                    parked=()):
+    """Random q and pools, ragged tables over distinct pool blocks; rows in
+    `parked` point every entry at block 0 (the engine's scratch block)."""
+    rs = np.random.RandomState(seed)
+    nbs = [-(-L // bs) for L in lengths]
+    NB = 1 + sum(nbs)
+    perm = rs.permutation(np.arange(1, NB))
+    table = np.zeros((B, maxb), np.int32)
+    off = 0
+    for b, nb in enumerate(nbs):
+        if b not in parked:
+            table[b, :nb] = perm[off:off + nb]
+        off += nb
+    t = [torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
+         for shape in ((B, Kh, G, D), (NB, bs, Kh, D), (NB, bs, Kh, D))]
+    return t + [torch.from_numpy(table).to(dev),
+                torch.tensor(lengths, dtype=torch.int32, device=dev)]
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at the magnitude of max|x|."""
+    m = float(x.abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+PAGED_CASES = [
+    # the serving path's shapes: gemma-2b, 16 rows, contexts up to 319
+    ("engine", 16, 1, 8, 256, 16, 20, [257 + 4 * i for i in range(15)]
+     + [319]),
+    ("edges", 6, 1, 8, 256, 16, 20, [0, 1, 16, 320, 33, 1]),
+    ("jax test shape", 3, 2, 2, 16, 4, 5, [1, 7, 20]),
+    ("D 64", 3, 1, 4, 64, 16, 4, [9, 64, 50]),
+    ("D 128, wide blocks", 3, 2, 8, 128, 32, 4, [100, 128, 5]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_paged_attention_kernel_matches_plain_version(case, dtype):
+    """B3 against its plain version on the same tensors: float32 within
+    2e-5 (the JAX test's), bfloat16 within one bf16 ulp of the output's
+    magnitude (both compute in float32 and round once); L = 0 gives 0."""
+    dev = _device()
+    _, B, Kh, G, D, bs, maxb, lengths = case
+    ops = _paged_operands(B + D, B, Kh, G, D, bs, maxb, lengths, dtype, dev,
+                          parked=(5,) if B == 6 else ())
+    before = FA.launches
+    got = FA.paged_flash_attention(*ops)
+    assert FA.launches == before + 1
+    want = paged_attention_ref(*ops)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(want.float())
+    assert err <= tol, (err, tol)
+    for b, L in enumerate(lengths):
+        if L == 0:
+            assert float(got[b].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_refuses_what_it_does_not_take():
+    dev = _device()
+    q, pk, pv, table, lengths = _paged_operands(0, 3, 2, 2, 16, 4, 5,
+                                                [1, 7, 20], torch.float32, dev)
+    before = FA.launches
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.paged_flash_attention(q, pk.bfloat16(), pv, table, lengths)
+    with pytest.raises(TypeError, match="int32"):
+        FA.paged_flash_attention(q, pk, pv, table.long(), lengths)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.paged_flash_attention(q.half(), pk.half(), pv.half(), table,
+                                 lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.paged_flash_attention(q.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), pk, pv, table, lengths)
+    with pytest.raises(ValueError, match="is on"):
+        FA.paged_flash_attention(q, pk, pv, table.cpu(), lengths)
+    with pytest.raises(ValueError, match="D in"):
+        FA.paged_flash_attention(q[..., :8].contiguous(),
+                                 pk[..., :8].contiguous(),
+                                 pv[..., :8].contiguous(), table, lengths)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = pk.flatten()[2:2 + pv[1:].numel()].view(pv[1:].shape)
+        FA.paged_flash_attention(q, shifted, pv[1:], table, lengths)
+    with pytest.raises(ValueError, match="G <= 8"):
+        FA.paged_flash_attention(torch.zeros(3, 1, 16, 16, device=dev),
+                                 pk[:, :, :1].contiguous(),
+                                 pv[:, :, :1].contiguous(), table, lengths)
+    assert FA.launches == before
+
+
+@pytest.mark.cuda
+def test_engine_kernel_path_launches_b3_per_layer_per_step():
+    """gemma-2b reduced on the card: the kernel path gives the gather
+    path's greedy tokens and launches B3 once per layer per decode step;
+    B1 and B2 stay idle."""
+    dev = _device()
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    cfg = get("gemma-2b").reduced()
+    params = lm.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    scfg = ServeConfig(max_batch=4, block_size=8, num_blocks=64,
+                       max_blocks_per_seq=8, prompt_buckets=(8, 16, 32))
+    rs = np.random.RandomState(1)
+    reqs = [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size,
+                                             3 + 7 * i).tolist(), max_new=5)
+            for i in range(5)]
+    outs = {}
+    for impl in ("gather", "kernel"):
+        eng = Engine(cfg, scfg, params, attn_impl=impl)
+        FA.reset_launches()
+        Q.reset_launches()
+        outs[impl] = eng.run(reqs)
+        launches = FA.launches
+        assert (Q.launches, Q.launches_dyn) == (0, 0)
+        assert launches == (eng.steps * cfg.num_layers
+                            if impl == "kernel" else 0), (impl, launches)
+    assert outs["kernel"] == outs["gather"]

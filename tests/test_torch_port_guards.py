@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: neither it nor `chip_smoke.py` imports jax
-or the JAX package, its launcher never falls back to the CPU on its own,
-it refuses what it does not run yet, and its CLI trains on the CPU when
-asked, with one worker or several."""
+or the JAX package, its launchers never fall back to the CPU on their own,
+they refuse what the port does not run yet, the training CLI trains on the
+CPU when asked, with one worker or several, and the serving CLI serves
+gemma-2b there."""
 import json
 import math
 import os
@@ -21,6 +22,7 @@ JAX_OR_REPRO = re.compile(r"^\s*(import jax|from jax|import repro(\.|\s|$)|"
 
 TRAIN = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "dcgan32"]
+SERVE = [sys.executable, "-m", "repro_torch.launch.serve"]
 
 
 def _run(args, timeout=300):
@@ -39,11 +41,16 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "print(sorted(m for m in sys.modules if "
+        "m.startswith('repro_torch')))\n"
         "assert not bad, bad\n")
     out = _run([sys.executable, "-c", script])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) > 20  # every module was imported
+    walked = eval(out.stdout.splitlines()[-1])
+    assert len(walked) > 30  # every module was imported
+    for mod in ("serve.engine", "serve.kv_cache", "serve.baseline",
+                "launch.serve", "models.model", "kernels.flash_attention"):
+        assert f"repro_torch.{mod}" in walked, mod
 
 
 def test_no_port_source_names_jax_or_repro():
@@ -166,3 +173,38 @@ def test_cli_trains_four_workers_adaptive_on_the_cpu():
                   "cum_wire_mb", "comm_ratio", "step_s"):
             assert math.isfinite(r[k]), (k, r)
     assert "family[4] base=qsgd8_block1024" in out.stdout
+
+
+def test_serve_cli_without_a_gpu_refuses_instead_of_falling_back():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    out = _run(SERVE + ["--arch", "gemma-2b", "--smoke"])
+    assert out.returncode == 2
+    assert "--device cpu" in out.stderr
+    assert not out.stdout.strip()
+
+
+def test_serve_cli_serves_gemma_on_the_cpu_when_asked():
+    out = _run(SERVE + ["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                        "--batch", "4", "--prompt-len", "32", "--gen", "8"])
+    assert out.returncode == 0, out.stderr
+    row = json.loads(out.stdout.splitlines()[-1])
+    assert row["arch"] == "gemma-2b-smoke" and row["mode"] == "engine"
+    assert row["generated"] == 32 and row["batch"] == 4
+    assert row["attn_impl"] == "gather" and row["weights"] == "f32"
+    assert len(row["sample_tokens"]) == 8
+    assert row["tokens_per_s"] > 0 and row["decode_step_s"] > 0
+
+
+@pytest.mark.parametrize("flags,slice_", [
+    (["--arch", "gemma-2b", "--quantize-weights", "qsgd8_linf"],
+     "slice 7 (serving: quantized weights)"),
+    (["--arch", "gemma-2b", "--weight-plan", "uniform"],
+     "slice 7 (serving: quantized weights)"),
+    (["--arch", "mamba2-1.3b"], "slice 6 (LM zoo: the SSD mixer)"),
+    (["--arch", "gemma-2b-swa"], "slice 7 (serving: the sliding-window"),
+])
+def test_serve_cli_refuses_unported_features(flags, slice_):
+    out = _run(SERVE + ["--device", "cpu", "--smoke"] + flags)
+    assert out.returncode == 2
+    assert "ROADMAP" in out.stderr and slice_ in out.stderr
