@@ -14,7 +14,15 @@ result line):
               at four workers' stacked bucket rows, B3 (paged decode
               attention) at the serving engine's shapes in bfloat16 and
               float32, with the library call (SDPA on the gathered view)
-  3. train    drive each path of the trainer through its CLI entry point,
+  3. flash    B4 (causal flash attention), the counterpart of the JAX
+              kernel benchmark's attention section: held against its
+              plain version at that section's shapes (full and quick
+              tier), the JAX kernel test's bfloat16 shape, one gemma-2b
+              prefill call (8 heads, 256 tokens, head_dim 256, bfloat16)
+              and edge cases, and timed with the library call (SDPA) at
+              the full tier (float32) and the gemma-2b call; its launches
+              are counted over the timed full-tier run
+  4. train    drive each path of the trainer through its CLI entry point,
               dcgan32 at full width, omd/update, with the launch count of
               every kernel zeroed just before and read just after:
               (a) one worker, batch 64, qsgd8_block1024 over uniform
@@ -23,18 +31,19 @@ result line):
                   them reporting each round, adaptive delta_budget at
                   0.75 MiB, sim exchange: B2 three times a step; then 5
                   steps of the same with the two_phase exchange
-  4. serve    drive the serving launcher, gemma-2b at full width in
+              (B4 never on either)
+  5. serve    drive the serving launcher, gemma-2b at full width in
               bfloat16 (18 layers, d_model 2048, vocab 256,000), 16
               requests of 256 prompt tokens and 64 generated, through the
               engine with --attn-impl kernel: B3 once per layer per decode
-              step (63 x 18), B1 and B2 never; then the same with
+              step (63 x 18), B1, B2 and B4 never; then the same with
               --attn-impl gather
-  5. parity   trainer steps with the kernels and the same steps with the
+  6. parity   trainer steps with the kernels and the same steps with the
               plain quantizer, same draws, compared (one worker; four);
               gemma-2b at full width in float32 served to 6 requests of
               ragged prompts with churn: kernel-path tokens equal to
               gather-path tokens, engine tokens equal to sequential ones
-  6. profile  device time by kernel and the device's busy share, for each
+  7. profile  device time by kernel and the device's busy share, for each
               training path and for the engine's decode step (reported)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
@@ -50,6 +59,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -155,16 +165,49 @@ def make_trainer(dev, strat, workers, seed):
 
 
 # --------------------------------------------------------------------------- #
+def kernel_label(mangled):
+    """`name<args>` of a mangled kernel name as ptxas reports it, e.g.
+    flash_fwd<__nv_bfloat16, 256> (enough of the Itanium grammar for the
+    port's kernels: nested names, type and integer template arguments)."""
+    s, name = (mangled[3:] if mangled.startswith("_ZN") else mangled), ""
+    while s[:1].isdigit():       # nested names; the last is the kernel's
+        n = re.match(r"\d+", s).group()
+        name, s = s[len(n):len(n) + int(n)], s[len(n) + int(n):]
+    if not s.startswith("I"):
+        return name or mangled
+    args, s = [], s[1:]
+    types = {"f": "float", "i": "int", "j": "unsigned", "b": "bool"}
+    while s and s[0] != "E":
+        if s[0] == "L":          # a literal: L<type><value>E
+            end = s.index("E")
+            args.append(s[2:end])
+            s = s[end + 1:]
+        elif s[0].isdigit():     # a named type
+            n = re.match(r"\d+", s).group()
+            args.append(s[len(n):len(n) + int(n)])
+            s = s[len(n) + int(n):]
+        else:
+            args.append(types.get(s[0], s[0]))
+            s = s[1:]
+    return f"{name}<{', '.join(args)}>"
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
     dt = time.perf_counter() - t0
     print(f"# build: {len(logs)} kernel source(s) in {dt:.1f} s")
+    check(sorted(logs) == sorted(_build.SOURCES),
+          f"built {sorted(logs)}, the sources are {sorted(_build.SOURCES)}")
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"#   {name}: {line.strip()}")
+            if "Function properties for " in line:
+                fn = kernel_label(line.split("Function properties for ")[1]
+                                  .strip())
+            elif "registers" in line or "spill" in line:
+                print(f"#   {name}: {fn}: {line.strip()}")
 
 
 def compare_quantize(g, e, r, levels):
@@ -297,6 +340,7 @@ def check_rows(history, steps):
 
 def phase_train():
     """Path (a): one worker, B1."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantize as Q
     from repro_torch.launch import train
     argv = ["--arch", "dcgan32", "--steps", str(STEPS), "--batch", str(BATCH),
@@ -304,9 +348,12 @@ def phase_train():
             "--compressor", "qsgd8_block1024", "--comm-plan", "uniform",
             "--log-every", "1", "--device", "cuda"]
     Q.reset_launches()
+    FA.reset_launches()
     history = train.main(argv)
     launches, launches_dyn = Q.launches, Q.launches_dyn
     check_rows(history, STEPS)
+    check(FA.flash_launches == 0, f"one worker: flash_attention launched "
+          f"{FA.flash_launches} times on the training path")
     check(launches == STEPS * 3 and launches_dyn == 0,
           f"one worker: quantize_ef launched {launches} times and "
           f"quantize_ef_dyn {launches_dyn} times in {STEPS} steps, expected "
@@ -322,6 +369,7 @@ def phase_train_workers(dev):
     """Path (b): four stacked workers, half reporting, adaptive family, B2;
     sim for W_STEPS steps, then two_phase for TWO_PHASE_STEPS. Every row
     bills the ledger's round_bytes(N_PART): the selected member's bytes."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantize as Q
     from repro_torch.launch import train
     runs = {}
@@ -332,9 +380,12 @@ def phase_train_workers(dev):
         del tr, st
         argv = W_ARGS + ["--exchange", kind, "--steps", str(steps)]
         Q.reset_launches()
+        FA.reset_launches()
         history = train.main(argv)
         launches, launches_dyn = Q.launches, Q.launches_dyn
         check_rows(history, steps)
+        check(FA.flash_launches == 0, f"{WORKERS} workers, {kind}: "
+              f"flash_attention launched {FA.flash_launches} times")
         check(launches_dyn == steps * 3 and launches == 0,
               f"{WORKERS} workers, {kind}: quantize_ef_dyn launched "
               f"{launches_dyn} times and quantize_ef {launches} times in "
@@ -637,6 +688,139 @@ def phase_paged_kernel(dev, scfg, lengths):
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# B4: causal flash attention (the JAX kernel benchmark's attention section)
+# --------------------------------------------------------------------------- #
+def flash_operands(dev, seed, BH, S, D, dtype, shared_kv=False):
+    """q, k, v of (BH, S, D) random from `seed`; with `shared_kv` one K/V
+    head repeated to all BH query heads (gemma-2b's MQA prefill)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((BH, S, D), generator=gen, device=dev).to(dtype)
+    kv_heads = 1 if shared_kv else BH
+    k, v = (torch.randn((kv_heads, S, D), generator=gen, device=dev)
+            .to(dtype).expand(BH, S, D).contiguous() for _ in range(2))
+    return q, k, v
+
+
+def flash_bound(BH, S, D, dtype, causal):
+    """(least ms, "bytes" or "operations", MB, MFLOP) of one call: q, k, v
+    read and out written once; 4·D flops (q·k and p·v) a (row, key) pair
+    of the lower triangle (all pairs when not causal)."""
+    import torch
+    esize = 2 if dtype == torch.bfloat16 else 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * D * pairs * BH
+    nbytes = 4 * BH * S * D * esize
+    peak = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_S
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes / 1e6, flops / 1e6)
+
+
+def phase_flash_kernel(dev):
+    """Hold B4 against its plain version at (a) the kernel benchmark's full
+    tier (4, 1024, 128) f32, causal and not; (b) its quick tier (4, 256,
+    64); (c) the JAX kernel test's (2, 256, 128) bf16; (d) one gemma-2b
+    prefill call (8 query heads, the KV head repeated, 256 tokens, D 256,
+    bf16); and at edge cases: S = 24 with bq = bk = 8, bq != bk, every
+    head dim in both dtypes. Time B4, its plain version and SDPA at (a) and
+    (d). Returns the kernel record at (a); its launches are those of the
+    timed run of (a), the benchmark's call, counted from zero."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, BH, S, D, dtype, causal, bq, bk, shared_kv)
+    cases = [("(a) full tier", 4, 1024, 128, f32, True, 128, 128, False),
+             ("(a) full tier", 4, 1024, 128, f32, False, 128, 128, False),
+             ("(b) quick tier", 4, 256, 64, f32, True, 128, 128, False),
+             ("(c) JAX kernel test", 2, 256, 128, bf16, True, 128, 128,
+              False),
+             ("(d) gemma-2b prefill", 8, 256, 256, bf16, True, 128, 128,
+              True)]
+    cases += [("S=24, bq=bk=8", 3, 24, 64, dt, c, 8, 8, False)
+              for dt in (f32, bf16) for c in (True, False)]
+    cases += [("bq != bk", 4, 256, 128, dt, True, bq, bk, False)
+              for dt in (f32, bf16) for bq, bk in ((128, 64), (64, 128))]
+    cases += [(f"D={D}", 2, 200, D, dt, c, 8, 8, False)
+              for D in FA.HEAD_DIMS for dt in (f32, bf16)
+              for c in (True, False)]
+
+    def plain(q, k, v, causal):
+        return flash_attention_ref(q[:, :, None], k[:, :, None],
+                                   v[:, :, None], causal=causal)[:, :, 0]
+
+    FA.reset_launches()
+    bad, worst = [], 0.0
+    for i, (label, BH, S, D, dtype, causal, bq, bk, shared) in \
+            enumerate(cases):
+        q, k, v = flash_operands(dev, 20 + i, BH, S, D, dtype, shared)
+        got = FA.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+        want = plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == f32:
+            tol = 2e-4
+        else:  # one bf16 ulp of the output, and the JAX test's 2e-2
+            tol = min(bf16_ulp(want.float()), 2e-2)
+        failed = [m for ok, m in ((err <= tol, f"error {err:.3e} > "
+                                   f"{tol:.3e}"),
+                                  (got.dtype == dtype, "output dtype"),
+                                  (bool(torch.isfinite(got).all()),
+                                   "non-finite output"))
+                  if not ok]
+        if label.startswith("(a)") and causal:
+            worst = err
+        name = str(dtype)[6:]
+        print(f"# kernel flash_attention [{label}] {name} BH={BH} S={S} "
+              f"D={D} causal={causal} bq={bq} bk={bk}: max|err|={err:.3e} "
+              f"(tolerance {tol:.3e})"
+              + (f" FAILED: {'; '.join(failed)}" if failed else ""))
+        bad += [f"{label} {name} D={D} causal={causal}: {f}" for f in failed]
+    check(not bad, "flash_attention disagrees with its plain version: "
+          + "; ".join(bad))
+    check(FA.flash_launches == len(cases) and FA.launches == 0,
+          f"flash_attention launched {FA.flash_launches} times for "
+          f"{len(cases)} calls (paged_attention {FA.launches})")
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    iters, rec = 100, None
+    for label, BH, S, D, dtype, shared, seed in (
+            ("(a) full tier", 4, 1024, 128, f32, False, 20),
+            ("(d) gemma-2b prefill", 8, 256, 256, bf16, True, 24)):
+        q, k, v = flash_operands(dev, seed, BH, S, D, dtype, shared)
+        lib_err = float((F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True)[0].float()
+            - plain(q, k, v, True).float()).abs().max())
+        FA.reset_launches()
+        ms = time_ms(lambda: FA.flash_attention(q, k, v), iters, flush)
+        launches = FA.flash_launches
+        check(launches == iters + 3, f"{label}: flash_attention launched "
+              f"{launches} times in a timed run of {iters + 3} calls")
+        plain_ms = time_ms(lambda: plain(q, k, v, True), iters, flush)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), iters, flush)
+        bound, by, mb, mflop = flash_bound(BH, S, D, dtype, True)
+        name = str(dtype)[6:]
+        print(f"# kernel flash_attention timing [{label}] {name}, one causal "
+              f"call (BH={BH}, S={S}, D={D}, {mb:.3f} MB, {mflop:.1f} MFLOP): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library SDPA "
+              f"{sdpa_ms:.4f} ms (SDPA max|err| {lib_err:.3e}), bound "
+              f"{bound:.5f} ms ({by}), launches {launches}")
+        if rec is None:
+            rec = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:19",
+                   "launches": launches, "max_abs_err": worst, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": sdpa_ms}
+    return rec
+
+
 def phase_serve():
     """Serve gemma-2b at full width through the launcher, with B3 (kernel)
     and with the gather path; returns B3's launches on the kernel run."""
@@ -651,7 +835,8 @@ def phase_serve():
         FA.reset_launches()
         Q.reset_launches()
         res = serve.main(S_ARGS + ["--attn-impl", impl])
-        b3, b1, b2 = FA.launches, Q.launches, Q.launches_dyn
+        b3, b1, b2, b4 = (FA.launches, Q.launches, Q.launches_dyn,
+                          FA.flash_launches)
         row, steps = res["row"], res["stats"]["steps"]
         # prompt 256 is a bucket: the prefill yields token 0, then one
         # decode step per further token, all 16 requests in one batch
@@ -663,8 +848,9 @@ def phase_serve():
         check(b3 == (steps * layers if impl == "kernel" else 0),
               f"serve {impl}: paged_attention launched {b3} times in {steps} "
               f"steps of {layers} layers")
-        check(b1 == b2 == 0, f"serve {impl}: quantize_ef launched {b1}, "
-              f"quantize_ef_dyn {b2} times, expected 0")
+        check(b1 == b2 == b4 == 0, f"serve {impl}: quantize_ef launched "
+              f"{b1}, quantize_ef_dyn {b2}, flash_attention {b4} times, "
+              f"expected 0")
         print(f"# serve gemma-2b full width bf16, --attn-impl {impl}: "
               f"{row['generated']} tokens in {steps} engine steps, "
               f"{row['tokens_per_s']} tokens/s, median decode step "
@@ -825,6 +1011,7 @@ def main():
         lengths = [S_PROMPT + 1 + (ctx - S_PROMPT - 1) * i // (S_BATCH - 1)
                    for i in range(S_BATCH)]
         b3 = phase_paged_kernel(dev, scfg, lengths)
+        b4 = phase_flash_kernel(dev)
         b1["launches"] = phase_train()
         b2["launches"] = phase_train_workers(dev)
         b3["launches"] = phase_serve()
@@ -839,7 +1026,7 @@ def main():
         return 1
     print(f"# all phases passed in {time.perf_counter() - t0:.1f} s")
     print(f"# gpu: {gpu}")
-    print(json.dumps({"kernels": [b1, b2, b3]}))
+    print(json.dumps({"kernels": [b1, b2, b3, b4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

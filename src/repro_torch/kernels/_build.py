@@ -22,7 +22,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"quantize_ef": CSRC / "quantize_ef.cu",
-           "paged_attention": CSRC / "paged_attention.cu"}
+           "paged_attention": CSRC / "paged_attention.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]  # registers, shared memory and spills per kernel

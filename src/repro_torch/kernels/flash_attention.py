@@ -1,20 +1,29 @@
-"""Paged decode attention (CUDA kernel B3).
+"""Attention kernels of the port: paged decode attention (CUDA kernel B3)
+and causal flash attention (CUDA kernel B4).
 
-Counterpart of `repro.kernels.flash_attention.paged_flash_attention`,
-whose Pallas TPU kernel `_paged_kernel` it replaces: one query token per
-row, grouped GQA heads, over a paged KV pool, with an online softmax that
-reads only the row's live blocks. The kernel is
-`csrc/paged_attention.cu` (one block per (row, kv head); its note gives
-the bound), instantiated for bfloat16 (the serving path) and float32.
+`paged_flash_attention` is the counterpart of
+`repro.kernels.flash_attention.paged_flash_attention`, whose Pallas TPU
+kernel `_paged_kernel` it replaces: one query token per row, grouped GQA
+heads, over a paged KV pool, with an online softmax that reads only the
+row's live blocks. The kernel is `csrc/paged_attention.cu` (one block per
+(row, kv head); its note gives the bound), instantiated for bfloat16 (the
+serving path) and float32.
 
-Dispatch is by device: CPU tensors go to the plain version
-(`kernels.ref.paged_attention_ref`), CUDA tensors to the kernel, which
-raises on anything it does not take. There is no fallback from one to the
-other. `launches` counts the kernel's launches (CPU calls do not count);
-`reset_launches()` zeroes it.
+`flash_attention` is the counterpart of
+`repro.kernels.flash_attention.flash_attention`, whose Pallas TPU kernel
+`_flash_kernel` it replaces: causal (or full) softmax attention over
+(BH, S, D) tensors with the online softmax. The kernel is
+`csrc/flash_attention.cu`, in float32 and bfloat16. No model path of the
+JAX package calls it (its prefill is `attention_dense`), and none of the
+port does; `chip_smoke.py` holds it against its plain version and times
+it, as the JAX package's kernel benchmark does.
 
-The causal prefill kernel of the same JAX module (B4, `flash_attention`)
-is on no model path of the JAX package; it arrives with ROADMAP §B.4.
+Dispatch is by device: CPU tensors go to the plain versions
+(`kernels.ref.paged_attention_ref`, `kernels.ref.flash_attention_ref`),
+CUDA tensors to the kernels, which raise on anything they do not take.
+There is no fallback from one to the other. `launches` counts B3's
+launches and `flash_launches` B4's (CPU calls do not count);
+`reset_launches()` zeroes both.
 """
 from __future__ import annotations
 
@@ -24,19 +33,22 @@ import math
 import torch
 
 from . import _build
-from .ref import paged_attention_ref
+from .ref import flash_attention_ref, paged_attention_ref
 
 launches = 0
+flash_launches = 0
 _fns = {}
+_flash_fns = {}
 _CTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_G, MAX_GD = 8, 2048           # query heads per kv head; G·D per block
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # B3's and B4's instantiations
 MAX_SMEM = 232448                 # bytes of shared memory a block may use
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, flash_launches
     launches = 0
+    flash_launches = 0
 
 
 def _kernel(dtype):
@@ -143,3 +155,85 @@ def paged_flash_attention(q, pool_k, pool_v, table, lengths):
                                  f"an operand on {t.device}")
         return paged_attention_ref(q, pool_k, pool_v, table, lengths)
     return _launch(q, pool_k, pool_v, table, lengths)
+
+
+# --------------------------------------------------------------------------- #
+# B4: causal flash attention
+# --------------------------------------------------------------------------- #
+def _flash_kernel(dtype):
+    fn = _flash_fns.get(dtype)
+    if fn is None:
+        lib = _build.load("flash_attention")
+        fn = getattr(lib, f"flash_attention_{_CTYPES[dtype]}")
+        # q, k, v, out; BH, S, D, causal; sm_scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _flash_fns[dtype] = fn
+    return fn
+
+
+def _flash_launch(q, k, v, causal):
+    global flash_launches
+    BH, S, D = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q "
+                             f"on {q.device}; the kernel needs every operand "
+                             f"on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned (the kernel loads it 16 bytes at a "
+                             f"time)")
+    if q.dtype not in _CTYPES:
+        raise TypeError(f"flash_attention: q must be float32 or bfloat16 on "
+                        f"CUDA, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: k and v are {k.dtype}/{v.dtype}, "
+                        f"q is {q.dtype}; the kernel takes one dtype")
+    if D not in HEAD_DIMS or BH < 1 or S < 1:
+        raise ValueError(f"flash_attention: the kernel takes D in "
+                         f"{HEAD_DIMS}, BH >= 1 and S >= 1, got BH={BH}, "
+                         f"S={S}, D={D}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _flash_kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), BH, S, D, int(causal),
+                                1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc} at q {tuple(q.shape)} {q.dtype}")
+    flash_launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, bq=128, bk=128):
+    """q, k, v: (BH, S, D), batch*heads flattened, the same heads for k/v.
+    Returns (BH, S, D) in q's dtype.
+
+    `bq` and `bk` carry the JAX kernel's tiling contract (both must divide
+    S); the CUDA kernel's own tiles do not depend on them, and they change
+    nothing but float summation order."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 3:
+            raise ValueError(f"flash_attention: {name} must be (BH, S, D), "
+                             f"got shape {tuple(t.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: q, k and v must have one shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    S = q.shape[1]
+    for name, b in (("bq", bq), ("bk", bk)):
+        if not isinstance(b, int) or b < 1 or S % b:
+            raise ValueError(f"flash_attention: {name}={b!r} must be a "
+                             f"positive int dividing S={S}")
+    if q.device.type == "cpu":
+        for name, t in (("k", k), ("v", v)):
+            if t.device.type != "cpu":
+                raise ValueError(f"flash_attention: q is on the CPU, {name} "
+                                 f"on {t.device}")
+        return flash_attention_ref(q[:, :, None], k[:, :, None],
+                                   v[:, :, None], causal=causal)[:, :, 0]
+    return _flash_launch(q, k, v, causal)

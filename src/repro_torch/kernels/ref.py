@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the port's kernels: the CPU path of each
 wrapper, and the reference `chip_smoke.py` holds each kernel against.
 
-Counterpart of `repro.kernels.ref`; the reference of B4 (causal prefill
-flash attention) arrives with its kernel (ROADMAP §B)."""
+Counterpart of `repro.kernels.ref`: one plain version for each of the four
+kernels (B1 and B2 share `quantize_ef_ref`)."""
 from __future__ import annotations
 
 import math
@@ -61,3 +61,19 @@ def paged_attention_ref(q, pool_k, pool_v, table, lengths):
     # them explicitly to match the kernel's empty-loop output
     p = torch.where(lengths.to(q.device)[:, None, None, None] > 0, p, 0.0)
     return torch.einsum("bkgs,bskd->bkgd", p, cv).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """Plain version of `kernels.flash_attention.flash_attention` (B4):
+    softmax attention in float32, masked with -1e30 above the diagonal when
+    `causal`. q, k, v: (B, S, H, D) (the same H for k/v). Returns (B, S, H,
+    D) in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        S = q.shape[1]
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import quantize as Q
-from repro_torch.kernels.ref import paged_attention_ref, quantize_ef_ref
+from repro_torch.kernels.ref import (flash_attention_ref, paged_attention_ref,
+                                     quantize_ef_ref)
 
 
 def _device():
@@ -276,3 +277,71 @@ def test_engine_kernel_path_launches_b3_per_layer_per_step():
         assert launches == (eng.steps * cfg.num_layers
                             if impl == "kernel" else 0), (impl, launches)
     assert outs["kernel"] == outs["gather"]
+
+
+def _flash_operands(seed, BH, S, D, dtype, dev):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.randn(BH, S, D).astype(np.float32))
+            .to(dev, dtype) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,blk", [(24, 8), (128, 128), (1024, 128)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(S, blk, D, causal,
+                                                      dtype):
+    """B4 against its plain version on the same tensors: float32 within
+    2e-4 (the JAX test's), bfloat16 within one bf16 ulp of the output's
+    magnitude (both compute in float32 and round once)."""
+    dev = _device()
+    q, k, v = _flash_operands(S + D, 3, S, D, dtype, dev)
+    before = (FA.flash_launches, FA.launches)
+    got = FA.flash_attention(q, k, v, causal=causal, bq=blk, bk=blk)
+    assert (FA.flash_launches, FA.launches) == (before[0] + 1, before[1])
+    want = flash_attention_ref(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal)[:, :, 0]
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-4 if dtype == torch.float32 else _bf16_ulp(want.float())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_counts_only_its_launches():
+    dev = _device()
+    q, k, v = _flash_operands(1, 2, 64, 32, torch.float32, dev)
+    FA.reset_launches()
+    for _ in range(3):
+        FA.flash_attention(q, k, v, bq=32, bk=32)
+    FA.flash_attention(q.cpu(), k.cpu(), v.cpu(), bq=32, bk=32)
+    assert (FA.flash_launches, FA.launches) == (3, 0)
+    FA.reset_launches()
+    assert FA.flash_launches == 0
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    dev = _device()
+    q, k, v = _flash_operands(0, 2, 128, 64, torch.float32, dev)
+    before = FA.flash_launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="is on"):
+        FA.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="D in"):
+        FA.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="bq=48"):
+        FA.flash_attention(q, k, v, bq=48)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.zeros(q.numel() + 4, device=dev)[1:1 + q.numel()]
+        FA.flash_attention(q, shifted.view(q.shape), v)
+    assert FA.flash_launches == before

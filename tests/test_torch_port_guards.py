@@ -53,6 +53,33 @@ def test_port_imports_neither_jax_nor_repro():
         assert f"repro_torch.{mod}" in walked, mod
 
 
+# each Pallas kernel of the JAX package: (its kernel function, the port's
+# source in kernels._build.SOURCES, the C function the source exports)
+TPU_KERNELS = {
+    "B1": ("_quantize_ef_kernel", "quantize_ef", "quantize_ef_f32"),
+    "B2": ("_quantize_ef_kernel_dyn", "quantize_ef", "quantize_ef_dyn_f32"),
+    "B3": ("_paged_kernel", "paged_attention", "paged_attention_bf16"),
+    "B4": ("_flash_kernel", "flash_attention", "flash_attention_bf16"),
+}
+
+
+def test_every_tpu_kernel_has_a_cuda_source():
+    from repro_torch.kernels import _build
+    calls = 0
+    for root, _, files in os.walk(os.path.join(SRC, "repro", "kernels")):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    calls += fh.read().count("pl.pallas_call(")
+    assert calls == len(TPU_KERNELS), "a Pallas kernel is missing here"
+    for tag, (pallas_fn, name, export) in TPU_KERNELS.items():
+        src = _build.SOURCES[name]
+        assert src.suffix == ".cu" and src.is_file(), (tag, src)
+        text = src.read_text()
+        assert f"`{pallas_fn}`" in text, (tag, "the note names the kernel")
+        assert f'extern "C" int {export}(' in text, (tag, export)
+
+
 def test_no_port_source_names_jax_or_repro():
     hits = []
     for root, _, files in os.walk(PORT):
