@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the repository root; needs one GPU
+    python3 chip_smoke.py            # from the repository root; needs one GPU
+    python3 chip_smoke.py --explore  # what holds B3 and B4 back (reported)
 
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
-  1. build    every CUDA kernel of the port from its source (nvcc, parallel)
+  1. build    every CUDA kernel of the port from its source (nvcc, parallel),
+              and count each library's tensor-core (HMMA) instructions
+              where cuobjdump is present: B4's bfloat16 kernels must have
+              some
   2. kernel   hold each kernel against its plain PyTorch version on the
               card, at its path's shapes and at edge cases, and time
               both: B1 (quantize_ef, static levels) at one worker's bucket
@@ -46,13 +50,21 @@ result line):
   7. profile  device time by kernel and the device's busy share, for each
               training path and for the engine's decode step (reported)
 
+With --explore it runs none of these: it builds the kernels and reports
+what bounds B3 and B4, unchecked: the time of a call at the tiniest shapes
+(the floor), each kernel at cluster sizes 1, 2, 4, 8, B4 against SDPA at
+long sequences, and copies of each kernel with one part taken out
+(`VARIANTS`; their outputs are wrong by design, only their times count).
+
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
 the plain version's, the library call's where one computes the same
-function, and the least time the card could take (bytes over 3.35 TB/s, or
+function, the least time the card could take (bytes over 3.35 TB/s, or
 operations over 67 TFLOP/s for float32 and 989 TFLOP/s for bfloat16
-inputs, the H100 SXM data sheet's peaks). The last line is
-{"ok": true, "device": {...}}.
+inputs, the H100 SXM data sheet's peaks) and the kernel's share of it
+(bound over time). Each timing line also prints the kernel's earlier time
+on an H100 80GB HBM3 at 700 W (`WAS_MS`, PERF.md) as "was". The last line
+is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -89,6 +101,16 @@ S_ARGS = ["--arch", "gemma-2b", "--batch", str(S_BATCH), "--prompt-len",
           str(S_PROMPT), "--gen", str(S_GEN), "--device", "cuda"]
 
 
+# each timed kernel's time before its cluster-split version (PERF.md's
+# kernel table; NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this
+# run's as "was"
+WAS_MS = {"quantize_ef": 0.0242, "quantize_ef_dyn": 0.0553,
+          "paged_attention bfloat16": 0.1023,
+          "paged_attention float32": 0.1249,
+          "flash_attention (a) full tier": 0.1456,
+          "flash_attention (d) gemma-2b prefill": 0.0601}
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -105,6 +127,12 @@ def gpu_name_and_power():
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def share_and_was(key, ms, bound):
+    """`bound share x, was y ms`: the kernel's share of its bound and its
+    earlier time (WAS_MS)."""
+    return f"bound share {bound / ms:.4f}, was {WAS_MS[key]:.4f} ms"
 
 
 def time_ms(fn, iters, flush):
@@ -208,6 +236,50 @@ def phase_build():
                                   .strip())
             elif "registers" in line or "spill" in line:
                 print(f"#   {name}: {fn}: {line.strip()}")
+    tool = cuobjdump()
+    if tool is None:
+        print("# build: cuobjdump not found; tensor-core instructions not "
+              "counted")
+        return
+    for name in sorted(_build.SOURCES):
+        counts = hmma_counts(tool, _build.library_path(name))
+        print(f"# build: {name}: {sum(counts.values())} HMMA instructions "
+              f"(cuobjdump -sass)")
+        for fn, n in sorted(counts.items()):
+            if name == "flash_attention":
+                print(f"#   {name}: {fn}: {n} HMMA")
+        if name == "flash_attention":
+            bf16 = {fn: n for fn, n in counts.items() if "bf16" in fn}
+            check(bf16 and all(bf16.values()),
+                  f"flash_attention's bfloat16 kernels without tensor-core "
+                  f"instructions: {bf16}")
+
+
+def cuobjdump():
+    """The CUDA toolkit's cuobjdump, or None where it is absent."""
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    return cand if os.path.exists(cand) else None
+
+
+def hmma_counts(tool, lib):
+    """{kernel label: HMMA instructions in its SASS} of a built library."""
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib} failed: "
+          f"{out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            fn = kernel_label(line.split("Function : ")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def compare_quantize(g, e, r, levels):
@@ -317,18 +389,20 @@ def phase_kernel(dev, bucket_rows, levels_row, dyn):
     flops = 11 * n  # add, abs, max, div, mul, floor, sub, cmp, add, mul, sub
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    bound = max(t_bytes, t_ops)
     print(f"# kernel {name} timing, {len(bucket_rows)} launches "
           f"(rows {list(bucket_rows)}, levels {list(levels_row)}, {n} "
           f"elements, {nbytes / 1e6:.2f} MB): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
+          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms, "
+          f"{share_and_was(name, ms, bound)}")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/quantize_ef.cu",
             "replaces": ("src/repro/kernels/quantize.py:51" if dyn
                          else "src/repro/kernels/quantize.py:42"),
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "bound_share": bound / ms}
 
 
 def check_rows(history, steps):
@@ -598,9 +672,28 @@ def phase_paged_kernel(dev, scfg, lengths):
     B, K, G, D = S_BATCH, 1, 8, 256
     bs, maxb, NB = scfg.block_size, scfg.max_blocks_per_seq, scfg.num_blocks
     ctx = bs * maxb
+    sms = FA.sm_count(dev)
+    cluster = FA.paged_split(B, K, maxb, sms)
+    check(cluster > 1, f"paged_attention: a cluster of {cluster} CTA(s) at "
+          f"the serving shape on {sms} SMs")
     cases = [("engine", B, K, G, D, bs, maxb, NB, lengths, ())]
     cases += [("edges: L=0, 1, bs, 2bs, max_context, parked", 8, K, G, D,
                bs, maxb, NB, [0, 1, bs, 2 * bs, ctx, ctx - 7, 1, 5], (6, 7)),
+              # the serving shape's cluster: lengths ending on share
+              # boundaries, rows with fewer live blocks than CTAs
+              ("share boundaries", B, K, G, D, bs, maxb, NB,
+               [8 * bs, 16 * bs, 16 * bs - 1, 8 * bs + 1, ctx, 0, 1, 3 * bs,
+                7 * bs, 9 * bs, 2 * bs, 4 * bs + 5, 6 * bs, bs, 5, 12 * bs],
+               (14,)),
+              # a share longer than the blocks a CTA stages at once
+              ("chunked shares, MAXB 64", B, K, G, D, bs, 64, B * 64 + 1,
+               [64 * bs - 3 * i for i in range(B)], ()),
+              # B·K fills the card: a cluster of 1
+              ("cluster 1, 160 rows", 160, K, G, 64, bs, 8, 1300,
+               [(7 * i) % 128 for i in range(160)], ()),
+              # a table longer than the block's threads: not staged
+              ("MAXB 300", 3, 1, 2, 16, 4, 300, 2 * 300 + 1, [1200, 577, 0],
+               ()),
               ("the JAX test's shape", 3, 2, 2, 16, 4, 5, 12, [1, 7, 20], ()),
               ("D=64", 4, 1, 4, 64, bs, 8, 40, [9, 64, 128, 50], ()),
               ("D=128, bs=32", 3, 2, 8, 128, 32, 4, 16, [100, 128, 5], ())]
@@ -623,8 +716,12 @@ def phase_paged_kernel(dev, scfg, lengths):
             name = str(dtype)[6:]
             if label == "engine":
                 worst[dtype] = err
+            c = FA.paged_split(shape[0], shape[1], shape[5], sms)
+            chunk = FA.paged_chunk(shape[4], shape[3], got.element_size(),
+                                   shape[5], c)
             print(f"# kernel paged_attention [{label}] {name} B={shape[0]} "
                   f"K={shape[1]} G={shape[2]} D={shape[3]} bs={shape[4]} "
+                  f"MAXB={shape[5]} cluster={c} chunk={chunk} "
                   f"L={min(lens)}..{max(lens)}: max|err|={err:.3e} "
                   f"(tolerance {tol:.3e})"
                   + (f" FAILED: {'; '.join(failed)}" if failed else ""))
@@ -670,21 +767,23 @@ def phase_paged_kernel(dev, scfg, lengths):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = flops / peak * 1e3
         name = str(dtype)[6:]
+        bound = max(t_bytes, t_ops)
         print(f"# kernel paged_attention timing {name}, one launch (B={B}, "
               f"K={K}, G={G}, D={D}, bs={bs}, L={min(lengths)}..{max(lengths)}"
-              f", {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library: gather "
-              f"{gather_ms:.4f} ms + SDPA {sdpa_ms:.4f} ms (SDPA max|err| "
-              f"{lib_err:.3e}), bound {max(t_bytes, t_ops):.5f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+              f", cluster {cluster}, {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e6:.1f} MFLOP): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library: gather {gather_ms:.4f} ms + SDPA "
+              f"{sdpa_ms:.4f} ms (SDPA max|err| {lib_err:.3e}), bound "
+              f"{bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}"
+              f"), {share_and_was(f'paged_attention {name}', ms, bound)}")
         if dtype == torch.bfloat16:
             rec = {"name": "paged_attention", "route": "cuda",
                    "source": "src/repro_torch/csrc/paged_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:83",
                    "max_abs_err": worst[dtype], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                   "plain_ms": plain_ms, "bound_ms": bound,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": sdpa_ms}
+                   "library_ms": sdpa_ms, "bound_share": bound / ms}
     return rec
 
 
@@ -749,6 +848,11 @@ def phase_flash_kernel(dev):
     cases += [(f"D={D}", 2, 200, D, dt, c, 8, 8, False)
               for D in FA.HEAD_DIMS for dt in (f32, bf16)
               for c in (True, False)]
+    # below one of the kernel's tiles (and one key)
+    cases += [(label, BH, S, D, dt, c, b, b, False)
+              for label, BH, S, D, b in (("S=8, one partial tile", 2, 8, 64, 8),
+                                         ("S=1", 3, 1, 128, 1))
+              for dt in (f32, bf16) for c in (True, False)]
 
     def plain(q, k, v, causal):
         return flash_attention_ref(q[:, :, None], k[:, :, None],
@@ -776,8 +880,10 @@ def phase_flash_kernel(dev):
         if label.startswith("(a)") and causal:
             worst = err
         name = str(dtype)[6:]
+        tq, tk, c = FA.flash_split(BH, S, D, dtype, FA.sm_count(dev))
         print(f"# kernel flash_attention [{label}] {name} BH={BH} S={S} "
-              f"D={D} causal={causal} bq={bq} bk={bk}: max|err|={err:.3e} "
+              f"D={D} causal={causal} bq={bq} bk={bk} (tiles {tq}x{tk}, "
+              f"cluster {c}): max|err|={err:.3e} "
               f"(tolerance {tol:.3e})"
               + (f" FAILED: {'; '.join(failed)}" if failed else ""))
         bad += [f"{label} {name} D={D} causal={causal}: {f}" for f in failed]
@@ -806,18 +912,23 @@ def phase_flash_kernel(dev):
             q[None], k[None], v[None], is_causal=True), iters, flush)
         bound, by, mb, mflop = flash_bound(BH, S, D, dtype, True)
         name = str(dtype)[6:]
+        tq, tk, c = FA.flash_split(BH, S, D, dtype, FA.sm_count(dev))
+        longest = 4 * D * tq * -(-S // c)  # flops of the longest CTA, about
         print(f"# kernel flash_attention timing [{label}] {name}, one causal "
-              f"call (BH={BH}, S={S}, D={D}, {mb:.3f} MB, {mflop:.1f} MFLOP): "
+              f"call (BH={BH}, S={S}, D={D}, tiles {tq}x{tk}, cluster {c}, "
+              f"{BH * -(-S // tq) * c} CTAs, the longest about "
+              f"{longest / 1e6:.1f} MFLOP; {mb:.3f} MB, {mflop:.1f} MFLOP): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library SDPA "
               f"{sdpa_ms:.4f} ms (SDPA max|err| {lib_err:.3e}), bound "
-              f"{bound:.5f} ms ({by}), launches {launches}")
+              f"{bound:.5f} ms ({by}), launches {launches}, "
+              f"{share_and_was(f'flash_attention {label}', ms, bound)}")
         if rec is None:
             rec = {"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:19",
                    "launches": launches, "max_abs_err": worst, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                   "library_ms": sdpa_ms}
+                   "library_ms": sdpa_ms, "bound_share": bound / ms}
     return rec
 
 
@@ -967,6 +1078,179 @@ def phase_serve_profile(dev, steps=10):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# --explore: what holds B3 and B4 back
+# --------------------------------------------------------------------------- #
+# (source, label) -> edits of the source that take one part out of the
+# kernel; each edit must apply to the checkout's source
+VARIANTS = {
+    ("paged_attention", "without the scores"): [(
+        "for (int i0 = warp * kRowsPerWarp; i0 < nk;",
+        "for (int i0 = warp * kRowsPerWarp; i0 < 0;")],
+    ("paged_attention", "without p·v"): [(
+        "for (int i = 0; i < nk; ++i) {\n      const float vv",
+        "for (int i = 0; i < 0; ++i) {\n      const float vv")],
+    ("paged_attention", "without the merge"): [(
+        "  softmax_merge::cluster_merge<kThreads>(",
+        "  if (tid < 0) softmax_merge::cluster_merge<kThreads>(")],
+    ("paged_attention", "without the loads"): [(
+        "      cp_async16(k_sh + i * D + cv * kVec, pool_k + off);\n"
+        "      cp_async16(v_sh + i * D + cv * kVec, pool_v + off);", "")],
+    ("paged_attention", "without the table read"): [(
+        "tab_staged ? tab_sh[j0 + blk] : row_table[j0 + blk]",
+        "j0 + blk + 1")],
+    ("flash_attention", "without p_lo"): [(
+        "          mma_bf16(o[2 * n2], pl, b[0], b[1]);\n"
+        "          mma_bf16(o[2 * n2 + 1], pl, b[2], b[3]);\n", "")],
+    ("flash_attention", "without p·v"): [(
+        "for (int kk = 0; kk < BK / 16; ++kk) {",
+        "for (int kk = 0; kk < 0; ++kk) {")],
+    ("flash_attention", "without exp"): [(
+        "s[n][e] > kMask ? expf(s[n][e] - mn) : 0.0f",
+        "s[n][e] > kMask ? s[n][e] - mn : 0.0f")],
+    ("flash_attention", "without q·k"): [(
+        "for (int kd = 0; kd < D / 16; ++kd) {\n        unsigned a[4];",
+        "for (int kd = 0; kd < 0; ++kd) {\n        unsigned a[4];")],
+}
+
+
+def variant_sources(build):
+    """Write each VARIANTS copy under `build`; {(source, label): path}."""
+    from repro_torch.kernels import _build
+    out = {}
+    for (name, label), edits in VARIANTS.items():
+        text = _build.SOURCES[name].read_text()
+        for old, new in edits:
+            check(old in text, f"explore: {name} '{label}': the edit no "
+                  f"longer applies to the source")
+            text = text.replace(old, new)
+        path = os.path.join(build, f"{name}-{len(out)}.cu")
+        with open(path, "w") as fh:
+            fh.write(text)
+        out[(name, label)] = path
+    return out
+
+
+def build_variants(build):
+    """Compile every VARIANTS copy, all nvcc at once; {key: ctypes.CDLL}."""
+    import ctypes
+    from repro_torch.kernels import _build
+    os.makedirs(build, exist_ok=True)
+    procs = {}
+    for key, path in variant_sources(build).items():
+        lib = path[:-3] + ".so"
+        procs[key] = (lib, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             lib, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"explore: {key} failed to build: {log}")
+        libs[key] = ctypes.CDLL(lib)
+    return libs
+
+
+def explore(dev):
+    """Reported, not checked: the floor of a call, the cluster sweep, B4
+    against SDPA at long S, and the VARIANTS copies' times."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build_serve_config
+    _build.build_all()
+    cold = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    warm = torch.empty(16, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    one = torch.zeros(1, device=dev)
+    tiny_b3 = paged_operands(dev, 1, 1, 1, 1, 16, 16, 1, 2, [1], bf16)
+    tiny_b4 = flash_operands(dev, 1, 1, 1, 16, bf16)
+    for name, fl in (("cold", cold), ("warm", warm)):
+        add = time_ms(lambda: one.add_(1), 100, fl)
+        t3 = time_ms(lambda: FA.paged_flash_attention(*tiny_b3), 100, fl)
+        t4 = time_ms(lambda: FA.flash_attention(*tiny_b4, bq=1, bk=1), 100,
+                     fl)
+        print(f"# explore floor ({name} L2): a one-element add {add:.4f} "
+              f"ms, B3 at one row of L = 1 {t3:.4f} ms, B4 at (1, 1, 16) "
+              f"{t4:.4f} ms")
+
+    # B3 at the serving shape and B4 at (a) and (d), c = 1, 2, 4, 8; the
+    # C functions called directly, as the wrappers call them
+    scfg = build_serve_config(S_PROMPT, S_GEN, S_BATCH)
+    lengths = [S_PROMPT + 1 + (S_GEN - 2) * i // (S_BATCH - 1)
+               for i in range(S_BATCH)]
+    b3 = {dt: paged_operands(dev, 10, S_BATCH, 1, 8, 256, 16, 20,
+                             scfg.num_blocks, lengths, dt)
+          for dt in (bf16, f32)}
+    b4 = {"(a)": (flash_operands(dev, 20, 4, 1024, 128, f32), 4, 1024, 128,
+                  f32),
+          "(d)": (flash_operands(dev, 24, 8, 256, 256, bf16, True), 8, 256,
+                  256, bf16)}
+
+    def b3_call(fn, ops, c):
+        q, pk, pv, table, lens = ops
+        out = torch.empty_like(q)
+        chunk = FA.paged_chunk(16, 256, q.element_size(), 20, c)
+        return lambda: fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                          table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                          S_BATCH, 1, 8, 256, 16, 20, c, chunk, 1 / 16,
+                          stream)
+
+    def b4_call(fn, case, c):
+        (q, k, v), BH, S, D, dt = case
+        out = torch.empty_like(q)
+        bq, bk = FA.flash_tiles(dt, D)
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), BH, S, D, 1, bq, bk, c,
+                          1 / math.sqrt(D), stream)
+
+    for dt, ops in b3.items():
+        times = [time_ms(b3_call(FA._kernel(dt), ops, c), 100, cold)
+                 for c in (1, 2, 4, 8)]
+        print(f"# explore B3 {str(dt)[6:]} at the serving shape, cluster 1, "
+              f"2, 4, 8: " + " / ".join(f"{t:.4f}" for t in times) + " ms")
+    for label, case in b4.items():
+        fn = FA._flash_kernel(case[4])
+        times = [time_ms(b4_call(fn, case, c), 100, cold)
+                 for c in (1, 2, 4, 8)]
+        print(f"# explore B4 {label} {str(case[4])[6:]}, cluster 1, 2, 4, "
+              f"8: " + " / ".join(f"{t:.4f}" for t in times) + " ms")
+
+    for BH, S, D in ((16, 2048, 128), (8, 1024, 256)):
+        q, k, v = flash_operands(dev, 1, BH, S, D, bf16)
+        mflop = flash_bound(BH, S, D, bf16, True)[3]
+        ms = time_ms(lambda: FA.flash_attention(q, k, v), 50, cold)
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), 50, cold)
+        print(f"# explore B4 bf16 causal ({BH}, {S}, {D}): kernel {ms:.4f} "
+              f"ms ({mflop / ms / 1e3:.1f} TFLOP/s), SDPA {sdpa:.4f} ms "
+              f"({mflop / sdpa / 1e3:.1f} TFLOP/s)")
+
+    libs = build_variants(os.path.join(_build.build_dir(), "explore"))
+    base = {"paged_attention": (
+                "B3 bf16 at the serving shape, cluster 8",
+                b3_call(FA._kernel(bf16), b3[bf16], 8)),
+            "flash_attention": (
+                "B4 bf16 at (d), cluster 4",
+                b4_call(FA._flash_kernel(bf16), b4["(d)"], 4))}
+    for name, (what, run) in base.items():
+        print(f"# explore {what}: the kernel {time_ms(run, 100, cold):.4f} "
+              f"ms")
+    for (name, label), lib in libs.items():
+        fn = getattr(lib, f"{name}_bf16")
+        fn.argtypes = (FA._kernel if name == "paged_attention"
+                       else FA._flash_kernel)(bf16).argtypes
+        fn.restype = ctypes.c_int
+        run = (b3_call(fn, b3[bf16], 8) if name == "paged_attention"
+               else b4_call(fn, b4["(d)"], 4))
+        print(f"# explore {base[name][0]}: {label} "
+              f"{time_ms(run, 100, cold):.4f} ms")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -987,6 +1271,14 @@ def main():
     print(f"# gpu: {gpu}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--explore" in sys.argv[1:]:
+        try:
+            explore(dev)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        print(f"# gpu: {gpu}")
+        return 0
     t0 = time.perf_counter()
     try:
         phase_build()

@@ -4,8 +4,9 @@ Each source under ``repro_torch/csrc/`` compiles with plain ``nvcc`` into a
 shared library with a C interface (no PyTorch headers, so a build takes
 seconds), which is loaded with ``ctypes``. Libraries are cached under
 ``build/kernels/`` at the repository root (override with
-``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads at once.
+``REPRO_TORCH_BUILD_DIR``), named by a hash of the source, every header
+``csrc/*.cuh`` it may include, and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.
 
 Nothing builds at import time: ``load(name)`` builds on first use, and
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits.
@@ -52,10 +53,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -5,18 +5,26 @@ and causal flash attention (CUDA kernel B4).
 `repro.kernels.flash_attention.paged_flash_attention`, whose Pallas TPU
 kernel `_paged_kernel` it replaces: one query token per row, grouped GQA
 heads, over a paged KV pool, with an online softmax that reads only the
-row's live blocks. The kernel is `csrc/paged_attention.cu` (one block per
-(row, kv head); its note gives the bound), instantiated for bfloat16 (the
-serving path) and float32.
+row's live blocks. The kernel is `csrc/paged_attention.cu`, instantiated
+for bfloat16 (the serving path) and float32: a thread block cluster of
+`paged_split(...)` CTAs per (row, kv head), each over a contiguous share
+of the row's live blocks (`paged_ranges`), merged inside the cluster.
 
 `flash_attention` is the counterpart of
 `repro.kernels.flash_attention.flash_attention`, whose Pallas TPU kernel
 `_flash_kernel` it replaces: causal (or full) softmax attention over
 (BH, S, D) tensors with the online softmax. The kernel is
-`csrc/flash_attention.cu`, in float32 and bfloat16. No model path of the
-JAX package calls it (its prefill is `attention_dense`), and none of the
-port does; `chip_smoke.py` holds it against its plain version and times
-it, as the JAX package's kernel benchmark does.
+`csrc/flash_attention.cu`, float32 on CUDA cores and bfloat16 on tensor
+cores, each q tile's key range split over a cluster of `flash_split(...)`
+CTAs (`flash_ranges`). No model path of the JAX package calls it (its
+prefill is `attention_dense`), and none of the port does; `chip_smoke.py`
+holds it against its plain version and times it, as the JAX package's
+kernel benchmark does.
+
+The plan functions (cluster sizes, tiles, key ranges) are plain Python of
+the shapes and the SM count, so the CPU tests check them; the kernels
+compute the same ranges on the device (B3 from `lengths`, with no host
+sync). `csrc/softmax_merge.cuh` holds the merge both kernels share.
 
 Dispatch is by device: CPU tensors go to the plain versions
 (`kernels.ref.paged_attention_ref`, `kernels.ref.flash_attention_ref`),
@@ -39,10 +47,14 @@ launches = 0
 flash_launches = 0
 _fns = {}
 _flash_fns = {}
+_sm_counts = {}
 _CTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_G, MAX_GD = 8, 2048           # query heads per kv head; G·D per block
 HEAD_DIMS = (16, 32, 64, 128, 256)  # B3's and B4's instantiations
 MAX_SMEM = 232448                 # bytes of shared memory a block may use
+MAX_CLUSTER = 8                   # CTAs a cluster: the portable limit
+GRID_MAX = 65535                  # blocks along a grid's y or z
+PAGED_STAGE_BYTES = 96 * 1024     # keys and values a B3 CTA stages at once
 
 
 def reset_launches() -> None:
@@ -51,14 +63,116 @@ def reset_launches() -> None:
     flash_launches = 0
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
+# --------------------------------------------------------------------------- #
+# The plans: cluster sizes, tiles and key ranges of B3 and B4
+# --------------------------------------------------------------------------- #
+def paged_split(B: int, Kh: int, maxb: int, sms: int) -> int:
+    """B3's cluster size c: CTAs per (row, kv head). The largest power of
+    two up to MAX_CLUSTER (and up to MAXB, so that a CTA can own a block)
+    with B·K·c CTAs within the SM count; 1 where B·K already fills the
+    card. gemma-2b serving (B·K = 16, MAXB = 20, 132 SMs): 8, 128 CTAs."""
+    c = 1
+    while (2 * c <= MAX_CLUSTER and 2 * c <= maxb
+           and 2 * c * B * Kh <= sms):
+        c *= 2
+    return c
+
+
+def paged_ranges(lengths, bs: int, maxb: int, cluster: int):
+    """Per row, CTA r's share of the row's live blocks as a half-open range
+    of logical block indices: [r·nb/c, (r+1)·nb/c) with nb = ceil(L/bs)
+    clamped to MAXB, as the kernel computes it from `lengths`. Empty (lo ==
+    hi) for a row with L = 0 and for CTAs past the live blocks."""
+    out = []
+    for L in lengths:
+        nb = min(-(-int(L) // bs), maxb) if L > 0 else 0
+        out.append([(r * nb // cluster, (r + 1) * nb // cluster)
+                    for r in range(cluster)])
+    return out
+
+
+def paged_chunk(bs: int, D: int, esize: int, maxb: int, cluster: int) -> int:
+    """Pool blocks a B3 CTA stages at once: its whole share (at most
+    ceil(MAXB/c) blocks) where PAGED_STAGE_BYTES holds it, at least one."""
+    share = -(-maxb // cluster)
+    return max(1, min(share, PAGED_STAGE_BYTES // (2 * bs * D * esize)))
+
+
+def paged_smem(G: int, D: int, bs: int, chunk: int, esize: int) -> int:
+    """Shared memory of one B3 CTA in bytes (csrc `smem_bytes`): `chunk`
+    blocks of keys and values, the partial acc and the scores (MAX_G a key)
+    in f32, per-head m, l, alpha and the merge weights, and the row's table
+    entries (up to the block's 256 threads)."""
+    return (2 * esize * chunk * bs * D
+            + 4 * (G * D + MAX_G * chunk * bs + 3 * MAX_G
+                   + MAX_G * (MAX_CLUSTER + 1)) + 4 * 256)
+
+
+def flash_tiles(dtype, D: int):
+    """(BQ, BK) of B4's kernel for `dtype` and head dim D: bfloat16 on tensor
+    cores, 4 warps of 16 q rows, 64 keys (32 at D = 256); float32 on CUDA
+    cores, 32 q rows, 64 keys (32 at D >= 128)."""
+    if dtype == torch.bfloat16:
+        return 64, (32 if D == 256 else 64)
+    return 32, (32 if D >= 128 else 64)
+
+
+def flash_split(BH: int, S: int, D: int, dtype, sms: int):
+    """(BQ, BK, c) of one B4 call: the kernel's tiles and the cluster size,
+    CTAs per q tile. c doubles (up to MAX_CLUSTER) while BH·ceil(S/BQ)·c is
+    below twice the SM count, so the grid fills the card about twice, and
+    while the longest q tile keeps at least two key tiles a CTA (each CTA
+    loads its q tile and merges: a CTA of one key tile is mostly
+    overhead); the longest CTA then does about 1/c of the longest q tile's
+    keys. Causal or not, the cluster is the same; the ranges differ
+    (`flash_ranges`)."""
+    bq, bk = flash_tiles(dtype, D)
+    tiles = BH * -(-S // bq)
+    kt_max = -(-S // bk)
+    c = 1
+    while (2 * c <= MAX_CLUSTER and 4 * c <= kt_max
+           and tiles * c < 2 * sms):
+        c *= 2
+    return bq, bk, c
+
+
+def flash_ranges(S: int, bq: int, bk: int, cluster: int, causal: bool):
+    """Per q tile (rows [t·BQ, min(S, (t+1)·BQ))), CTA r's keys as a
+    half-open range: key tiles [r·nkt/c, (r+1)·nkt/c) of the tile's keys
+    [0, kend), kend = min(S, (t+1)·BQ) when causal, else S; as the kernel
+    computes them. Key tiles above the diagonal belong to no CTA."""
+    out = []
+    for t in range(-(-S // bq)):
+        kend = min(S, (t + 1) * bq) if causal else S
+        nkt = -(-kend // bk)
+        out.append([(min(kend, (r * nkt // cluster) * bk),
+                     min(kend, ((r + 1) * nkt // cluster) * bk))
+                    for r in range(cluster)])
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# B3: paged decode attention
+# --------------------------------------------------------------------------- #
 def _kernel(dtype):
     fn = _fns.get(dtype)
     if fn is None:
         lib = _build.load("paged_attention")
         fn = getattr(lib, f"paged_attention_{_CTYPES[dtype]}")
-        # q, pool_k, pool_v, table, lengths, out; B, K, G, D, bs, MAXB;
-        # sm_scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        # q, pool_k, pool_v, table, lengths, out; B, K, G, D, bs, MAXB,
+        # cluster, chunk; sm_scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
@@ -108,15 +222,19 @@ def _launch(q, pool_k, pool_v, table, lengths):
     if table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"paged_flash_attention: table and lengths must be "
                         f"int32, got {table.dtype} and {lengths.dtype}")
-    if B < 1 or G > MAX_G or G * D > MAX_GD or D not in HEAD_DIMS:
-        raise ValueError(f"paged_flash_attention: the kernel takes B >= 1, "
-                         f"G <= {MAX_G}, D in {HEAD_DIMS} and G*D <= "
-                         f"{MAX_GD}, got B={B}, G={G}, D={D}")
+    if (not 1 <= B <= GRID_MAX or Kh > GRID_MAX or G > MAX_G
+            or G * D > MAX_GD or D not in HEAD_DIMS):
+        raise ValueError(f"paged_flash_attention: the kernel takes 1 <= B "
+                         f"<= {GRID_MAX}, K <= {GRID_MAX}, G <= {MAX_G}, D "
+                         f"in {HEAD_DIMS} and G*D <= {MAX_GD}, got B={B}, "
+                         f"K={Kh}, G={G}, D={D}")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("paged_flash_attention: the pools must be 16-byte "
                          "aligned (the kernel loads them 16 bytes at a time)")
-    smem = (2 * q.element_size() * bs * D + 4 * (G * D + G * bs)
-            + 12 * MAX_G)
+    maxb = table.shape[1]
+    cluster = paged_split(B, Kh, maxb, sm_count(q.device))
+    chunk = paged_chunk(bs, D, q.element_size(), maxb, cluster)
+    smem = paged_smem(G, D, bs, chunk, q.element_size())
     if smem > MAX_SMEM:
         raise ValueError(f"paged_flash_attention: a block of bs={bs} x D={D} "
                          f"needs {smem} B of shared memory, more than "
@@ -125,13 +243,14 @@ def _launch(q, pool_k, pool_v, table, lengths):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel(q.dtype)(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                           table.data_ptr(), lengths.data_ptr(),
-                          out.data_ptr(), B, Kh, G, D, bs, table.shape[1],
-                          1.0 / math.sqrt(D), stream)
+                          out.data_ptr(), B, Kh, G, D, bs, maxb, cluster,
+                          chunk, 1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{rc} at q {tuple(q.shape)}, pool "
                            f"{tuple(pool_k.shape)}, table "
-                           f"{tuple(table.shape)}")
+                           f"{tuple(table.shape)}, cluster {cluster}, chunk "
+                           f"{chunk}")
     launches += 1
     return out
 
@@ -165,8 +284,8 @@ def _flash_kernel(dtype):
     if fn is None:
         lib = _build.load("flash_attention")
         fn = getattr(lib, f"flash_attention_{_CTYPES[dtype]}")
-        # q, k, v, out; BH, S, D, causal; sm_scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        # q, k, v, out; BH, S, D, causal, BQ, BK, cluster; sm_scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _flash_fns[dtype] = fn
@@ -193,18 +312,22 @@ def _flash_launch(q, k, v, causal):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: k and v are {k.dtype}/{v.dtype}, "
                         f"q is {q.dtype}; the kernel takes one dtype")
-    if D not in HEAD_DIMS or BH < 1 or S < 1:
+    if (D not in HEAD_DIMS or not 1 <= BH <= GRID_MAX or S < 1
+            or -(-S // flash_tiles(q.dtype, D)[0]) > GRID_MAX):
         raise ValueError(f"flash_attention: the kernel takes D in "
-                         f"{HEAD_DIMS}, BH >= 1 and S >= 1, got BH={BH}, "
+                         f"{HEAD_DIMS}, 1 <= BH <= {GRID_MAX} and 1 <= S "
+                         f"with at most {GRID_MAX} q tiles, got BH={BH}, "
                          f"S={S}, D={D}")
+    bq, bk, cluster = flash_split(BH, S, D, q.dtype, sm_count(q.device))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _flash_kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), BH, S, D, int(causal),
-                                1.0 / math.sqrt(D), stream)
+                                out.data_ptr(), BH, S, D, int(causal), bq,
+                                bk, cluster, 1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} at q {tuple(q.shape)} {q.dtype}")
+                           f"error {rc} at q {tuple(q.shape)} {q.dtype}, "
+                           f"tiles {bq}x{bk}, cluster {cluster}")
     flash_launches += 1
     return out
 

@@ -215,6 +215,83 @@ def test_paged_attention_kernel_matches_plain_version(case, dtype):
             assert float(got[b].abs().max()) == 0.0
 
 
+def _check_paged(ops, dtype, lengths):
+    before = FA.launches
+    got = FA.paged_flash_attention(*ops)
+    assert FA.launches == before + 1
+    want = paged_attention_ref(*ops)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-5 if dtype == torch.float32 else _bf16_ulp(want.float())
+    assert err <= tol, (err, tol)
+    for b, L in enumerate(lengths):
+        if L == 0:
+            assert float(got[b].abs().max()) == 0.0
+
+
+# the split of a row's blocks over a cluster (8 CTAs a row at 16 rows, 20
+# blocks a row): (label, B, MAXB, lengths, parked rows)
+SPLIT_CASES = [
+    ("share boundaries", 16, 20,
+     [128, 256, 255, 129, 320, 0, 1, 48, 112, 144, 32, 69, 96, 16, 5, 192],
+     (14,)),
+    ("fewer blocks than CTAs", 16, 20, [1 + 7 * i for i in range(16)], ()),
+    ("MAXB 13, not a multiple of the share", 16, 13,
+     [208 - 13 * i for i in range(16)], (3,)),
+    ("shares longer than a stage", 16, 64, [1024 - 61 * i for i in range(16)],
+     ()),
+    ("cluster of 1", 140, 4, [(5 * i) % 65 for i in range(140)], (7,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_paged_attention_kernel_split_edges(case, dtype):
+    """B3's cluster split at its edges, gemma-2b's heads (K = 1, G = 8, D =
+    256, bs = 16): the same tolerances as above."""
+    dev = _device()
+    _, B, maxb, lengths, parked = case
+    ops = _paged_operands(B + maxb, B, 1, 8, 256, 16, maxb, lengths, dtype,
+                          dev, parked=parked)
+    _check_paged(ops, dtype, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+def test_paged_attention_kernel_every_head_dim(D, dtype):
+    dev = _device()
+    lengths = [0, 1, 64, 65, 33, 128]
+    ops = _paged_operands(D, 6, 2, 4, D, 16, 8, lengths, dtype, dev,
+                          parked=(5,))
+    _check_paged(ops, dtype, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_table_past_256_entries(dtype):
+    """A row table longer than the block's threads is read from device
+    memory, not staged."""
+    dev = _device()
+    lengths = [1200, 577, 0]
+    ops = _paged_operands(3, 3, 1, 2, 16, 4, 300, lengths, dtype, dev)
+    _check_paged(ops, dtype, lengths)
+
+
+@pytest.mark.cuda
+def test_paged_attention_kernel_two_calls_with_different_batch():
+    """Nothing carries over between calls: two batches in a row (clusters
+    of 8, then of 1) each match their plain version."""
+    dev = _device()
+    for B in (16, 150, 16):
+        lengths = [(37 * i) % 320 for i in range(B)]
+        ops = _paged_operands(B, B, 1, 8, 256, 16, 20, lengths,
+                              torch.bfloat16, dev)
+        _check_paged(ops, torch.bfloat16, lengths)
+
+
 @pytest.mark.cuda
 def test_paged_attention_kernel_refuses_what_it_does_not_take():
     dev = _device()
@@ -304,6 +381,27 @@ def test_flash_attention_kernel_matches_plain_version(S, blk, D, causal,
                                causal=causal)[:, :, 0]
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-4 if dtype == torch.float32 else _bf16_ulp(want.float())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,blk", [(1, 1), (8, 8), (24, 8)])
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_below_one_tile(S, blk, D, causal, dtype):
+    """S below one of the kernel's tiles (and S = 24 with the JAX kernel's
+    8-row tiles) at every head dim: the tolerances above."""
+    dev = _device()
+    q, k, v = _flash_operands(S + D, 2, S, D, dtype, dev)
+    before = FA.flash_launches
+    got = FA.flash_attention(q, k, v, causal=causal, bq=blk, bk=blk)
+    assert FA.flash_launches == before + 1
+    want = flash_attention_ref(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal)[:, :, 0]
+    torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = 2e-4 if dtype == torch.float32 else _bf16_ulp(want.float())
     assert err <= tol, (err, tol)
