@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # from the repository root; needs one GPU
-    python3 chip_smoke.py --explore  # what holds B3 and B4 back (reported)
+    python3 chip_smoke.py          # from the repository root; needs one GPU
 
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
@@ -49,12 +48,6 @@ result line):
               gather-path tokens, engine tokens equal to sequential ones
   7. profile  device time by kernel and the device's busy share, for each
               training path and for the engine's decode step (reported)
-
-With --explore it runs none of these: it builds the kernels and reports
-what bounds B3 and B4, unchecked: the time of a call at the tiniest shapes
-(the floor), each kernel at cluster sizes 1, 2, 4, 8, B4 against SDPA at
-long sequences, and copies of each kernel with one part taken out
-(`VARIANTS`; their outputs are wrong by design, only their times count).
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -880,7 +873,8 @@ def phase_flash_kernel(dev):
         if label.startswith("(a)") and causal:
             worst = err
         name = str(dtype)[6:]
-        tq, tk, c = FA.flash_split(BH, S, D, dtype, FA.sm_count(dev))
+        tq, tk = FA.flash_tiles(dtype, D)
+        c = FA.flash_split(BH, S, tq, tk, FA.sm_count(dev))
         print(f"# kernel flash_attention [{label}] {name} BH={BH} S={S} "
               f"D={D} causal={causal} bq={bq} bk={bk} (tiles {tq}x{tk}, "
               f"cluster {c}): max|err|={err:.3e} "
@@ -912,7 +906,8 @@ def phase_flash_kernel(dev):
             q[None], k[None], v[None], is_causal=True), iters, flush)
         bound, by, mb, mflop = flash_bound(BH, S, D, dtype, True)
         name = str(dtype)[6:]
-        tq, tk, c = FA.flash_split(BH, S, D, dtype, FA.sm_count(dev))
+        tq, tk = FA.flash_tiles(dtype, D)
+        c = FA.flash_split(BH, S, tq, tk, FA.sm_count(dev))
         longest = 4 * D * tq * -(-S // c)  # flops of the longest CTA, about
         print(f"# kernel flash_attention timing [{label}] {name}, one causal "
               f"call (BH={BH}, S={S}, D={D}, tiles {tq}x{tk}, cluster {c}, "
@@ -1078,179 +1073,6 @@ def phase_serve_profile(dev, steps=10):
     torch.cuda.empty_cache()
 
 
-# --------------------------------------------------------------------------- #
-# --explore: what holds B3 and B4 back
-# --------------------------------------------------------------------------- #
-# (source, label) -> edits of the source that take one part out of the
-# kernel; each edit must apply to the checkout's source
-VARIANTS = {
-    ("paged_attention", "without the scores"): [(
-        "for (int i0 = warp * kRowsPerWarp; i0 < nk;",
-        "for (int i0 = warp * kRowsPerWarp; i0 < 0;")],
-    ("paged_attention", "without p·v"): [(
-        "for (int i = 0; i < nk; ++i) {\n      const float vv",
-        "for (int i = 0; i < 0; ++i) {\n      const float vv")],
-    ("paged_attention", "without the merge"): [(
-        "  softmax_merge::cluster_merge<kThreads>(",
-        "  if (tid < 0) softmax_merge::cluster_merge<kThreads>(")],
-    ("paged_attention", "without the loads"): [(
-        "      cp_async16(k_sh + i * D + cv * kVec, pool_k + off);\n"
-        "      cp_async16(v_sh + i * D + cv * kVec, pool_v + off);", "")],
-    ("paged_attention", "without the table read"): [(
-        "tab_staged ? tab_sh[j0 + blk] : row_table[j0 + blk]",
-        "j0 + blk + 1")],
-    ("flash_attention", "without p_lo"): [(
-        "          mma_bf16(o[2 * n2], pl, b[0], b[1]);\n"
-        "          mma_bf16(o[2 * n2 + 1], pl, b[2], b[3]);\n", "")],
-    ("flash_attention", "without p·v"): [(
-        "for (int kk = 0; kk < BK / 16; ++kk) {",
-        "for (int kk = 0; kk < 0; ++kk) {")],
-    ("flash_attention", "without exp"): [(
-        "s[n][e] > kMask ? expf(s[n][e] - mn) : 0.0f",
-        "s[n][e] > kMask ? s[n][e] - mn : 0.0f")],
-    ("flash_attention", "without q·k"): [(
-        "for (int kd = 0; kd < D / 16; ++kd) {\n        unsigned a[4];",
-        "for (int kd = 0; kd < 0; ++kd) {\n        unsigned a[4];")],
-}
-
-
-def variant_sources(build):
-    """Write each VARIANTS copy under `build`; {(source, label): path}."""
-    from repro_torch.kernels import _build
-    out = {}
-    for (name, label), edits in VARIANTS.items():
-        text = _build.SOURCES[name].read_text()
-        for old, new in edits:
-            check(old in text, f"explore: {name} '{label}': the edit no "
-                  f"longer applies to the source")
-            text = text.replace(old, new)
-        path = os.path.join(build, f"{name}-{len(out)}.cu")
-        with open(path, "w") as fh:
-            fh.write(text)
-        out[(name, label)] = path
-    return out
-
-
-def build_variants(build):
-    """Compile every VARIANTS copy, all nvcc at once; {key: ctypes.CDLL}."""
-    import ctypes
-    from repro_torch.kernels import _build
-    os.makedirs(build, exist_ok=True)
-    procs = {}
-    for key, path in variant_sources(build).items():
-        lib = path[:-3] + ".so"
-        procs[key] = (lib, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-             lib, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for key, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"explore: {key} failed to build: {log}")
-        libs[key] = ctypes.CDLL(lib)
-    return libs
-
-
-def explore(dev):
-    """Reported, not checked: the floor of a call, the cluster sweep, B4
-    against SDPA at long S, and the VARIANTS copies' times."""
-    import ctypes
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.serve import build_serve_config
-    _build.build_all()
-    cold = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    warm = torch.empty(16, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16, f32 = torch.bfloat16, torch.float32
-
-    one = torch.zeros(1, device=dev)
-    tiny_b3 = paged_operands(dev, 1, 1, 1, 1, 16, 16, 1, 2, [1], bf16)
-    tiny_b4 = flash_operands(dev, 1, 1, 1, 16, bf16)
-    for name, fl in (("cold", cold), ("warm", warm)):
-        add = time_ms(lambda: one.add_(1), 100, fl)
-        t3 = time_ms(lambda: FA.paged_flash_attention(*tiny_b3), 100, fl)
-        t4 = time_ms(lambda: FA.flash_attention(*tiny_b4, bq=1, bk=1), 100,
-                     fl)
-        print(f"# explore floor ({name} L2): a one-element add {add:.4f} "
-              f"ms, B3 at one row of L = 1 {t3:.4f} ms, B4 at (1, 1, 16) "
-              f"{t4:.4f} ms")
-
-    # B3 at the serving shape and B4 at (a) and (d), c = 1, 2, 4, 8; the
-    # C functions called directly, as the wrappers call them
-    scfg = build_serve_config(S_PROMPT, S_GEN, S_BATCH)
-    lengths = [S_PROMPT + 1 + (S_GEN - 2) * i // (S_BATCH - 1)
-               for i in range(S_BATCH)]
-    b3 = {dt: paged_operands(dev, 10, S_BATCH, 1, 8, 256, 16, 20,
-                             scfg.num_blocks, lengths, dt)
-          for dt in (bf16, f32)}
-    b4 = {"(a)": (flash_operands(dev, 20, 4, 1024, 128, f32), 4, 1024, 128,
-                  f32),
-          "(d)": (flash_operands(dev, 24, 8, 256, 256, bf16, True), 8, 256,
-                  256, bf16)}
-
-    def b3_call(fn, ops, c):
-        q, pk, pv, table, lens = ops
-        out = torch.empty_like(q)
-        chunk = FA.paged_chunk(16, 256, q.element_size(), 20, c)
-        return lambda: fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                          table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                          S_BATCH, 1, 8, 256, 16, 20, c, chunk, 1 / 16,
-                          stream)
-
-    def b4_call(fn, case, c):
-        (q, k, v), BH, S, D, dt = case
-        out = torch.empty_like(q)
-        bq, bk = FA.flash_tiles(dt, D)
-        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), BH, S, D, 1, bq, bk, c,
-                          1 / math.sqrt(D), stream)
-
-    for dt, ops in b3.items():
-        times = [time_ms(b3_call(FA._kernel(dt), ops, c), 100, cold)
-                 for c in (1, 2, 4, 8)]
-        print(f"# explore B3 {str(dt)[6:]} at the serving shape, cluster 1, "
-              f"2, 4, 8: " + " / ".join(f"{t:.4f}" for t in times) + " ms")
-    for label, case in b4.items():
-        fn = FA._flash_kernel(case[4])
-        times = [time_ms(b4_call(fn, case, c), 100, cold)
-                 for c in (1, 2, 4, 8)]
-        print(f"# explore B4 {label} {str(case[4])[6:]}, cluster 1, 2, 4, "
-              f"8: " + " / ".join(f"{t:.4f}" for t in times) + " ms")
-
-    for BH, S, D in ((16, 2048, 128), (8, 1024, 256)):
-        q, k, v = flash_operands(dev, 1, BH, S, D, bf16)
-        mflop = flash_bound(BH, S, D, bf16, True)[3]
-        ms = time_ms(lambda: FA.flash_attention(q, k, v), 50, cold)
-        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True), 50, cold)
-        print(f"# explore B4 bf16 causal ({BH}, {S}, {D}): kernel {ms:.4f} "
-              f"ms ({mflop / ms / 1e3:.1f} TFLOP/s), SDPA {sdpa:.4f} ms "
-              f"({mflop / sdpa / 1e3:.1f} TFLOP/s)")
-
-    libs = build_variants(os.path.join(_build.build_dir(), "explore"))
-    base = {"paged_attention": (
-                "B3 bf16 at the serving shape, cluster 8",
-                b3_call(FA._kernel(bf16), b3[bf16], 8)),
-            "flash_attention": (
-                "B4 bf16 at (d), cluster 4",
-                b4_call(FA._flash_kernel(bf16), b4["(d)"], 4))}
-    for name, (what, run) in base.items():
-        print(f"# explore {what}: the kernel {time_ms(run, 100, cold):.4f} "
-              f"ms")
-    for (name, label), lib in libs.items():
-        fn = getattr(lib, f"{name}_bf16")
-        fn.argtypes = (FA._kernel if name == "paged_attention"
-                       else FA._flash_kernel)(bf16).argtypes
-        fn.restype = ctypes.c_int
-        run = (b3_call(fn, b3[bf16], 8) if name == "paged_attention"
-               else b4_call(fn, b4["(d)"], 4))
-        print(f"# explore {base[name][0]}: {label} "
-              f"{time_ms(run, 100, cold):.4f} ms")
-
-
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1271,14 +1093,6 @@ def main():
     print(f"# gpu: {gpu}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if "--explore" in sys.argv[1:]:
-        try:
-            explore(dev)
-        except SmokeFailure as e:
-            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
-            return 1
-        print(f"# gpu: {gpu}")
-        return 0
     t0 = time.perf_counter()
     try:
         phase_build()

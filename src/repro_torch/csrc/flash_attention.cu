@@ -17,8 +17,9 @@
 //     l' = l * a + sum p;  acc' = acc * a + p @ v
 //     out = acc / max(l, 1e-20)
 // A masked key contributes p = 0, so a row never computes -inf - (-inf).
-// The kernel's tiles are its own (BQ query rows, BK keys); the JAX tile
-// sizes bq/bk change nothing but float summation order.
+// The kernel's tiles are its own (BQ query rows, BK keys; exported by
+// `flash_attention_tiles` for the wrapper's plan); the JAX tile sizes
+// bq/bk change nothing but float summation order.
 //
 // Bound: operations at the shapes that call it. A causal (BH, S, D) call
 // does 4·D·S(S+1)/2·BH flops (q·k and p·v over the lower triangle) and
@@ -53,12 +54,13 @@
 //   that two CTAs fit an SM); each thread a 4-row × BK/16-key block of the
 //   scores and 4 rows × D/16 columns of the output.
 //
-// What holds it back (PERF.md, H100 80GB HBM3 at 700 W): the bf16 kernel
-// reaches about a third of SDPA's rate at long S. A key tile's chain
-// (wait for its load, q·k, softmax, p·v, barrier) is latency: copies
-// without p·v, without q·k or without exp took 80-93 % of the time. At
-// gemma-2b's prefill shape about half of the call is its floor (launch,
-// cluster scheduling and syncs, the q tile's load, the merge).
+// What holds it back (PERF.md, H100 80GB HBM3 at 700 W; measured by
+// `python -m repro_torch.kernels.probe`): the bf16 kernel reaches about a
+// third of SDPA's rate at long S, where a key tile's chain (wait for its
+// load, q·k, softmax, p·v, barrier) runs with one or two warps a
+// scheduler and nothing else in flight. At gemma-2b's prefill shape about
+// half of the call is the floor of a call (launch, cluster scheduling and
+// syncs, the q tile's load, the merge).
 //
 // The operands must be 16-byte aligned. Built without --use_fast_math:
 // expf and IEEE division.
@@ -610,12 +612,8 @@ struct Kernel<__nv_bfloat16, D> {
 
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, T* out, int BH, int S,
-             int causal, int bq, int bk, int cluster, float sm_scale,
-             cudaStream_t stream) {
+             int causal, int cluster, float sm_scale, cudaStream_t stream) {
   using Tile = typename Kernel<T, D>::Tile;
-  // the wrapper's plan must have been made for this kernel's tiles
-  if (bq != Tile::BQ || bk != Tile::BK)
-    return static_cast<int>(cudaErrorInvalidValue);
   const int nq = (S + Tile::BQ - 1) / Tile::BQ;
   if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
   return softmax_merge::launch_cluster(Kernel<T, D>::fn,
@@ -627,8 +625,7 @@ int launch_d(const T* q, const T* k, const T* v, T* out, int BH, int S,
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* out, int BH, int S, int D,
-           int causal, int bq, int bk, int cluster, float sm_scale,
-           void* stream) {
+           int causal, int cluster, float sm_scale, void* stream) {
   if (BH <= 0 || BH > 65535 || S <= 0 || cluster < 1 ||
       cluster > softmax_merge::kMaxCluster || D % cluster ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -638,48 +635,76 @@ int launch(const T* q, const T* k, const T* v, T* out, int BH, int S, int D,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_d<T, 16>(q, k, v, out, BH, S, causal, bq, bk, cluster,
+      return launch_d<T, 16>(q, k, v, out, BH, S, causal, cluster,
                              sm_scale, st);
     case 32:
-      return launch_d<T, 32>(q, k, v, out, BH, S, causal, bq, bk, cluster,
+      return launch_d<T, 32>(q, k, v, out, BH, S, causal, cluster,
                              sm_scale, st);
     case 64:
-      return launch_d<T, 64>(q, k, v, out, BH, S, causal, bq, bk, cluster,
+      return launch_d<T, 64>(q, k, v, out, BH, S, causal, cluster,
                              sm_scale, st);
     case 128:
-      return launch_d<T, 128>(q, k, v, out, BH, S, causal, bq, bk, cluster,
+      return launch_d<T, 128>(q, k, v, out, BH, S, causal, cluster,
                               sm_scale, st);
     case 256:
-      return launch_d<T, 256>(q, k, v, out, BH, S, causal, bq, bk, cluster,
+      return launch_d<T, 256>(q, k, v, out, BH, S, causal, cluster,
                               sm_scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int D>
+int tiles_d(int* bq, int* bk) {
+  *bq = Kernel<T, D>::Tile::BQ;
+  *bk = Kernel<T, D>::Tile::BK;
+  return 0;
+}
+
+template <typename T>
+int tiles(int D, int* bq, int* bk) {
+  switch (D) {
+    case 16: return tiles_d<T, 16>(bq, bk);
+    case 32: return tiles_d<T, 32>(bq, bk);
+    case 64: return tiles_d<T, 64>(bq, bk);
+    case 128: return tiles_d<T, 128>(bq, bk);
+    case 256: return tiles_d<T, 256>(bq, bk);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// The kernel's tiles for an element size (4: f32, 2: bf16) and head dim
+// D: BQ query rows and BK keys, which the wrapper's plan (`flash_split`)
+// reads from here. Returns 0, or cudaErrorInvalidValue for a size or head
+// dim the kernel is not built for.
+extern "C" int flash_attention_tiles(int esize, int D, int* bq, int* bk) {
+  if (esize == 4) return tiles<float>(D, bq, bk);
+  if (esize == 2) return tiles<__nv_bfloat16>(D, bq, bk);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // C interface. Pointers are device pointers of contiguous (BH, S, D)
 // arrays (the Python wrapper checks shapes, types, devices, contiguity
-// and alignment). `causal` is 0 or 1; `bq`, `bk` and `cluster` come from
-// the wrapper's plan (`flash_split`): the tiles must be this kernel's, the
-// cluster 1..8 CTAs a q tile. `stream` is a cudaStream_t. Each returns the
-// launch's error: 0 when the kernel was accepted.
+// and alignment). `causal` is 0 or 1; `cluster` comes from the wrapper's
+// plan (`flash_split`): 1..8 CTAs a q tile, dividing D. `stream` is a
+// cudaStream_t. Each returns the launch's error: 0 when the kernel was
+// accepted.
 
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* out, int BH, int S,
-                                   int D, int causal, int bq, int bk,
-                                   int cluster, float sm_scale,
-                                   void* stream) {
-  return launch<float>(q, k, v, out, BH, S, D, causal, bq, bk, cluster,
-                       sm_scale, stream);
+                                   int D, int causal, int cluster,
+                                   float sm_scale, void* stream) {
+  return launch<float>(q, k, v, out, BH, S, D, causal, cluster, sm_scale,
+                       stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v,
                                     __nv_bfloat16* out, int BH, int S, int D,
-                                    int causal, int bq, int bk, int cluster,
-                                    float sm_scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, BH, S, D, causal, bq, bk,
-                               cluster, sm_scale, stream);
+                                    int causal, int cluster, float sm_scale,
+                                    void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, BH, S, D, causal, cluster,
+                               sm_scale, stream);
 }

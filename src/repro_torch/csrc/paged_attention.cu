@@ -47,10 +47,11 @@
 // one launch per layer per decode step, no workspace. The math stays on
 // CUDA cores (16 flops a byte needs no tensor cores).
 //
-// What holds it back (PERF.md, H100 80GB HBM3 at 700 W): a chain of small
-// dependent steps (length and table, loads, scores, softmax, p·v, merge),
-// each 1.5-3 us, over a floor of about 10 us a call (launch, cluster
-// scheduling and syncs); the bytes alone would take 1.5 us.
+// What holds it back (PERF.md, H100 80GB HBM3 at 700 W; measured by
+// `python -m repro_torch.kernels.probe`): a chain of small dependent steps
+// (length and table, loads, scores, softmax, p·v, merge) over a floor of
+// about 9 us a call (launch, cluster scheduling and syncs); the bytes
+// alone would take 1.5 us.
 //
 // Table entries must be pool block ids (the engine's allocator writes
 // them); the live block count is clamped to MAXB. The pools must be
@@ -93,10 +94,9 @@ __device__ __forceinline__ float warp_max(float v) {
 // Shared memory of one CTA, in bytes: `chunk` blocks of keys and values in
 // their own type, the partial acc and the scores (kMaxG a key) in f32, the
 // per-head m, l, alpha and merge weights, and up to kThreads table entries.
-template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int G, int D, int bs,
-                                                int chunk) {
-  return 2 * sizeof(T) * static_cast<size_t>(chunk) * bs * D +
+// `esize` is the pools' element size.
+constexpr size_t smem_bytes(int esize, int G, int D, int bs, int chunk) {
+  return 2 * static_cast<size_t>(esize) * chunk * bs * D +
          sizeof(float) * (static_cast<size_t>(G) * D +
                           static_cast<size_t>(kMaxG) * chunk * bs +
                           3 * kMaxG + kMaxG * kW) +
@@ -326,7 +326,7 @@ int launch_d(const T* q, const T* pool_k, const T* pool_v, const int* table,
              const int* lengths, T* out, int B, int Kh, int G, int bs,
              int maxb, int cluster, int chunk, float sm_scale,
              cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(G, D, bs, chunk);
+  const size_t smem = smem_bytes(sizeof(T), G, D, bs, chunk);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   return softmax_merge::launch_cluster(
       paged_decode<T, D>, dim3(cluster, Kh, B), kThreads, smem, stream,
@@ -366,6 +366,19 @@ int launch(const T* q, const T* pool_k, const T* pool_v, const int* table,
 }
 
 }  // namespace
+
+// Shared memory of one CTA in bytes, for pools of `esize`-byte elements
+// (4: f32, 2: bf16) and `chunk` pool blocks staged at once; -1 where that
+// is more than a block may use, which the launch refuses. The wrapper
+// checks its plan (`paged_chunk`) with it before the launch.
+extern "C" long long paged_attention_smem(int esize, int G, int D, int bs,
+                                          int chunk) {
+  if ((esize != 2 && esize != 4) || G <= 0 || D <= 0 || bs <= 0 ||
+      chunk <= 0)
+    return -1;
+  const size_t smem = smem_bytes(esize, G, D, bs, chunk);
+  return smem > kMaxSmem ? -1 : static_cast<long long>(smem);
+}
 
 // C interface. Pointers are device pointers of contiguous arrays with the
 // shapes above (the Python wrapper checks shapes, types, devices and

@@ -21,10 +21,14 @@ prefill is `attention_dense`), and none of the port does; `chip_smoke.py`
 holds it against its plain version and times it, as the JAX package's
 kernel benchmark does.
 
-The plan functions (cluster sizes, tiles, key ranges) are plain Python of
-the shapes and the SM count, so the CPU tests check them; the kernels
-compute the same ranges on the device (B3 from `lengths`, with no host
-sync). `csrc/softmax_merge.cuh` holds the merge both kernels share.
+The plan functions (cluster sizes, key ranges) are plain Python of the
+shapes, the kernel's tiles and the SM count, so the CPU tests check them;
+the kernels compute the same ranges on the device (B3 from `lengths`, with
+no host sync). The tiles and the shared-memory layout belong to the CUDA
+sources, which export them (`flash_attention_tiles`,
+`paged_attention_smem`); a wrapper makes its plan once per shape and
+device and keeps it. `csrc/softmax_merge.cuh` holds the merge both kernels
+share.
 
 Dispatch is by device: CPU tensors go to the plain versions
 (`kernels.ref.paged_attention_ref`, `kernels.ref.flash_attention_ref`),
@@ -47,11 +51,11 @@ launches = 0
 flash_launches = 0
 _fns = {}
 _flash_fns = {}
-_sm_counts = {}
+_paged_plans = {}
+_flash_plans = {}
 _CTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_G, MAX_GD = 8, 2048           # query heads per kv head; G·D per block
 HEAD_DIMS = (16, 32, 64, 128, 256)  # B3's and B4's instantiations
-MAX_SMEM = 232448                 # bytes of shared memory a block may use
 MAX_CLUSTER = 8                   # CTAs a cluster: the portable limit
 GRID_MAX = 65535                  # blocks along a grid's y or z
 PAGED_STAGE_BYTES = 96 * 1024     # keys and values a B3 CTA stages at once
@@ -64,14 +68,8 @@ def reset_launches() -> None:
 
 
 def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA device (cached)."""
-    idx = torch.device(device).index
-    idx = torch.cuda.current_device() if idx is None else idx
-    n = _sm_counts.get(idx)
-    if n is None:
-        n = _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return n
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # --------------------------------------------------------------------------- #
@@ -109,42 +107,22 @@ def paged_chunk(bs: int, D: int, esize: int, maxb: int, cluster: int) -> int:
     return max(1, min(share, PAGED_STAGE_BYTES // (2 * bs * D * esize)))
 
 
-def paged_smem(G: int, D: int, bs: int, chunk: int, esize: int) -> int:
-    """Shared memory of one B3 CTA in bytes (csrc `smem_bytes`): `chunk`
-    blocks of keys and values, the partial acc and the scores (MAX_G a key)
-    in f32, per-head m, l, alpha and the merge weights, and the row's table
-    entries (up to the block's 256 threads)."""
-    return (2 * esize * chunk * bs * D
-            + 4 * (G * D + MAX_G * chunk * bs + 3 * MAX_G
-                   + MAX_G * (MAX_CLUSTER + 1)) + 4 * 256)
-
-
-def flash_tiles(dtype, D: int):
-    """(BQ, BK) of B4's kernel for `dtype` and head dim D: bfloat16 on tensor
-    cores, 4 warps of 16 q rows, 64 keys (32 at D = 256); float32 on CUDA
-    cores, 32 q rows, 64 keys (32 at D >= 128)."""
-    if dtype == torch.bfloat16:
-        return 64, (32 if D == 256 else 64)
-    return 32, (32 if D >= 128 else 64)
-
-
-def flash_split(BH: int, S: int, D: int, dtype, sms: int):
-    """(BQ, BK, c) of one B4 call: the kernel's tiles and the cluster size,
-    CTAs per q tile. c doubles (up to MAX_CLUSTER) while BH·ceil(S/BQ)·c is
-    below twice the SM count, so the grid fills the card about twice, and
-    while the longest q tile keeps at least two key tiles a CTA (each CTA
-    loads its q tile and merges: a CTA of one key tile is mostly
-    overhead); the longest CTA then does about 1/c of the longest q tile's
-    keys. Causal or not, the cluster is the same; the ranges differ
-    (`flash_ranges`)."""
-    bq, bk = flash_tiles(dtype, D)
+def flash_split(BH: int, S: int, bq: int, bk: int, sms: int) -> int:
+    """B4's cluster size c, CTAs per q tile, for the kernel's tiles of bq
+    query rows and bk keys (`flash_tiles`). c doubles (up to MAX_CLUSTER)
+    while BH·ceil(S/bq)·c is below twice the SM count, so the grid fills
+    the card about twice, and while the longest q tile keeps at least two
+    key tiles a CTA (each CTA loads its q tile and merges: a CTA of one key
+    tile is mostly overhead); the longest CTA then does about 1/c of the
+    longest q tile's keys. Causal or not, the cluster is the same; the
+    ranges differ (`flash_ranges`)."""
     tiles = BH * -(-S // bq)
     kt_max = -(-S // bk)
     c = 1
     while (2 * c <= MAX_CLUSTER and 4 * c <= kt_max
            and tiles * c < 2 * sms):
         c *= 2
-    return bq, bk, c
+    return c
 
 
 def flash_ranges(S: int, bq: int, bk: int, cluster: int, causal: bool):
@@ -177,6 +155,33 @@ def _kernel(dtype):
         fn.restype = ctypes.c_int
         _fns[dtype] = fn
     return fn
+
+
+def paged_smem(esize: int, G: int, D: int, bs: int, chunk: int) -> int:
+    """Shared memory of one B3 CTA in bytes, as the CUDA source lays it out
+    (`paged_attention_smem`), or -1 where that is more than a block may
+    use. Needs the built library."""
+    fn = _build.load("paged_attention").paged_attention_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn(esize, G, D, bs, chunk)
+
+
+def _paged_plan(q, bs: int, maxb: int):
+    """(cluster, chunk) of B3 for q's shape, dtype and device, the pool's
+    block size and MAXB; made once and kept."""
+    key = (tuple(q.shape), bs, maxb, q.dtype, q.device)
+    plan = _paged_plans.get(key)
+    if plan is None:
+        B, Kh, G, D = q.shape
+        cluster = paged_split(B, Kh, maxb, sm_count(q.device))
+        chunk = paged_chunk(bs, D, q.element_size(), maxb, cluster)
+        if paged_smem(q.element_size(), G, D, bs, chunk) < 0:
+            raise ValueError(f"paged_flash_attention: a block of bs={bs} x "
+                             f"D={D} needs more shared memory than a block "
+                             f"of the kernel may use")
+        plan = _paged_plans[key] = (cluster, chunk)
+    return plan
 
 
 def _check_shapes(q, pool_k, pool_v, table, lengths):
@@ -232,13 +237,7 @@ def _launch(q, pool_k, pool_v, table, lengths):
         raise ValueError("paged_flash_attention: the pools must be 16-byte "
                          "aligned (the kernel loads them 16 bytes at a time)")
     maxb = table.shape[1]
-    cluster = paged_split(B, Kh, maxb, sm_count(q.device))
-    chunk = paged_chunk(bs, D, q.element_size(), maxb, cluster)
-    smem = paged_smem(G, D, bs, chunk, q.element_size())
-    if smem > MAX_SMEM:
-        raise ValueError(f"paged_flash_attention: a block of bs={bs} x D={D} "
-                         f"needs {smem} B of shared memory, more than "
-                         f"{MAX_SMEM}")
+    cluster, chunk = _paged_plan(q, bs, maxb)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel(q.dtype)(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -284,12 +283,42 @@ def _flash_kernel(dtype):
     if fn is None:
         lib = _build.load("flash_attention")
         fn = getattr(lib, f"flash_attention_{_CTYPES[dtype]}")
-        # q, k, v, out; BH, S, D, causal, BQ, BK, cluster; sm_scale; stream
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        # q, k, v, out; BH, S, D, causal, cluster; sm_scale; stream
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _flash_fns[dtype] = fn
     return fn
+
+
+def flash_tiles(dtype, D: int):
+    """(BQ, BK) of B4's kernel for `dtype` and head dim D, as the CUDA
+    source defines them (`flash_attention_tiles`). Needs the built
+    library."""
+    fn = _build.load("flash_attention").flash_attention_tiles
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    if fn(dtype.itemsize, D, ctypes.byref(bq), ctypes.byref(bk)) != 0:
+        raise ValueError(f"flash_attention: no kernel for {dtype} at D={D}")
+    return bq.value, bk.value
+
+
+def _flash_plan(q):
+    """(BQ, BK, cluster) of B4 for q's shape, dtype and device; made once
+    and kept."""
+    key = (tuple(q.shape), q.dtype, q.device)
+    plan = _flash_plans.get(key)
+    if plan is None:
+        BH, S, D = q.shape
+        bq, bk = flash_tiles(q.dtype, D)
+        if -(-S // bq) > GRID_MAX:
+            raise ValueError(f"flash_attention: the kernel takes at most "
+                             f"{GRID_MAX} q tiles of {bq} rows, got S={S}")
+        plan = _flash_plans[key] = (bq, bk, flash_split(BH, S, bq, bk,
+                                                        sm_count(q.device)))
+    return plan
 
 
 def _flash_launch(q, k, v, causal):
@@ -312,18 +341,16 @@ def _flash_launch(q, k, v, causal):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: k and v are {k.dtype}/{v.dtype}, "
                         f"q is {q.dtype}; the kernel takes one dtype")
-    if (D not in HEAD_DIMS or not 1 <= BH <= GRID_MAX or S < 1
-            or -(-S // flash_tiles(q.dtype, D)[0]) > GRID_MAX):
+    if D not in HEAD_DIMS or not 1 <= BH <= GRID_MAX or S < 1:
         raise ValueError(f"flash_attention: the kernel takes D in "
-                         f"{HEAD_DIMS}, 1 <= BH <= {GRID_MAX} and 1 <= S "
-                         f"with at most {GRID_MAX} q tiles, got BH={BH}, "
-                         f"S={S}, D={D}")
-    bq, bk, cluster = flash_split(BH, S, D, q.dtype, sm_count(q.device))
+                         f"{HEAD_DIMS}, 1 <= BH <= {GRID_MAX} and 1 <= S, "
+                         f"got BH={BH}, S={S}, D={D}")
+    bq, bk, cluster = _flash_plan(q)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _flash_kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), BH, S, D, int(causal), bq,
-                                bk, cluster, 1.0 / math.sqrt(D), stream)
+                                out.data_ptr(), BH, S, D, int(causal),
+                                cluster, 1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc} at q {tuple(q.shape)} {q.dtype}, "

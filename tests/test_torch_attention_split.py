@@ -25,6 +25,14 @@ from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
 
 H100_SMS = 132
 MASK = -1e30
+# B4's tiles (BQ, BK) by type and head dim, as csrc/flash_attention.cu
+# defines them; the card tests hold `FA.flash_tiles` to this table
+KERNEL_TILES = {
+    torch.float32: {16: (32, 64), 32: (32, 64), 64: (32, 64),
+                    128: (32, 32), 256: (32, 32)},
+    torch.bfloat16: {16: (64, 64), 32: (64, 64), 64: (64, 64),
+                     128: (64, 64), 256: (64, 32)},
+}
 
 
 # --------------------------------------------------------------------------- #
@@ -59,7 +67,8 @@ def partial(s, keep, v):
 def test_paged_plan_at_the_serving_shape():
     """gemma-2b serving: B = 16 rows, one kv head, 20 blocks of 16 a row,
     contexts 257..319: clusters of 8 (128 CTAs on 132 SMs), shares of 2-3
-    blocks, each staged whole in both types."""
+    blocks, each staged whole in both types (the card tests check that it
+    fits the kernel's shared memory)."""
     c = FA.paged_split(16, 1, 20, H100_SMS)
     assert c == 8 and 16 * c <= H100_SMS
     lengths = [257 + 4 * i for i in range(15)] + [319]
@@ -68,7 +77,7 @@ def test_paged_plan_at_the_serving_shape():
     for esize in (2, 4):
         chunk = FA.paged_chunk(16, 256, esize, 20, c)
         assert chunk == 3
-        assert FA.paged_smem(8, 256, 16, chunk, esize) <= FA.MAX_SMEM
+        assert 2 * chunk * 16 * 256 * esize <= FA.PAGED_STAGE_BYTES
 
 
 @pytest.mark.parametrize("B,Kh,maxb,sms,want", [
@@ -207,13 +216,15 @@ def test_flash_plan_at_the_timed_shapes():
     256, 256) bf16 causal: 64-row tiles, clusters of 4 (two key tiles of
     32 a CTA), 128 CTAs; the longest does 64 keys. Neither does more than
     twice the mean work."""
-    bq, bk, c = FA.flash_split(4, 1024, 128, torch.float32, H100_SMS)
-    assert (bq, bk, c) == (32, 32, 4)
+    bq, bk = KERNEL_TILES[torch.float32][128]
+    c = FA.flash_split(4, 1024, bq, bk, H100_SMS)
+    assert c == 4
     keys = _cta_keys(1024, bq, bk, c, True)
     assert max(keys) == 256 and 4 * 128 * bq * max(keys) == 4194304
     assert max(keys) <= 2 * np.mean(keys)
-    bq, bk, c = FA.flash_split(8, 256, 256, torch.bfloat16, H100_SMS)
-    assert (bq, bk, c) == (64, 32, 4)
+    bq, bk = KERNEL_TILES[torch.bfloat16][256]
+    c = FA.flash_split(8, 256, bq, bk, H100_SMS)
+    assert c == 4
     keys = _cta_keys(256, bq, bk, c, True)
     assert max(keys) == 64 and max(keys) <= 2 * np.mean(keys)
 
@@ -223,8 +234,8 @@ def test_flash_plan_at_the_timed_shapes():
                                   (4, 1024), (64, 4096), (1, 300)])
 def test_flash_cluster_size(BH, S, dtype):
     for D in FA.HEAD_DIMS:
-        bq, bk, c = FA.flash_split(BH, S, D, dtype, H100_SMS)
-        assert (bq, bk) == FA.flash_tiles(dtype, D)
+        bq, bk = KERNEL_TILES[dtype][D]
+        c = FA.flash_split(BH, S, bq, bk, H100_SMS)
         assert 1 <= c <= FA.MAX_CLUSTER and c & (c - 1) == 0 and D % c == 0
         assert c == 1 or 2 * c <= -(-S // bk)  # two key tiles a CTA
         tiles = BH * -(-S // bq)

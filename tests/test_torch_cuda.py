@@ -325,6 +325,29 @@ def test_paged_attention_kernel_refuses_what_it_does_not_take():
 
 
 @pytest.mark.cuda
+def test_attention_plans_read_the_kernels_tiles_and_shared_memory():
+    """The CUDA sources own B4's tiles and B3's shared-memory layout and
+    export them: the tiles are those the CPU plan tests assume
+    (`KERNEL_TILES` of tests/test_torch_attention_split.py), the serving
+    shape's stage fits one CTA in both types, and a block too large for
+    one is refused before a launch."""
+    dev = _device()
+    for D in FA.HEAD_DIMS:
+        assert FA.flash_tiles(torch.float32, D) == (32, 32 if D >= 128 else 64)
+        assert FA.flash_tiles(torch.bfloat16, D) == (64, 32 if D == 256
+                                                     else 64)
+    for esize in (2, 4):
+        chunk = FA.paged_chunk(16, 256, esize, 20, 8)
+        assert FA.paged_smem(esize, 8, 256, 16, chunk) > 0
+    assert FA.paged_smem(4, 1, 256, 512, 1) == -1
+    ops = _paged_operands(1, 1, 1, 1, 256, 512, 1, [5], torch.float32, dev)
+    before = FA.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.paged_flash_attention(*ops)
+    assert FA.launches == before
+
+
+@pytest.mark.cuda
 def test_engine_kernel_path_launches_b3_per_layer_per_step():
     """gemma-2b reduced on the card: the kernel path gives the gather
     path's greedy tokens and launches B3 once per layer per decode step;
