@@ -13,7 +13,9 @@ result line):
   2. kernel   hold each kernel against its plain PyTorch version on the
               card, at its path's shapes and at edge cases, and time
               both: B1 (quantize_ef, static levels) at one worker's bucket
-              rows, B2 (quantize_ef_dyn, levels read from device memory)
+              rows, one bucket a launch and the buckets packed back to
+              back in one launch (the trainer's; bit-equal; timed both
+              ways), B2 (quantize_ef_dyn, levels read from device memory)
               at four workers' stacked bucket rows, B3 (paged decode
               attention) at the serving engine's shapes in bfloat16 and
               float32, with the library call (SDPA on the gathered view)
@@ -29,7 +31,7 @@ result line):
               dcgan32 at full width, omd/update, with the launch count of
               every kernel zeroed just before and read just after:
               (a) one worker, batch 64, qsgd8_block1024 over uniform
-                  buckets: B1 three times a step;
+                  buckets: B1 once a step, over all three buckets;
               (b) four workers stacked on the card, batch 256, half of
                   them reporting each round, adaptive delta_budget at
                   0.75 MiB, sim exchange: B2 three times a step; then 5
@@ -94,10 +96,11 @@ S_ARGS = ["--arch", "gemma-2b", "--batch", str(S_BATCH), "--prompt-len",
           str(S_PROMPT), "--gen", str(S_GEN), "--device", "cuda"]
 
 
-# each timed kernel's time before its cluster-split version (PERF.md's
-# kernel table; NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this
-# run's as "was"
-WAS_MS = {"quantize_ef": 0.0242, "quantize_ef_dyn": 0.0553,
+# each timed kernel's earlier time (PERF.md's kernel table; NVIDIA H100
+# 80GB HBM3 at 700.00 W), printed beside this run's as "was": B1's three
+# per-bucket launches a step before the one-launch step, B2's
+# last time, and B3's and B4's times before their cluster-split redesign
+WAS_MS = {"quantize_ef": 0.0245, "quantize_ef_dyn": 0.0553,
           "paged_attention bfloat16": 0.1023,
           "paged_attention float32": 0.1249,
           "flash_attention (a) full tier": 0.1456,
@@ -358,22 +361,47 @@ def phase_kernel(dev, bucket_rows, levels_row, dyn):
         bad += [f"{label}: {f}" for f in failed]
     check(not bad, f"{name} disagrees with its plain version: "
           + "; ".join(bad))
+    if not dyn:
+        worst = check_packed(operands, bucket_rows)
 
-    # time one step's work: one launch per bucket at the path's shapes
+    # time one step's work as the trainer issues it: B1 one packed launch
+    # over all of the buckets, B2 one launch a bucket
     ops = [operands(R, 1024) + (lv(L),)
            for R, L in zip(bucket_rows, levels_row)]
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
 
-    def run_kernel():
+    def run_buckets():
         for g, e, r, L in ops:
             Q.quantize_ef_blocked(g, e, r, levels=L, block_rows=g.shape[0])
 
-    def run_plain():
+    def run_plain_buckets():
         for g, e, r, L in ops:
             quantize_ef_ref(g, e, r, L)
 
+    if dyn:
+        run_kernel, run_plain, n_launch = run_buckets, run_plain_buckets, \
+            len(ops)
+    else:
+        check(len(set(levels_row)) == 1, f"B1's buckets at levels "
+              f"{levels_row}: one launch over them needs one level count")
+        L1 = levels_row[0]
+        packed = [torch.cat([o[i].reshape(-1) for o in ops])
+                  for i in range(3)]
+        n_launch = 1
+
+        def run_kernel():
+            Q.quantize_ef_flat(*packed, levels=L1)
+
+        def run_plain():
+            quantize_ef_ref(*(x.reshape(-1, 1024) for x in packed), L1)
+
     ms = time_ms(run_kernel, 50, flush)
     plain_ms = time_ms(run_plain, 50, flush)
+    if not dyn:
+        # the same rows in one launch a bucket (what the trainer issued
+        # before it packed its buckets): the launches' share of the time
+        print(f"# kernel {name} timing, one launch a bucket, {len(ops)} "
+              f"launches: {time_ms(run_buckets, 50, flush):.4f} ms")
     n = sum(R * 1024 for R in bucket_rows)
     rows = sum(bucket_rows)
     # g, e, rand read; codes, e' written; a scale per row; B2 also reads
@@ -383,7 +411,7 @@ def phase_kernel(dev, bucket_rows, levels_row, dyn):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     bound = max(t_bytes, t_ops)
-    print(f"# kernel {name} timing, {len(bucket_rows)} launches "
+    print(f"# kernel {name} timing, {n_launch} launch(es) "
           f"(rows {list(bucket_rows)}, levels {list(levels_row)}, {n} "
           f"elements, {nbytes / 1e6:.2f} MB): kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms, "
@@ -396,6 +424,55 @@ def phase_kernel(dev, bucket_rows, levels_row, dyn):
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bound_share": bound / ms}
+
+
+def check_packed(operands, bucket_rows):
+    """Hold B1 over comm buckets packed back to back, one launch (the
+    trainer's), bit-equal to the plain version: codes,
+    scale and e' to the last bit, at the trainer's bucket rows packed
+    together at 127, 7 and 1 levels and at edge cases, row counts that do
+    not fill a block's 8 rows among them. Returns the largest |de'| (0)."""
+    import torch
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels.ref import quantize_ef_ref
+    rows = list(bucket_rows)
+    cases = [("buckets packed", rows, L, None) for L in (127, 7, 1)]
+    cases += [
+        ("zero row", [8], 127, "zero"),
+        ("one huge value", [8], 127, "huge"),
+        ("R not a multiple of 256", [37], 127, None),
+        ("one row", [1], 127, None),
+        ("rows not filling a block of 8", [13, 6], 127, None),
+        ("buckets and 3 rows", rows + [3], 7, None),
+    ]
+    worst, bad = 0.0, []
+    for label, parts, L, edit in cases:
+        R = sum(parts)
+        g, e, r = operands(R, 1024)
+        if edit == "zero":
+            g[3].zero_()
+            e[3].zero_()
+        elif edit == "huge":
+            g[5, 17] = 3.0e20
+        ck, sk, ek = Q.quantize_ef_flat(g.reshape(-1), e.reshape(-1),
+                                        r.reshape(-1), levels=L)
+        cp, sp, ep = quantize_ef_ref(g, e, r, L)
+        torch.cuda.synchronize()
+        err = (ek - ep.reshape(-1)).abs().max().item()
+        mism = (ck != cp.reshape(-1)).float().mean().item()
+        failed = [msg for ok, msg in (
+            (torch.equal(sk, sp.reshape(-1)), "scale not bit-equal"),
+            (torch.equal(ck, cp.reshape(-1)), "codes not equal"),
+            (torch.equal(ek, ep.reshape(-1)), "e' not bit-equal"),
+        ) if not ok]
+        worst = max(worst, err)
+        print(f"# kernel quantize_ef packed [{label}] rows {parts} (R={R}) "
+              f"L={L}: max|de'|={err:.3e} code mismatch={mism:.2e}"
+              + (f" FAILED: {'; '.join(failed)}" if failed else ""))
+        bad += [f"{label}: {f}" for f in failed]
+    check(not bad, "quantize_ef packed disagrees with its plain version: "
+          + "; ".join(bad))
+    return worst
 
 
 def check_rows(history, steps):
@@ -421,10 +498,10 @@ def phase_train():
     check_rows(history, STEPS)
     check(FA.flash_launches == 0, f"one worker: flash_attention launched "
           f"{FA.flash_launches} times on the training path")
-    check(launches == STEPS * 3 and launches_dyn == 0,
+    check(launches == STEPS and launches_dyn == 0,
           f"one worker: quantize_ef launched {launches} times and "
           f"quantize_ef_dyn {launches_dyn} times in {STEPS} steps, expected "
-          f"{STEPS * 3} and 0 (3 buckets per step)")
+          f"{STEPS} and 0 (one launch a step)")
     step_ms = statistics.median(r["step_s"] for r in history[1:]) * 1e3
     print(f"# train dcgan32 full width, 1 worker, batch {BATCH}: {STEPS} "
           f"steps, quantize_ef launches {launches}, median step "
@@ -477,7 +554,8 @@ def phase_train_workers(dev):
 
 def phase_parity(dev, workers):
     """The same trainer steps with the kernel and with the plain quantizer:
-    one worker through B1, or four through B2 with two reporting."""
+    one worker through B1 (one launch a step), or four through B2
+    with two reporting (one launch a bucket)."""
     import torch
     from repro_torch import tree as T
     from repro_torch.configs import get
@@ -497,6 +575,7 @@ def phase_parity(dev, workers):
         mask = torch.zeros((W,), device=dev)
         mask[::W // N_PART] = 1.0
     n = W if mask is None else N_PART
+    calls = 1 if W == 1 else len(layout.buckets)
     qsteps = []
 
     def plain_flat(g, e, rand, *, levels=127):
@@ -525,9 +604,8 @@ def phase_parity(dev, workers):
         with mock.patch.object(error_feedback, "quantize_ef_flat",
                                plain_flat):
             plain = trainer.step(state, batch, draws)
-        check(len(qsteps) == len(layout.buckets),
-              f"the plain step quantized {len(qsteps)} times, expected "
-              f"{len(layout.buckets)}")
+        check(len(qsteps) == calls, f"the plain step quantized "
+              f"{len(qsteps)} times, expected {calls}")
         # a code flipped at a rounding boundary moves one worker's p̂ by
         # s/L and the average by s/(L·n)
         qstep = max(qsteps) / n

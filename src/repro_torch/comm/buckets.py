@@ -148,18 +148,45 @@ def _lead(x, slot):
 
 def pack(layout: BucketLayout, leaves, dtype=torch.float32):
     """One zero-padded flat tensor per bucket from the flat leaf list. A
-    leaf stacked over workers, (W, *shape), packs into (W, size)."""
-    flats = []
+    leaf stacked over workers, (W, *shape), packs into (W, size). The
+    buckets are contiguous views of one `pack_concat` buffer."""
+    if not layout.buckets:
+        return []
+    first = layout.buckets[0].slots[0]
+    return split_concat(layout, pack_concat(layout, leaves, dtype),
+                        _lead(leaves[first.index], first))
+
+
+def pack_concat(layout: BucketLayout, leaves, dtype=torch.float32):
+    """All buckets in ONE flat tensor, made by one copy: bucket after
+    bucket, each a row-major (*lead, size) block for leaves with leading
+    (worker) dims `lead`. With no worker axis, or one worker, the buckets
+    lie back to back. `split_concat` cuts it into `pack`'s buckets."""
+    first = layout.buckets[0].slots[0]
+    lead = _lead(leaves[first.index], first)
+    W = math.prod(lead)
+    rows = {s.index: leaves[s.index].to(dtype).reshape(W, s.size)
+            for b in layout.buckets for s in b.slots}
+    pad = torch.zeros((max(b.padding for b in layout.buckets),), dtype=dtype,
+                      device=leaves[first.index].device)
+    parts = []
     for b in layout.buckets:
-        lead = _lead(leaves[b.slots[0].index], b.slots[0])
-        parts = [leaves[s.index].reshape(lead + (-1,)).to(dtype)
-                 for s in b.slots]
-        if b.padding:
-            parts.append(torch.zeros(lead + (b.padding,), dtype=dtype,
-                                     device=parts[0].device))
-        flats.append(torch.cat(parts, dim=-1) if len(parts) > 1
-                     else parts[0])
-    return flats
+        for w in range(W):
+            parts += [rows[s.index][w] for s in b.slots]
+            if b.padding:
+                parts.append(pad[:b.padding])
+    return torch.cat(parts)
+
+
+def split_concat(layout: BucketLayout, flat, lead=()):
+    """The buckets of a `pack_concat` tensor, in bucket order: contiguous
+    views of it, (*lead, size) each."""
+    out, start, W = [], 0, math.prod(lead)
+    for b in layout.buckets:
+        out.append(flat[start:start + W * b.size].view(
+            tuple(lead) + (b.size,)))
+        start += W * b.size
+    return out
 
 
 def unpack_into(layout: BucketLayout, flats, leaves):

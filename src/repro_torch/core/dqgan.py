@@ -21,7 +21,10 @@ to zero, rescales q̂ by W/n and folds their messages into their EF. An
 adaptive PlanFamily selects each bucket's level count by the round's
 participant count, on the device, and the bucket's `TracedQuant` runs
 the fused kernel's dynamic-levels variant (B2) once per bucket over all
-W workers' rows; a static `*_block1024` plan runs B1 the same way.
+W workers' rows; a static `*_block1024` plan runs B1 the same way. With
+one worker, where every bucket runs B1 at one level count, the step packs
+its buckets back to back and makes ONE B1 launch over all of their rows
+(`_exchange_packed`).
 
 State mirrors the JAX package's `DQState`, parameters keep its layout and
 leaf order. Randomness comes from the trainer's `torch.Generator` on its
@@ -47,7 +50,8 @@ from repro_torch.strategy import Strategy
 
 from . import compressors as C
 from . import exchange as X
-from .error_feedback import compress_with_ef_stacked
+from .error_feedback import (compress_with_ef_stacked, fused_quantize_ef,
+                             packed_levels)
 
 
 class DQState(NamedTuple):
@@ -529,14 +533,19 @@ class DQGAN:
         if plan_sel is not None and table is not None:
             levels = table.index_select(0, plan_sel.reshape(1))[0]
             block = C.get(family.base_compressor).per_block
-        flats = B.pack(layout, message)
-        e1_leaves = e1_flats = None
+        bucket_ef = ef["bucket"]
+        e1_leaves = None
         if dq.error_feedback:
             e1_leaves = [e.get("e1", torch.zeros(l.shape, dtype=ef_dtype,
                                                  device=l.device))
                          for l, e in zip(message, ef_leaves)]
-            e1_flats = B.pack(layout, e1_leaves)
-        bucket_ef = ef["bucket"]
+        if levels is None:
+            L = self._packed_levels(layout, cplan)
+            if L is not None:
+                return self._exchange_packed(paths, layout, message,
+                                             e1_leaves, bucket_ef, rand, L)
+        flats = B.pack(layout, message)
+        e1_flats = B.pack(layout, e1_leaves) if dq.error_feedback else None
 
         out_flats, new_e1_flats, new_bucket_ef = [], [], {}
         for b, assign in zip(layout.buckets, cplan.assignments):
@@ -566,6 +575,46 @@ class DQGAN:
             new_leaf_ef = [{"e1": x} for x in new_e1]
         return qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
                       "bucket": new_bucket_ef}
+
+    def _packed_levels(self, layout, cplan):
+        """The level count at which `_exchange_packed` realizes this
+        step's exchange, or None: it needs one worker, error feedback, a
+        compressing exchange, and every bucket's compressor B1 at one
+        static level count (`error_feedback.packed_levels`)."""
+        if (self.n_workers != 1 or not self.dq.error_feedback
+                or self.strategy.exchange.kind == "exact"):
+            return None
+        return packed_levels([C.get(a.compressor)
+                              for a in cplan.assignments],
+                             [b.size for b in layout.buckets])
+
+    def _exchange_packed(self, paths, layout, message, e1_leaves, bucket_ef,
+                         rand, levels):
+        """One worker, every bucket B1 at `levels`: the message and e1
+        packed into one buffer each, the buckets back to back; ONE B1
+        launch over all of their rows and one dequantization; q̂ and e1
+        unpack from views of the results. Bit-equal to `_exchange_one`
+        bucket by bucket (rows are independent and share L). Injected
+        draws (`rand[bucket id]`) land on their own bucket's rows; with
+        none, one draw covers the whole buffer. One worker leaves the
+        owner EF (e2, two_phase) as it was."""
+        msg = B.pack_concat(layout, message)            # (Σ size,)
+        e1 = B.pack_concat(layout, e1_leaves)
+        r = None
+        if any(b.bid in rand for b in layout.buckets):
+            r = torch.cat([
+                rand[b.bid].reshape(-1) if b.bid in rand else torch.rand(
+                    (b.size,), generator=self.generator, device=msg.device)
+                for b in layout.buckets])
+        _, m_hat, e_new = fused_quantize_ef(msg, e1, r, self.generator,
+                                            levels=levels)
+        qhat = B.unpack_into(layout, B.split_concat(layout, m_hat),
+                             [m[0] for m in message])
+        new_e1 = B.unpack_into(layout, B.split_concat(layout, e_new, (1,)),
+                               e1_leaves)
+        return qhat, {"leaf": T.unflatten(paths, [{"e1": x}
+                                                  for x in new_e1]),
+                      "bucket": dict(bucket_ef)}
 
     def _server_update(self, state, paths, qhat):
         """Apply q̂ to the parameters (and Adam moments)."""

@@ -6,7 +6,9 @@ quantizers over a flat bucket, the EF add, scale, stochastic round and
 residual run in one pass of the fused kernel (`kernels.quantize`): B1 for
 a registry compressor, B2 for a `TracedQuant`, whose level count is a
 device tensor. `compress_with_ef_stacked` does the same for a stack of
-workers' messages, with one kernel launch over all of their rows.
+workers' messages, with one kernel launch over all of their rows;
+`packed_levels` says when one launch over a step's comm buckets packed
+back to back is exact.
 """
 from __future__ import annotations
 
@@ -28,10 +30,29 @@ def fused_compatible(compressor, message) -> bool:
     shaped = message.dim() == 1 and message.shape[0] % FUSED_BLOCK == 0
     if isinstance(compressor, C.TracedQuant):
         return compressor.per_block == FUSED_BLOCK and shaped
+    return _static_fused(compressor) and shaped
+
+
+def _static_fused(compressor) -> bool:
+    """A registry compressor that B1 realizes on rows of FUSED_BLOCK."""
     return (isinstance(compressor, C.StochasticQuant)
             and compressor.norm == "linf"
-            and compressor.per_block == FUSED_BLOCK
-            and shaped)
+            and compressor.per_block == FUSED_BLOCK)
+
+
+def packed_levels(compressors, sizes):
+    """The level count L when ONE B1 launch over flat buckets of these
+    sizes, packed back to back, realizes each bucket's compressor exactly:
+    every one a registry compressor that `fused_compatible` takes on its
+    bucket, all at the same static L. Rows are independent, so the packed
+    launch then equals one launch a bucket. Otherwise None (a
+    `TracedQuant`'s level count lives on the device: B2, a launch a
+    bucket)."""
+    if not (all(map(_static_fused, compressors))
+            and all(n % FUSED_BLOCK == 0 for n in sizes)):
+        return None
+    levels = {c.levels for c in compressors}
+    return levels.pop() if len(levels) == 1 else None
 
 
 def compress_with_ef(compressor, message, e_prev, rand=None, generator=None,

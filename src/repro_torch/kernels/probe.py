@@ -1,9 +1,21 @@
-"""What bounds B3 and B4 on the card, reported and not checked:
+"""What bounds B1, B3 and B4 on the card, and what the bf16 GELU costs the
+decode step, reported and not checked:
 
     PYTHONPATH=src python -m repro_torch.kernels.probe
 
 - the floor of a call: a one-element add, B3 at one row of L = 1 and B4 at
   (1, 1, 16), with the L2 cache cold and warm;
+- B1 over one dcgan32 training step's rows (its comm buckets of 648, 648
+  and 512 rows of 1024, packed back to back) at 127 levels, in one launch
+  and in one launch a bucket, for the source as it stands and for edited
+  copies of it, each held bit-equal to the plain version: the one-block-a-
+  row body at these rows (`rows`), the one-warp-a-row body with 2, 4 or
+  16 rows a block, with plain loads and stores in place of the
+  evict-first ones, and with the rand loads after the row max;
+- gemma-2b at full width in bfloat16, 16 rows decoding: the engine's
+  decode step with the tanh GELU evaluated op by op (the port's, as
+  `jax.nn.gelu` does) and with `F.gelu(approximate="tanh")` in its place,
+  in alternating blocks of steps (ABBA), wall time per step;
 - each kernel at cluster sizes 1, 2, 4 and 8 in place of its plan's
   choice: B3 at gemma-2b's serving shape (16 rows, K = 1, G = 8, D = 256,
   bs = 16, MAXB = 20, contexts 257..319) in both types, B4 causal at the
@@ -17,16 +29,40 @@ warm, as `chip_smoke.py` times its kernels.
 """
 from __future__ import annotations
 
+import ctypes
+import statistics
 import subprocess
 import sys
+import time
 from unittest import mock
 
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from . import flash_attention as FA
+from .ref import quantize_ef_ref
 
 CLUSTERS = (1, 2, 4, 8)
+B1_BUCKET_ROWS = (648, 648, 512)   # dcgan32's comm buckets, rows of 1024
+# edited copies of csrc/quantize_ef.cu: (name, [(text, replacement), ...])
+B1_ST_PLAIN = ("template <typename T>\n__device__ __forceinline__ void "
+               "st_plain(T* p, T v) { *p = v; }\nconstexpr int kRowCols")
+B1_RAND_LOADS = ("#pragma unroll\n  for (int j = 0; j < kRowVecs; ++j) "
+                 "r[j] = __ldcs(r4 + 32 * j);\n")
+B1_STEP = "  const float step = __fdiv_rn(s, levels);\n"
+B1_VARIANTS = (
+    ("repo", []),
+    ("rows", [("if (!kDyn && cols == kRowCols) {", "if (false) {")]),
+    ("rows_per_block 2", [("kRowsPerBlock = 8;", "kRowsPerBlock = 2;")]),
+    ("rows_per_block 4", [("kRowsPerBlock = 8;", "kRowsPerBlock = 4;")]),
+    ("rows_per_block 16", [("kRowsPerBlock = 8;", "kRowsPerBlock = 16;")]),
+    ("plain loads and stores", [("__ldcs(", "__ldg("),
+                                ("__stcs(", "st_plain("),
+                                ("constexpr int kRowCols", B1_ST_PLAIN)]),
+    ("rand after the row max", [(B1_RAND_LOADS, ""),
+                                (B1_STEP, B1_STEP + B1_RAND_LOADS)]),
+)
 
 
 def _ms(fn, iters, flush):
@@ -82,6 +118,124 @@ def _sweep(plan, fn, flush):
     return " / ".join(f"{t:.4f}" for t in times)
 
 
+def _b1_libraries():
+    """Build every B1_VARIANTS copy of the B1/B2 source at once (one nvcc
+    each); returns {name: its quantize_ef_f32}."""
+    src = _build.SOURCES["quantize_ef"].read_text()
+    out = _build.build_dir() / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in B1_VARIANTS:
+        text = src
+        for a, b in edits:
+            if a not in text:
+                raise RuntimeError(f"probe B1 {name}: {a!r} not in the source")
+            text = text.replace(a, b)
+        stem = name.replace(" ", "_")
+        cu = out / f"quantize_ef_{stem}.cu"
+        cu.write_text(text)
+        lib = out / f"libquantize_ef_{stem}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"probe B1 {name}: nvcc failed:\n{log}")
+        fn = ctypes.CDLL(str(lib)).quantize_ef_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_float,
+                                                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _b1(dev, flush):
+    """B1_VARIANTS at one training step's rows: bit-equal to the plain
+    version, then timed in one launch and in one launch a bucket."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    R = sum(B1_BUCKET_ROWS)
+    g = 0.3 * torch.randn((R, 1024), generator=gen, device=dev)
+    e = 0.05 * torch.randn((R, 1024), generator=gen, device=dev)
+    r = torch.rand((R, 1024), generator=gen, device=dev)
+    codes = torch.empty((R, 1024), dtype=torch.int8, device=dev)
+    scale = torch.empty((R, 1), device=dev)
+    e_new = torch.empty_like(e)
+    want = quantize_ef_ref(g, e, r, 127)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    starts = [sum(B1_BUCKET_ROWS[:i]) for i in range(len(B1_BUCKET_ROWS))]
+
+    def call(fn, r0, rows):
+        rc = fn(g[r0].data_ptr(), e[r0].data_ptr(), r[r0].data_ptr(),
+                codes[r0].data_ptr(), scale[r0].data_ptr(),
+                e_new[r0].data_ptr(), rows, 1024, 127.0, stream)
+        if rc:
+            raise RuntimeError(f"probe B1: CUDA error {rc}")
+
+    for name, fn in _b1_libraries().items():
+        call(fn, 0, R)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b)
+                   for a, b in zip((codes, scale, e_new), want))
+        one = _ms(lambda: call(fn, 0, R), 100, flush)
+        per = _ms(lambda: [call(fn, r0, n) for r0, n in
+                           zip(starts, B1_BUCKET_ROWS)], 100, flush)
+        print(f"# probe B1 [{name}] rows {list(B1_BUCKET_ROWS)} x 1024, "
+              f"127 levels: bit-equal {same}; one launch {one:.4f} ms, "
+              f"one a bucket {per:.4f} ms")
+
+
+def _c1(dev, blocks=12, steps=5):
+    """The decode step's wall time with the op-by-op GELU (A) and with
+    F.gelu (B), in ABBA blocks of `steps` steps on one engine."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import build_serve_config
+    from repro_torch.models import layers
+    from repro_torch.models import model as lm
+    from repro_torch.serve import Engine, Request
+
+    cfg = get("gemma-2b")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = lm.init(cfg, generator=gen, device=dev)
+    new = 6 + blocks * steps
+    eng = Engine(cfg, build_serve_config(256, new, 16), params,
+                 attn_impl="kernel")
+    prompts = torch.randint(0, cfg.vocab_size, (16, 256), generator=gen,
+                            device=dev).tolist()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=new))
+    ours = layers._gelu_tanh
+    variants = {"op by op": ours,
+                "F.gelu": lambda v: F.gelu(v, approximate="tanh")}
+    times = {k: [] for k in variants}
+    try:
+        for name in variants:   # admission and warm-up, two steps each
+            layers._gelu_tanh = variants[name]
+            eng.step()
+            eng.step()
+        for i in range(blocks):
+            name = ("op by op", "F.gelu")[(i + 1) // 2 % 2]   # A B B A ...
+            layers._gelu_tanh = variants[name]
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        layers._gelu_tanh = ours
+    a, b = (statistics.median(times[k]) for k in variants)
+    print(f"# probe C1 gemma-2b bf16 decode step, 16 rows, kernel path, "
+          f"{blocks} ABBA blocks of {steps} steps: median {a:.3f} ms with "
+          f"the op-by-op GELU, {b:.3f} ms with F.gelu, difference "
+          f"{a - b:+.3f} ms (min {min(times['op by op']):.3f} / "
+          f"{min(times['F.gelu']):.3f} ms)")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe: needs a CUDA device", file=sys.stderr)
@@ -106,6 +260,9 @@ def main() -> int:
         print(f"# probe floor ({name} L2): a one-element add {add:.4f} ms, "
               f"B3 at one row of L = 1 {b3:.4f} ms, B4 at (1, 1, 16) "
               f"{b4:.4f} ms")
+
+    _b1(dev, cold)
+    _c1(dev)
 
     lengths = [257 + 62 * i // 15 for i in range(16)]
     for dtype in (bf16, f32):

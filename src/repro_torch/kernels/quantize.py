@@ -10,9 +10,11 @@ one scale block:
     m = g + e;  s = rowmax|m| + 1e-20
     q = floor(m/s*L) + (rand < frac);  e' = m - q*s/L
 
-The kernel is `csrc/quantize_ef.cu` (one block per row, the row held in
-registers, every byte across device memory once; its note gives the
-bound). Randomness stays an operand, so the kernel and its plain version
+The kernel is `csrc/quantize_ef.cu` (the row held in registers, every
+byte across device memory once; its note gives the bound): one warp a
+row for B1 at 1024 columns, the comm buckets' width, so that one launch
+can cover many buckets' rows; one block a row otherwise. Randomness
+stays an operand, so the kernel and its plain version
 (`kernels.ref.quantize_ef_ref`) agree given the same `rand`.
 
 Dispatch is by device: a CPU tensor goes to the plain version, a CUDA

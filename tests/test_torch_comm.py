@@ -142,6 +142,44 @@ def test_pack_unpack_equal():
         np.testing.assert_array_equal(y.numpy(), x)
 
 
+@pytest.mark.parametrize("W", [None, 1, 4])
+def test_pack_concat_is_the_jax_buckets_back_to_back(W):
+    """The one-buffer packing behind `pack` and the one-launch exchange:
+    the JAX package's buckets one after another, each a row-major (W,
+    size) block (leaves with or without a worker axis), cut back into the
+    same buckets as contiguous views by split_concat, and unpacked to the
+    leaves."""
+    from repro_torch.comm import buckets as TB
+    _, lt = _layouts(SMALL, 0.02, 1)
+    lj, _ = _layouts(SMALL, 0.02, 1)
+    assert len(lt.buckets) > 1
+    rs = np.random.RandomState(1)
+    paths, shapes = T.flatten(_shapes(SMALL))
+    lead = () if W is None else (W,)
+    leaves = [rs.randn(*lead, *s).astype(np.float32) for s in shapes]
+    flat = TB.pack_concat(lt, [torch.from_numpy(x) for x in leaves])
+    assert tuple(flat.shape) == ((W or 1) * lt.padded_elems,)
+    jflats = [[np.asarray(f) for f in JComm.pack(
+        lj, [jnp.asarray(x[w] if lead else x) for x in leaves])]
+        for w in range(W or 1)]
+    parts = TB.split_concat(lt, flat, lead)
+    start = 0
+    for b, part in zip(lt.buckets, parts):
+        assert part.data_ptr() == flat.data_ptr() + 4 * start   # a view
+        assert part.is_contiguous() and part.shape == lead + (b.size,)
+        start += (W or 1) * b.size
+        for w in range(W or 1):
+            np.testing.assert_array_equal(
+                (part[w] if lead else part).numpy(), jflats[w][b.bid])
+    packed = TComm.pack(lt, [torch.from_numpy(x) for x in leaves])
+    for a, b in zip(packed, parts):
+        assert torch.equal(a, b)
+    back = TComm.unpack_into(lt, parts,
+                             [torch.zeros(lead + s) for s in shapes])
+    for x, y in zip(leaves, back):
+        np.testing.assert_array_equal(y.numpy(), x)
+
+
 @pytest.mark.parametrize("kind", ["sim", "exact", "allgather", "two_phase"])
 @pytest.mark.parametrize("W", [1, 2, 8])
 def test_leaf_and_bucket_plans_equal(kind, W):

@@ -92,8 +92,46 @@ def test_quantize_ef_kernel_refuses_what_it_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bucket_rows", [(648, 648, 512), (13,),
+                                         (648, 648, 512, 3)])
+@pytest.mark.parametrize("levels", [127, 7, 1])
+def test_quantize_ef_row1024_kernel_is_bit_equal(bucket_rows, levels):
+    """B1 at 1024 columns (one warp a row), one launch over a step's
+    buckets packed back to back, against the plain version: codes, scale
+    and e' to the last bit, at the trainer's bucket rows and at row counts
+    that do not fill a block's 8 rows."""
+    dev = _device()
+    R = sum(bucket_rows)
+    g, e, r = _operands(R + levels, R, 1024, dev)
+    g[0].zero_()
+    e[0].zero_()
+    g[R - 1, 17] = 3.0e20
+    before = Q.launches
+    ck, sk, ek = Q.quantize_ef_flat(g.reshape(-1), e.reshape(-1),
+                                    r.reshape(-1), levels=levels)
+    assert Q.launches == before + 1
+    cp, sp, ep = quantize_ef_ref(g, e, r, levels)
+    assert torch.equal(ck, cp.reshape(-1))
+    assert torch.equal(sk, sp.reshape(-1))
+    assert torch.equal(ek, ep.reshape(-1))
+
+
+@pytest.mark.cuda
+def test_quantize_ef_row1024_kernel_refuses_what_it_does_not_take():
+    dev = _device()
+    g, e, r = (x.reshape(-1) for x in _operands(0, 8, 1024, dev))
+    with pytest.raises(TypeError):
+        Q.quantize_ef_flat(g.double(), e, r)
+    with pytest.raises(ValueError):
+        Q.quantize_ef_flat(g, e.cpu(), r)
+    with pytest.raises(ValueError):
+        Q.quantize_ef_flat(g[1:1025], e[:1024], r[:1024])  # misaligned
+
+
+@pytest.mark.cuda
 def test_trainer_step_goes_through_the_kernel():
-    """dcgan32 bucketed qsgd8_block1024: 3 launches a step."""
+    """dcgan32 bucketed qsgd8_block1024: one B1 launch a step over all
+    three buckets, packed back to back."""
     dev = _device()
     from repro_torch.configs import DQConfig, get
     from repro_torch.core.dqgan import DQGAN
@@ -115,7 +153,7 @@ def test_trainer_step_goes_through_the_kernel():
                                            device=dev)}
         out = tr.step(state, batch)
         state = out.state
-    assert Q.launches == before + 6
+    assert Q.launches == before + 2
     assert torch.isfinite(out.metrics["loss"]).item()
 
 

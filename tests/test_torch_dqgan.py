@@ -106,7 +106,8 @@ def _replay_draws(jtr, params, key, step):
     return draws
 
 
-def _run_both(name):
+def _trainers(name):
+    """(JAX trainer, port trainer, JAX initial params) of run `name`."""
     comp_kw, kind, optim, extrap, lr = RUNS[name]
     jstrat = JStrategy(compression=JComp(**comp_kw), exchange=JEx(kind=kind))
     tstrat = TStrategy.from_json(jstrat.to_json())
@@ -116,14 +117,22 @@ def _run_both(name):
                  dq=JDQ.from_strategy(jstrat, **kw))
     ttr = TDQGAN(field_fn=TG.gan_field_fn(TCFG),
                  dq=TDQ.from_strategy(tstrat, **kw), device="cpu")
-    params = JG.init(jax.random.key(0), CFG)
+    return jtr, ttr, JG.init(jax.random.key(0), CFG)
+
+
+def _batch(t):
+    return JD.procedural_images(jax.random.key(100 + t), B, CFG.image_size,
+                                CFG.channels)
+
+
+def _run_both(name):
+    jtr, ttr, params = _trainers(name)
     jst = jtr.init(params)
     tst = ttr.init(params_from_jax(jax.device_get(params)))
     step = jax.jit(jtr.step)
     key = jax.random.key(42)
     for t in range(STEPS):
-        real = JD.procedural_images(jax.random.key(100 + t), B,
-                                    CFG.image_size, CFG.channels)
+        real = _batch(t)
         draws = _replay_draws(jtr, params, key, t)
         jout = step(jst, {"real": real}, key)
         tout = ttr.step(tst, {"real": torch.from_numpy(np.array(real))},
@@ -220,3 +229,56 @@ def test_state_layout_matches():
     lj = jtr.comm_ledger(params).summary()
     lt = ttr.comm_ledger(tst.params).summary()
     assert lt == lj
+
+
+def _run_port(name, steps):
+    """The port's trainer alone over `steps` steps, with the JAX package's
+    draws replayed; returns its final state."""
+    jtr, ttr, params = _trainers(name)
+    tst = ttr.init(params_from_jax(jax.device_get(params)))
+    key = jax.random.key(42)
+    for t in range(steps):
+        tst = ttr.step(tst, {"real": torch.from_numpy(np.array(_batch(t)))},
+                       _replay_draws(jtr, params, key, t)).state
+    return tst
+
+
+@pytest.mark.parametrize("name", ["dqgan_bucketed", "adam_bucketed"])
+def test_one_launch_exchange_equals_one_launch_a_bucket(name, monkeypatch):
+    """The one-worker bucketed step quantizes all of its buckets with ONE
+    packed call (`DQGAN._exchange_packed`, one B1 launch on the card).
+    Sent back to one call a bucket, two steps give bit-identical state:
+    rows are independent, and each bucket's draws land on its own rows."""
+    calls = []
+    packed = TDQGAN._exchange_packed
+    monkeypatch.setattr(TDQGAN, "_exchange_packed",
+                        lambda self, *a: calls.append(1) or packed(self, *a))
+    one = _run_port(name, 2)
+    assert len(calls) == 2
+    monkeypatch.setattr(TDQGAN, "_packed_levels", lambda self, *a: None)
+    per_bucket = _run_port(name, 2)
+    assert len(calls) == 2
+    assert one.step == per_bucket.step == 2
+    paths, a = T.flatten(one._asdict())
+    b = T.flatten_up_to(paths, per_bucket._asdict())
+    tensors = [(p, x, y) for p, x, y in zip(paths, a, b)
+               if isinstance(x, torch.Tensor)]
+    assert any("e1" in T.keystr(p) for p, _, _ in tensors)
+    for p, x, y in tensors:
+        assert x.dtype == y.dtype and torch.equal(x, y), T.keystr(p)
+
+
+def test_packed_levels_only_for_one_static_b1_level_count():
+    """The one-launch exchange applies where every bucket runs B1 at the
+    same static level count, and nowhere else."""
+    from repro_torch.core import compressors as TC
+    from repro_torch.core.error_feedback import packed_levels
+    q8, q4 = TC.get("qsgd8_block1024"), TC.get("qsgd4_block1024")
+    assert packed_levels([q8, q8, q8], [2048, 1024, 4096]) == 127
+    assert packed_levels([q4], [1024]) == 7
+    assert packed_levels([q8, q4], [1024, 1024]) is None
+    assert packed_levels([q8, TC.get("qsgd8_linf")], [1024, 1024]) is None
+    assert packed_levels([q8, TC.get("identity")], [1024, 1024]) is None
+    assert packed_levels([q8], [1536]) is None
+    lv = torch.tensor([127.0])
+    assert packed_levels([TC.TracedQuant(lv, per_block=1024)], [1024]) is None

@@ -97,6 +97,81 @@ def test_mlp(activation):
            JL.mlp(p, jnp.asarray(x), activation))
 
 
+def _bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits), per element."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+def _assert_bf16_close(got, want, max_frac=0.01):
+    """At most one bfloat16 ulp of the reference per element, and at most
+    `max_frac` of the elements differing at all."""
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     np.float32)
+    want = np.asarray(want, np.float32)
+    d = np.abs(got - want)
+    assert (d <= _bf16_ulp(want)).all(), (d / _bf16_ulp(want)).max()
+    assert (d > 0).mean() <= max_frac, (d > 0).mean()
+
+
+def test_gelu_bfloat16_follows_the_reference():
+    """The tanh GELU evaluated op by op in bfloat16, as jax.nn.gelu
+    (approximate=True) is: 65,536 draws from N(0, 9). (Rounding once from
+    float32, as F.gelu does, differs in about 43 % of them.)"""
+    x = (3 * np.random.RandomState(11).randn(65536)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = jax.nn.gelu(xj, approximate=True).astype(jnp.float32)
+    got = TL._gelu_tanh(_t(np.asarray(xj.astype(jnp.float32)))
+                        .to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("activation", ["geglu", "gelu"])
+def test_mlp_bfloat16(activation):
+    """bfloat16 weights and inputs: the linears and the GELU rounded where
+    the reference rounds them."""
+    p = JL.mlp_init(jax.random.key(3), 32, 64, activation, True,
+                    jnp.bfloat16)
+    p = jax.tree.map(lambda w: w + 0.1, p)
+    xj = jnp.asarray(np.random.RandomState(3).randn(2, 5, 32), jnp.bfloat16)
+    got = TL.mlp(params_from_jax(jax.device_get(p)),
+                 _t(np.asarray(xj.astype(jnp.float32))).to(torch.bfloat16),
+                 activation)
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_close(got, JL.mlp(p, xj, activation).astype(jnp.float32))
+
+
+def test_bfloat16_prefill_and_decode_logits():
+    """gemma-2b reduced() in bfloat16: prefill logits and one
+    teacher-forced decode step's logits within two bfloat16 ulps of the
+    reference's largest |logit|. (The two frameworks round the norms,
+    RoPE, attention and the bf16 matmuls' sums at other places, so single
+    logits differ by about an ulp.)"""
+    import dataclasses
+    cfg = dataclasses.replace(JCFG, param_dtype="bfloat16")
+    tcfg = dataclasses.replace(TCFG, param_dtype="bfloat16")
+    rs = np.random.RandomState(12)
+    params = jax.tree.map(
+        lambda w: (w.astype(jnp.float32) + 0.02 * rs.randn(*w.shape)
+                   .astype(np.float32)).astype(w.dtype),
+        JM.init(jax.random.key(0), cfg, 0))
+    tparams = params_from_jax(jax.device_get(params))
+    prompt = rs.randint(1, cfg.vocab_size, (2, 12))
+    lg_j, c_j = JM.prefill(params, cfg, jnp.asarray(prompt, jnp.int32),
+                           max_len=16)
+    lg_t, c_t = TM.prefill(tparams, tcfg, _t(prompt).long(), max_len=16)
+    tok = rs.randint(1, cfg.vocab_size, (2, 1))     # teacher-forced
+    dj, _ = JM.decode_step(params, cfg, jnp.asarray(tok, jnp.int32), c_j)
+    dt, _ = TM.decode_step(tparams, tcfg, _t(tok).long(), c_t)
+    for got, want in ((lg_t, lg_j), (dt, dj)):
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        tol = 2 * _bf16_ulp(np.abs(want).max())
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol)
+
+
 @pytest.mark.parametrize("window,causal", [(0, True), (3, True), (0, False)])
 def test_attention_dense(window, causal):
     rs = np.random.RandomState(4)

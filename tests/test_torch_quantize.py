@@ -121,3 +121,66 @@ def test_shape_contract_is_checked():
     g, e, r = (torch.from_numpy(x) for x in _operands(0, 12, 128))
     with pytest.raises(ValueError, match="block_rows"):
         Q.quantize_ef_blocked(g, e, r, block_rows=8)
+
+
+def _packed(seed, bucket_rows):
+    """Flat buckets of the given row counts, and the same packed back to
+    back: (g, e, r) lists per bucket and the three packed buffers."""
+    parts = [tuple(x.reshape(-1) for x in _operands(seed + i, R, 1024))
+             for i, R in enumerate(bucket_rows)]
+    packed = [np.concatenate([p[k] for p in parts]) for k in range(3)]
+    return parts, packed
+
+
+@pytest.mark.parametrize("bucket_rows", [(648, 648, 512), (3, 1, 5), (4,),
+                                         (1,), (2, 1)])
+@pytest.mark.parametrize("levels", [127, 7])
+def test_quantize_ef_flat_on_packed_buckets_equals_per_bucket_calls(
+        bucket_rows, levels):
+    """One call over comm buckets packed back to back (the one-worker
+    trainer's single B1 launch) gives each bucket's rows exactly what
+    `quantize_ef_flat` gives that bucket alone."""
+    parts, packed = _packed(sum(bucket_rows) + levels, bucket_rows)
+    codes, scales, e_new = Q.quantize_ef_flat(
+        *(torch.from_numpy(x) for x in packed), levels=levels)
+    assert codes.shape == (packed[0].size,) and codes.dtype == torch.int8
+    assert scales.shape == (sum(bucket_rows),)
+    c0 = r0 = 0
+    for (g, e, r), R in zip(parts, bucket_rows):
+        want = Q.quantize_ef_flat(torch.from_numpy(g), torch.from_numpy(e),
+                                  torch.from_numpy(r), levels=levels)
+        n = R * 1024
+        assert torch.equal(codes[c0:c0 + n], want[0])
+        assert torch.equal(scales[r0:r0 + R], want[1])
+        assert torch.equal(e_new[c0:c0 + n], want[2])
+        c0, r0 = c0 + n, r0 + R
+
+
+@pytest.mark.parametrize("bucket_rows", [(3, 1, 5), (8,), (1,)])
+def test_quantize_ef_flat_on_packed_buckets_matches_pallas(bucket_rows):
+    """Each bucket's slice of the call over the packed buckets against the
+    Pallas kernel (interpret mode) on that bucket alone."""
+    parts, packed = _packed(7 * sum(bucket_rows), bucket_rows)
+    codes, scales, e_new = Q.quantize_ef_flat(
+        *(torch.from_numpy(x) for x in packed), levels=127)
+    c0 = r0 = 0
+    for (g, e, r), R in zip(parts, bucket_rows):
+        out_j = JQ.quantize_ef_flat(jnp.asarray(g), jnp.asarray(e),
+                                    jnp.asarray(r), interpret=True)
+        n = R * 1024
+        _assert_same(out_j, (codes[c0:c0 + n], scales[r0:r0 + R],
+                             e_new[c0:c0 + n]))
+        c0, r0 = c0 + n, r0 + R
+
+
+def test_quantize_ef_flat_on_packed_buckets_dispatches_by_device():
+    """CPU operands take the plain version (no launch counted); anything
+    but CUDA is refused, never computed some other way."""
+    g, e, r = (torch.from_numpy(x.reshape(-1)) for x in _operands(0, 2, 1024))
+    before = Q.launches
+    codes, scales, _ = Q.quantize_ef_flat(g, e, r)
+    assert Q.launches == before
+    assert codes.shape == (2048,) and scales.shape == (2,)
+    m = torch.empty((2048,), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.quantize_ef_flat(m, m, m)
