@@ -50,6 +50,19 @@ result line):
               gather-path tokens, engine tokens equal to sequential ones
   7. profile  device time by kernel and the device's busy share, for each
               training path and for the engine's decode step (reported)
+  8. sched    the trainer's CLI under the schedules, dcgan32 full width:
+              one worker under local_k(4) (B1 on the round ends only: 3
+              launches in 12 steps) and delayed(2) (B1 at every step, the
+              ring's head on the wire: 12 in 12); four workers under
+              delayed with the τ-vector (1, 2, 3, 4), half reporting, the
+              adaptive family (B2 three times a step); median step times
+  9. resume   one worker through B1 under every_step, local_k(4) and
+              delayed(2): 5 steps, a checkpoint (.npz; 2 shards), a fresh
+              trainer restored from it and 5 more steps, bit-equal to 10
+              uninterrupted steps
+ 10. quality  the paper's comparison on the 2-D mixture (CPOAdam,
+              CPOAdam-GQ, DQGAN; 1500 steps each at batch 256), held to
+              the ordering the JAX reference shows (PERF.md)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -1150,6 +1163,230 @@ def phase_serve_profile(dev, steps=10):
     del eng, params
     torch.cuda.empty_cache()
 
+# --------------------------------------------------------------------------- #
+# schedules, resume and the paper's quality comparison
+# --------------------------------------------------------------------------- #
+SCHED_STEPS = 12            # the one-worker schedule runs
+LOCAL_K, TAU = 4, 2
+TAU_VECTOR = (1, 2, 3, 4)   # the four-worker delayed run, one τ_m a worker
+TAU_STEPS = 8
+SCHED_ARGS = ["--arch", "dcgan32", "--batch", str(BATCH), "--optimizer",
+              "omd", "--lr", "1e-4", "--compressor", "qsgd8_block1024",
+              "--comm-plan", "uniform", "--log-every", "1", "--device",
+              "cuda"]
+TAU_JSON = json.dumps({
+    "compression": {"compressor": "qsgd8_block1024", "plan": "delta_budget",
+                    "budget_mb": 0.75, "adaptive": True},
+    "exchange": {"kind": "sim"},
+    "schedule": {"kind": "delayed", "tau": max(TAU_VECTOR),
+                 "tau_vector": list(TAU_VECTOR)},
+    "participation": {"fraction": 0.5}})
+RESUME_STEPS = 10           # 5 + save + restore + 5
+QUALITY_STEPS, QUALITY_BATCH = 1500, 256
+QUALITY_METHODS = ("CPOAdam", "CPOAdam-GQ", "DQGAN")
+
+
+def phase_sched(gpu):
+    """Drive the trainer's CLI under the schedules, dcgan32 at full width,
+    omd/update, qsgd8_block1024, and count the launches each path makes:
+    (a) one worker, local_k(4), 12 steps: B1 on the round ends only,
+        steps 3, 7 and 11: 3 launches;
+    (b) one worker, delayed(2), 12 steps: the wire carries the head of
+        the pending ring at EVERY step, as in the reference dataflow (the
+        first two heads are zero messages, exchanged all the same): B1
+        12 times;
+    (c) four workers stacked, batch 256, delayed with τ-vector (1, 2, 3,
+        4), half of them reporting, adaptive delta_budget at 0.75 MiB, 8
+        steps: B2 once a bucket at every step, 3 × 8 = 24 times, B1 never.
+    Rows must carry round, sim_clock_s and, under delayed, the staleness.
+    Returns {path: (B1 launches, B2 launches)}."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    runs = [
+        ("local_k(4)", SCHED_ARGS + ["--schedule", "local_k", "--local-k",
+                                     str(LOCAL_K)],
+         SCHED_STEPS, SCHED_STEPS // LOCAL_K, 0, None),
+        ("delayed(2)", SCHED_ARGS + ["--schedule", "delayed",
+                                     "--staleness-tau", str(TAU)],
+         SCHED_STEPS, SCHED_STEPS, 0, float(TAU)),
+        (f"delayed tau_vector {TAU_VECTOR}, 4 workers",
+         ["--arch", "dcgan32", "--workers", str(WORKERS), "--batch",
+          str(W_BATCH), "--optimizer", "omd", "--lr", "1e-4",
+          "--strategy-json", TAU_JSON, "--log-every", "1", "--device",
+          "cuda"],
+         TAU_STEPS, 0, 3 * TAU_STEPS, None),
+    ]
+    out = {}
+    for label, argv, steps, want_b1, want_b2, staleness in runs:
+        Q.reset_launches()
+        FA.reset_launches()
+        history = train.main(argv + ["--steps", str(steps)])
+        b1, b2, b4 = Q.launches, Q.launches_dyn, FA.flash_launches
+        check_rows(history, steps)
+        check(b1 == want_b1 and b2 == want_b2 and b4 == 0,
+              f"sched {label}: quantize_ef launched {b1} times, "
+              f"quantize_ef_dyn {b2}, flash_attention {b4} in {steps} steps, "
+              f"expected {want_b1}, {want_b2} and 0")
+        for rec in history:
+            check("round" in rec and "sim_clock_s" in rec,
+                  f"sched {label} step {rec['step']}: no round/sim_clock_s")
+            if staleness is not None:
+                check(rec["staleness_max"] == staleness,
+                      f"sched {label} step {rec['step']}: staleness_max "
+                      f"{rec['staleness_max']}, expected {staleness}")
+        step_ms = statistics.median(r["step_s"] for r in history[1:]) * 1e3
+        print(f"# sched dcgan32 full width, {label}: {steps} steps, "
+              f"quantize_ef launches {b1}, quantize_ef_dyn {b2}, median "
+              f"step {step_ms:.3f} ms (first {history[0]['step_s'] * 1e3:.1f}"
+              f" ms), rounds {history[-1]['round'] + 1}, sim clock "
+              f"{history[-1]['sim_clock_s']} s; gpu {gpu}")
+        out[label] = (b1, b2)
+    return out
+
+
+def phase_resume(dev):
+    """One worker through B1, dcgan32 full width, in process, under
+    every_step, local_k(4) and delayed(2): 10 uninterrupted steps against
+    5 steps, a checkpoint (.npz, then a 2-shard directory), a restore
+    into a fresh trainer and 5 more. The parameters, EF residuals,
+    schedule slots and step must be bit-equal; B1 launches as often as
+    the schedule exchanges."""
+    import tempfile
+
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch import tree as T
+    from repro_torch.data import procedural_images
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.strategy import Schedule
+
+    # cuDNN's autotuned algorithms may differ between trainers
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batches = [{"real": procedural_images(BATCH, 32, 3, generator=gen,
+                                          device=dev)}
+               for _ in range(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+
+    def run(trainer, state, lo, hi):
+        sched = trainer.strategy.schedule.runtime()
+        for i in range(lo, hi):
+            state = trainer.step(state, batches[i],
+                                 do_exchange=sched.is_exchange_step(i)).state
+        return state
+
+    def named(state):
+        return {n: x for n, x in CK._paths(state)}
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sched in (Schedule.every_step(), Schedule.local_k(LOCAL_K),
+                      Schedule.delayed(TAU)):
+            strat = single_strategy().evolve(
+                schedule=sched.kind, local_k=sched.k,
+                staleness_tau=sched.tau)
+            rt = strat.schedule.runtime()
+            tr, st0, _, _ = make_trainer(dev, strat, 1, 4)
+            Q.reset_launches()
+            straight = named(run(tr, st0, 0, RESUME_STEPS))
+            check(Q.launches == rt.exchanges_in(RESUME_STEPS),
+                  f"resume {rt.describe()}: quantize_ef launched "
+                  f"{Q.launches} times in {RESUME_STEPS} steps")
+            for fmt in ("npz", "sharded"):
+                path = os.path.join(tmp, f"{rt.describe()}.{fmt}")
+                Q.reset_launches()
+                tr1, s, _, _ = make_trainer(dev, strat, 1, 4)
+                s = run(tr1, s, 0, half)
+                if fmt == "npz":
+                    CK.save(path, s, step=s.step,
+                            meta={"strategy": strat.to_json()})
+                else:
+                    CK.save_sharded(path, s, step=s.step, n_shards=2,
+                                    meta={"strategy": strat.to_json()})
+                del tr1, s
+                tr2, like, _, _ = make_trainer(dev, strat, 1, 5)
+                CK.verify_strategy(path, strat)
+                s = (CK.restore if fmt == "npz" else CK.restore_sharded)(
+                    path, like)
+                check(s.step == half, f"resume: restored step {s.step}")
+                s = named(run(tr2, s, half, RESUME_STEPS))
+                launches = Q.launches
+                check(launches == rt.exchanges_in(RESUME_STEPS),
+                      f"resume {rt.describe()} {fmt}: quantize_ef "
+                      f"launched {launches} times")
+                check(sorted(s) == sorted(straight),
+                      f"resume {rt.describe()} {fmt}: other leaves")
+                bad = [n for n in straight
+                       if not (torch.equal(s[n], straight[n])
+                               if isinstance(s[n], torch.Tensor)
+                               else s[n] == straight[n])]
+                check(not bad, f"resume {rt.describe()} {fmt}: not "
+                      f"bit-equal at {bad[:6]}")
+                print(f"# resume dcgan32 full width, 1 worker, "
+                      f"{rt.describe()}, {fmt}: {half} + {half} steps == "
+                      f"{RESUME_STEPS}, bit for bit over "
+                      f"{len(straight)} leaves "
+                      f"({sum(x.numel() for x in straight.values() if isinstance(x, torch.Tensor))}"
+                      f" elements), quantize_ef launches {launches}")
+                total[f"{rt.describe()} {fmt}"] = launches
+            del tr, st0, straight
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return total
+
+
+def phase_quality(gpu):
+    """The paper's comparison on the 2-D mixture (`gan_common`): CPOAdam,
+    CPOAdam-GQ and DQGAN, 1500 steps each at batch 256, on the card. The
+    gate is the ordering the JAX reference shows at 1500 steps on the CPU
+    (PERF.md §6: CPOAdam 1/8 modes, fid 37.8061; CPOAdam-GQ 8/8, 6.9386;
+    DQGAN 8/8, 0.6591): DQGAN covers at least CPOAdam's modes − 1 with
+    an fid within 1.5× of CPOAdam's, and CPOAdam-GQ's fid is worse than
+    DQGAN's. The per-leaf qsgd8_linf of these strategies runs no kernel."""
+    import torch
+    from repro_torch.gan_common import METHOD_STRATEGIES, train_mixture_gan
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    res = {}
+    for method in QUALITY_METHODS:
+        Q.reset_launches()
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        final, _, st = train_mixture_gan(method, steps=QUALITY_STEPS,
+                                         batch=QUALITY_BATCH, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(st.step == QUALITY_STEPS and math.isfinite(final["fid"]),
+              f"quality {method}: step {st.step}, fid {final['fid']}")
+        check(Q.launches == Q.launches_dyn == FA.flash_launches == 0,
+              f"quality {method}: a kernel launched on the per-leaf path")
+        print(f"# quality {method:11s} modes {final['modes']}/8 hq_frac "
+              f"{final['hq_frac']:.3f} fid {final['fid']:.4f}  "
+              f"[{METHOD_STRATEGIES[method].describe()}] {QUALITY_STEPS} "
+              f"steps in {secs:.1f} s ({secs / QUALITY_STEPS * 1e3:.3f} "
+              f"ms/step); gpu {gpu}")
+        res[method] = final
+    cpo, gq, dq = (res[m] for m in QUALITY_METHODS)
+    check(dq["modes"] >= cpo["modes"] - 1,
+          f"quality: DQGAN covers {dq['modes']} modes, CPOAdam "
+          f"{cpo['modes']}")
+    check(dq["fid"] <= 1.5 * cpo["fid"],
+          f"quality: DQGAN fid {dq['fid']} > 1.5 x CPOAdam's {cpo['fid']}")
+    check(gq["fid"] > dq["fid"],
+          f"quality: CPOAdam-GQ fid {gq['fid']} not worse than DQGAN's "
+          f"{dq['fid']}")
+    return res
+
+
+def timed(label, fn, *args, **kw):
+    """fn(*args, **kw), printing its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"# phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
 
 def main():
     import torch
@@ -1173,7 +1410,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     try:
-        phase_build()
+        timed("build", phase_build)
         # the bucket rows and, for four workers with two reporting, the
         # adaptive family's level counts, as the trainer derives them
         t1, s1, layout1, _ = make_trainer(dev, single_strategy(), 1, 0)
@@ -1187,24 +1424,36 @@ def main():
               "the selected family member equals the full plan")
         rows_w = [WORKERS * b.size // 1024 for b in layoutw.buckets]
         del t1, s1, tw, sw
-        b1 = phase_kernel(dev, rows, [127] * len(rows), dyn=False)
-        b2 = phase_kernel(dev, rows_w, levels_sel, dyn=True)
+        b1 = timed("kernel B1", phase_kernel, dev, rows, [127] * len(rows),
+                   dyn=False)
+        b2 = timed("kernel B2", phase_kernel, dev, rows_w, levels_sel,
+                   dyn=True)
         # the serving launcher's shapes; contexts 257..319 over its decode
         scfg = build_serve_config(S_PROMPT, S_GEN, S_BATCH)
         ctx = S_PROMPT + S_GEN - 1
         lengths = [S_PROMPT + 1 + (ctx - S_PROMPT - 1) * i // (S_BATCH - 1)
                    for i in range(S_BATCH)]
-        b3 = phase_paged_kernel(dev, scfg, lengths)
-        b4 = phase_flash_kernel(dev)
-        b1["launches"] = phase_train()
-        b2["launches"] = phase_train_workers(dev)
-        b3["launches"] = phase_serve()
-        phase_parity(dev, 1)
-        phase_parity(dev, WORKERS)
-        phase_serve_parity(dev)
-        phase_profile(dev, 1)
-        phase_profile(dev, WORKERS)
-        phase_serve_profile(dev)
+        b3 = timed("kernel B3", phase_paged_kernel, dev, scfg, lengths)
+        b4 = timed("flash", phase_flash_kernel, dev)
+        b1["launches"] = timed("train 1 worker", phase_train)
+        b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
+        b3["launches"] = timed("serve", phase_serve)
+        timed("parity 1 worker", phase_parity, dev, 1)
+        timed("parity 4 workers", phase_parity, dev, WORKERS)
+        timed("parity serve", phase_serve_parity, dev)
+        timed("profile 1 worker", phase_profile, dev, 1)
+        timed("profile 4 workers", phase_profile, dev, WORKERS)
+        timed("profile serve", phase_serve_profile, dev)
+        sched = timed("sched", phase_sched, gpu)
+        resumed = timed("resume", phase_resume, dev)
+        timed("quality", phase_quality, gpu)
+        # each kernel's launches on the later paths (the main path's
+        # count stays "launches")
+        b1["launches_by_path"] = {
+            **{f"sched {k}": v[0] for k, v in sched.items()},
+            **{f"resume {k}": v for k, v in resumed.items()}}
+        b2["launches_by_path"] = {f"sched {k}": v[1]
+                                  for k, v in sched.items()}
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

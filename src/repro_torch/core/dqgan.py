@@ -26,13 +26,24 @@ one worker, where every bucket runs B1 at one level count, the step packs
 its buckets back to back and makes ONE B1 launch over all of their rows
 (`_exchange_packed`).
 
+Schedules (`strategy.Schedule`, the JAX package's `_worker_body`
+dataflow): under `local_k(K)` the message accumulates in
+`sched["accum"]` and only a step called with `do_exchange=True` exchanges
+and updates the server state (the EF residuals too: a mid-round step
+leaves them as they were); under `delayed(τ)` the wire carries the head
+of each worker's pending ring (its τ_m pull slot under a `tau_vector`),
+the OMD lookahead also subtracts the worker's in-flight messages, and
+the (W,) `versions` vector advances for the round's participants.
+
 State mirrors the JAX package's `DQState`, parameters keep its layout and
 leaf order. Randomness comes from the trainer's `torch.Generator` on its
-device, or from `draws` handed to `step` (the tests replay the JAX
-package's draws that way).
+device, re-seeded from (seed, step) at the start of every step, so a run
+restored from a checkpoint draws what the uninterrupted run drew; or
+from `draws` handed to `step` (the tests replay the JAX package's draws
+that way).
 
-The other schedules, fsdp, spmd='vmap', overlap and observability are
-refused at construction, each naming the ROADMAP slice that ports it.
+fsdp, spmd='vmap', overlap and observability are refused at
+construction, each naming the ROADMAP slice that ports it.
 """
 from __future__ import annotations
 
@@ -79,12 +90,11 @@ def _unported(strategy: Strategy) -> Optional[str]:
     brings it, or None."""
     s = strategy
     checks = (
-        (s.schedule.kind != "every_step",
-         f"schedule {s.schedule.kind!r}", "slice 3 (schedules)"),
         (s.exchange.fsdp, "parallelism 'fsdp'", "slice 5 (FSDP)"),
         (s.exchange.spmd == "vmap", "spmd 'vmap'",
-         "slice 2 (multiple workers: the spmd='vmap' path)"),
-        (s.exchange.overlap, "overlap=True", "slice 3 (schedules, overlap)"),
+         "slice 5 (FSDP: the spmd='vmap' path)"),
+        (s.exchange.overlap, "overlap=True",
+         "slice 3 (schedules: overlap on CUDA streams)"),
         (s.observability.on or s.observability.spans
          or s.observability.profile,
          "observability (metrics/spans/profile)", "slice 4 (observability)"),
@@ -283,7 +293,13 @@ class DQGAN:
         """Zero state around `params` (a nested dict of tensors)."""
         dq = self.dq
         W = self.n_workers
+        sched_c = self.strategy.schedule
         self._validate_lr_mults(params)
+        tv = sched_c.tau_vector
+        if tv and len(tv) != W:
+            raise ValueError(
+                f"schedule.tau_vector has {len(tv)} entries but this trainer "
+                f"runs {W} workers — one τ_m per worker")
         paths, leaves = T.flatten(params)
         plans = self._plans(params)
         ef_dtype = self.ef_dtype
@@ -325,8 +341,18 @@ class DQGAN:
                         (W, b.size // W), dtype=ef_dtype,
                         device=leaves[0].device)}
             ef = {"leaf": ef, "bucket": bucket_ef}
+        # the schedule's buffers carry the float32 message, one per worker;
+        # delayed starts every version at −τ, so the staleness reads τ
+        # from the first exchange on
+        sched = sched_c.init_slots(
+            params,
+            worker_like=lambda x: zeros(x, (W,), torch.float32),
+            ring_like=lambda x: zeros(x, (W, sched_c.tau), torch.float32),
+            versions_like=lambda: torch.full((W,), -sched_c.tau,
+                                             dtype=torch.int32,
+                                             device=leaves[0].device))
         return DQState(step=0, params=params, prev_grad=prev_grad,
-                       prev_update=prev_update, ef=ef, m=m, v=v)
+                       prev_update=prev_update, ef=ef, m=m, v=v, sched=sched)
 
     # ------------------------------------------------------------------ #
     # the step
@@ -345,10 +371,21 @@ class DQGAN:
         stacked = {k: split(x) for k, x in batch.items()}
         return [{k: x[w] for k, x in stacked.items()} for w in range(W)]
 
+    def _step_seed(self, step: int) -> int:
+        """The generator's seed for step `step`: a function of (seed,
+        step) alone, as the JAX package folds the step into its key."""
+        return (self.seed * (1 << 32) + step) % (1 << 64)
+
     @torch.no_grad()
     def step(self, state: DQState, batch,
-             draws: Optional[Dict[str, Any]] = None) -> StepOutput:
+             draws: Optional[Dict[str, Any]] = None,
+             do_exchange: bool = True) -> StepOutput:
         """One Algorithm-2 iteration over the W workers.
+
+        `do_exchange` is read by the `local_k` schedule only, and must be
+        a Python bool: the caller decides the cadence with
+        `sched.ExchangeSchedule.is_exchange_step(step)`. `every_step` and
+        `delayed` exchange at every call.
 
         `draws` (optional) replaces the generator. Each draw holds the W
         workers' draws in worker order, split W ways like the batch: a
@@ -364,6 +401,15 @@ class DQGAN:
         dq = self.dq
         eta = dq.lr
         W = self.n_workers
+        sched_c = self.strategy.schedule
+        if sched_c.kind == "local_k":
+            if not isinstance(do_exchange, bool):
+                raise TypeError(
+                    "schedule='local_k' needs a Python bool do_exchange; "
+                    f"got {type(do_exchange).__name__}")
+        else:
+            do_exchange = True
+        self.generator.manual_seed(self._step_seed(state.step))
         draws = draws or {}
         rand = draws.get("rand", {})
         paths, params = T.flatten(state.params)
@@ -376,24 +422,38 @@ class DQGAN:
                      for e in T.flatten_up_to(paths, ef_leaf_tree)]
         part = self.strategy.participation.round_setup(
             W, self.generator, draws.get("mask"))
+        # pending_buf: the delayed schedule's raw ring; pending: the (W,
+        # ...) message on the wire THIS step (each worker's pull slot)
+        pending_buf, pending = sched_c.wire_head(state.sched)
 
         # ---------- extrapolation to w_{t-1/2}, per worker ------------- #
+        # delayed: w_{t-1} is τ applied updates stale, so the lookahead
+        # also subtracts the sum of the worker's in-flight messages
+        stale = sched_c.staleness_correction(pending_buf, dq.message, eta)
+        stale = (T.flatten_up_to(paths, stale) if stale is not None
+                 else [None] * len(params))
         if dq.optimizer == "omd" and dq.extrapolation == "local":
             w_half = []
-            for w, g, e in zip(params, prev_grad, ef_leaves):
+            for w, g, e, s in zip(params, prev_grad, ef_leaves, stale):
                 upd = eta * g
                 if dq.error_feedback and "e1" in e:
                     upd = upd + e["e1"].to(w.dtype)
+                if s is not None:
+                    upd = upd + s.to(w.dtype)
                 w_half.append(w - upd.to(w.dtype))      # (W, ...)
             worker_params = [T.unflatten(paths, [x[i] for x in w_half])
                              for i in range(W)]
-        else:
-            if dq.optimizer == "omd":   # global: the last applied update
-                w_half = [w - u.to(w.dtype) for w, u in zip(
-                    params, T.flatten_up_to(paths, state.prev_update))]
-            else:   # adam/oadam/sgd evaluate at the current params
-                w_half = params
-            worker_params = [T.unflatten(paths, w_half)] * W
+        elif dq.optimizer == "omd":     # global: the last applied update
+            upd = T.flatten_up_to(paths, state.prev_update)
+            w_half = [w - (u if s is None else u + s.to(u.dtype)).to(w.dtype)
+                      for w, u, s in zip(params, upd, stale)]
+            if pending_buf is None:
+                worker_params = [T.unflatten(paths, w_half)] * W
+            else:   # (W, ...): each worker's own in-flight messages
+                worker_params = [T.unflatten(paths, [x[i] for x in w_half])
+                                 for i in range(W)]
+        else:   # adam/oadam/sgd evaluate at the current params
+            worker_params = [T.unflatten(paths, params)] * W
 
         # ---------- each worker's stochastic field --------------------- #
         z = draws.get("z")
@@ -412,16 +472,30 @@ class DQGAN:
         else:
             message = [g.float() for g in grads]
 
+        # ---------- schedule dataflow ------------------------------------ #
+        # accumulate (local_k), ring-shift and advance the versions
+        # (delayed), or pass the fresh message through (every_step)
+        exch_msg, new_sched = sched_c.fold(
+            state.sched, T.unflatten(paths, message), pending, do_exchange,
+            state.step, part[0] if part is not None else None,
+            lambda tree: T.tree_map(torch.zeros_like, tree))
+
         # ---------- exchange + server update ---------------------------- #
-        if part is not None:
-            qhat, new_ef = self._exchange_with_participation(
-                state.params, paths, message, ef, ef_leaves, plans, rand,
-                part)
+        if exch_msg is None:    # mid-round: params, moments and EF stay
+            new_params, new_m, new_v, new_prev_update = (
+                state.params, state.m, state.v, state.prev_update)
+            new_ef = ef
         else:
-            qhat, new_ef = self._exchange(state.params, paths, message, ef,
-                                          ef_leaves, plans, rand)
-        new_params, new_m, new_v, new_prev_update = self._server_update(
-            state, paths, qhat)
+            exch_msg = T.flatten_up_to(paths, exch_msg)
+            if part is not None:
+                qhat, new_ef = self._exchange_with_participation(
+                    state.params, paths, exch_msg, ef, ef_leaves, plans,
+                    rand, part)
+            else:
+                qhat, new_ef = self._exchange(state.params, paths, exch_msg,
+                                              ef, ef_leaves, plans, rand)
+            new_params, new_m, new_v, new_prev_update = self._server_update(
+                state, paths, qhat)
 
         new_prev_grad = None
         if prev_grad is not None:
@@ -432,14 +506,16 @@ class DQGAN:
         # package's pmean)
         gn = _worker_norms(grads, W).mean()
         en = _worker_norms(_ef_tensors(new_ef), W).to(gn.device).mean()
-        zero = torch.zeros((), device=gn.device)
+        st_now = sched_c.staleness_now(state.step, new_sched, gn.device)
+        st_max, st_mean = ((st_now.max(), st_now.mean()) if st_now.dim()
+                           else (st_now, st_now))
         new_state = DQState(step=state.step + 1, params=new_params,
                             prev_grad=new_prev_grad,
                             prev_update=new_prev_update, ef=new_ef,
-                            m=new_m, v=new_v)
+                            m=new_m, v=new_v, sched=new_sched)
         out_metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gn,
-                       "error_norm": en, "staleness_max": zero,
-                       "staleness_mean": zero}
+                       "error_norm": en, "staleness_max": st_max,
+                       "staleness_mean": st_mean}
         return StepOutput(state=new_state, metrics=out_metrics)
 
     # ------------------------------------------------------------------ #

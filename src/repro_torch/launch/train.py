@@ -24,28 +24,50 @@ in a device synchronize. Each round is billed at what its participants
 move: ``wire_mb_step`` is the ledger's ``round_bytes(n)``, the selected
 PlanFamily member's bytes under an adaptive plan.
 
+Execution schedule (``--schedule every_step|local_k|delayed``,
+``--local-k K``, ``--staleness-tau τ``, or a ``tau_vector`` through
+``--strategy-json``): the launcher decides each step's ``do_exchange``
+from the schedule, and rows carry ``round`` and the simulated wall clock
+``sim_clock_s`` of the straggler-aware cost model (``sched.clock``,
+``--straggler-profile none|mild|heavy``), and under ``delayed`` the
+steps' ``staleness_max``/``staleness_mean``, as the JAX launcher's rows
+do.
+
+Checkpointing: ``--checkpoint PATH`` saves the full ``DQState`` at the
+end and every ``--checkpoint-every N`` steps, in the JAX package's
+format (a path ending in ``.npz`` is one archive, anything else a
+sharded directory of ``--checkpoint-shards`` files); ``--resume PATH``
+restores it (either format, saved by either package), refuses a
+checkpoint saved under another strategy with the field diff, and
+continues at the saved step, the batch stream advanced past the steps
+already taken.
+
 ``--device`` defaults to ``cuda`` and the launcher exits with an error
 when no CUDA device is present; ``--device cpu`` runs the kernels' plain
 versions on the CPU. On CUDA the trainer turns TF32 off for matmuls and
 convolutions: the reference computes in float32. Strategies the port does not run yet
-(other schedules, spmd='vmap', fsdp, ...) are refused with the ROADMAP
-slice that brings them.
+(spmd='vmap', fsdp, overlap, ...) are refused with the ROADMAP slice
+that brings them.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+import zipfile
 
 import torch
 
+from repro_torch import checkpoint
 from repro_torch import configs
 from repro_torch import strategy as strategy_api
 from repro_torch.configs.base import DQConfig
 from repro_torch.core.dqgan import DQGAN
 from repro_torch.data import procedural_images
 from repro_torch.models import gan
+from repro_torch.sched import clock as sclock
 from repro_torch.sched import n_participants
+from repro_torch.sched import straggler as sstrag
 
 
 def _sync(device):
@@ -67,6 +89,20 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="oadam")
     strategy_api.add_strategy_args(ap)
+    ap.add_argument("--checkpoint", default="",
+                    help="save the full DQState here (end of run + "
+                         "--checkpoint-every). A path ending in .npz "
+                         "uses the single-archive format; anything else "
+                         "is a sharded directory (manifest + shard files)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="also save every N steps (0 = only at the end)")
+    ap.add_argument("--checkpoint-shards", type=int, default=0,
+                    help="shard-file count for the sharded checkpoint "
+                         "format (0 = one)")
+    ap.add_argument("--resume", default="",
+                    help="restore a full DQState checkpoint (either "
+                         "format, saved by this package or the JAX one) "
+                         "and continue from its step")
     ap.add_argument("--log-every", type=int, default=1,
                     help="log row every N steps (default: every step)")
     ap.add_argument("--seed", type=int, default=0)
@@ -93,9 +129,7 @@ def main(argv=None):
             args, worker_axes=("data",) if W > 1 else ())
     except strategy_api.StrategyError as e:
         ap.error(str(e))
-    if strat.participation.straggler_profile != "none":
-        ap.error("the straggler wall-clock model arrives with ROADMAP §A "
-                 "slice 3 (schedules); repro_torch does not run it yet")
+    sched = strat.schedule.runtime()
     dq = DQConfig.from_strategy(
         strat, optimizer=args.optimizer, lr=args.lr,
         message="update" if args.optimizer == "omd" else "grad")
@@ -109,6 +143,28 @@ def main(argv=None):
     data_gen = torch.Generator(device=device).manual_seed(args.seed)
     params = gan.init(cfg, generator=data_gen, device=device)
     state = trainer.init(params)
+
+    def save_ckpt(path, st):
+        meta = {"strategy": strat.to_json()}
+        if path.endswith(".npz"):
+            checkpoint.save(path, st, step=st.step, meta=meta)
+        else:
+            checkpoint.save_sharded(path, st, step=st.step, meta=meta,
+                                    n_shards=args.checkpoint_shards or None)
+
+    start = 0
+    if args.resume:
+        try:
+            checkpoint.verify_strategy(args.resume, strat)
+            if checkpoint.is_sharded(args.resume):
+                state = checkpoint.restore_sharded(args.resume, state)
+            else:
+                state = checkpoint.restore(args.resume, state)
+        except (ValueError, OSError, zipfile.BadZipFile) as e:
+            # strategy or shape mismatch, missing file, corrupt archive
+            raise SystemExit(f"--resume refused:\n{e}") from None
+        start = state.step
+        print(f"# resumed from {args.resume} at step {start}", flush=True)
     ledger = trainer.comm_ledger(params)
     if strat.compression.bucketing:
         layout, cplan = trainer._comm(params)
@@ -127,36 +183,78 @@ def main(argv=None):
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""), flush=True)
 
+    # the simulated wall clock (sched.clock): the straggler profile's
+    # per-worker compute times around a measured base step, and the
+    # modeled exchange of what a round moves
+    profile = strat.participation.profile()
+    link = sclock.LinkModel()
+    t_ex = link.exchange_time(ledger.round_bytes(n_part)[0]) if W > 1 \
+        else 0.0
+    wall_series = None
+    warm = set()    # do_exchange values whose step already ran once
+
+    def batches():
+        while True:
+            yield {"real": procedural_images(
+                args.batch, cfg.image_size, cfg.channels,
+                generator=data_gen, device=device)}
+
+    it = batches()
+    for _ in range(start):  # keep the data stream aligned across resumes
+        next(it)
     history = []
     t0 = time.time()
-    for i in range(args.steps):
-        batch = {"real": procedural_images(args.batch, cfg.image_size,
-                                           cfg.channels, generator=data_gen,
-                                           device=device)}
+    for i in range(start, args.steps):
+        batch = next(it)
+        do_exchange = sched.is_exchange_step(i)
         _sync(device)
         it_t0 = time.perf_counter()
-        out = trainer.step(state, batch)
+        out = trainer.step(state, batch, do_exchange=do_exchange)
         state = out.state
         _sync(device)
         step_s = time.perf_counter() - it_t0
-        ledger.tick(participants=n_part)
+        if wall_series is None and (do_exchange in warm
+                                    or i == args.steps - 1):
+            # the base compute time from the first step past the set-up
+            # of its kind (as the JAX launcher takes it past compilation)
+            times = sstrag.step_times(profile, W, args.steps, args.seed,
+                                      base=step_s)
+            wall_series = sclock.simulate(
+                sched, times, t_ex, strat.participation.fraction,
+                args.seed)["per_step_s"]
+            if i > start:   # backfill the steps already run
+                ledger.tick(0, wall_s=float(wall_series[start:i].sum()))
+        warm.add(do_exchange)
+        wall = float(wall_series[i]) if wall_series is not None else 0.0
+        ledger.tick(exchanged=do_exchange, wall_s=wall, participants=n_part)
         if i % args.log_every == 0 or i == args.steps - 1:
             m = {k: float(v) for k, v in out.metrics.items()}
-            rec = {"step": i, "round": i,
+            rec = {"step": i, "round": sched.round_index(i),
                    **({"participants": n_part}
                       if n_part is not None else {}),
                    "loss": m["loss"],
                    "grad_norm": m["grad_norm"],
                    "error_norm": m["error_norm"],
+                   **({"staleness_max": m["staleness_max"],
+                       "staleness_mean": round(m["staleness_mean"], 2)}
+                      if strat.schedule.kind == "delayed" else {}),
                    "wire_mb_step": round(
                        ledger.round_bytes(n_part)[0] / 1e6, 3),
                    "cum_wire_mb": round(ledger.cumulative_wire_bytes / 1e6,
                                         2),
                    "comm_ratio": round(ledger.compression_ratio, 2),
+                   "sim_clock_s": round(ledger.sim_clock_s, 3),
                    "step_s": round(step_s, 6),
                    "elapsed_s": round(time.time() - t0, 1)}
             history.append(rec)
             print(json.dumps(rec), flush=True)
+        if (args.checkpoint and args.checkpoint_every
+                and (i + 1) % args.checkpoint_every == 0
+                and i != args.steps - 1):
+            save_ckpt(args.checkpoint, state)
+    if args.checkpoint:
+        save_ckpt(args.checkpoint, state)
+        print(f"# saved DQState to {args.checkpoint}", flush=True)
     return history
 
 

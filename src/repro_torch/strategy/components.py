@@ -15,10 +15,10 @@ round-trip and the cross-field validation of the composed `Strategy`).
 plan (`build_family` the round-adaptive PlanFamily),
 `ExchangePlan.leaf_plans` plans the per-tensor exchange and
 `start`/`finish` run it across the workers, and
-`Participation.round_setup` draws the round's participation mask. The
-in-step methods of the other schedules and observability arrive with the
-slices that port them (ROADMAP §A); `core.dqgan` refuses those settings
-until then.
+`Participation.round_setup` draws the round's participation mask, and
+`Schedule`'s in-step methods carry the schedule dataflow of the stacked
+step (`core.dqgan`). Observability's arrive with ROADMAP §A slice 4;
+`core.dqgan` refuses it until then.
 
 Every field that is a CLI knob carries ``metadata`` with its legacy flag
 spelling — `strategy.cli` generates the `launch.train` argparse surface
@@ -27,10 +27,13 @@ cannot drift apart.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from repro_torch import tree as T
 
 
 class StrategyError(ValueError):
@@ -50,12 +53,6 @@ def _cli(legacy: str, help_: str, choices: Optional[Callable] = None) -> dict:
             "flag": "--" + legacy.replace("_", "-")}
 
 
-# the names of repro.sched's schedules and straggler profiles (the port's
-# schedule runtime arrives with ROADMAP §A slice 3)
-SCHEDULES = ("every_step", "local_k", "delayed")
-STRAGGLER_PROFILES = ("heavy", "mild", "none")
-
-
 def _compressor_names():
     from repro_torch.core import compressors as C
     return tuple(sorted(C.REGISTRY))
@@ -72,11 +69,13 @@ def _exchange_kinds():
 
 
 def _schedule_kinds():
+    from repro_torch.sched.schedule import SCHEDULES
     return SCHEDULES
 
 
 def _straggler_profiles():
-    return STRAGGLER_PROFILES
+    from repro_torch.sched.straggler import PROFILES
+    return tuple(sorted(PROFILES))
 
 
 SPMD_STYLES = ("shard_map", "vmap")
@@ -388,6 +387,13 @@ class MomentCompression:
         return C.get(self.compressor)
 
 
+@functools.lru_cache(maxsize=32)
+def _const(values: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """A small constant tensor on `device`, made once: a host-to-device
+    copy in every step would also wait for the device."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 # --------------------------------------------------------------------------- #
 @dataclass(frozen=True)
 class Schedule:
@@ -491,13 +497,157 @@ class Schedule:
         gradients, so they stay start+immediate-finish."""
         return self.kind == "delayed"
 
+    def runtime(self):
+        """The repro_torch.sched.ExchangeSchedule engine for this point."""
+        from repro_torch import sched as S
+        return S.get(self.kind, self.k, self.tau)
+
     def describe(self) -> str:
-        """repro.sched.ExchangeSchedule.describe of this point."""
+        return self.runtime().describe()
+
+    # ---- in-step dataflow of the stacked step (core.dqgan) ------------ #
+    # Every per-worker tensor carries a leading worker axis of size W (the
+    # JAX package's shard_map gives each worker its own slice instead), so
+    # where the JAX methods take a worker index these act on all W at once.
+    def init_slots(self, params, worker_like, ring_like, versions_like):
+        """The DQState.sched buffers for this schedule, or None.
+
+        `worker_like(leaf)` makes a per-worker (W, *shape) f32 slot,
+        `ring_like(leaf)` a (W, τ, *shape) ring, `versions_like()` the
+        (W,) int32 version vector — the caller owns shape and device."""
+        if self.kind == "every_step":
+            return None
         if self.kind == "local_k":
-            return f"local_k(K={self.k})"
-        if self.kind == "delayed" and self.tau > 1:
-            return f"delayed(tau={self.tau})"
-        return self.kind
+            return {"accum": T.tree_map(worker_like, params)}
+        pending = T.tree_map(
+            worker_like if self.tau == 1 else ring_like, params)
+        return {"pending": pending, "versions": versions_like()}
+
+    def _tau_of(self):
+        """τ_m of every worker: an int when they share it (homogeneous,
+        one worker, or a constant vector), else the tuple of the W."""
+        tv = self.tau_vector
+        if not tv:
+            return self.tau
+        if len(set(tv)) == 1:
+            return tv[0]
+        return tuple(tv)
+
+    def _pull_pos(self):
+        """Ring slot each worker exchanges: slot p holds the message
+        produced (τ − p) steps ago, so worker m pulls p_m = τ − τ_m (an
+        int, or a tuple over the workers). Messages keep shifting toward
+        slot 0 after their exchange and fall off the end — each passes
+        slot p_m exactly once."""
+        tau_m = self._tau_of()
+        if isinstance(tau_m, int):
+            return self.tau - tau_m
+        return tuple(self.tau - t for t in tau_m)
+
+    def wire_head(self, sched_state):
+        """(pending_buf, head): the raw delayed-schedule ring buffer and
+        the (W, ...) message on the wire THIS step — each worker's oldest
+        slot, or worker m's pull slot τ−τ_m under a tau_vector — or (None,
+        None) for the other schedules."""
+        if self.kind != "delayed":
+            return None, None
+        buf = sched_state["pending"]
+        if self.tau == 1:
+            return buf, buf
+        p = self._pull_pos()
+        if isinstance(p, int):
+            return buf, T.tree_map(lambda r: r[:, p], buf)
+        return buf, T.tree_map(
+            lambda r: torch.stack([r[w, pw] for w, pw in enumerate(p)]),
+            buf)
+
+    def staleness_correction(self, pending_buf, message: str, lr: float):
+        """Each delayed worker's in-flight messages in update units — the
+        staleness-correction proxy added to the OMD lookahead. For τ>1
+        this sums the not-yet-applied slots: all of them (the τ-step
+        recursion), or the τ_m slots from the worker's pull position on
+        under a tau_vector."""
+        if pending_buf is None:
+            return None
+        if self.tau > 1:
+            p = self._pull_pos()
+            if isinstance(p, int):
+                tot = T.tree_map(lambda r: r[:, p:].sum(dim=1), pending_buf)
+            else:
+                # (W, τ) 0/1 weights: slot s counts for worker m if s ≥ p_m
+                wts = tuple(tuple(float(s >= pw) for s in range(self.tau))
+                            for pw in p)
+
+                def masked(r):
+                    w = _const(wts, torch.float32, str(r.device))
+                    w = w.reshape(w.shape + (1,) * (r.dim() - 2))
+                    return (w * r.float()).sum(dim=1).to(r.dtype)
+                tot = T.tree_map(masked, pending_buf)
+        else:
+            tot = pending_buf
+        if message == "update":
+            return tot
+        return T.tree_map(lambda x: lr * x, tot)
+
+    def shift(self, pending_buf, new_message):
+        """Next pending buffer: overwrite the single slot (τ=1) or shift
+        each worker's ring and append (τ>1)."""
+        if self.tau == 1:
+            return T.tree_map(lambda p, m: m.to(p.dtype), pending_buf,
+                              new_message)
+        return T.tree_map(
+            lambda r, m: torch.cat([r[:, 1:], m[:, None].to(r.dtype)],
+                                   dim=1),
+            pending_buf, new_message)
+
+    def advance_version(self, old_version, step: int, mask=None):
+        """(W,) push/pull versions after an exchange: a participating
+        worker's applied message was produced τ (or τ_m) steps ago; a
+        worker sitting the round out (mask 0) keeps its old version — its
+        staleness keeps growing while the folded message rides the EF
+        residual."""
+        tau_m = self._tau_of()
+        v_new = torch.full_like(old_version, step)
+        v_new = v_new - (tau_m if isinstance(tau_m, int) else _const(
+            tau_m, torch.int32, str(old_version.device)))
+        if mask is None:
+            return v_new
+        return torch.where(mask > 0, v_new, old_version)
+
+    def fold(self, sched_state, message, head, do_exchange: bool, step: int,
+             mask, zeros: Callable):
+        """One step of schedule dataflow: (exchange_message | None,
+        new_sched_state | None). `message` is this step's fresh (W, ...)
+        message tree, `head` the delayed ring head from `wire_head`,
+        `zeros(tree)` the caller's zero-like."""
+        if self.kind == "every_step":
+            return message, None
+        if self.kind == "local_k":
+            if self.k == 1 and do_exchange:
+                # length-1 rounds: the accumulator is identically zero at
+                # every exchange; the message goes out unchanged
+                # (bit-identical to every_step)
+                return message, {"accum": zeros(sched_state["accum"])}
+            accum = T.tree_map(lambda a, m: (a + m).to(a.dtype),
+                               sched_state["accum"], message)
+            if do_exchange:
+                return accum, {"accum": zeros(accum)}
+            return None, {"accum": accum}  # mid-round: nothing on the wire
+        # delayed: exchange the step-(t−τ) message (ring head)
+        return head, {
+            "pending": self.shift(sched_state["pending"], message),
+            "versions": self.advance_version(sched_state["versions"], step,
+                                             mask),
+        }
+
+    def staleness_now(self, step: int, new_sched, device=None):
+        """(W,) per-worker staleness (step − version) after this step's
+        exchange, or a scalar 0 on `device` for staleness-free
+        schedules."""
+        if self.kind != "delayed":
+            return torch.zeros((), device=device)
+        return (step - new_sched["versions"]).to(torch.float32)
+
 
 # --------------------------------------------------------------------------- #
 @dataclass(frozen=True)
@@ -526,6 +676,10 @@ class Participation:
     @property
     def partial(self) -> bool:
         return self.fraction < 1.0
+
+    def profile(self):
+        from repro_torch.sched import straggler as strag
+        return strag.get_profile(self.straggler_profile)
 
     def round_setup(self, n_workers: int, generator=None, mask=None):
         """(mask (W,) float32, n_participants) for this round, or None for

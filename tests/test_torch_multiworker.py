@@ -1,6 +1,9 @@
 """Port parity: the W = 4 DQGAN step of `repro_torch` (workers stacked on
 one device) against `repro.core.dqgan.DQGAN.step` on 4 forced host devices
-(`shard_map` over a `data` mesh axis), 3 steps of the mixture MLP GAN.
+(`shard_map` over a `data` mesh axis), 3 steps of the mixture MLP GAN
+(6 under the `delayed` schedule with the per-worker τ-vector (1, 2, 3, 4),
+half the workers reporting, the adaptive PlanFamily: each worker's
+message reaches the wire τ_m steps after it was made).
 
 One subprocess runs every configuration on the JAX side and writes, per
 configuration, the initial parameters, each step's batch and draws and the
@@ -25,7 +28,8 @@ What is compared, and how tightly:
     at a rounding boundary by a last-bit difference of m;
   * the fraction of residual elements that differ by more than rounding
     (a flipped code): at most 1e-3 (expected none);
-  * loss and grad_norm, the means over workers: rtol 1e-5.
+  * loss and grad_norm, the means over workers: rtol 1e-5;
+  * under `delayed`, the version vector exactly.
 """
 import os
 
@@ -54,6 +58,13 @@ CONFIGS = {
                               ("adaptive", ADAPTIVE, 0.5))
 }
 CONFIGS["sim_per_leaf_partial"] = (dict(compressor="qsgd8_linf"), "sim", 0.5)
+# the delayed schedule, a per-worker τ-vector, half reporting, adaptive
+TAU_VECTOR = (1, 2, 3, 4)
+CONFIGS["sim_adaptive_tau_vector"] = (ADAPTIVE, "sim", 0.5,
+                                      dict(kind="delayed", tau=4,
+                                           tau_vector=TAU_VECTOR))
+# steps of a configuration (STEPS unless listed)
+CONFIG_STEPS = {"sim_adaptive_tau_vector": 6}
 
 SCRIPT = r"""
 import json, warnings
@@ -68,8 +79,9 @@ from repro.core.dqgan import DQGAN
 from repro.models.gan import GANConfig, mlp_gan_init, gan_field_fn
 from repro.strategy import Strategy
 
-W, B, STEPS = %(W)d, %(B)d, %(STEPS)d
+W, B = %(W)d, %(B)d
 CONFIGS = json.loads(%(configs)r)
+STEPS = json.loads(%(steps)r)
 mesh = make_mesh((W,), ("data",))
 cfg = GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
                 hidden=128)
@@ -142,7 +154,7 @@ for name, sjson in CONFIGS.items():
         with set_mesh(mesh):
             step = jax.jit(tr.step)
             st = tr.init(params)
-            for t in range(STEPS):
+            for t in range(STEPS[name]):
                 real = jax.random.normal(jax.random.fold_in(
                     jax.random.key(1), t), (B, 2))
                 put(f"{name}/batch/{t}", real)
@@ -154,6 +166,8 @@ for name, sjson in CONFIGS.items():
     st = jax.device_get(st)
     for i, x in enumerate(jax.tree.leaves(st.params)):
         put(f"{name}/params/{i}", x)
+    if st.sched is not None and "versions" in st.sched:
+        put(f"{name}/versions", st.sched["versions"])
     leaf_ef = st.ef["leaf"] if tr.bucketed else st.ef
     for i, e in enumerate(jax.tree.leaves(
             leaf_ef, is_leaf=lambda x: isinstance(x, dict) and "e1" in x)):
@@ -172,11 +186,16 @@ print("OK")
 """
 
 
-def _jax_strategy_json(comp, kind, frac):
+def _steps(name):
+    return CONFIG_STEPS.get(name, STEPS)
+
+
+def _jax_strategy_json(comp, kind, frac, schedule=None):
     from repro.strategy import Compression, ExchangePlan, Participation
-    from repro.strategy import Strategy
+    from repro.strategy import Schedule, Strategy
     return Strategy(compression=Compression(**comp),
                     exchange=ExchangePlan(kind=kind, worker_axes=("data",)),
+                    schedule=Schedule(**(schedule or {})),
                     participation=Participation(fraction=frac)).to_json()
 
 
@@ -186,8 +205,10 @@ def jax_runs(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("mw") / "runs.npz")
     import json
     configs = {n: _jax_strategy_json(*c) for n, c in CONFIGS.items()}
-    out = run_multidevice(SCRIPT % dict(W=W, B=B, STEPS=STEPS, path=path,
-                                        configs=json.dumps(configs)),
+    steps = {n: _steps(n) for n in CONFIGS}
+    out = run_multidevice(SCRIPT % dict(W=W, B=B, path=path,
+                                        configs=json.dumps(configs),
+                                        steps=json.dumps(steps)),
                           n_devices=W)
     assert "OK" in out
     data = dict(np.load(path))
@@ -226,7 +247,7 @@ def _run_port(configs, data, name):
                                  for i in range(len(paths))])
     st = tr.init(params)
     n = W
-    for t in range(STEPS):
+    for t in range(_steps(name)):
         draws = _replay(data, name, t)
         if "mask" in draws:
             n = int(draws["mask"].sum())
@@ -244,6 +265,9 @@ def _run_port(configs, data, name):
 def test_four_worker_trajectory_matches(jax_runs, name):
     configs, data, _ = jax_runs
     tr, st, paths, n = _run_port(configs, data, name)
+    if f"{name}/versions" in data:
+        np.testing.assert_array_equal(st.sched["versions"].numpy(),
+                                      data[f"{name}/versions"])
     n_leaves = len(paths)
     jp = [data[f"{name}/params/{i}"] for i in range(n_leaves)]
     tp = [x.numpy() for x in T.flatten_up_to(paths, st.params)]

@@ -3,6 +3,7 @@ or the JAX package, its launchers never fall back to the CPU on their own,
 they refuse what the port does not run yet, the training CLI trains on the
 CPU when asked, with one worker or several, and the serving CLI serves
 gemma-2b there."""
+import functools
 import json
 import math
 import os
@@ -49,7 +50,10 @@ def test_port_imports_neither_jax_nor_repro():
     walked = eval(out.stdout.splitlines()[-1])
     assert len(walked) > 30  # every module was imported
     for mod in ("serve.engine", "serve.kv_cache", "serve.baseline",
-                "launch.serve", "models.model", "kernels.flash_attention"):
+                "launch.serve", "models.model", "kernels.flash_attention",
+                "optim", "sched.schedule", "sched.server", "sched.clock",
+                "sched.straggler", "checkpoint", "gan_common", "quickstart",
+                "strategy.__main__"):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -126,11 +130,11 @@ def test_cli_without_a_gpu_refuses_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--schedule", "local_k", "--local-k", "2"], "slice 3"),
-    (["--spmd", "vmap"], "slice 2"),
+    (["--schedule", "delayed", "--overlap"], "slice 3"),
+    (["--spmd", "vmap"], "slice 5"),
     (["--preset", "fsdp_zero3"], "slice 5"),
     (["--obs-metrics", "wire"], "slice 4"),
-    (["--straggler-profile", "mild"], "slice 3"),
+    (["--preset", "ssp_server"], "slice 3"),
 ])
 def test_cli_refuses_unported_features(flags, slice_):
     out = _run(TRAIN + ["--device", "cpu", "--steps", "1"] + flags)
@@ -141,7 +145,7 @@ def test_cli_refuses_unported_features(flags, slice_):
 @pytest.mark.parametrize("name,ported", [
     ("paper_dqgan", True), ("exact_baseline", True),
     ("quantized_no_ef", True), ("byte_budget", True),
-    ("low_bandwidth", False), ("adaptive_budget", True),
+    ("low_bandwidth", True), ("adaptive_budget", True),
     ("overlap", False), ("ssp_server", False),
     ("partial_participation", True), ("fsdp_vmap", False),
     ("fsdp_zero2", False), ("fsdp_zero3", False),
@@ -170,6 +174,67 @@ def test_cli_trains_on_the_cpu_when_asked():
     assert "3 buckets (1849988 elems, 0.1% pad)" in out.stdout
 
 
+def _train(argv):
+    """The training CLI's rows, in this process."""
+    from repro_torch.launch import train
+    return train.main(["--arch", "dcgan32", "--device", "cpu"] + argv)
+
+
+@functools.lru_cache(maxsize=None)
+def _train_rows(argv: tuple):
+    """`_train`, once per argv: the uninterrupted run both resume cases
+    compare with."""
+    return _train(list(argv))
+
+
+@pytest.mark.parametrize("flags,rounds,staleness", [
+    (["--schedule", "local_k", "--local-k", "4"], [0, 0, 0, 0, 1], None),
+    (["--schedule", "delayed", "--staleness-tau", "2"], [0, 1, 2, 3, 4],
+     2.0),
+    (["--schedule", "delayed", "--straggler-profile", "mild"],
+     [0, 1, 2, 3, 4], 1.0),
+])
+def test_cli_trains_each_schedule_on_the_cpu(flags, rounds, staleness):
+    """dcgan32 (reduced) under local_k and delayed: rows carry the round
+    and the simulated clock, and under delayed the staleness. Chip
+    smoke's phase sched runs the full width on the card."""
+    rows = _train(["--smoke", "--steps", "5", "--optimizer", "omd",
+                   "--compressor", "qsgd8_block1024", "--comm-plan",
+                   "uniform"] + flags)
+    assert [r["round"] for r in rows] == rounds
+    clocks = [r["sim_clock_s"] for r in rows]
+    assert clocks == sorted(clocks) and clocks[-1] > 0
+    for r in rows:
+        assert math.isfinite(r["loss"]) and math.isfinite(r["error_norm"])
+        if staleness is None:
+            assert "staleness_max" not in r
+        else:
+            assert r["staleness_max"] == r["staleness_mean"] == staleness
+
+
+@pytest.mark.parametrize("fmt", ["npz", "sharded"])
+def test_cli_resume_continues_the_run(fmt, tmp_path, capsys):
+    """--checkpoint after 3 steps, then --resume: the resumed run starts
+    at step 3 and its rows equal the uninterrupted run's; a resume under
+    another strategy is refused with the field diff."""
+    ckpt = str(tmp_path / ("c.npz" if fmt == "npz" else "c"))
+    base = ["--smoke", "--optimizer", "omd", "--compressor",
+            "qsgd8_block1024", "--comm-plan", "uniform", "--schedule",
+            "local_k", "--local-k", "2"]
+    full = _train_rows(tuple(base + ["--steps", "6"]))
+    _train(base + ["--steps", "3", "--checkpoint", ckpt]
+           + ([] if fmt == "npz" else ["--checkpoint-shards", "2"]))
+    capsys.readouterr()
+    rest = _train(base + ["--steps", "6", "--resume", ckpt])
+    assert "# resumed from" in capsys.readouterr().out
+    keys = ("step", "round", "loss", "grad_norm", "error_norm")
+    assert [r["step"] for r in rest] == [3, 4, 5]
+    assert [{k: r[k] for k in keys} for r in rest] == \
+        [{k: r[k] for k in keys} for r in full[3:]]
+    with pytest.raises(SystemExit, match="schedule.kind"):
+        _train(base[:-4] + ["--steps", "6", "--resume", ckpt])
+
+
 ADAPTIVE = ["--workers", "4", "--batch", "8", "--optimizer", "omd",
             "--compressor", "qsgd8_block1024", "--comm-plan", "delta_budget",
             "--comm-budget-mb", "0.75", "--comm-adaptive",
@@ -177,8 +242,8 @@ ADAPTIVE = ["--workers", "4", "--batch", "8", "--optimizer", "omd",
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["--spmd", "vmap"], "slice 2"),
-    (["--schedule", "local_k", "--local-k", "2"], "slice 3"),
+    (["--spmd", "vmap"], "slice 5"),
+    (["--schedule", "delayed", "--overlap"], "slice 3"),
 ])
 def test_cli_with_workers_still_refuses(flags, slice_):
     out = _run(TRAIN + ["--device", "cpu", "--steps", "1", "--workers",

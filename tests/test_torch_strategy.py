@@ -98,3 +98,18 @@ def test_dqconfig_mirror():
     assert t.strategy == strat
     with pytest.raises(ValueError, match="strategy fields"):
         TDQ.from_strategy(strat, compressor="identity")
+
+
+@pytest.mark.parametrize("argv", [[], ["--list-presets"]]
+                         + [["--json", name] for name in PRESETS])
+def test_main_prints_the_same_bytes(argv, capsys):
+    """`python -m repro_torch.strategy` repeats `python -m repro.strategy`
+    byte for byte: names, docs, short_hash() and the JSON of each
+    preset."""
+    from repro.strategy.__main__ import main as jmain
+    from repro_torch.strategy.__main__ import main as tmain
+    assert jmain(list(argv)) == 0
+    want = capsys.readouterr().out
+    assert tmain(list(argv)) == 0
+    assert capsys.readouterr().out == want
+    assert want.strip()
