@@ -63,6 +63,19 @@ result line):
  10. quality  the paper's comparison on the 2-D mixture (CPOAdam,
               CPOAdam-GQ, DQGAN; 1500 steps each at batch 256), held to
               the ordering the JAX reference shows (PERF.md)
+ 11. dist     the four-worker path of (b) with its workers on the ranks of
+              a torch.distributed group over NCCL (world size 1, four
+              workers on the rank; every collective through NCCL) against
+              the same workers stacked, in this call: sim 10 steps,
+              allgather 5, two_phase 5; rows and states within the port's
+              tolerances, B2 three times a step; the NCCL kernels a step
+              (profiler) and the median steps of both backends
+ 12. overlap  exchange.overlap under delayed: one worker delayed(2)
+              through B1, four workers with the τ-vector (1, 2, 3, 4)
+              through B2, 12 steps each, overlap off then on: the final
+              states bit-equal, the exchange kernels on a non-default
+              stream (profiler trace); the share of their time under the
+              default stream's kernels and the median steps (reported)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -185,8 +198,9 @@ def single_strategy():
                                             plan="uniform"))
 
 
-def make_trainer(dev, strat, workers, seed):
-    """(trainer, initial state, bucket layout) of dcgan32 at full width."""
+def make_trainer(dev, strat, workers, seed, mesh=None):
+    """(trainer, initial state, bucket layout, generator) of dcgan32 at
+    full width; `mesh` spreads the workers over its ranks."""
     import torch
     from repro_torch.configs import DQConfig, get
     from repro_torch.core import dqgan
@@ -196,7 +210,7 @@ def make_trainer(dev, strat, workers, seed):
                                 message="update")
     gen = torch.Generator(device=dev).manual_seed(seed)
     trainer = dqgan.DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=dev,
-                          workers=workers)
+                          workers=workers, mesh=mesh)
     params = gan.init(cfg, generator=gen, device=dev)
     return trainer, trainer.init(params), trainer._comm(params)[0], gen
 
@@ -1380,6 +1394,287 @@ def phase_quality(gpu):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# the workers across a process group, and the exchange overlapped
+# --------------------------------------------------------------------------- #
+DIST_RUNS = (("sim", 10), ("allgather", 5), ("two_phase", 5))
+DIST_PROFILE_STEPS = 4
+OVERLAP_STEPS = 12
+OVERLAP_PROFILE_STEPS = 4
+
+
+def named_state(state):
+    """{name: tensor} of a DQState, in the checkpoint layout's order."""
+    from repro_torch import checkpoint as CK
+    return dict(CK._paths(state))
+
+
+def check_states_agree(ref, got, W, n, layout, label):
+    """`got` against `ref` (named states of W workers, n reporting a
+    round) to the tolerances the port holds itself to against the JAX
+    package: params − (1/n)·Σ e1 (− (W/n)·e2 over the buckets) to float32
+    rounding, params within one quantization step, at most 1e-3 of the
+    residual elements flipped. Returns the largest parameter difference."""
+    import torch
+    from repro_torch.comm import buckets as B
+    params = [k for k in ref if k.startswith("params/")]
+    e1 = [k for k in ref if k.startswith("ef/leaf/") and k.endswith("/e1")]
+    e2 = sorted((k for k in ref if k.startswith("ef/bucket/")),
+                key=lambda k: int(k.split("/")[2]))
+    rp, gp = [ref[k].float() for k in params], [got[k].float() for k in params]
+    re1, ge1 = [ref[k].float() for k in e1], [got[k].float() for k in e1]
+    inv_r = [p - e.sum(0) / n for p, e in zip(rp, re1)]
+    inv_g = [p - e.sum(0) / n for p, e in zip(gp, ge1)]
+    emax = max(e.abs().max().item() for e in re1)
+    if e2:
+        ur = B.unpack_into(layout, [ref[k].reshape(-1) for k in e2], rp)
+        ug = B.unpack_into(layout, [got[k].reshape(-1) for k in e2], gp)
+        inv_r = [a - W / n * u for a, u in zip(inv_r, ur)]
+        inv_g = [a - W / n * u for a, u in zip(inv_g, ug)]
+        emax = max(emax, W / n * max(ref[k].abs().max().item() for k in e2))
+    flips = sum(int(((a - b).abs() > 1e-3 * emax).sum())
+                for a, b in zip(re1, ge1)) / sum(a.numel() for a in re1)
+    scale = max(p.abs().max().item() for p in rp)
+    atol = 1e-6 * scale + 1e-6 * 127 * emax
+    d_inv = max((a - b).abs().max().item() for a, b in zip(inv_r, inv_g))
+    d_par = max((a - b).abs().max().item() for a, b in zip(rp, gp))
+    check(flips <= 1e-3, f"{label}: {flips:.2e} of the residuals flipped")
+    check(d_inv <= atol, f"{label}: params - e1/n differ by {d_inv:.3e} > "
+          f"{atol:.3e}")
+    check(d_par <= atol + emax, f"{label}: params differ by {d_par:.3e} > "
+          f"{atol + emax:.3e}")
+    if "sched/versions" in ref:
+        check(torch.equal(ref["sched/versions"], got["sched/versions"]),
+              f"{label}: versions differ")
+    return d_par, d_inv
+
+
+def run_steps(trainer, state, batches):
+    """(final state, rows, step times in ms): each step ends in a device
+    synchronize."""
+    import torch
+    rows, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.step(state, b)
+        state = out.state
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        rows.append({k: float(v) for k, v in out.metrics.items()})
+    return state, rows, times
+
+
+def phase_dist(dev, gpu):
+    """The four-worker path (W_ARGS: half reporting, adaptive delta_budget
+    at 0.75 MiB, batch 256, dcgan32 full width) with its workers on the
+    ranks of a torch.distributed group over NCCL (world size 1: the rank
+    holds all four; every collective goes through NCCL), against the same
+    workers stacked on the card, in this call: sim 10 steps, allgather 5,
+    two_phase 5. Rows and states agree within the port's tolerances; B2
+    launches three times a step on both; the NCCL kernels a step come from
+    the profiler. Returns {kind: B2 launches over NCCL}."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import procedural_images
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.mesh import ProcessMesh
+
+    torch.backends.cudnn.deterministic = True  # the same field both ways
+    torch.backends.cudnn.benchmark = False
+    mesh = ProcessMesh.init(0, 1, device_type="cuda", store=dist.HashStore())
+    out = {}
+    try:
+        check(dist.get_backend() == "nccl", f"dist: backend "
+              f"{dist.get_backend()}, expected nccl")
+        for kind, steps in DIST_RUNS:
+            gen = torch.Generator(device=dev).manual_seed(21)
+            batches = [{"real": procedural_images(W_BATCH, 32, 3,
+                                                  generator=gen, device=dev)}
+                       for _ in range(steps)]
+            res = {}
+            for label, m in (("stacked", None), ("nccl", mesh)):
+                tr, st, layout, _ = make_trainer(dev, workers_strategy(kind),
+                                                 WORKERS, 3, mesh=m)
+                Q.reset_launches()
+                FA.reset_launches()
+                st, rows, times = run_steps(tr, st, batches)
+                launches = (Q.launches, Q.launches_dyn, FA.flash_launches)
+                check(launches == (0, 3 * steps, 0),
+                      f"dist {kind} {label}: quantize_ef, quantize_ef_dyn, "
+                      f"flash_attention launched {launches} times in "
+                      f"{steps} steps, expected (0, {3 * steps}, 0)")
+                res[label] = (named_state(st), rows, times, launches[1])
+                del tr
+            (ref, rrows, rtimes, _), (got, grows, gtimes, b2) = (
+                res["stacked"], res["nccl"])
+            for i, (a, b) in enumerate(zip(rrows, grows)):
+                for k in ("loss", "grad_norm", "error_norm"):
+                    check(math.isclose(a[k], b[k], rel_tol=1e-5,
+                                       abs_tol=1e-7),
+                          f"dist {kind} step {i}: {k} {b[k]} over NCCL, "
+                          f"{a[k]} stacked")
+            d_par, d_inv = check_states_agree(ref, got, WORKERS, N_PART,
+                                              layout, f"dist {kind}")
+            print(f"# dist dcgan32 full width, {WORKERS} workers ({N_PART} "
+                  f"reporting), batch {W_BATCH}, {kind}, {steps} steps: NCCL "
+                  f"at world size 1 vs stacked: max|dparams| {d_par:.3e}, "
+                  f"max|d(params - e1/n)| {d_inv:.3e}; quantize_ef_dyn "
+                  f"launches {b2}; median step stacked "
+                  f"{statistics.median(rtimes[1:]):.3f} ms, NCCL "
+                  f"{statistics.median(gtimes[1:]):.3f} ms; gpu {gpu}")
+            out[kind] = b2
+        for kind in ("sim", "two_phase"):
+            tr, st, _, gen = make_trainer(dev, workers_strategy(kind),
+                                          WORKERS, 4, mesh=mesh)
+            batches = [{"real": procedural_images(W_BATCH, 32, 3,
+                                                  generator=gen, device=dev)}
+                       for _ in range(DIST_PROFILE_STEPS + 2)]
+            st, _, _ = run_steps(tr, st, batches[:2])
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_steps(tr, st, batches[2:])
+            # NCCL's kernels, the ranges the profiler opens for its calls,
+            # and the device copies (a one-rank group may copy instead)
+            nccl = {}
+            for ev in prof.key_averages():
+                key = ev.key.lower()
+                if (ev.device_type == torch.autograd.DeviceType.CUDA
+                        and ("nccl" in key or key.startswith("memcpy"))):
+                    nccl[ev.key] = ev.count / DIST_PROFILE_STEPS
+            desc = ", ".join(f"{k[:60]} {v:g}" for k, v in sorted(
+                nccl.items())) or "none recorded"
+            print(f"# dist {kind}: NCCL events and device copies a step "
+                  f"(profiler): {desc}")
+            del tr
+    finally:
+        mesh.close()
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def trace_kernels(prof):
+    """[(name, stream, start_us, end_us)] of every kernel of a profile,
+    from its Chrome trace."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [(e["name"], e["args"].get("stream"), e["ts"], e["ts"] + e["dur"])
+            for e in events if e.get("cat") == "kernel"]
+
+
+def overlap_share(kernels, side_streams, default_stream):
+    """The share of the side streams' kernel time that overlaps a kernel
+    of the default stream."""
+    busy = sorted((a, b) for _, s, a, b in kernels if s == default_stream)
+    merged = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = hidden = 0.0
+    for _, s, a, b in kernels:
+        if s in side_streams:
+            total += b - a
+            hidden += sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged
+                          if x < b and y > a)
+    return hidden / total if total else float("nan"), total
+
+
+def phase_overlap(dev, gpu):
+    """exchange.overlap on the card: (a) one worker, delayed(2), B1 once a
+    step, batch 64; (b) four workers stacked, delayed with the τ-vector
+    (1, 2, 3, 4), half reporting, the adaptive family, B2 three times a
+    step, batch 256; dcgan32 full width, 12 steps each with overlap off,
+    then on. The final states must be bit-equal and the exchange kernels
+    must run on a stream other than the field's (off, on, on, off: all
+    four runs bit-equal). Reported, not claimed:
+    the share of the side stream's kernel time that overlaps the default
+    stream's, and the median steps. Returns {path: (B1, B2) launches with
+    overlap on}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import procedural_images
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.strategy import Strategy
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = [("1 worker delayed(2)", single_strategy().evolve(
+                schedule="delayed", staleness_tau=TAU), 1, BATCH,
+             (OVERLAP_STEPS, 0)),
+            (f"{WORKERS} workers delayed tau_vector {TAU_VECTOR}",
+             Strategy.from_json(TAU_JSON), WORKERS, W_BATCH,
+             (0, 3 * OVERLAP_STEPS))]
+    out = {}
+    try:
+        kname = "quantize_ef"     # B1's and B2's kernels
+        for label, strat, W, batch, want in runs:
+            gen = torch.Generator(device=dev).manual_seed(31)
+            batches = [{"real": procedural_images(batch, 32, 3,
+                                                  generator=gen, device=dev)}
+                       for _ in range(OVERLAP_STEPS)]
+            # off, on, on, off: the medians pool both runs of a setting
+            res = {False: [], True: []}
+            for ov in (False, True, True, False):
+                tr, st, _, _ = make_trainer(dev, strat.evolve(overlap=ov), W,
+                                            6)
+                Q.reset_launches()
+                st, _, times = run_steps(tr, st, batches)
+                launches = (Q.launches, Q.launches_dyn)
+                check(launches == want, f"overlap {label} (overlap={ov}): "
+                      f"quantize_ef, quantize_ef_dyn launched {launches} "
+                      f"times, expected {want}")
+                res[ov].append((named_state(st), times[1:], launches, tr, st))
+            off = res[False][0][0]
+            for ov, i in ((True, 0), (True, 1), (False, 1)):
+                other = res[ov][i][0]
+                bad = [k for k in off if not (
+                    torch.equal(off[k], other[k])
+                    if isinstance(off[k], torch.Tensor)
+                    else off[k] == other[k])]
+                check(not bad, f"overlap {label}: overlap={ov} run {i} "
+                      f"differs from the first off run at {bad[:6]}")
+            tr, st = res[True][0][3], res[True][0][4]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_steps(tr, st, batches[:OVERLAP_PROFILE_STEPS])
+            kernels = trace_kernels(prof)
+            counts = {}
+            for _, s, _, _ in kernels:
+                counts[s] = counts.get(s, 0) + 1
+            ours = {s for n, s, _, _ in kernels if kname in n}
+            check(kernels and ours, f"overlap {label}: the profile shows no "
+                  f"{kname} kernel")
+            default = max((s for s in counts if s not in ours),
+                          key=counts.get, default=None)
+            check(default is not None, f"overlap {label}: every kernel "
+                  f"ran on the exchange's stream {sorted(ours)}")
+            share, side_us = overlap_share(kernels, ours, default)
+            med = {ov: statistics.median(res[ov][0][1] + res[ov][1][1])
+                   for ov in res}
+            print(f"# overlap dcgan32 full width, {label}, batch {batch}: "
+                  f"{OVERLAP_STEPS} steps, off, on, on, off: bit-equal over "
+                  f"{len(off)} leaves; {kname} on stream(s) {sorted(ours)}, "
+                  f"the field on stream {default}; side-stream kernels "
+                  f"{side_us / OVERLAP_PROFILE_STEPS / 1e3:.4f} ms/step, "
+                  f"{share:.3f} of it under default-stream kernels "
+                  f"(reported); median step off {med[False]:.3f} ms, on "
+                  f"{med[True]:.3f} ms (both runs each); gpu {gpu}")
+            out[label] = res[True][0][2]
+            del res, tr, st
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
     t0 = time.perf_counter()
@@ -1447,13 +1742,18 @@ def main():
         sched = timed("sched", phase_sched, gpu)
         resumed = timed("resume", phase_resume, dev)
         timed("quality", phase_quality, gpu)
+        dist_b2 = timed("dist", phase_dist, dev, gpu)
+        overlapped = timed("overlap", phase_overlap, dev, gpu)
         # each kernel's launches on the later paths (the main path's
         # count stays "launches")
         b1["launches_by_path"] = {
             **{f"sched {k}": v[0] for k, v in sched.items()},
-            **{f"resume {k}": v for k, v in resumed.items()}}
-        b2["launches_by_path"] = {f"sched {k}": v[1]
-                                  for k, v in sched.items()}
+            **{f"resume {k}": v for k, v in resumed.items()},
+            **{f"overlap {k}": v[0] for k, v in overlapped.items()}}
+        b2["launches_by_path"] = {
+            **{f"sched {k}": v[1] for k, v in sched.items()},
+            **{f"dist nccl {k}": v for k, v in dist_b2.items()},
+            **{f"overlap {k}": v[1] for k, v in overlapped.items()}}
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -15,6 +15,14 @@ The layout, as `repro.checkpoint` writes it:
     as JAX writes its step.
 Restoring into the structure of `like` puts each leaf on the device of
 the corresponding leaf of `like` (or on `device`), in the saved dtype.
+
+Across processes (a `DQState` whose W workers are spread over the ranks of
+a `core.exchange.ProcessGroupWorkers`, each rank holding L rows of the
+per-worker fields prev_grad, ef and sched): pass the backend as
+`workers`. A save gathers the per-worker rows and rank 0 writes exactly
+what a one-process save of the same global state writes (a sharded save
+then defaults to one shard a rank, as the JAX package defaults to one a
+process); a restore reads the file and each rank keeps its own rows.
 """
 from __future__ import annotations
 
@@ -65,6 +73,50 @@ def _rebuild(like, leaves):
     return next(leaves)
 
 
+# the DQState fields whose leaves lead with the worker axis
+PER_WORKER_FIELDS = ("prev_grad", "ef", "sched")
+
+
+def _spread(workers) -> bool:
+    """True when `workers` holds only some of the W workers' rows."""
+    return workers is not None and workers.n_local != workers.n
+
+
+def _per_worker(name: str) -> bool:
+    return name.split("/", 1)[0] in PER_WORKER_FIELDS
+
+
+def gather_workers(state, workers):
+    """`state` with every per-worker leaf all-gathered to its W rows (a
+    collective: every rank calls it). Identity when one process holds all
+    of them."""
+    if not _spread(workers):
+        return state
+    fields = {}
+    for f in PER_WORKER_FIELDS:
+        sub = getattr(state, f, None)
+        if sub is not None:
+            fields[f] = _rebuild(sub, iter(workers.all_gather(x)
+                                           for _, x in _paths(sub)))
+    return state._replace(**fields)
+
+
+def _take_rows(arr, name, workers):
+    """This rank's rows of a saved per-worker array."""
+    if not (_spread(workers) and _per_worker(name)):
+        return arr
+    return arr[workers.offset:workers.offset + workers.n_local]
+
+
+def _is_writer(workers) -> bool:
+    return not _spread(workers) or workers.mesh.rank == 0
+
+
+def _done(workers):
+    if _spread(workers):
+        workers.mesh.barrier()
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, bool]:
     """(array, is bfloat16) of a leaf; bfloat16 as its uint16 view."""
     if isinstance(leaf, torch.Tensor):
@@ -103,15 +155,23 @@ def _mismatch(path, kind, missing, extra, advice):
 
 
 def save(path: str, tree: Any, step: Optional[int] = None,
-         meta: Optional[dict] = None) -> None:
+         meta: Optional[dict] = None, workers=None) -> None:
     """Save a tree; `meta` entries (e.g. the run's serialized strategy
     under "strategy") go into the archive's __meta__ record and are read
-    back with `read_meta`."""
+    back with `read_meta`. With `workers` spread over ranks, every rank
+    calls it and rank 0 writes the gathered state."""
     reserved = {"step", "names"} & set(meta or {})
     if reserved:
         raise ValueError(
             f"checkpoint meta keys {sorted(reserved)} are reserved for the "
             f"internal __meta__ record")
+    tree = gather_workers(tree, workers)
+    if _is_writer(workers):
+        _write_npz(path, tree, step, meta)
+    _done(workers)
+
+
+def _write_npz(path, tree, step, meta):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     named = _paths(tree)
     arrays = {}
@@ -123,9 +183,10 @@ def save(path: str, tree: Any, step: Optional[int] = None,
         np.savez(f, __meta__=json.dumps(record), **arrays)
 
 
-def restore(path: str, like: Any, device=None) -> Any:
+def restore(path: str, like: Any, device=None, workers=None) -> Any:
     """Restore into the structure of `like` (whose leaves may be tensors on
-    any device, `meta` tensors included, or ints)."""
+    any device, `meta` tensors included, or ints). With `workers` spread
+    over ranks, `like` holds this rank's rows and gets them."""
     with np.load(path, allow_pickle=False) as z:
         data = {}
         for k in z.files:
@@ -143,8 +204,9 @@ def restore(path: str, like: Any, device=None) -> Any:
                         " — restore with the same config (schedule/"
                         "comm_plan/optimizer/...) the checkpoint was saved "
                         "under")
-    return _rebuild(like, iter(_to_leaf(*data[n], leaf, device)
-                               for n, leaf in named))
+    return _rebuild(like, iter(
+        _to_leaf(_take_rows(data[n][0], n, workers), data[n][1], leaf,
+                 device) for n, leaf in named))
 
 
 def read_meta(path: str) -> dict:
@@ -187,16 +249,27 @@ def is_sharded(path: str) -> bool:
 
 def save_sharded(path: str, tree: Any, step: Optional[int] = None,
                  meta: Optional[dict] = None, n_shards: Optional[int] = None,
-                 mesh: Optional[dict] = None) -> None:
+                 mesh: Optional[dict] = None, workers=None) -> None:
     """Save a tree as a sharded-checkpoint directory of `n_shards` files
-    (default 1, the one process). `mesh` ({"axis_names", "shape"}, or
-    None for one device) is recorded in the manifest for provenance."""
+    (default one a process: 1, or the world size of `workers` spread over
+    ranks, whose rank 0 writes the gathered state). `mesh`
+    ({"axis_names", "shape"}, or None for one device) is recorded in the
+    manifest for provenance."""
     reserved = {"step", "names", "format", "n_shards", "leaves",
                 "mesh"} & set(meta or {})
     if reserved:
         raise ValueError(
             f"checkpoint meta keys {sorted(reserved)} are reserved for "
             f"the manifest")
+    tree = gather_workers(tree, workers)
+    if n_shards is None and _spread(workers):
+        n_shards = workers.mesh.world
+    if _is_writer(workers):
+        _write_sharded(path, tree, step, meta, n_shards, mesh)
+    _done(workers)
+
+
+def _write_sharded(path, tree, step, meta, n_shards, mesh):
     H = int(n_shards or 1)
     os.makedirs(path, exist_ok=True)
     named = _paths(tree)
@@ -253,9 +326,11 @@ def read_manifest(path: str) -> dict:
     return manifest
 
 
-def restore_sharded(path: str, like: Any, device=None) -> Any:
+def restore_sharded(path: str, like: Any, device=None, workers=None) -> Any:
     """Restore a sharded-checkpoint directory into the structure of
-    `like`; the shard count it was saved with does not matter."""
+    `like`; the shard count it was saved with does not matter. With
+    `workers` spread over ranks, `like` holds this rank's rows and gets
+    them."""
     manifest = read_manifest(path)
     H = manifest["n_shards"]
     missing_files = [f for f in (_shard_file(i, H) for i in range(H))
@@ -274,12 +349,18 @@ def restore_sharded(path: str, like: Any, device=None) -> Any:
                         sorted(set(recs) - want),
                         " — restore with the same config the checkpoint was "
                         "saved under")
+    def expected(name, leaf):
+        shape = tuple(leaf.shape)
+        if _spread(workers) and _per_worker(name):
+            return (workers.n,) + shape[1:]
+        return shape
+
     bad_shapes = [
         f"{name}: saved {tuple(recs[name]['shape'])} != "
-        f"expected {tuple(leaf.shape)}"
+        f"expected {expected(name, leaf)}"
         for name, leaf in named
         if hasattr(leaf, "shape")
-        and tuple(recs[name]["shape"]) != tuple(leaf.shape)]
+        and tuple(recs[name]["shape"]) != expected(name, leaf)]
     if bad_shapes:
         raise ValueError(
             f"sharded checkpoint {path!r} leaf shapes do not match the "
@@ -304,7 +385,7 @@ def restore_sharded(path: str, like: Any, device=None) -> Any:
                      for fi, start, _ in sorted(rec["chunks"],
                                                 key=lambda c: c[1])]
             arr = np.concatenate(parts, axis=0) if rec["split"] else parts[0]
-            arr = arr.reshape(rec["shape"])
+            arr = _take_rows(arr.reshape(rec["shape"]), name, workers)
             out.append(_to_leaf(arr, rec["dtype"] == "bfloat16", leaf,
                                 device))
     finally:

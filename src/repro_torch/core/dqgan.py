@@ -7,14 +7,19 @@
     w_t         = w_{t-1} - (1/M) Σ_m p̂_t^m               (the server)
 
 The JAX package maps the M workers onto its devices (a `data` mesh axis
-under `shard_map`). Here they are a leading axis of size W on one device
-(`core.exchange.StackedWorkers`): per-worker state (prev_grad, ef) is
-stacked (W, ...), the global batch splits W ways in order, each worker
-evaluates its own field at its own w_{t-1/2}, the exchange is a tensor
-operation over the worker axis, and the server update runs once on the
-replicated state. There is no model axis, so no leaf is sharded and the
-bucket layout skips none. With one worker the exchange is
-(EF-)compression, per leaf or over flat comm buckets.
+under `shard_map`). Here they are a leading axis of every per-worker
+tensor: all W on one device (`core.exchange.StackedWorkers`), or, given a
+`launch.mesh.ProcessMesh`, a contiguous block of L = W / world of them on
+each rank of a `torch.distributed` group (`core.exchange.
+ProcessGroupWorkers`), the rows a sharding of the worker axis over the
+ranks gives. Per-worker state (prev_grad, ef, sched) holds this process's
+L rows, the global batch splits W ways in order and each rank takes its
+L slices, each worker evaluates its own field at its own w_{t-1/2}, the
+exchange runs the backend's collectives, and the server update runs on
+the replicated state on every rank. The metrics reduce over all W
+workers (mean; the staleness also by max). There is no model axis, so no
+leaf is sharded and the bucket layout skips none. With one worker the
+exchange is (EF-)compression, per leaf or over flat comm buckets.
 
 Partial participation masks the sitting workers' messages and residuals
 to zero, rescales q̂ by W/n and folds their messages into their EF. An
@@ -33,17 +38,27 @@ and updates the server state (the EF residuals too: a mid-round step
 leaves them as they were); under `delayed(τ)` the wire carries the head
 of each worker's pending ring (its τ_m pull slot under a `tau_vector`),
 the OMD lookahead also subtracts the worker's in-flight messages, and
-the (W,) `versions` vector advances for the round's participants.
+the per-worker `versions` advance for the round's participants.
+
+Overlap (`exchange.overlap` under `delayed`, whose wire message is the
+pending ring's head, known before the round's field): the exchange
+starts before the extrapolation and the field, on a second CUDA stream,
+and finishes after the field, as the JAX package issues it before its
+field compute. Same operations on the same operands: bit-equal to the
+blocking order.
 
 State mirrors the JAX package's `DQState`, parameters keep its layout and
-leaf order. Randomness comes from the trainer's `torch.Generator` on its
-device, re-seeded from (seed, step) at the start of every step, so a run
-restored from a checkpoint draws what the uninterrupted run drew; or
-from `draws` handed to `step` (the tests replay the JAX package's draws
-that way).
+leaf order. Randomness comes from `torch.Generator`s on the trainer's
+device, re-seeded at the start of every step: worker m draws from its
+own, seeded from (seed, step, m) alone, whatever the split over ranks,
+so a run restored from a checkpoint draws what the uninterrupted run
+drew; the participation mask comes from the shared stream, worker 0's
+seed, alike on every rank (with one worker the one generator is seeded
+from (seed, step) as before). Or from `draws` handed to `step` (the
+tests replay the JAX package's draws that way).
 
-fsdp, spmd='vmap', overlap and observability are refused at
-construction, each naming the ROADMAP slice that ports it.
+fsdp, spmd='vmap' and observability are refused at construction, each
+naming the ROADMAP slice that ports it.
 """
 from __future__ import annotations
 
@@ -93,8 +108,6 @@ def _unported(strategy: Strategy) -> Optional[str]:
         (s.exchange.fsdp, "parallelism 'fsdp'", "slice 5 (FSDP)"),
         (s.exchange.spmd == "vmap", "spmd 'vmap'",
          "slice 5 (FSDP: the spmd='vmap' path)"),
-        (s.exchange.overlap, "overlap=True",
-         "slice 3 (schedules: overlap on CUDA streams)"),
         (s.observability.on or s.observability.spans
          or s.observability.profile,
          "observability (metrics/spans/profile)", "slice 4 (observability)"),
@@ -106,13 +119,27 @@ def _unported(strategy: Strategy) -> Optional[str]:
     return None
 
 
-def _worker_norms(tensors, W):
-    """(W,) per-worker global L2 norm over a list of (W, ...) tensors."""
+def _worker_norms(tensors, L):
+    """(L,) per-worker global L2 norm over a list of (L, ...) tensors."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
-        return torch.zeros((W,))
-    return torch.sqrt(sum(torch.square(t.float()).reshape(W, -1).sum(dim=1)
+        return torch.zeros((L,))
+    return torch.sqrt(sum(torch.square(t.float()).reshape(L, -1).sum(dim=1)
                           for t in tensors))
+
+
+def _record_stream(tree, stream):
+    """Tell the caching allocator that `stream` uses every CUDA tensor of
+    `tree` (made on another stream), so that it is not reused early."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            tree.record_stream(stream)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _record_stream(v, stream)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _record_stream(v, stream)
 
 
 def _ef_tensors(ef):
@@ -131,17 +158,21 @@ def _bcast(mask, x):
 
 @dataclasses.dataclass
 class DQGAN:
-    """DQGAN trainer over `workers` stacked workers. Build once per
-    (field, strategy, device, workers); then `init(params)` and
+    """DQGAN trainer over `workers` workers. Build once per (field,
+    strategy, device, workers, mesh); then `init(params)` and
     `step(state, batch)`.
 
-    `field_fn(params, batch, z=None, generator=None) -> (grads, metrics)`.
-    `dq` carries the optimizer knobs and the strategy (or pass `strategy`
-    alone, like the JAX package). `workers` > 1 stands for the JAX
-    package's device count and needs `strategy.exchange.worker_axes`.
-    `device` is where the generator draws: the parameters' device. On
-    CUDA, constructing the trainer turns TF32 off for matmuls and
-    convolutions (process-wide PyTorch flags)."""
+    `field_fn(params, batch, z=None, generator=None) -> (grads, metrics)`;
+    a field that draws from the generator exposes the draw as
+    `field_fn.draw_z(batch, generator)`, which an overlapped step calls
+    ahead of the exchange. `dq` carries the optimizer knobs and the
+    strategy (or pass `strategy` alone, like the JAX package). `workers`
+    (W) > 1 stands for the JAX package's device count and needs
+    `strategy.exchange.worker_axes`. `mesh` (a `launch.mesh.ProcessMesh`)
+    spreads the W workers over its ranks; None stacks them on `device`.
+    `device` is where the generators draw: the parameters' device (the
+    mesh's, given one). On CUDA, constructing the trainer turns TF32 off
+    for matmuls and convolutions (process-wide PyTorch flags)."""
 
     field_fn: Callable
     dq: Optional[DQConfig] = None
@@ -149,6 +180,7 @@ class DQGAN:
     device: Any = "cuda"
     seed: int = 0
     workers: int = 1
+    mesh: Any = None
     generator: torch.Generator = dataclasses.field(init=False, repr=False)
     _comm_cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                           compare=False)
@@ -171,20 +203,45 @@ class DQGAN:
             raise ValueError(
                 "DQGAN: workers > 1 needs strategy.exchange.worker_axes "
                 "(the JAX package runs one worker without them)")
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.device = torch.device(self.device)
         if self.device.type == "cuda":
             # the reference computes in float32; cuDNN convolutions would
             # otherwise run in TF32 (about three decimal digits)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self._workers = (X.StackedWorkers(self.workers) if self.mesh is None
+                         else X.ProcessGroupWorkers(self.mesh, self.workers))
+        # the shared stream (worker 0's seed) and one generator a local
+        # worker; the rank holding worker 0 draws its draws from the shared
+        # one, after the mask
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
-        self._workers = X.StackedWorkers(self.workers)
+        self._gens = [self.generator if self.offset + i == 0
+                      else torch.Generator(device=self.device)
+                      for i in range(self.n_local)]
+        self._side = None
 
     # ------------------------------------------------------------------ #
     @property
     def n_workers(self) -> int:
         return self.workers
+
+    @property
+    def n_local(self) -> int:
+        """The workers this process holds (L; W without a mesh)."""
+        return self._workers.n_local
+
+    @property
+    def offset(self) -> int:
+        """The global index of this process's first worker."""
+        return self._workers.offset
+
+    @property
+    def worker_backend(self):
+        """The `core.exchange` backend the collectives run on."""
+        return self._workers
 
     @property
     def compressor(self) -> C.Compressor:
@@ -292,7 +349,7 @@ class DQGAN:
     def init(self, params) -> DQState:
         """Zero state around `params` (a nested dict of tensors)."""
         dq = self.dq
-        W = self.n_workers
+        W, L = self.n_workers, self.n_local
         sched_c = self.strategy.schedule
         self._validate_lr_mults(params)
         tv = sched_c.tau_vector
@@ -313,7 +370,7 @@ class DQGAN:
 
         prev_grad = prev_update = m = v = None
         if dq.optimizer == "omd" and dq.extrapolation == "local":
-            prev_grad = tree(lambda x: zeros(x, (W,)))
+            prev_grad = tree(lambda x: zeros(x, (L,)))
         if (dq.optimizer == "omd" and dq.extrapolation == "global"
                 or dq.optimizer == "oadam"):
             prev_update = tree(zeros)
@@ -323,11 +380,11 @@ class DQGAN:
         def ef_leaf(x, plan):
             st = {}
             if dq.error_feedback:
-                st["e1"] = zeros(x, (W,), ef_dtype)
+                st["e1"] = zeros(x, (L,), ef_dtype)
             if X.plan_has_owner_ef(plan):
                 cs = list(x.shape)
                 cs[plan["chunk_axis"]] //= W
-                st["e2"] = torch.zeros((W, *cs), dtype=ef_dtype,
+                st["e2"] = torch.zeros((L, *cs), dtype=ef_dtype,
                                        device=x.device)
             return st or None
 
@@ -338,7 +395,7 @@ class DQGAN:
             if self.strategy.exchange.owner_ef:
                 for b in layout.buckets:
                     bucket_ef[str(b.bid)] = {"e2": torch.zeros(
-                        (W, b.size // W), dtype=ef_dtype,
+                        (L, b.size // W), dtype=ef_dtype,
                         device=leaves[0].device)}
             ef = {"leaf": ef, "bucket": bucket_ef}
         # the schedule's buffers carry the float32 message, one per worker;
@@ -346,9 +403,9 @@ class DQGAN:
         # from the first exchange on
         sched = sched_c.init_slots(
             params,
-            worker_like=lambda x: zeros(x, (W,), torch.float32),
-            ring_like=lambda x: zeros(x, (W, sched_c.tau), torch.float32),
-            versions_like=lambda: torch.full((W,), -sched_c.tau,
+            worker_like=lambda x: zeros(x, (L,), torch.float32),
+            ring_like=lambda x: zeros(x, (L, sched_c.tau), torch.float32),
+            versions_like=lambda: torch.full((L,), -sched_c.tau,
                                              dtype=torch.int32,
                                              device=leaves[0].device))
         return DQState(step=0, params=params, prev_grad=prev_grad,
@@ -358,38 +415,59 @@ class DQGAN:
     # the step
     # ------------------------------------------------------------------ #
     def _split_batch(self, batch):
-        """The global batch split W ways in order (the JAX package's
-        batch_spec P(('data',)))."""
+        """This process's L slices of the global batch split W ways in
+        order (the JAX package's batch_spec P(('data',)))."""
         W = self.n_workers
 
         def split(x):
             if x.shape[0] % W:
                 raise ValueError(f"batch of {x.shape[0]} does not split "
                                  f"over {W} workers")
-            return x.reshape((W, x.shape[0] // W) + tuple(x.shape[1:]))
+            return self._workers.rows(
+                x.reshape((W, x.shape[0] // W) + tuple(x.shape[1:])))
 
         stacked = {k: split(x) for k, x in batch.items()}
-        return [{k: x[w] for k, x in stacked.items()} for w in range(W)]
+        return [{k: x[i] for k, x in stacked.items()}
+                for i in range(self.n_local)]
 
-    def _step_seed(self, step: int) -> int:
-        """The generator's seed for step `step`: a function of (seed,
-        step) alone, as the JAX package folds the step into its key."""
-        return (self.seed * (1 << 32) + step) % (1 << 64)
+    def _step_seed(self, step: int, worker: int = 0) -> int:
+        """Worker `worker`'s seed for step `step`: a function of (seed,
+        step, worker) alone, as the JAX package folds the worker index and
+        the step into its key. Worker 0's is the shared stream's."""
+        return (self.seed * (1 << 32) + step
+                + worker * 0x9E3779B97F4A7C15) % (1 << 64)
+
+    def _local_rand(self, r):
+        """This process's rows of an injected (W, ...) draw (a dict of
+        them for two_phase), or None."""
+        if r is None:
+            return None
+        if isinstance(r, dict):
+            return {k: self._workers.rows(v) for k, v in r.items()}
+        return self._workers.rows(r)
+
+    def _side_stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
 
     @torch.no_grad()
     def step(self, state: DQState, batch,
              draws: Optional[Dict[str, Any]] = None,
              do_exchange: bool = True) -> StepOutput:
-        """One Algorithm-2 iteration over the W workers.
+        """One Algorithm-2 iteration over the W workers (this process's L
+        of them, under a mesh; every rank calls it with the same global
+        batch).
 
         `do_exchange` is read by the `local_k` schedule only, and must be
         a Python bool: the caller decides the cadence with
         `sched.ExchangeSchedule.is_exchange_step(step)`. `every_step` and
         `delayed` exchange at every call.
 
-        `draws` (optional) replaces the generator. Each draw holds the W
+        `draws` (optional) replaces the generators. Each draw holds the W
         workers' draws in worker order, split W ways like the batch: a
-        (W, ...) stack, or with one worker the worker's draw itself.
+        (W, ...) stack, or with one worker the worker's draw itself; each
+        rank takes its own rows.
           "z":    (W, B/W, latent) or (B, latent), the latent draws;
           "rand": {stream: draw}, a stream being the leaf index on the
                   per-leaf path and the bucket id on the bucketed path,
@@ -400,7 +478,8 @@ class DQGAN:
                   participation only)."""
         dq = self.dq
         eta = dq.lr
-        W = self.n_workers
+        W, L, off = self.n_workers, self.n_local, self.offset
+        wk = self._workers
         sched_c = self.strategy.schedule
         if sched_c.kind == "local_k":
             if not isinstance(do_exchange, bool):
@@ -410,6 +489,9 @@ class DQGAN:
         else:
             do_exchange = True
         self.generator.manual_seed(self._step_seed(state.step))
+        for i, g in enumerate(self._gens):
+            if g is not self.generator:
+                g.manual_seed(self._step_seed(state.step, off + i))
         draws = draws or {}
         rand = draws.get("rand", {})
         paths, params = T.flatten(state.params)
@@ -422,14 +504,34 @@ class DQGAN:
                      for e in T.flatten_up_to(paths, ef_leaf_tree)]
         part = self.strategy.participation.round_setup(
             W, self.generator, draws.get("mask"))
-        # pending_buf: the delayed schedule's raw ring; pending: the (W,
+        mask_rows = wk.rows(part[0]) if part is not None else None
+        # pending_buf: the delayed schedule's raw ring; pending: the (L,
         # ...) message on the wire THIS step (each worker's pull slot)
-        pending_buf, pending = sched_c.wire_head(state.sched)
+        pending_buf, pending = sched_c.wire_head(state.sched, off)
+        batches = self._split_batch(batch)
+        z = draws.get("z")
+        zs = ([None] * L if z is None else
+              list(wk.rows(z.reshape((W, -1, z.shape[-1])))))
+
+        # ---------- overlapped exchange start (delayed × overlap) ------- #
+        # the wire head is carried state, so its exchange starts here,
+        # before the field; the field's own draws are taken first, so that
+        # every generator draws in the blocking order
+        finish = None
+        if (self.strategy.exchange.overlap and sched_c.overlappable
+                and pending is not None):
+            draw_z = getattr(self.field_fn, "draw_z", None)
+            if z is None and draw_z is not None:
+                zs = [draw_z(b, g) for b, g in zip(batches, self._gens)]
+            finish = self._start_overlapped(
+                state.params, paths, T.flatten_up_to(paths, pending), ef,
+                ef_leaves, plans, rand, part)
 
         # ---------- extrapolation to w_{t-1/2}, per worker ------------- #
         # delayed: w_{t-1} is τ applied updates stale, so the lookahead
         # also subtracts the sum of the worker's in-flight messages
-        stale = sched_c.staleness_correction(pending_buf, dq.message, eta)
+        stale = sched_c.staleness_correction(pending_buf, dq.message, eta,
+                                             off)
         stale = (T.flatten_up_to(paths, stale) if stale is not None
                  else [None] * len(params))
         if dq.optimizer == "omd" and dq.extrapolation == "local":
@@ -440,33 +542,29 @@ class DQGAN:
                     upd = upd + e["e1"].to(w.dtype)
                 if s is not None:
                     upd = upd + s.to(w.dtype)
-                w_half.append(w - upd.to(w.dtype))      # (W, ...)
+                w_half.append(w - upd.to(w.dtype))      # (L, ...)
             worker_params = [T.unflatten(paths, [x[i] for x in w_half])
-                             for i in range(W)]
+                             for i in range(L)]
         elif dq.optimizer == "omd":     # global: the last applied update
             upd = T.flatten_up_to(paths, state.prev_update)
             w_half = [w - (u if s is None else u + s.to(u.dtype)).to(w.dtype)
                       for w, u, s in zip(params, upd, stale)]
             if pending_buf is None:
-                worker_params = [T.unflatten(paths, w_half)] * W
-            else:   # (W, ...): each worker's own in-flight messages
+                worker_params = [T.unflatten(paths, w_half)] * L
+            else:   # (L, ...): each worker's own in-flight messages
                 worker_params = [T.unflatten(paths, [x[i] for x in w_half])
-                                 for i in range(W)]
+                                 for i in range(L)]
         else:   # adam/oadam/sgd evaluate at the current params
-            worker_params = [T.unflatten(paths, params)] * W
+            worker_params = [T.unflatten(paths, params)] * L
 
         # ---------- each worker's stochastic field --------------------- #
-        z = draws.get("z")
-        if z is not None:
-            z = z.reshape((W, -1, z.shape[-1]))
         grads_w, losses = [], []
-        for i, b in enumerate(self._split_batch(batch)):
-            g, met = self.field_fn(worker_params[i], b,
-                                   z=None if z is None else z[i],
-                                   generator=self.generator)
+        for i, b in enumerate(batches):
+            g, met = self.field_fn(worker_params[i], b, z=zs[i],
+                                   generator=self._gens[i])
             grads_w.append(T.flatten_up_to(paths, g))
             losses.append(met.get("loss", torch.zeros(())))
-        grads = [torch.stack(gs) for gs in zip(*grads_w)]   # (W, ...)
+        grads = [torch.stack(gs) for gs in zip(*grads_w)]   # (L, ...)
         if dq.message == "update" and dq.optimizer == "omd":
             message = [(eta * g).float() for g in grads]
         else:
@@ -477,8 +575,8 @@ class DQGAN:
         # (delayed), or pass the fresh message through (every_step)
         exch_msg, new_sched = sched_c.fold(
             state.sched, T.unflatten(paths, message), pending, do_exchange,
-            state.step, part[0] if part is not None else None,
-            lambda tree: T.tree_map(torch.zeros_like, tree))
+            state.step, mask_rows,
+            lambda tree: T.tree_map(torch.zeros_like, tree), off)
 
         # ---------- exchange + server update ---------------------------- #
         if exch_msg is None:    # mid-round: params, moments and EF stay
@@ -486,14 +584,11 @@ class DQGAN:
                 state.params, state.m, state.v, state.prev_update)
             new_ef = ef
         else:
-            exch_msg = T.flatten_up_to(paths, exch_msg)
-            if part is not None:
-                qhat, new_ef = self._exchange_with_participation(
-                    state.params, paths, exch_msg, ef, ef_leaves, plans,
-                    rand, part)
-            else:
-                qhat, new_ef = self._exchange(state.params, paths, exch_msg,
-                                              ef, ef_leaves, plans, rand)
+            if finish is None:
+                finish = self._start_exchange(
+                    state.params, paths, T.flatten_up_to(paths, exch_msg),
+                    ef, ef_leaves, plans, rand, part)
+            qhat, new_ef = finish()
             new_params, new_m, new_v, new_prev_update = self._server_update(
                 state, paths, qhat)
 
@@ -502,100 +597,147 @@ class DQGAN:
             new_prev_grad = T.unflatten(
                 paths, [g.to(o.dtype) for o, g in zip(prev_grad, grads)])
 
-        # metrics: the mean over workers of each worker's value (the JAX
-        # package's pmean)
-        gn = _worker_norms(grads, W).mean()
-        en = _worker_norms(_ef_tensors(new_ef), W).to(gn.device).mean()
-        st_now = sched_c.staleness_now(state.step, new_sched, gn.device)
-        st_max, st_mean = ((st_now.max(), st_now.mean()) if st_now.dim()
+        # metrics: the mean over all W workers of each worker's value (the
+        # JAX package's pmean), the staleness also by max (pmax)
+        gn_w = _worker_norms(grads, L)
+        en_w = _worker_norms(_ef_tensors(new_ef), L).to(gn_w.device)
+        st_now = sched_c.staleness_now(state.step, new_sched, gn_w.device)
+        per_worker = [torch.stack(losses), gn_w, en_w]
+        if st_now.dim():
+            per_worker.append(st_now)
+        means = wk.mean_each(per_worker)
+        loss, gn, en = means[:3]
+        st_max, st_mean = ((wk.max(st_now), means[3]) if st_now.dim()
                            else (st_now, st_now))
         new_state = DQState(step=state.step + 1, params=new_params,
                             prev_grad=new_prev_grad,
                             prev_update=new_prev_update, ef=new_ef,
                             m=new_m, v=new_v, sched=new_sched)
-        out_metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gn,
+        out_metrics = {"loss": loss, "grad_norm": gn,
                        "error_norm": en, "staleness_max": st_max,
                        "staleness_mean": st_mean}
         return StepOutput(state=new_state, metrics=out_metrics)
 
     # ------------------------------------------------------------------ #
-    # exchange
+    # exchange: each `_start_*` issues its work and returns the finish,
+    # a callable that waits for the collectives and returns (q̂, new EF)
     # ------------------------------------------------------------------ #
-    def _exchange_one(self, comp, plan, p, e, rand):
-        """(q̂, new EF) of one stacked (W, ...) tensor or bucket. One
-        worker: (EF-)compression, whatever the strategy."""
+    def _start_overlapped(self, *args):
+        """`_start_exchange` on a side CUDA stream, after the work queued
+        so far; the finish makes the current stream wait for it, and marks
+        what the side stream made as used by the current one. On the CPU
+        the start runs in line."""
+        if self.device.type != "cuda":
+            return self._start_exchange(*args)
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side_stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fin = self._start_exchange(*args)
+
+        def finish():
+            cur.wait_stream(side)
+            out = fin()
+            _record_stream(out, cur)
+            return out
+        return finish
+
+    def _start_exchange(self, params_tree, paths, message, ef, ef_leaves,
+                        plans, rand, part):
+        if part is not None:
+            return self._start_with_participation(
+                params_tree, paths, message, ef, ef_leaves, plans, rand, part)
+        return self._start_plain(params_tree, paths, message, ef, ef_leaves,
+                                 plans, rand)
+
+    def _start_one(self, comp, plan, p, e, rand):
+        """The finish of the exchange of one stacked (L, ...) tensor or
+        bucket. One worker: (EF-)compression, whatever the strategy."""
         if self.n_workers > 1:
             exch = self.strategy.exchange
-            return exch.finish(exch.start(comp, plan, p, e, rand,
-                                          self._workers,
-                                          self.dq.error_feedback,
-                                          self.generator))
+            handle = exch.start(comp, plan, p, e, self._local_rand(rand),
+                                self._workers, self.dq.error_feedback,
+                                self._gens)
+            return lambda: exch.finish(handle)
         if plan["strategy"] == "exact" or comp.name == "identity":
-            return p[0], dict(e)
+            out = (p[0], dict(e))
+            return lambda: out
         e1 = e.get("e1", torch.zeros_like(p))
         _, p_hat, e_new = compress_with_ef_stacked(
             comp, p, e1, rand, self.generator, use_ef=self.dq.error_feedback)
         ne = dict(e)
         if self.dq.error_feedback:
             ne["e1"] = e_new
-        return p_hat[0], ne
+        return lambda: (p_hat[0], ne)
 
-    def _exchange(self, params_tree, paths, message, ef, ef_leaves, plans,
-                  rand, plan_sel=None):
+    def _start_plain(self, params_tree, paths, message, ef, ef_leaves, plans,
+                     rand, plan_sel=None):
         if self.bucketed:
-            return self._exchange_bucketed(params_tree, paths, message, ef,
-                                           ef_leaves, rand, plan_sel)
+            return self._start_bucketed(params_tree, paths, message, ef,
+                                        ef_leaves, rand, plan_sel)
         comp = self.compressor
-        qhat, new_ef = [], []
-        for i, (p, plan, e) in enumerate(zip(message, plans, ef_leaves)):
-            q, ne = self._exchange_one(comp, plan, p, e, rand.get(i))
-            qhat.append(q)
-            new_ef.append(ne or None)
-        return qhat, T.unflatten(paths, new_ef)
+        fins = [self._start_one(comp, plan, p, e, rand.get(i))
+                for i, (p, plan, e) in enumerate(zip(message, plans,
+                                                     ef_leaves))]
 
-    def _exchange_with_participation(self, params_tree, paths, message, ef,
-                                     ef_leaves, plans, rand, part):
+        def finish():
+            qhat, new_ef = [], []
+            for f in fins:
+                q, ne = f()
+                qhat.append(q)
+                new_ef.append(ne or None)
+            return qhat, T.unflatten(paths, new_ef)
+        return finish
+
+    def _start_with_participation(self, params_tree, paths, message, ef,
+                                  ef_leaves, plans, rand, part):
         """Partial participation: the sitting workers' messages and
         residuals are masked to zero before the exchange (every compressor
         maps 0 to a zero payload), q̂ is rescaled from 1/W to 1/n, and the
         sitting workers fold their message into their residual. Under an
         adaptive family the round's participant count selects the plan,
-        on the device."""
+        on the device. The mask covers all W workers; this process masks
+        its own rows."""
         mask, n_part = part
         W = self.n_workers
-        msg_in = [m * _bcast(mask, m) for m in message]
-        ef_in = [{**e, "e1": e["e1"] * _bcast(mask, e["e1"])}
+        rows = self._workers.rows(mask)
+        msg_in = [m * _bcast(rows, m) for m in message]
+        ef_in = [{**e, "e1": e["e1"] * _bcast(rows, e["e1"])}
                  if "e1" in e else e for e in ef_leaves]
         plan_sel = round_count(mask) - 1 if self.adaptive else None
-        qhat, new_ef = self._exchange(params_tree, paths, msg_in, ef, ef_in,
-                                      plans, rand, plan_sel)
-        scale = W / n_part
-        qhat = [(q * scale).to(q.dtype) for q in qhat]
-        if not self.dq.error_feedback:
-            return qhat, new_ef
-        # EF merge: participants keep the exchange's residual, the rest
-        # accumulate the unsent message on top of their old one
-        new_leaf = new_ef["leaf"] if self.bucketed else new_ef
-        news = [dict(n) if n else n
-                for n in T.flatten_up_to(paths, new_leaf)]
-        for m, o, n in zip(message, ef_leaves, news):
-            if "e1" in o:
-                keep = o["e1"].float() + m
-                mk = _bcast(mask, keep)
-                n["e1"] = (mk * n["e1"].float()
-                           + (1.0 - mk) * keep).to(o["e1"].dtype)
-        merged = T.unflatten(paths, news)
-        if self.bucketed:
-            return qhat, {"leaf": merged, "bucket": new_ef["bucket"]}
-        return qhat, merged
+        inner = self._start_plain(params_tree, paths, msg_in, ef, ef_in,
+                                  plans, rand, plan_sel)
 
-    def _exchange_bucketed(self, params_tree, paths, message, ef, ef_leaves,
-                           rand, plan_sel=None):
-        """Pack the message (and e1) into the flat buckets, (W, size) each,
-        exchange each with its planned compressor, unpack q̂ and e1 back
-        into leaves. `plan_sel` (a device tensor: participants − 1)
-        selects the adaptive family's level counts: each bucket's
-        compressor becomes a `TracedQuant` over one element of the
+        def finish():
+            qhat, new_ef = inner()
+            scale = W / n_part
+            qhat = [(q * scale).to(q.dtype) for q in qhat]
+            if not self.dq.error_feedback:
+                return qhat, new_ef
+            # EF merge: participants keep the exchange's residual, the
+            # rest accumulate the unsent message on top of their old one
+            new_leaf = new_ef["leaf"] if self.bucketed else new_ef
+            news = [dict(n) if n else n
+                    for n in T.flatten_up_to(paths, new_leaf)]
+            for m, o, n in zip(message, ef_leaves, news):
+                if "e1" in o:
+                    keep = o["e1"].float() + m
+                    mk = _bcast(rows, keep)
+                    n["e1"] = (mk * n["e1"].float()
+                               + (1.0 - mk) * keep).to(o["e1"].dtype)
+            merged = T.unflatten(paths, news)
+            if self.bucketed:
+                return qhat, {"leaf": merged, "bucket": new_ef["bucket"]}
+            return qhat, merged
+        return finish
+
+    def _start_bucketed(self, params_tree, paths, message, ef, ef_leaves,
+                        rand, plan_sel=None):
+        """Pack the message (and e1) into the flat buckets, (L, size) each,
+        start each one's exchange with its planned compressor; the finish
+        unpacks q̂ and e1 back into leaves. `plan_sel` (a device tensor:
+        participants − 1) selects the adaptive family's level counts: each
+        bucket's compressor becomes a `TracedQuant` over one element of the
         device table, so no value crosses to the host."""
         dq = self.dq
         ef_dtype = self.ef_dtype
@@ -618,12 +760,13 @@ class DQGAN:
         if levels is None:
             L = self._packed_levels(layout, cplan)
             if L is not None:
-                return self._exchange_packed(paths, layout, message,
-                                             e1_leaves, bucket_ef, rand, L)
+                out = self._exchange_packed(paths, layout, message,
+                                            e1_leaves, bucket_ef, rand, L)
+                return lambda: out
         flats = B.pack(layout, message)
         e1_flats = B.pack(layout, e1_leaves) if dq.error_feedback else None
 
-        out_flats, new_e1_flats, new_bucket_ef = [], [], {}
+        fins = []
         for b, assign in zip(layout.buckets, cplan.assignments):
             if levels is not None:
                 comp = C.TracedQuant(levels[b.bid:b.bid + 1],
@@ -636,21 +779,27 @@ class DQGAN:
                 est["e1"] = e1_flats[b.bid]
             if X.plan_has_owner_ef(plan_b):
                 est["e2"] = bucket_ef[str(b.bid)]["e2"]
-            q, ne = self._exchange_one(comp, plan_b, flats[b.bid], est,
-                                       rand.get(b.bid))
-            out_flats.append(q)
-            if dq.error_feedback:
-                new_e1_flats.append(ne.get("e1", est.get("e1")))
-            if X.plan_has_owner_ef(plan_b):
-                new_bucket_ef[str(b.bid)] = {"e2": ne["e2"].to(ef_dtype)}
+            fins.append((b, plan_b, est,
+                         self._start_one(comp, plan_b, flats[b.bid], est,
+                                         rand.get(b.bid))))
 
-        qhat = B.unpack_into(layout, out_flats, [m[0] for m in message])
-        new_leaf_ef = [None] * len(message)
-        if dq.error_feedback:
-            new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
-            new_leaf_ef = [{"e1": x} for x in new_e1]
-        return qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
-                      "bucket": new_bucket_ef}
+        def finish():
+            out_flats, new_e1_flats, new_bucket_ef = [], [], {}
+            for b, plan_b, est, fin in fins:
+                q, ne = fin()
+                out_flats.append(q)
+                if dq.error_feedback:
+                    new_e1_flats.append(ne.get("e1", est.get("e1")))
+                if X.plan_has_owner_ef(plan_b):
+                    new_bucket_ef[str(b.bid)] = {"e2": ne["e2"].to(ef_dtype)}
+            qhat = B.unpack_into(layout, out_flats, [m[0] for m in message])
+            new_leaf_ef = [None] * len(message)
+            if dq.error_feedback:
+                new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
+                new_leaf_ef = [{"e1": x} for x in new_e1]
+            return qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
+                          "bucket": new_bucket_ef}
+        return finish
 
     def _packed_levels(self, layout, cplan):
         """The level count at which `_exchange_packed` realizes this
@@ -669,7 +818,7 @@ class DQGAN:
         """One worker, every bucket B1 at `levels`: the message and e1
         packed into one buffer each, the buckets back to back; ONE B1
         launch over all of their rows and one dequantization; q̂ and e1
-        unpack from views of the results. Bit-equal to `_exchange_one`
+        unpack from views of the results. Bit-equal to `_start_one`
         bucket by bucket (rows are independent and share L). Injected
         draws (`rand[bucket id]`) land on their own bucket's rows; with
         none, one draw covers the whole buffer. One worker leaves the

@@ -6,11 +6,15 @@ quantizers over a flat bucket, the EF add, scale, stochastic round and
 residual run in one pass of the fused kernel (`kernels.quantize`): B1 for
 a registry compressor, B2 for a `TracedQuant`, whose level count is a
 device tensor. `compress_with_ef_stacked` does the same for a stack of
-workers' messages, with one kernel launch over all of their rows;
-`packed_levels` says when one launch over a step's comm buckets packed
-back to back is exact.
+workers' messages (or of their two_phase chunks), with one kernel launch
+over all of their rows, or one `compress` call where the quantizer's
+blocks tile each row; `row_draws` gives each worker its own generator's
+draws; `packed_levels` says when one launch over a step's comm buckets
+packed back to back is exact.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -75,30 +79,109 @@ def compress_with_ef(compressor, message, e_prev, rand=None, generator=None,
     return payload, m_hat, e_new
 
 
-def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
-                             generator=None, *, use_ef: bool = True):
-    """`compress_with_ef` for each worker of a (W, ...) stack, as JAX's
-    per-worker body computes it; returns the stacked (payload, m_hat,
-    e_new), each payload entry with a leading W axis.
+def row_draws(generators, R: int, n: int, device):
+    """(R, n) uniform draws for a stack of R rows of n elements from G
+    generators, one a worker: R/G rows from each in turn, one draw each,
+    so that a worker's draws do not depend on which other workers share
+    its stack."""
+    per = R // len(generators)
+    return torch.cat([torch.rand((per * n,), generator=g, device=device)
+                      for g in generators]).reshape(R, n)
 
-    When the fused kernel realizes the compressor on one worker's message,
-    every worker's scale rows are disjoint rows of the stack, so ONE
-    launch over the stacked (W·R, 1024) rows is exact. Otherwise each
-    worker compresses on its own. `rand` holds the workers' draws in
-    worker order (a (W, ...) stack: row w is worker w's)."""
-    W = message.shape[0]
-    if use_ef and fused_compatible(compressor, message[0]):
+
+def _row_generator(generator, R: int, i: int):
+    if isinstance(generator, (list, tuple)):
+        return generator[i // (R // len(generator))]
+    return generator
+
+
+def rows_blocked(compressor, n: int) -> bool:
+    """True when a blocked quantizer's scale blocks tile a row of n
+    elements exactly: one `compress` over a stack of such rows, flattened,
+    is then the per-row calls side by side (the same blocks, the same
+    elementwise arithmetic)."""
+    b = getattr(compressor, "per_block", 0)
+    return (isinstance(compressor, (C.StochasticQuant, C.TracedQuant))
+            and b > 0 and n % b == 0)
+
+
+def compress_rows(compressor, x, rand=None, generator=None):
+    """`compressor.compress` of each row of the (R, ...) stack `x`; each
+    payload entry gains a leading R axis. One call over the stack where
+    `rows_blocked`, a call a row otherwise (row i draws from its worker's
+    generator, see `row_draws`)."""
+    R = x.shape[0]
+    n = x[0].numel()
+    if rows_blocked(compressor, n):
+        if rand is None and isinstance(generator, (list, tuple)):
+            rand = row_draws(generator, R, n, x.device)
+        pl = compressor.compress(x.reshape(-1), None if rand is None
+                                 else rand.reshape(-1), generator)
+        return {k: v.reshape((R, -1) + tuple(v.shape[1:]))
+                for k, v in pl.items()}
+    rows = [compressor.compress(x[i], None if rand is None
+                                else rand.reshape(R, -1)[i],
+                                _row_generator(generator, R, i))
+            for i in range(R)]
+    return {k: torch.stack([p[k] for p in rows]) for k in rows[0]}
+
+
+def decompress_rows(compressor, payload, row_shape, dtype):
+    """(R, *row_shape): `compressor.decompress` of each row of a stacked
+    payload (as `compress_rows` makes it); one call where `rows_blocked`."""
+    R = next(iter(payload.values())).shape[0]
+    n = math.prod(row_shape)
+    if rows_blocked(compressor, n):
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                for k, v in payload.items()}
+        return compressor.decompress(flat, (R * n,), dtype).reshape(
+            (R,) + tuple(row_shape))
+    return torch.stack([compressor.decompress({k: v[i] for k, v in
+                                               payload.items()},
+                                              row_shape, dtype)
+                        for i in range(R)])
+
+
+def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
+                             generator=None, *, use_ef: bool = True,
+                             allow_fused: bool = True):
+    """`compress_with_ef` for each row of an (R, ...) stack (R workers'
+    messages, or their chunks), as JAX's per-worker body computes it;
+    returns the stacked (payload, m_hat, e_new), each payload entry with a
+    leading R axis.
+
+    When the fused kernel realizes the compressor on one row, every row's
+    scale rows are disjoint rows of the stack, so ONE launch over the
+    stacked (R·r, 1024) rows is exact. Otherwise, where `rows_blocked`
+    holds, one `compress` over the stack; else each row on its own.
+    `rand` holds the rows' draws in order (row i of an (R, ...) stack);
+    without it they come from `generator`, one or one per worker (see
+    `row_draws`). `allow_fused=False` keeps the registry compressor's own
+    rounding (the kernel rounds m, the compressor |m| with its sign)."""
+    R = message.shape[0]
+    n = message[0].numel()
+    per_worker = isinstance(generator, (list, tuple))
+    if use_ef and allow_fused and fused_compatible(compressor, message[0]):
+        if rand is None and per_worker:
+            rand = row_draws(generator, R, n, message.device)
         payload, m_hat, e_new = compress_with_ef(
             compressor, message.reshape(-1), e_prev.reshape(-1),
             None if rand is None else rand.reshape(-1), generator)
-        payload = {k: v.reshape((W, -1) + tuple(v.shape[1:]))
+        payload = {k: v.reshape((R, -1) + tuple(v.shape[1:]))
                    for k, v in payload.items()}
         return payload, m_hat.reshape(message.shape), \
             e_new.reshape(e_prev.shape)
+    if (R > 1 or per_worker) and rows_blocked(compressor, n):
+        m = message + e_prev.to(message.dtype) if use_ef else message
+        payload = compress_rows(compressor, m, rand, generator)
+        m_hat = decompress_rows(compressor, payload, m.shape[1:], m.dtype)
+        e_new = (m - m_hat).to(e_prev.dtype) if use_ef else e_prev
+        return payload, m_hat, e_new
     outs = [compress_with_ef(compressor, message[w], e_prev[w],
-                             None if rand is None else rand.reshape(W, -1)[w],
-                             generator, use_ef=use_ef)
-            for w in range(W)]
+                             None if rand is None else rand.reshape(R, -1)[w],
+                             _row_generator(generator, R, w), use_ef=use_ef,
+                             allow_fused=allow_fused)
+            for w in range(R)]
     payload = {k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]}
     return (payload, torch.stack([o[1] for o in outs]),
             torch.stack([o[2] for o in outs]))

@@ -7,13 +7,16 @@ the parameter server's average of Algorithm 2 over W workers.
     two_phase  quantize → all-to-all (int8) → each chunk owner averages
                its chunk → re-quantize with owner EF (e2) → all-gather
 
-The JAX package runs one worker per device inside `shard_map`; here the
-workers are a leading axis of size W on one device (`StackedWorkers`),
-and every per-worker tensor — message, EF residuals, payloads, draws —
-carries it. A strategy calls only the backend's `mean`, `all_gather` and
-`all_to_all`, so a `torch.distributed` backend (one worker per card) can
-go beside it without touching the strategies. With one worker every
-strategy degenerates to (EF-)compression, which `core.dqgan` does itself.
+The JAX package runs one worker per device inside `shard_map`. Here the
+workers are a leading axis of every per-worker tensor — message, EF
+residuals, payloads, draws: all W of them on one device
+(`StackedWorkers`), or a contiguous block of L = W / world of them on
+each rank of a `torch.distributed` process group (`ProcessGroupWorkers`).
+A strategy calls only the backend's `mean`, `all_gather` and
+`all_to_all`, each with a start form that returns a handle; it tells the
+global worker count W (the chunks of two_phase) from the rows it holds
+(L). With one worker every strategy degenerates to (EF-)compression,
+which `core.dqgan` does itself.
 
 Split phase: `start_exchange` returns an `ExchangeHandle` whose `finish`
 yields (q̂, new EF state); q̂ is replicated (one copy), the EF state
@@ -27,10 +30,11 @@ import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 
-from .error_feedback import compress_with_ef_stacked
+from .error_feedback import compress_with_ef_stacked, decompress_rows
 
 STRATEGIES = ("exact", "sim", "allgather", "two_phase")
 
@@ -130,7 +134,57 @@ def _resolved(strategy, q, new_state) -> ExchangeHandle:
 # --------------------------------------------------------------------------- #
 # the workers and their collectives
 # --------------------------------------------------------------------------- #
-class StackedWorkers:
+class _Ready:
+    """A collective's handle whose result is already there."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def wait(self):
+        return self._value
+
+
+class _Pending:
+    """A collective in flight: `wait` waits for `work` (on CUDA it makes the
+    current stream wait; it does not block the host) and returns
+    `post(out)`."""
+
+    def __init__(self, work, out, post=None):
+        self._work, self._out, self._post = work, out, post
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out if self._post is None else self._post(self._out)
+
+
+class _Workers:
+    """The three collectives a strategy calls, each in a start form that
+    returns a handle (`start_mean`, `start_all_gather`,
+    `start_all_to_all`; `handle.wait()` gives the result) and a blocking
+    form. `n` is the global worker count W, `n_local` the rows this
+    process holds (L), `offset` the global index of its first row."""
+
+    n: int
+    n_local: int
+    offset: int = 0
+
+    def mean(self, x):
+        return self.start_mean(x).wait()
+
+    def all_gather(self, x):
+        return self.start_all_gather(x).wait()
+
+    def all_to_all(self, x):
+        return self.start_all_to_all(x).wait()
+
+    def rows(self, x):
+        """This process's rows of a global (W, ...) tensor."""
+        return x[self.offset:self.offset + self.n_local]
+
+
+class StackedWorkers(_Workers):
     """W workers as the leading axis of every per-worker tensor, on one
     device: the port's counterpart of the JAX package's `data` mesh axis.
     Each collective is a tensor operation over that axis:
@@ -141,36 +195,108 @@ class StackedWorkers:
     """
 
     def __init__(self, n: int):
+        self.n = self.n_local = n
+
+    def start_mean(self, x):
+        return _Ready(x.mean(dim=0))
+
+    def start_all_gather(self, x):
+        return _Ready(x)
+
+    def start_all_to_all(self, x):
+        return _Ready(x.transpose(0, 1))
+
+    def mean_each(self, vectors):
+        """The mean over the workers of each (W,) vector."""
+        return [v.mean() for v in vectors]
+
+    def max(self, x):
+        """The largest entry of a (W,) vector."""
+        return x.max()
+
+
+class ProcessGroupWorkers(_Workers):
+    """W workers spread over the ranks of a `launch.mesh.ProcessMesh`, a
+    contiguous block of L = W / world rows on each rank. The collectives
+    run over the process group (nccl on CUDA, gloo on the CPU):
+
+        mean        local sum of the L rows, all_reduce(SUM), / W
+                    (the JAX pmean; divided by a device tensor, IEEE
+                    division, as `x.mean(0)` divides)
+        all_gather  all_gather_into_tensor: (L, ...) -> (W, ...)
+        all_to_all  all_to_all_single: (L_src, W_chunk, ...)
+                    -> (L_dst, W_src, ...)
+
+    A start form issues its collective asynchronously; the handle's
+    `wait` finishes it."""
+
+    def __init__(self, mesh, n: int):
+        self.mesh = mesh
         self.n = n
+        self.offset, self.n_local = mesh.rows(n)
+        self._divisor = {}
 
-    def mean(self, x):
-        return x.mean(dim=0)
+    def _over_n(self, x):
+        key = (x.device, x.dtype)
+        d = self._divisor.get(key)
+        if d is None:
+            d = self._divisor[key] = torch.tensor(float(self.n),
+                                                  dtype=x.dtype,
+                                                  device=x.device)
+        return x / d
 
-    def all_gather(self, x):
-        return x
+    def start_mean(self, x):
+        s = x.sum(dim=0)
+        work = dist.all_reduce(s, op=dist.ReduceOp.SUM,
+                               group=self.mesh.group, async_op=True)
+        return _Pending(work, s, self._over_n)
 
-    def all_to_all(self, x):
-        return x.transpose(0, 1)
+    def start_all_gather(self, x):
+        x = x.contiguous()
+        out = x.new_empty((self.n,) + tuple(x.shape[1:]))
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+        work = gather(out, x, group=self.mesh.group, async_op=True)
+        return _Pending(work, out)
 
+    def start_all_to_all(self, x):
+        L, world = self.n_local, self.mesh.world
+        rest = tuple(x.shape[2:])
+        # (L_src, W_chunk, ...) -> (world_dst, L_dst, L_src, ...): rank d's
+        # piece is the chunks it owns, from every local source row
+        inp = x.reshape((L, world, L) + rest).transpose(0, 1)
+        inp = inp.transpose(1, 2).contiguous()
+        out = torch.empty_like(inp)
+        work = dist.all_to_all_single(out, inp, group=self.mesh.group,
+                                      async_op=True)
 
-def _each(payloads):
-    """A list of payload dicts stacked along a new leading axis."""
-    return {k: torch.stack([p[k] for p in payloads]) for k in payloads[0]}
+        def post(o):    # (world_src, L_dst, L_src, ...) -> (L_dst, W_src, ...)
+            return o.transpose(0, 1).reshape((L, self.n) + rest)
+        return _Pending(work, out, post)
 
+    def mean_each(self, vectors):
+        """The mean over all W workers of each (L,) vector: one all_reduce."""
+        s = torch.stack([v.float().sum() for v in vectors])
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        return list(self._over_n(s).unbind())
 
-def _row(payload, i):
-    return {k: v[i] for k, v in payload.items()}
+    def max(self, x):
+        m = x.max()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return m
 
 
 def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
-                   workers: StackedWorkers, use_ef: bool, generator=None
+                   workers: _Workers, use_ef: bool, generator=None
                    ) -> ExchangeHandle:
     """Start the exchange of one tensor or bucket across the workers.
 
-    p: (W, *shape), each worker's message; ef_state: {"e1": (W, *shape),
-    "e2": (W, *chunk)}. `rand` holds the stochastic compressors' draws
-    (None: drawn from `generator`): a (W, ...) stack for sim/allgather,
-    {"phase1": (W, W, ...), "phase2": (W, ...)} for two_phase (phase 1:
+    p: (L, *shape), the messages of this process's L workers (all W on
+    one device); ef_state: {"e1": (L, *shape), "e2": (L, *chunk)}. `rand`
+    holds the stochastic compressors' draws for these rows (None: drawn
+    from `generator`, one, or one a worker, see
+    `error_feedback.row_draws`): an (L, ...) stack for sim/allgather,
+    {"phase1": (L, W, ...), "phase2": (L, ...)} for two_phase (phase 1:
     worker w's draw for chunk j; phase 2: owner w's). Split points
     (start | finish), as in the JAX package:
 
@@ -178,11 +304,13 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
       sim       : compress+EF, mean(p̂)             | identity
       allgather : compress+EF, all_gather(codes)   | decompress+mean
       two_phase : phases 1+2 through all_gather    | decompress+unchunk
-    """
+
+    A start issues its collective; the finish waits for it."""
     strategy = plan["strategy"]
     new_state = dict(ef_state)
     if strategy == "exact":
-        return _resolved(strategy, workers.mean(p), new_state)
+        pend = workers.start_mean(p)
+        return ExchangeHandle(strategy, lambda: (pend.wait(), new_state))
     if strategy == "two_phase":
         return _start_two_phase(compressor, plan, p, ef_state, new_state,
                                 rand, workers, use_ef, generator)
@@ -194,21 +322,21 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
     if use_ef:
         new_state["e1"] = e_new
     if strategy == "sim":
-        return _resolved(strategy, workers.mean(p_hat), new_state)
-    gathered = {k: workers.all_gather(v) for k, v in payload.items()}
+        pend = workers.start_mean(p_hat)
+        return ExchangeHandle(strategy, lambda: (pend.wait(), new_state))
+    pends = {k: workers.start_all_gather(v) for k, v in payload.items()}
 
     def _finish_allgather():
-        deq = torch.stack([
-            compressor.decompress(_row(gathered, w), p.shape[1:],
-                                  torch.float32)
-            for w in range(workers.n)])
+        gathered = {k: h.wait() for k, h in pends.items()}
+        deq = decompress_rows(compressor, gathered, p.shape[1:],
+                              torch.float32)
         return deq.mean(dim=0).to(p.dtype), new_state
 
     return ExchangeHandle(strategy, _finish_allgather)
 
 
 def exchange_leaf(compressor, plan: dict, p, ef_state: dict, rand,
-                  workers: StackedWorkers, use_ef: bool, generator=None):
+                  workers: _Workers, use_ef: bool, generator=None):
     """Blocking spelling: start + immediate finish; (q̂, new EF state)."""
     return finish_exchange(start_exchange(compressor, plan, p, ef_state,
                                           rand, workers, use_ef, generator))
@@ -220,7 +348,8 @@ def _rest(shape, ax):
 
 def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
                      workers, use_ef, generator) -> ExchangeHandle:
-    W = workers.n
+    W = workers.n                      # chunks: one per worker, globally
+    L = p.shape[0]                     # this process's rows
     ax = plan["chunk_axis"]            # axis of one worker's tensor
     shape = tuple(p.shape[1:])
     rest = _rest(shape, ax)
@@ -228,28 +357,28 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
     if rand is not None:
         r1, r2 = rand["phase1"], rand["phase2"]
     # ---- phase 1: each worker compresses its W chunks, all-to-all -------- #
+    # one stacked compress over the L·W chunk rows, the registry
+    # compressor's rounding (JAX vmaps `compressor.compress` over them)
     e1 = ef_state.get("e1", torch.zeros_like(p))
-    m = p + e1.to(p.dtype) if use_ef else p
-    # (W, ..., ax, ...) -> (W, W_chunk, ax/W, *rest)
-    x = torch.movedim(m, ax + 1, 1).reshape(
-        (W, W, shape[ax] // W) + rest)
-    flat = x.reshape((W * W,) + x.shape[2:])
-    r1 = None if r1 is None else r1.reshape(W * W, -1)
-    pls = [compressor.compress(flat[i], None if r1 is None else r1[i],
-                               generator) for i in range(W * W)]
-    x_hat = torch.stack([compressor.decompress(pl, flat.shape[1:], x.dtype)
-                         for pl in pls]).reshape(x.shape)
+
+    def chunks(t):     # (L, ..., ax, ...) -> (L·W, ax/W, *rest)
+        return torch.movedim(t, ax + 1, 1).reshape(
+            (L * W, shape[ax] // W) + rest)
+
+    payload, _, e_new = compress_with_ef_stacked(
+        compressor, chunks(p), chunks(e1.to(p.dtype)),
+        None if r1 is None else r1.reshape(L * W, -1), generator,
+        use_ef=use_ef, allow_fused=False)
     if use_ef:
-        e_new = (x - x_hat).reshape((W, shape[ax]) + rest)
+        e_new = e_new.reshape((L, shape[ax]) + rest)
         new_state["e1"] = torch.movedim(e_new, 1, ax + 1).to(e1.dtype)
-    payload = {k: v.reshape((W, W) + v.shape[1:])
-               for k, v in _each(pls).items()}
+    payload = {k: v.reshape((L, W) + v.shape[1:]) for k, v in payload.items()}
     moved = {k: workers.all_to_all(v) for k, v in payload.items()}
-    contrib = torch.stack([
-        torch.stack([compressor.decompress(_row(_row(moved, d), s),
-                                           x.shape[2:], torch.float32)
-                     for s in range(W)])
-        for d in range(W)])            # (W_dst, W_src, chunk)
+    chunk_shape = (shape[ax] // W,) + rest
+    contrib = decompress_rows(                  # (L_dst, W_src, chunk)
+        compressor, {k: v.reshape((L * W,) + v.shape[2:])
+                     for k, v in moved.items()}, chunk_shape, torch.float32
+    ).reshape((L, W) + chunk_shape)
     chunk_mean = contrib.mean(dim=1)   # owner d's chunk of q̂
     # ---- phase 2: owner compress (+ owner EF e2), all-gather ------------- #
     e2 = ef_state["e2"].reshape(chunk_mean.shape)
@@ -257,13 +386,13 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
         compressor, chunk_mean, e2, r2, generator, use_ef=True)
     new_state["e2"] = e2_new.reshape(ef_state["e2"].shape).to(
         ef_state["e2"].dtype)
-    gathered = {k: workers.all_gather(v) for k, v in payload2.items()}
+    pends = {k: workers.start_all_gather(v) for k, v in payload2.items()}
 
     def _finish_two_phase():
-        chunks = torch.stack([
-            compressor.decompress(_row(gathered, o), chunk_mean.shape[1:],
-                                  torch.float32) for o in range(W)])
-        q = torch.movedim(chunks.reshape((shape[ax],) + rest), 0, ax)
+        gathered = {k: h.wait() for k, h in pends.items()}
+        chunks_q = decompress_rows(compressor, gathered, chunk_shape,
+                                   torch.float32)
+        q = torch.movedim(chunks_q.reshape((shape[ax],) + rest), 0, ax)
         return q.to(p.dtype), new_state
 
     return ExchangeHandle("two_phase", _finish_two_phase)

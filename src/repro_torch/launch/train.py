@@ -1,5 +1,6 @@
 """Training launcher of the port: DQGAN over W workers on a GAN arch, on
-one CUDA device (or the CPU when asked).
+one CUDA device (or the CPU when asked), or across the processes of a
+`torchrun` launch.
 
     python -m repro_torch.launch.train --arch dcgan32 --steps 20 \
         --optimizer omd --compressor qsgd8_block1024 --comm-plan uniform
@@ -13,6 +14,19 @@ the W workers are a leading axis of every per-worker tensor on the one
 device (`core.exchange.StackedWorkers`), and ``--batch`` is the global
 batch, split W ways in order. There is no model axis, so no leaf is
 sharded and every leaf is bucketed.
+
+Under ``torchrun`` (RANK and WORLD_SIZE set) the launcher joins the
+process group (`launch.mesh.ProcessMesh`: nccl on ``cuda:LOCAL_RANK``,
+gloo with ``--device cpu``) and spreads the W workers over the ranks, W /
+world each (`core.exchange.ProcessGroupWorkers`); ``--workers`` stays the
+global W. Every rank draws the same global batch and takes its rows; rank
+0 prints. Checkpoints gather to rank 0 and hold what a one-process run
+saves (a sharded directory defaults to one file a rank); a resume hands
+each rank its rows.
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch dcgan32 --smoke --device cpu --workers 4 --optimizer omd \
+        --compressor qsgd8_block1024 --comm-plan uniform --steps 3
 
 The strategy flags are the JAX launcher's, generated from the same
 component schemas (``--preset``, ``--strategy-json``, ``--compressor``,
@@ -45,14 +59,17 @@ already taken.
 ``--device`` defaults to ``cuda`` and the launcher exits with an error
 when no CUDA device is present; ``--device cpu`` runs the kernels' plain
 versions on the CPU. On CUDA the trainer turns TF32 off for matmuls and
-convolutions: the reference computes in float32. Strategies the port does not run yet
-(spmd='vmap', fsdp, overlap, ...) are refused with the ROADMAP slice
-that brings them.
+convolutions: the reference computes in float32. ``--overlap`` under
+``--schedule delayed`` (and ``--preset ssp_server``) starts each round's
+exchange before the field, on a second CUDA stream. Strategies the port
+does not run yet (spmd='vmap', fsdp, observability) are refused with the
+ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 import zipfile
 
@@ -64,6 +81,7 @@ from repro_torch import strategy as strategy_api
 from repro_torch.configs.base import DQConfig
 from repro_torch.core.dqgan import DQGAN
 from repro_torch.data import procedural_images
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import gan
 from repro_torch.sched import clock as sclock
 from repro_torch.sched import n_participants
@@ -84,8 +102,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split over the workers")
     ap.add_argument("--workers", type=int, default=1,
-                    help="DQGAN workers, stacked on the one device (the "
-                         "JAX launcher's device count)")
+                    help="DQGAN workers (the JAX launcher's device "
+                         "count): stacked on the one device, or spread "
+                         "over the ranks under torchrun")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="oadam")
     strategy_api.add_strategy_args(ap)
@@ -98,7 +117,7 @@ def main(argv=None):
                     help="also save every N steps (0 = only at the end)")
     ap.add_argument("--checkpoint-shards", type=int, default=0,
                     help="shard-file count for the sharded checkpoint "
-                         "format (0 = one)")
+                         "format (0 = one a process)")
     ap.add_argument("--resume", default="",
                     help="restore a full DQState checkpoint (either "
                          "format, saved by this package or the JAX one) "
@@ -124,6 +143,23 @@ def main(argv=None):
     W = args.workers
     if W < 1 or args.batch % W:
         ap.error(f"--batch {args.batch} must split over --workers {W}")
+    mesh = None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if W % world:
+            ap.error(f"--workers {W} must split over {world} ranks")
+        mesh = ProcessMesh.from_env(device.type)
+        device = mesh.device
+    try:
+        return _train(args, ap, cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, ap, cfg, device, mesh):
+    W = args.workers
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     try:
         strat = strategy_api.strategy_from_args(
             args, worker_axes=("data",) if W > 1 else ())
@@ -135,7 +171,7 @@ def main(argv=None):
         message="update" if args.optimizer == "omd" else "grad")
     try:
         trainer = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=device,
-                        seed=args.seed + 1, workers=W)
+                        seed=args.seed + 1, workers=W, mesh=mesh)
     except NotImplementedError as e:
         ap.error(str(e))
 
@@ -144,42 +180,48 @@ def main(argv=None):
     params = gan.init(cfg, generator=data_gen, device=device)
     state = trainer.init(params)
 
+    workers = trainer.worker_backend
+
     def save_ckpt(path, st):
         meta = {"strategy": strat.to_json()}
         if path.endswith(".npz"):
-            checkpoint.save(path, st, step=st.step, meta=meta)
+            checkpoint.save(path, st, step=st.step, meta=meta,
+                            workers=workers)
         else:
             checkpoint.save_sharded(path, st, step=st.step, meta=meta,
-                                    n_shards=args.checkpoint_shards or None)
+                                    n_shards=args.checkpoint_shards or None,
+                                    workers=workers)
 
     start = 0
     if args.resume:
         try:
             checkpoint.verify_strategy(args.resume, strat)
             if checkpoint.is_sharded(args.resume):
-                state = checkpoint.restore_sharded(args.resume, state)
+                state = checkpoint.restore_sharded(args.resume, state,
+                                                   workers=workers)
             else:
-                state = checkpoint.restore(args.resume, state)
+                state = checkpoint.restore(args.resume, state,
+                                           workers=workers)
         except (ValueError, OSError, zipfile.BadZipFile) as e:
             # strategy or shape mismatch, missing file, corrupt archive
             raise SystemExit(f"--resume refused:\n{e}") from None
         start = state.step
-        print(f"# resumed from {args.resume} at step {start}", flush=True)
+        say(f"# resumed from {args.resume} at step {start}", flush=True)
     ledger = trainer.comm_ledger(params)
     if strat.compression.bucketing:
         layout, cplan = trainer._comm(params)
-        print(f"# comm: {layout.describe()}", flush=True)
-        print(f"# comm: {cplan.describe()}", flush=True)
+        say(f"# comm: {layout.describe()}", flush=True)
+        say(f"# comm: {cplan.describe()}", flush=True)
         family = trainer._family(params)
         if family is not None:
-            print(f"# comm: {family.describe()}", flush=True)
+            say(f"# comm: {family.describe()}", flush=True)
     # count-exact participation: each round has n participants, billed at
     # what they move (the selected family member under an adaptive plan)
     n_part = (n_participants(strat.participation.fraction, W)
               if W > 1 and strat.participation.partial else None)
-    print(f"# strategy: {strat.describe()} [{strat.short_hash()}]",
+    say(f"# strategy: {strat.describe()} [{strat.short_hash()}]",
           flush=True)
-    print(f"# device: {device}"
+    say(f"# device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""), flush=True)
 
@@ -247,14 +289,14 @@ def main(argv=None):
                    "step_s": round(step_s, 6),
                    "elapsed_s": round(time.time() - t0, 1)}
             history.append(rec)
-            print(json.dumps(rec), flush=True)
+            say(json.dumps(rec), flush=True)
         if (args.checkpoint and args.checkpoint_every
                 and (i + 1) % args.checkpoint_every == 0
                 and i != args.steps - 1):
             save_ckpt(args.checkpoint, state)
     if args.checkpoint:
         save_ckpt(args.checkpoint, state)
-        print(f"# saved DQState to {args.checkpoint}", flush=True)
+        say(f"# saved DQState to {args.checkpoint}", flush=True)
     return history
 
 

@@ -191,17 +191,23 @@ def gan_field_fn(cfg: GANConfig):
     """field_fn(params, batch, z=None, generator=None) -> (grads, metrics).
 
     batch: {"real": real samples} (images NHWC). z: the (B, latent) draw,
-    from `generator` on the batch's device when not given."""
+    from `generator` on the batch's device when not given: the draw
+    `field_fn.draw_z(batch, generator)` makes, which a caller may also
+    take ahead of the field."""
     if cfg.is_image:
         genf, disc = _dcgan_generate_nchw, _dcgan_discriminate_nchw
     else:
         genf, disc = mlp_generate, mlp_discriminate
 
+    def draw_z(batch, generator=None):
+        real = batch["real"]
+        return torch.randn((real.shape[0], cfg.latent_dim),
+                           generator=generator, device=real.device)
+
     def field_fn(params, batch, z=None, generator=None):
         real = batch["real"]
         if z is None:
-            z = torch.randn((real.shape[0], cfg.latent_dim),
-                            generator=generator, device=real.device)
+            z = draw_z(batch, generator)
         if cfg.is_image:
             real = real.permute(0, 3, 1, 2)
         gpaths, gleaves = T.flatten(params["gen"])
@@ -224,6 +230,7 @@ def gan_field_fn(cfg: GANConfig):
         lg, ld = lg.detach(), ld.detach()
         return grads, {"loss": ld + lg, "loss_g": lg, "loss_d": ld}
 
+    field_fn.draw_z = draw_z
     return field_fn
 
 

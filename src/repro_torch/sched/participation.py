@@ -14,7 +14,10 @@ host constant while the mask itself stays on the device.
 JAX's permutation (threefry keys) cannot be reproduced in torch: the mask
 here comes from a `torch.Generator` on the device, and the trainer's step
 also accepts the mask as an injected draw (the parity tests replay the
-JAX package's masks that way).
+JAX package's masks that way). The mask always covers all M workers:
+with the workers spread over the ranks of a process group, every rank
+draws it from the same shared stream, takes the count (and the adaptive
+family's row) from the whole mask, and applies its own rows.
 """
 from __future__ import annotations
 

@@ -22,10 +22,10 @@ local_k    : exchange every K steps. Between rounds the per-worker message
 delayed    : bounded-staleness exchange with pipeline depth τ (>= 1).
              Step t compresses and averages the message produced at step
              t-τ — the oldest slot of the `DQState.sched["pending"]` ring
-             buffer — while step t's field evaluation proceeds. The
-             JAX package can start that exchange before the field
-             (`exchange.overlap=True`); the port does not yet (CUDA
-             streams, ROADMAP §A slice 3). The OMD extrapolation
+             buffer — while step t's field evaluation proceeds. With
+             `exchange.overlap=True` that exchange starts before the
+             field (a side CUDA stream on the card), as the JAX
+             package issues it. The OMD extrapolation
              subtracts the SUM of the worker's pending (not-yet-applied)
              messages as the staleness correction (the τ-step recursion).
              τ=1 keeps the single-slot layout (W, *shape).

@@ -295,9 +295,11 @@ class ExchangePlan:
     # ------------------------------------------------------------------ #
     def start(self, compressor, plan: dict, p, ef_state: dict, rand,
               workers, use_ef: bool, generator=None):
-        """Start the exchange of one stacked (W, ...) tensor across
-        `workers` (a `core.exchange.StackedWorkers`); returns a
-        `core.exchange.ExchangeHandle`."""
+        """Start the exchange of one stacked (L, ...) tensor across
+        `workers` (`core.exchange.StackedWorkers`, all W rows on one
+        device, or `ProcessGroupWorkers`, a rank's L rows): issues the
+        collectives and returns a `core.exchange.ExchangeHandle`, whose
+        `finish` waits for them."""
         from repro_torch.core import exchange as X
         return X.start_exchange(compressor, plan, p, ef_state, rand,
                                 workers, use_ef, generator)
@@ -506,15 +508,18 @@ class Schedule:
         return self.runtime().describe()
 
     # ---- in-step dataflow of the stacked step (core.dqgan) ------------ #
-    # Every per-worker tensor carries a leading worker axis of size W (the
-    # JAX package's shard_map gives each worker its own slice instead), so
-    # where the JAX methods take a worker index these act on all W at once.
+    # Every per-worker tensor carries a leading worker axis: all W workers
+    # on one device, or a rank's block of L of them (the JAX package's
+    # shard_map gives each worker its own slice instead). Where the JAX
+    # methods take a worker index these act on the L rows at once, worker
+    # `offset + i` in row i: a τ-vector's pull slots and versions are
+    # indexed by the global worker index.
     def init_slots(self, params, worker_like, ring_like, versions_like):
         """The DQState.sched buffers for this schedule, or None.
 
-        `worker_like(leaf)` makes a per-worker (W, *shape) f32 slot,
-        `ring_like(leaf)` a (W, τ, *shape) ring, `versions_like()` the
-        (W,) int32 version vector — the caller owns shape and device."""
+        `worker_like(leaf)` makes a per-worker (L, *shape) f32 slot,
+        `ring_like(leaf)` a (L, τ, *shape) ring, `versions_like()` the
+        (L,) int32 version vector — the caller owns shape and device."""
         if self.kind == "every_step":
             return None
         if self.kind == "local_k":
@@ -544,9 +549,9 @@ class Schedule:
             return self.tau - tau_m
         return tuple(self.tau - t for t in tau_m)
 
-    def wire_head(self, sched_state):
+    def wire_head(self, sched_state, offset: int = 0):
         """(pending_buf, head): the raw delayed-schedule ring buffer and
-        the (W, ...) message on the wire THIS step — each worker's oldest
+        the (L, ...) message on the wire THIS step — each worker's oldest
         slot, or worker m's pull slot τ−τ_m under a tau_vector — or (None,
         None) for the other schedules."""
         if self.kind != "delayed":
@@ -558,10 +563,12 @@ class Schedule:
         if isinstance(p, int):
             return buf, T.tree_map(lambda r: r[:, p], buf)
         return buf, T.tree_map(
-            lambda r: torch.stack([r[w, pw] for w, pw in enumerate(p)]),
+            lambda r: torch.stack([r[i, p[offset + i]]
+                                   for i in range(r.shape[0])]),
             buf)
 
-    def staleness_correction(self, pending_buf, message: str, lr: float):
+    def staleness_correction(self, pending_buf, message: str, lr: float,
+                             offset: int = 0):
         """Each delayed worker's in-flight messages in update units — the
         staleness-correction proxy added to the OMD lookahead. For τ>1
         this sums the not-yet-applied slots: all of them (the τ-step
@@ -579,7 +586,8 @@ class Schedule:
                             for pw in p)
 
                 def masked(r):
-                    w = _const(wts, torch.float32, str(r.device))
+                    w = _const(wts[offset:offset + r.shape[0]],
+                               torch.float32, str(r.device))
                     w = w.reshape(w.shape + (1,) * (r.dim() - 2))
                     return (w * r.float()).sum(dim=1).to(r.dtype)
                 tot = T.tree_map(masked, pending_buf)
@@ -600,8 +608,9 @@ class Schedule:
                                    dim=1),
             pending_buf, new_message)
 
-    def advance_version(self, old_version, step: int, mask=None):
-        """(W,) push/pull versions after an exchange: a participating
+    def advance_version(self, old_version, step: int, mask=None,
+                        offset: int = 0):
+        """(L,) push/pull versions after an exchange: a participating
         worker's applied message was produced τ (or τ_m) steps ago; a
         worker sitting the round out (mask 0) keeps its old version — its
         staleness keeps growing while the folded message rides the EF
@@ -609,17 +618,19 @@ class Schedule:
         tau_m = self._tau_of()
         v_new = torch.full_like(old_version, step)
         v_new = v_new - (tau_m if isinstance(tau_m, int) else _const(
-            tau_m, torch.int32, str(old_version.device)))
+            tau_m[offset:offset + old_version.shape[0]], torch.int32,
+            str(old_version.device)))
         if mask is None:
             return v_new
         return torch.where(mask > 0, v_new, old_version)
 
     def fold(self, sched_state, message, head, do_exchange: bool, step: int,
-             mask, zeros: Callable):
+             mask, zeros: Callable, offset: int = 0):
         """One step of schedule dataflow: (exchange_message | None,
-        new_sched_state | None). `message` is this step's fresh (W, ...)
+        new_sched_state | None). `message` is this step's fresh (L, ...)
         message tree, `head` the delayed ring head from `wire_head`,
-        `zeros(tree)` the caller's zero-like."""
+        `mask` the round's (L,) participation rows or None, `zeros(tree)`
+        the caller's zero-like."""
         if self.kind == "every_step":
             return message, None
         if self.kind == "local_k":
@@ -637,11 +648,11 @@ class Schedule:
         return head, {
             "pending": self.shift(sched_state["pending"], message),
             "versions": self.advance_version(sched_state["versions"], step,
-                                             mask),
+                                             mask, offset),
         }
 
     def staleness_now(self, step: int, new_sched, device=None):
-        """(W,) per-worker staleness (step − version) after this step's
+        """(L,) per-worker staleness (step − version) after this step's
         exchange, or a scalar 0 on `device` for staleness-free
         schedules."""
         if self.kind != "delayed":
@@ -683,8 +694,11 @@ class Participation:
 
     def round_setup(self, n_workers: int, generator=None, mask=None):
         """(mask (W,) float32, n_participants) for this round, or None for
-        full participation or a single worker. The mask is drawn from
-        `generator` on its device, or is the given (injected) `mask`."""
+        full participation or a single worker. The mask covers all W
+        workers and is drawn from `generator` on its device — the shared
+        stream, seeded alike on every rank, so every rank sees the same
+        mask and selects the same PlanFamily row — or is the given
+        (injected) `mask`. Each rank applies its own rows of it."""
         if not self.partial or n_workers <= 1:
             return None
         from repro_torch.sched import participation as SP

@@ -504,3 +504,120 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
         shifted = torch.zeros(q.numel() + 4, device=dev)[1:1 + q.numel()]
         FA.flash_attention(q, shifted.view(q.shape), v)
     assert FA.flash_launches == before
+
+
+# --------------------------------------------------------------------------- #
+# the workers over NCCL, and the exchange overlapped on a side stream
+# --------------------------------------------------------------------------- #
+def _nccl_mesh():
+    """A one-rank NCCL group in this process (the caller closes it)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import ProcessMesh
+    return ProcessMesh.init(0, 1, device_type="cuda", store=dist.HashStore())
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_match_the_stacked_backend():
+    """One rank holding all four workers: every collective goes through
+    NCCL and gives what the stacked backend gives."""
+    from repro_torch.core import exchange as X
+    dev = _device()
+    mesh = _nccl_mesh()
+    try:
+        wk, st = X.ProcessGroupWorkers(mesh, 4), X.StackedWorkers(4)
+        assert (wk.n, wk.n_local, wk.offset) == (4, 4, 0)
+        rs = np.random.RandomState(0)
+        x = torch.from_numpy(rs.randn(4, 33, 7).astype(np.float32)).to(dev)
+        y = torch.from_numpy(rs.randn(4, 4, 5).astype(np.float32)).to(dev)
+        c = torch.from_numpy(rs.randint(-127, 128, (4, 9)).astype(
+            np.int8)).to(dev)
+        hm, hg, ha = (wk.start_mean(x), wk.start_all_gather(c),
+                      wk.start_all_to_all(y))
+        assert torch.equal(ha.wait(), st.all_to_all(y))
+        assert torch.equal(hg.wait(), st.all_gather(c))
+        torch.testing.assert_close(hm.wait(), st.mean(x), rtol=0, atol=1e-6)
+        assert float(wk.max(x[:, 0, 0])) == float(st.max(x[:, 0, 0]))
+    finally:
+        mesh.close()
+
+
+def _mixture_run(dev, strat, W, steps=4, mesh=None, seed=0):
+    """(named final state, launches (B1, B2)) of the mixture MLP GAN."""
+    from repro_torch import checkpoint as CK
+    from repro_torch.configs.base import DQConfig
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.models import gan
+    cfg = gan.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
+                        hidden=128)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tr = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=DQConfig.from_strategy(
+        strat, optimizer="omd", lr=1e-2), device=dev, workers=W, mesh=mesh)
+    st = tr.init(gan.init(cfg, generator=gen, device=dev))
+    Q.reset_launches()
+    for _ in range(steps):
+        st = tr.step(st, {"real": torch.randn((64, 2), generator=gen,
+                                              device=dev)}).state
+    torch.cuda.synchronize()
+    return dict(CK._paths(st)), (Q.launches, Q.launches_dyn), tr
+
+
+def _delayed(kind, W, overlap=False):
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      Participation, Schedule, Strategy)
+    if W == 1:
+        return Strategy(compression=Compression(
+            compressor="qsgd8_block1024", plan="uniform", bucket_mb=0.03),
+            exchange=ExchangePlan(kind=kind, worker_axes=(),
+                                  overlap=overlap),
+            schedule=Schedule.delayed(2))
+    return Strategy(compression=Compression(
+        compressor="qsgd8_block1024", plan="delta_budget", budget_mb=0.033,
+        bucket_mb=0.03, adaptive=True),
+        exchange=ExchangePlan(kind=kind, overlap=overlap),
+        schedule=Schedule.delayed_hetero((1, 2, 3, 4)),
+        participation=Participation(fraction=0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sim", "allgather", "two_phase"])
+def test_dqgan_over_nccl_matches_the_stacked_workers(kind):
+    """Four workers on one NCCL rank against four stacked, the τ-vector
+    run: B2 launches alike, versions equal, the states within the port's
+    tolerances (here bit-equal but for the all_reduce's order)."""
+    dev = _device()
+    strat = _delayed(kind, 4)
+    ref, ref_l, tr = _mixture_run(dev, strat, 4)
+    mesh = _nccl_mesh()
+    try:
+        got, got_l, _ = _mixture_run(dev, strat, 4, mesh=mesh)
+    finally:
+        mesh.close()
+    assert ref_l == got_l and ref_l[1] > 0 and ref_l[0] == 0
+    assert list(ref) == list(got)
+    assert torch.equal(ref["sched/versions"], got["sched/versions"])
+    emax = max(v.abs().max().item() for k, v in ref.items()
+               if k.endswith("/e1") or k.endswith("/e2"))
+    for k, v in ref.items():
+        if k.startswith("params/"):
+            torch.testing.assert_close(got[k], v, rtol=0, atol=emax + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,kind", [(1, "sim"), (1, "two_phase"),
+                                    (4, "sim"), (4, "two_phase")])
+def test_overlap_on_the_card_is_bit_exact(W, kind):
+    """delayed with the exchange started on a side stream before the
+    field: the same state, bit for bit, and the same kernel launches (B1
+    for one worker, B2 for four) as the blocking order."""
+    dev = _device()
+    off, off_l, _ = _mixture_run(dev, _delayed(kind, W), W, steps=6)
+    on, on_l, tr = _mixture_run(dev, _delayed(kind, W, overlap=True), W,
+                                steps=6)
+    assert tr._side is not None     # the side stream was used
+    assert off_l == on_l and sum(on_l) > 0
+    assert list(off) == list(on)
+    for k, v in off.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(on[k], v), k
+        else:
+            assert on[k] == v, k

@@ -1,13 +1,15 @@
 """Port parity: the W = 4 DQGAN step of `repro_torch` (workers stacked on
-one device) against `repro.core.dqgan.DQGAN.step` on 4 forced host devices
-(`shard_map` over a `data` mesh axis), 3 steps of the mixture MLP GAN
-(6 under the `delayed` schedule with the per-worker τ-vector (1, 2, 3, 4),
-half the workers reporting, the adaptive PlanFamily: each worker's
-message reaches the wire τ_m steps after it was made).
+one device, and spread over 4 gloo ranks, one a rank) against
+`repro.core.dqgan.DQGAN.step` on 4 forced host devices (`shard_map` over
+a `data` mesh axis), 3 steps of the mixture MLP GAN (6 under the
+`delayed` schedule with the per-worker τ-vector (1, 2, 3, 4), half the
+workers reporting, the adaptive PlanFamily: each worker's message reaches
+the wire τ_m steps after it was made).
 
 One subprocess runs every configuration on the JAX side and writes, per
 configuration, the initial parameters, each step's batch and draws and the
-final state to an `.npz`. The draws are computed outside the `shard_map`
+final state to an `.npz`; the port replays them stacked in this process
+and across 4 ranks (`torch_ranks.run_ranks`, spawned once). The draws are computed outside the `shard_map`
 the way the JAX step derives them: worker key `fold_in(key, w)`, then
 `split(fold_in(·, step))` into the field's key and the quantizer's `kq`;
 bucket draws from `fold_in(kq, 100_000 + bid)` (two_phase: `split(·, W+1)`,
@@ -43,6 +45,7 @@ from repro_torch.configs.base import DQConfig as TDQ
 from repro_torch.core.dqgan import DQGAN as TDQGAN
 from repro_torch.models import gan as TG
 from repro_torch.strategy import Strategy as TStrategy
+from torch_ranks import run_cases, run_ranks
 
 W, B, STEPS = 4, 64, 3
 TCFG = TG.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
@@ -265,26 +268,37 @@ def _run_port(configs, data, name):
 def test_four_worker_trajectory_matches(jax_runs, name):
     configs, data, _ = jax_runs
     tr, st, paths, n = _run_port(configs, data, name)
-    if f"{name}/versions" in data:
-        np.testing.assert_array_equal(st.sched["versions"].numpy(),
-                                      data[f"{name}/versions"])
-    n_leaves = len(paths)
-    jp = [data[f"{name}/params/{i}"] for i in range(n_leaves)]
-    tp = [x.numpy() for x in T.flatten_up_to(paths, st.params)]
-    je = [data[f"{name}/ef/leaf/{i}/e1"] for i in range(n_leaves)]
     leaf_ef = st.ef["leaf"] if tr.bucketed else st.ef
-    te = [x["e1"].numpy() for x in T.flatten_up_to(paths, leaf_ef)]
+    e2 = None
+    if tr.bucketed and tr.strategy.exchange.owner_ef:
+        e2 = {int(b): e["e2"].numpy() for b, e in st.ef["bucket"].items()}
+    _assert_matches_jax(
+        data, name, tr, n, [x.numpy() for x in T.flatten_up_to(paths,
+                                                                st.params)],
+        [x["e1"].numpy() for x in T.flatten_up_to(paths, leaf_ef)], e2,
+        st.sched["versions"].numpy() if st.sched and "versions" in st.sched
+        else None)
+
+
+def _assert_matches_jax(data, name, tr, n, tp, te, te2_by_bid, versions):
+    """The port's final params, e1 leaves, e2 buckets and versions against
+    the JAX run's, to the tolerances of the module's docstring."""
+    if f"{name}/versions" in data:
+        np.testing.assert_array_equal(versions, data[f"{name}/versions"])
+    n_leaves = len(tp)
+    jp = [data[f"{name}/params/{i}"] for i in range(n_leaves)]
+    je = [data[f"{name}/ef/leaf/{i}/e1"] for i in range(n_leaves)]
     assert [x.shape for x in te] == [x.shape for x in je]
     assert te[0].shape[0] == W
     inv_j = [p - e.sum(axis=0) / n for p, e in zip(jp, je)]
     inv_t = [p - e.sum(axis=0) / n for p, e in zip(tp, te)]
     emax = max(np.abs(x).max() for x in je)
-    if tr.bucketed and tr.strategy.exchange.owner_ef:
-        layout, _ = tr._comm(st.params)
+    if te2_by_bid is not None:
+        layout, _ = tr._comm(T.unflatten(T.flatten(TG.init(
+            TCFG, device="meta"))[0], [torch.from_numpy(x) for x in tp]))
         je2 = [data[f"{name}/ef/bucket/{b.bid}/e2"].reshape(-1)
                for b in layout.buckets]
-        te2 = [st.ef["bucket"][str(b.bid)]["e2"].numpy().reshape(-1)
-               for b in layout.buckets]
+        te2 = [te2_by_bid[b.bid].reshape(-1) for b in layout.buckets]
         flips2 = sum(int((np.abs(a - b) > 1e-3 * np.abs(a).max()).sum())
                      for a, b in zip(je2, te2)) / sum(x.size for x in je2)
         assert flips2 <= 1e-3, flips2
@@ -305,6 +319,66 @@ def test_four_worker_trajectory_matches(jax_runs, name):
         np.testing.assert_allclose(b, a, rtol=0, atol=atol)
     for a, b in zip(jp, tp):
         np.testing.assert_allclose(b, a, rtol=0, atol=atol + emax)
+
+
+def _rank_case(configs, data, name):
+    """`name`'s JAX run as a `torch_ranks` case: its initial parameters,
+    batches and draws (numpy, the global (W, ...) layout)."""
+    paths, _ = T.flatten(TG.init(TCFG, device="meta"))
+    draws = []
+    for t in range(_steps(name)):
+        d = _replay(data, name, t)
+        draws.append({k: ({s: ({p: x.numpy() for p, x in r.items()}
+                               if isinstance(r, dict) else r.numpy())
+                           for s, r in v.items()} if k == "rand"
+                          else v.numpy()) for k, v in d.items()})
+    return dict(strategy=configs[name], W=W, paths=paths,
+                params=[np.array(data[f"init/{i}"])
+                        for i in range(len(paths))],
+                batches=[np.array(data[f"{name}/batch/{t}"])
+                         for t in range(_steps(name))], draws=draws,
+                lr=1e-2)
+
+
+@pytest.fixture(scope="module")
+def four_ranks(jax_runs):
+    """Every configuration replayed over 4 gloo ranks, one worker a rank
+    (spawned once): rank 0's gathered results."""
+    configs, data, _ = jax_runs
+    cases = [_rank_case(configs, data, name) for name in CONFIGS]
+    return dict(zip(CONFIGS, run_ranks(run_cases, W, cases,
+                                       timeout=240)[0]))
+
+
+@pytest.mark.multidevice
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_four_ranks_trajectory_matches(jax_runs, four_ranks, name):
+    """The slice against JAX: the same replay through ProcessGroupWorkers
+    (all_reduce, all_gather, all_to_all over gloo)."""
+    configs, data, _ = jax_runs
+    res = four_ranks[name]
+    for t, m in enumerate(res["metrics"]):
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(
+                m[k], float(data[f"{name}/metrics/{t}/{k}"]), rtol=1e-5,
+                atol=1e-7)
+    st = res["state"]
+    tr = TDQGAN(field_fn=TG.gan_field_fn(TCFG),
+                dq=TDQ.from_strategy(TStrategy.from_json(configs[name]),
+                                     optimizer="omd", lr=1e-2),
+                device="cpu", workers=W)
+    n = W
+    for t in range(_steps(name)):
+        mask = data.get(f"{name}/draws/{t}/mask")
+        if mask is not None:
+            n = int(mask.sum())
+    e2 = {int(k.split("/")[2]): v for k, v in st.items()
+          if k.startswith("ef/bucket/")} or None
+    _assert_matches_jax(
+        data, name, tr, n, [v for k, v in st.items()
+                            if k.startswith("params/")],
+        [v for k, v in st.items() if k.startswith("ef/") and
+         k.endswith("/e1")], e2, st.get("sched/versions"))
 
 
 @pytest.mark.multidevice

@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: neither it nor `chip_smoke.py` imports jax
 or the JAX package, its launchers never fall back to the CPU on their own,
-they refuse what the port does not run yet, the training CLI trains on the
-CPU when asked, with one worker or several, and the serving CLI serves
-gemma-2b there."""
+they refuse what the port does not run yet (and train what it now runs:
+overlap, ssp_server), the training CLI trains on the CPU when asked, with
+one worker or several, and the serving CLI serves gemma-2b there."""
 import functools
 import json
 import math
@@ -53,7 +53,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "launch.serve", "models.model", "kernels.flash_attention",
                 "optim", "sched.schedule", "sched.server", "sched.clock",
                 "sched.straggler", "checkpoint", "gan_common", "quickstart",
-                "strategy.__main__"):
+                "strategy.__main__", "launch.mesh", "core.exchange"):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -129,15 +129,31 @@ def test_cli_without_a_gpu_refuses_instead_of_falling_back():
     assert not out.stdout.strip().startswith("{")
 
 
+def _assert_trains(out, steps=1):
+    """The CLI ran to its end: no refusal, one finite row a step."""
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ROADMAP" not in out.stderr
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    assert [r["step"] for r in rows] == list(range(steps))
+    for r in rows:
+        assert math.isfinite(r["loss"]) and math.isfinite(r["error_norm"])
+    return rows
+
+
+# slice None: the feature is ported (slice 3's overlap) and trains
 @pytest.mark.parametrize("flags,slice_", [
-    (["--schedule", "delayed", "--overlap"], "slice 3"),
+    (["--schedule", "delayed", "--overlap"], None),
     (["--spmd", "vmap"], "slice 5"),
     (["--preset", "fsdp_zero3"], "slice 5"),
     (["--obs-metrics", "wire"], "slice 4"),
-    (["--preset", "ssp_server"], "slice 3"),
+    (["--preset", "ssp_server"], None),
 ])
 def test_cli_refuses_unported_features(flags, slice_):
     out = _run(TRAIN + ["--device", "cpu", "--steps", "1"] + flags)
+    if slice_ is None:
+        _assert_trains(out)
+        return
     assert out.returncode == 2
     assert "ROADMAP" in out.stderr and slice_ in out.stderr
 
@@ -146,7 +162,7 @@ def test_cli_refuses_unported_features(flags, slice_):
     ("paper_dqgan", True), ("exact_baseline", True),
     ("quantized_no_ef", True), ("byte_budget", True),
     ("low_bandwidth", True), ("adaptive_budget", True),
-    ("overlap", False), ("ssp_server", False),
+    ("overlap", True), ("ssp_server", True),
     ("partial_participation", True), ("fsdp_vmap", False),
     ("fsdp_zero2", False), ("fsdp_zero3", False),
 ])
@@ -241,13 +257,17 @@ ADAPTIVE = ["--workers", "4", "--batch", "8", "--optimizer", "omd",
             "--participation", "0.5"]
 
 
+# slice None: ported, trains (four workers, delayed with overlap)
 @pytest.mark.parametrize("flags,slice_", [
     (["--spmd", "vmap"], "slice 5"),
-    (["--schedule", "delayed", "--overlap"], "slice 3"),
+    (["--schedule", "delayed", "--overlap"], None),
 ])
 def test_cli_with_workers_still_refuses(flags, slice_):
     out = _run(TRAIN + ["--device", "cpu", "--steps", "1", "--workers",
                         "4", "--batch", "8"] + flags)
+    if slice_ is None:
+        _assert_trains(out)
+        return
     assert out.returncode == 2
     assert "ROADMAP" in out.stderr and slice_ in out.stderr
 
