@@ -1411,42 +1411,13 @@ def named_state(state):
 
 def check_states_agree(ref, got, W, n, layout, label):
     """`got` against `ref` (named states of W workers, n reporting a
-    round) to the tolerances the port holds itself to against the JAX
-    package: params − (1/n)·Σ e1 (− (W/n)·e2 over the buckets) to float32
-    rounding, params within one quantization step, at most 1e-3 of the
-    residual elements flipped. Returns the largest parameter difference."""
-    import torch
-    from repro_torch.comm import buckets as B
-    params = [k for k in ref if k.startswith("params/")]
-    e1 = [k for k in ref if k.startswith("ef/leaf/") and k.endswith("/e1")]
-    e2 = sorted((k for k in ref if k.startswith("ef/bucket/")),
-                key=lambda k: int(k.split("/")[2]))
-    rp, gp = [ref[k].float() for k in params], [got[k].float() for k in params]
-    re1, ge1 = [ref[k].float() for k in e1], [got[k].float() for k in e1]
-    inv_r = [p - e.sum(0) / n for p, e in zip(rp, re1)]
-    inv_g = [p - e.sum(0) / n for p, e in zip(gp, ge1)]
-    emax = max(e.abs().max().item() for e in re1)
-    if e2:
-        ur = B.unpack_into(layout, [ref[k].reshape(-1) for k in e2], rp)
-        ug = B.unpack_into(layout, [got[k].reshape(-1) for k in e2], gp)
-        inv_r = [a - W / n * u for a, u in zip(inv_r, ur)]
-        inv_g = [a - W / n * u for a, u in zip(inv_g, ug)]
-        emax = max(emax, W / n * max(ref[k].abs().max().item() for k in e2))
-    flips = sum(int(((a - b).abs() > 1e-3 * emax).sum())
-                for a, b in zip(re1, ge1)) / sum(a.numel() for a in re1)
-    scale = max(p.abs().max().item() for p in rp)
-    atol = 1e-6 * scale + 1e-6 * 127 * emax
-    d_inv = max((a - b).abs().max().item() for a, b in zip(inv_r, inv_g))
-    d_par = max((a - b).abs().max().item() for a, b in zip(rp, gp))
-    check(flips <= 1e-3, f"{label}: {flips:.2e} of the residuals flipped")
-    check(d_inv <= atol, f"{label}: params - e1/n differ by {d_inv:.3e} > "
-          f"{atol:.3e}")
-    check(d_par <= atol + emax, f"{label}: params differ by {d_par:.3e} > "
-          f"{atol + emax:.3e}")
-    if "sched/versions" in ref:
-        check(torch.equal(ref["sched/versions"], got["sched/versions"]),
-              f"{label}: versions differ")
-    return d_par, d_inv
+    round) by the rule the port holds itself to against the JAX package
+    (`repro_torch.parity`). Returns (the largest parameter difference,
+    that of params - e1/n)."""
+    from repro_torch.parity import named_agreement
+    agree = named_agreement(ref, got, W, n, layout)
+    check(not agree.problems, f"{label}: {'; '.join(agree.problems)}")
+    return agree.d_params, agree.d_invariant
 
 
 def run_steps(trainer, state, batches):

@@ -98,6 +98,9 @@ class DQState(NamedTuple):
 class StepOutput(NamedTuple):
     state: DQState
     metrics: Any
+    # the round's (W,) participation mask as this rank drew and applied
+    # it (None at full participation)
+    mask: Optional[torch.Tensor] = None
 
 
 def _unported(strategy: Strategy) -> Optional[str]:
@@ -164,9 +167,10 @@ class DQGAN:
 
     `field_fn(params, batch, z=None, generator=None) -> (grads, metrics)`;
     a field that draws from the generator exposes the draw as
-    `field_fn.draw_z(batch, generator)`, which an overlapped step calls
-    ahead of the exchange. `dq` carries the optimizer knobs and the
-    strategy (or pass `strategy` alone, like the JAX package). `workers`
+    `field_fn.draw_z(batch, generator)`, which the step calls ahead of the
+    exchange (an overlapped step refuses a field that draws without it).
+    `dq` carries the optimizer knobs and the strategy (or pass `strategy`
+    alone, like the JAX package). `workers`
     (W) > 1 stands for the JAX package's device count and needs
     `strategy.exchange.worker_axes`. `mesh` (a `launch.mesh.ProcessMesh`)
     spreads the W workers over its ranks; None stacks them on `device`.
@@ -509,23 +513,30 @@ class DQGAN:
         # ...) message on the wire THIS step (each worker's pull slot)
         pending_buf, pending = sched_c.wire_head(state.sched, off)
         batches = self._split_batch(batch)
+        # the field's draws come first, ahead of any exchange, so that
+        # every generator draws in one order whether or not it overlaps
         z = draws.get("z")
-        zs = ([None] * L if z is None else
-              list(wk.rows(z.reshape((W, -1, z.shape[-1])))))
+        draw_z = getattr(self.field_fn, "draw_z", None)
+        if z is not None:
+            zs = list(wk.rows(z.reshape((W, -1, z.shape[-1]))))
+        elif draw_z is not None:
+            zs = [draw_z(b, g) for b, g in zip(batches, self._gens)]
+        else:
+            zs = [None] * L
 
         # ---------- overlapped exchange start (delayed × overlap) ------- #
         # the wire head is carried state, so its exchange starts here,
-        # before the field; the field's own draws are taken first, so that
-        # every generator draws in the blocking order
+        # before the field
         finish = None
         if (self.strategy.exchange.overlap and sched_c.overlappable
                 and pending is not None):
-            draw_z = getattr(self.field_fn, "draw_z", None)
-            if z is None and draw_z is not None:
-                zs = [draw_z(b, g) for b, g in zip(batches, self._gens)]
             finish = self._start_overlapped(
                 state.params, paths, T.flatten_up_to(paths, pending), ef,
                 ef_leaves, plans, rand, part)
+        # a field without `draw_z` must then draw nothing: its draws would
+        # follow the exchange's, not precede them as they do blocking
+        gen_states = ([g.get_state() for g in self._gens]
+                      if finish is not None and draw_z is None else None)
 
         # ---------- extrapolation to w_{t-1/2}, per worker ------------- #
         # delayed: w_{t-1} is τ applied updates stale, so the lookahead
@@ -564,6 +575,13 @@ class DQGAN:
                                    generator=self._gens[i])
             grads_w.append(T.flatten_up_to(paths, g))
             losses.append(met.get("loss", torch.zeros(())))
+        if gen_states is not None and not all(
+                torch.equal(a, g.get_state())
+                for a, g in zip(gen_states, self._gens)):
+            raise RuntimeError(
+                "exchange.overlap: the field drew from its generator but "
+                "has no draw_z, so the overlapped step would not draw what "
+                "the blocking step draws; expose field_fn.draw_z")
         grads = [torch.stack(gs) for gs in zip(*grads_w)]   # (L, ...)
         if dq.message == "update" and dq.optimizer == "omd":
             message = [(eta * g).float() for g in grads]
@@ -616,7 +634,8 @@ class DQGAN:
         out_metrics = {"loss": loss, "grad_norm": gn,
                        "error_norm": en, "staleness_max": st_max,
                        "staleness_mean": st_mean}
-        return StepOutput(state=new_state, metrics=out_metrics)
+        return StepOutput(state=new_state, metrics=out_metrics,
+                          mask=None if part is None else part[0])
 
     # ------------------------------------------------------------------ #
     # exchange: each `_start_*` issues its work and returns the finish,

@@ -106,24 +106,19 @@ def rows_blocked(compressor, n: int) -> bool:
 
 
 def compress_rows(compressor, x, rand=None, generator=None):
-    """`compressor.compress` of each row of the (R, ...) stack `x`; each
-    payload entry gains a leading R axis. One call over the stack where
-    `rows_blocked`, a call a row otherwise (row i draws from its worker's
-    generator, see `row_draws`)."""
+    """`compressor.compress` of each row of the (R, ...) stack `x` as ONE
+    call over the stack (`rows_blocked` must hold); each payload entry
+    gains a leading R axis. Without `rand`, row i draws from its worker's
+    generator (see `row_draws`)."""
     R = x.shape[0]
     n = x[0].numel()
-    if rows_blocked(compressor, n):
-        if rand is None and isinstance(generator, (list, tuple)):
-            rand = row_draws(generator, R, n, x.device)
-        pl = compressor.compress(x.reshape(-1), None if rand is None
-                                 else rand.reshape(-1), generator)
-        return {k: v.reshape((R, -1) + tuple(v.shape[1:]))
-                for k, v in pl.items()}
-    rows = [compressor.compress(x[i], None if rand is None
-                                else rand.reshape(R, -1)[i],
-                                _row_generator(generator, R, i))
-            for i in range(R)]
-    return {k: torch.stack([p[k] for p in rows]) for k in rows[0]}
+    assert rows_blocked(compressor, n), "compress_rows: rows not blocked"
+    if rand is None and isinstance(generator, (list, tuple)):
+        rand = row_draws(generator, R, n, x.device)
+    pl = compressor.compress(x.reshape(-1), None if rand is None
+                             else rand.reshape(-1), generator)
+    return {k: v.reshape((R, -1) + tuple(v.shape[1:]))
+            for k, v in pl.items()}
 
 
 def decompress_rows(compressor, payload, row_shape, dtype):
@@ -171,7 +166,7 @@ def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
                    for k, v in payload.items()}
         return payload, m_hat.reshape(message.shape), \
             e_new.reshape(e_prev.shape)
-    if (R > 1 or per_worker) and rows_blocked(compressor, n):
+    if rows_blocked(compressor, n):
         m = message + e_prev.to(message.dtype) if use_ef else message
         payload = compress_rows(compressor, m, rand, generator)
         m_hat = decompress_rows(compressor, payload, m.shape[1:], m.dtype)

@@ -247,8 +247,7 @@ class ProcessGroupWorkers(_Workers):
 
     def start_mean(self, x):
         s = x.sum(dim=0)
-        work = dist.all_reduce(s, op=dist.ReduceOp.SUM,
-                               group=self.mesh.group, async_op=True)
+        work = dist.all_reduce(s, op=dist.ReduceOp.SUM, async_op=True)
         return _Pending(work, s, self._over_n)
 
     def start_all_gather(self, x):
@@ -256,7 +255,7 @@ class ProcessGroupWorkers(_Workers):
         out = x.new_empty((self.n,) + tuple(x.shape[1:]))
         gather = (getattr(dist, "all_gather_single", None)
                   or dist.all_gather_into_tensor)
-        work = gather(out, x, group=self.mesh.group, async_op=True)
+        work = gather(out, x, async_op=True)
         return _Pending(work, out)
 
     def start_all_to_all(self, x):
@@ -267,8 +266,7 @@ class ProcessGroupWorkers(_Workers):
         inp = x.reshape((L, world, L) + rest).transpose(0, 1)
         inp = inp.transpose(1, 2).contiguous()
         out = torch.empty_like(inp)
-        work = dist.all_to_all_single(out, inp, group=self.mesh.group,
-                                      async_op=True)
+        work = dist.all_to_all_single(out, inp, async_op=True)
 
         def post(o):    # (world_src, L_dst, L_src, ...) -> (L_dst, W_src, ...)
             return o.transpose(0, 1).reshape((L, self.n) + rest)
@@ -277,12 +275,12 @@ class ProcessGroupWorkers(_Workers):
     def mean_each(self, vectors):
         """The mean over all W workers of each (L,) vector: one all_reduce."""
         s = torch.stack([v.float().sum() for v in vectors])
-        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM)
         return list(self._over_n(s).unbind())
 
     def max(self, x):
         m = x.max()
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
         return m
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,16 +43,14 @@ def _backend(device_type: str) -> str:
 
 @dataclasses.dataclass
 class ProcessMesh:
-    """One rank's view of the process group: `rank` of `world`, its
-    `device`, and the `group` (None: the default group). Build it with
-    `from_env` under `torchrun`, or `init` with a store or an init method;
-    `close` destroys the group it made."""
+    """One rank's view of the default process group: `rank` of `world`
+    and its `device`. Build it with `from_env` under `torchrun`, or `init`
+    with a store or an init method; `close` destroys the group it made."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
-    group: Any = None
 
     @classmethod
     def init(cls, rank: int, world: int, *, device_type: str = "cuda",
@@ -104,9 +102,9 @@ class ProcessMesh:
 
     def barrier(self) -> None:
         if self.backend == "nccl":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            dist.barrier(device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
+            dist.barrier()
 
     def close(self) -> None:
         if dist.is_initialized():

@@ -1,0 +1,107 @@
+"""The rule by which two runs of DQGAN over W workers agree, when their
+float sums are taken in different orders: the JAX package against the
+port, or the workers stacked on one device against the workers spread
+over a process group.
+
+Quantization turns a rounding difference in the message into a code one
+level apart, so the parameters alone cannot be held to float32 rounding.
+The sum p + (1/n)·Σ_m e1_m (n reporting workers) is invariant to such a
+flip, as is p − (W/n)·e2 under two_phase: that part of the state is held
+to float32 rounding, the parameters to within one quantization step, and
+at most 1e-3 of the residual elements may differ (flipped codes).
+Versions, where the schedule keeps them, agree exactly.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.comm import buckets as B
+
+MAX_FLIPPED = 1e-3
+
+
+class Agreement(NamedTuple):
+    d_params: float     # largest parameter difference
+    d_invariant: float  # largest difference of the invariant part
+    atol: float         # float32 rounding bound of the invariant part
+    emax: float         # one quantization step (the largest residual)
+    problems: List[str]  # empty where the two runs agree
+
+
+def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu()
+    return torch.from_numpy(np.asarray(x, dtype=np.float32))
+
+
+def _flipped(ref, got, thresholds) -> float:
+    bad = sum(int(((a - b).abs() > t).sum())
+              for a, b, t in zip(ref, got, thresholds))
+    return bad / sum(a.numel() for a in ref)
+
+
+def agreement(params, e1, W: int, n: int, *, e2=None, layout=None,
+              versions=None) -> Agreement:
+    """`params`, `e1` and `e2` are (ref, got) pairs of lists of arrays
+    (numpy or torch): the parameter leaves, each leaf's (W, ...) residual
+    e1, and each bucket's e2 in `layout`'s order (two_phase, else None).
+    `versions` is a (ref, got) pair of arrays or None."""
+    rp, gp = [_t(x) for x in params[0]], [_t(x) for x in params[1]]
+    re1, ge1 = [_t(x) for x in e1[0]], [_t(x) for x in e1[1]]
+    problems = []
+    if [x.shape for x in re1] != [x.shape for x in ge1] or any(
+            x.shape[0] != W for x in re1) or len(re1) != len(rp):
+        problems.append("the e1 leaves differ in shape or worker count")
+        return Agreement(float("inf"), float("inf"), 0.0, 0.0, problems)
+    inv_r = [p - e.sum(0) / n for p, e in zip(rp, re1)]
+    inv_g = [p - e.sum(0) / n for p, e in zip(gp, ge1)]
+    emax = max(e.abs().max().item() for e in re1)
+    if e2 is not None:
+        re2 = [_t(x).reshape(-1) for x in e2[0]]
+        ge2 = [_t(x).reshape(-1) for x in e2[1]]
+        flips2 = _flipped(re2, ge2, [1e-3 * a.abs().max() for a in re2])
+        if not flips2 <= MAX_FLIPPED:
+            problems.append(f"{flips2:.2e} of the e2 residuals flipped")
+        # (W/n)·e2, unchunked onto the leaves
+        ur, ug = B.unpack_into(layout, re2, rp), B.unpack_into(layout, ge2,
+                                                              gp)
+        inv_r = [a - W / n * u for a, u in zip(inv_r, ur)]
+        inv_g = [a - W / n * u for a, u in zip(inv_g, ug)]
+        emax = max(emax, W / n * max(a.abs().max().item() for a in re2))
+    flips = _flipped(re1, ge1, [1e-3 * emax] * len(re1))
+    if not flips <= MAX_FLIPPED:
+        problems.append(f"{flips:.2e} of the e1 residuals flipped")
+    scale = max(p.abs().max().item() for p in rp)
+    atol = 1e-6 * scale + 1e-6 * 127 * emax
+    d_inv = max((a - b).abs().max().item() for a, b in zip(inv_r, inv_g))
+    d_par = max((a - b).abs().max().item() for a, b in zip(rp, gp))
+    if not d_inv <= atol:
+        problems.append(f"params - e1/n differ by {d_inv:.3e} > {atol:.3e}")
+    if not d_par <= atol + emax:
+        problems.append(f"params differ by {d_par:.3e} > {atol + emax:.3e}")
+    if versions is not None and not torch.equal(_t(versions[0]),
+                                                _t(versions[1])):
+        problems.append("versions differ")
+    return Agreement(d_par, d_inv, atol, emax, problems)
+
+
+def named_agreement(ref: dict, got: dict, W: int, n: int,
+                    layout: Optional[object] = None) -> Agreement:
+    """`agreement` of two named global states ({name: array}, the
+    checkpoint layout's names: params/..., ef/leaf/.../e1,
+    ef/bucket/<bid>/e2, sched/versions)."""
+    if list(ref) != list(got):
+        return Agreement(float("inf"), float("inf"), 0.0, 0.0,
+                         ["the states hold different members"])
+    params = [k for k in ref if k.startswith("params/")]
+    e1 = [k for k in ref if k.startswith("ef/") and k.endswith("/e1")]
+    e2 = sorted((k for k in ref if k.startswith("ef/bucket/")),
+                key=lambda k: int(k.split("/")[2]))
+    pair = lambda keys: ([ref[k] for k in keys], [got[k] for k in keys])
+    return agreement(pair(params), pair(e1), W, n,
+                     e2=pair(e2) if e2 else None, layout=layout,
+                     versions=(ref["sched/versions"], got["sched/versions"])
+                     if "sched/versions" in ref else None)

@@ -40,10 +40,10 @@ import pytest
 import torch
 
 from repro_torch import tree as T
-from repro_torch.comm import buckets as TB
 from repro_torch.configs.base import DQConfig as TDQ
 from repro_torch.core.dqgan import DQGAN as TDQGAN
 from repro_torch.models import gan as TG
+from repro_torch.parity import agreement
 from repro_torch.strategy import Strategy as TStrategy
 from torch_ranks import run_cases, run_ranks
 
@@ -282,43 +282,22 @@ def test_four_worker_trajectory_matches(jax_runs, name):
 
 def _assert_matches_jax(data, name, tr, n, tp, te, te2_by_bid, versions):
     """The port's final params, e1 leaves, e2 buckets and versions against
-    the JAX run's, to the tolerances of the module's docstring."""
-    if f"{name}/versions" in data:
-        np.testing.assert_array_equal(versions, data[f"{name}/versions"])
+    the JAX run's, by the rule of the module's docstring
+    (`repro_torch.parity`)."""
     n_leaves = len(tp)
     jp = [data[f"{name}/params/{i}"] for i in range(n_leaves)]
     je = [data[f"{name}/ef/leaf/{i}/e1"] for i in range(n_leaves)]
-    assert [x.shape for x in te] == [x.shape for x in je]
-    assert te[0].shape[0] == W
-    inv_j = [p - e.sum(axis=0) / n for p, e in zip(jp, je)]
-    inv_t = [p - e.sum(axis=0) / n for p, e in zip(tp, te)]
-    emax = max(np.abs(x).max() for x in je)
+    e2, layout = None, None
     if te2_by_bid is not None:
         layout, _ = tr._comm(T.unflatten(T.flatten(TG.init(
             TCFG, device="meta"))[0], [torch.from_numpy(x) for x in tp]))
-        je2 = [data[f"{name}/ef/bucket/{b.bid}/e2"].reshape(-1)
-               for b in layout.buckets]
-        te2 = [te2_by_bid[b.bid].reshape(-1) for b in layout.buckets]
-        flips2 = sum(int((np.abs(a - b) > 1e-3 * np.abs(a).max()).sum())
-                     for a, b in zip(je2, te2)) / sum(x.size for x in je2)
-        assert flips2 <= 1e-3, flips2
-        # (W/n)·e2, unchunked onto the leaves
-        uj = TB.unpack_into(layout, [_t(x) for x in je2],
-                            [torch.from_numpy(x) for x in jp])
-        ut = TB.unpack_into(layout, [_t(x) for x in te2],
-                            [torch.from_numpy(x) for x in tp])
-        inv_j = [a - W / n * u.numpy() for a, u in zip(inv_j, uj)]
-        inv_t = [a - W / n * u.numpy() for a, u in zip(inv_t, ut)]
-        emax = max(emax, W / n * max(np.abs(x).max() for x in je2))
-    flips = sum(int((np.abs(a - b) > 1e-3 * emax).sum())
-                for a, b in zip(je, te)) / sum(x.size for x in je)
-    assert flips <= 1e-3, flips
-    scale = max(np.abs(x).max() for x in jp)
-    atol = 1e-6 * scale + 1e-6 * 127 * emax
-    for a, b in zip(inv_j, inv_t):
-        np.testing.assert_allclose(b, a, rtol=0, atol=atol)
-    for a, b in zip(jp, tp):
-        np.testing.assert_allclose(b, a, rtol=0, atol=atol + emax)
+        e2 = ([data[f"{name}/ef/bucket/{b.bid}/e2"] for b in layout.buckets],
+              [te2_by_bid[b.bid] for b in layout.buckets])
+    jv = data[f"{name}/versions"] if f"{name}/versions" in data else None
+    problems = agreement(
+        (jp, tp), (je, te), W, n, e2=e2, layout=layout,
+        versions=None if jv is None else (jv, versions)).problems
+    assert not problems, problems
 
 
 def _rank_case(configs, data, name):

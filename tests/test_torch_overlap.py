@@ -14,7 +14,8 @@ the card; in line on the CPU) and finishes after it
     local_k) exchange in the blocking order under the flag;
   * the refusals stay: overlap with spmd='vmap' or exchange='exact' is
     not a strategy; fsdp, spmd='vmap' and observability are refused by
-    the trainer, each naming its slice;
+    the trainer, each naming its slice; an overlapped step refuses a
+    field that draws from its generator without exposing `draw_z`;
   * one delayed overlap run against the JAX package's one-device run of
     the bilinear game (its tests/test_overlap.py `_run_state`), the JAX
     draws replayed: params − e1 to float32 rounding, params within a
@@ -126,6 +127,29 @@ def test_round_made_messages_exchange_in_the_blocking_order(schedule):
         exchange=ExchangePlan(worker_axes=(), overlap=ov),
         schedule=schedule)))
     assert_bit_equal(off, on)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_a_field_that_draws_without_draw_z_is_refused_overlapped(overlap):
+    """The exchange would take its draws ahead of such a field's, not
+    after them as it does blocking: the overlapped step raises."""
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.configs.base import DQConfig
+
+    def field(params, batch, z=None, generator=None):
+        noise = torch.rand(params["x"].shape, generator=generator)
+        return {"x": params["x"] + noise}, {"loss": params["x"].sum()}
+
+    strat = Strategy(schedule=Schedule.delayed(2),
+                     exchange=ExchangePlan(worker_axes=(), overlap=overlap))
+    tr = DQGAN(field_fn=field, device="cpu", dq=DQConfig.from_strategy(
+        strat, optimizer="omd", lr=0.05))
+    st = tr.init({"x": torch.ones(6)})
+    if not overlap:
+        assert tr.step(st, {"real": torch.zeros(1, 1)}).state.step == 1
+        return
+    with pytest.raises(RuntimeError, match="draw_z"):
+        tr.step(st, {"real": torch.zeros(1, 1)})
 
 
 def test_overlap_strategies_refused_stay_refused():

@@ -53,7 +53,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "launch.serve", "models.model", "kernels.flash_attention",
                 "optim", "sched.schedule", "sched.server", "sched.clock",
                 "sched.straggler", "checkpoint", "gan_common", "quickstart",
-                "strategy.__main__", "launch.mesh", "core.exchange"):
+                "strategy.__main__", "launch.mesh", "core.exchange", "parity"):
         assert f"repro_torch.{mod}" in walked, mod
 
 

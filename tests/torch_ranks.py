@@ -200,7 +200,7 @@ def run_case(case, mesh=None):
     """Train `case` stacked (mesh None) or on this rank; returns, on rank 0
     or without a mesh, {"state0", "state": {name: array}} (the gathered
     global state after step 0 and at the end), "metrics" (per step) and
-    "masks" (the participation mask each step would draw)."""
+    "masks" (the participation mask each step applied)."""
     import torch
     from repro_torch import checkpoint as CK
     from repro_torch import tree as T
@@ -208,17 +208,15 @@ def run_case(case, mesh=None):
     params = T.unflatten(case["paths"], [_torch(x) for x in case["params"]])
     st = tr.init(params)
     wk = tr.worker_backend
-    part = tr.strategy.participation
     rt = tr.strategy.schedule.runtime()
     out = {"metrics": [], "masks": []}
     for t, real in enumerate(case["batches"]):
         draws = case["draws"][t] if case.get("draws") else None
-        g = torch.Generator().manual_seed(tr._step_seed(t))
-        m = part.round_setup(case["W"], g)
-        out["masks"].append(None if m is None else m[0].numpy())
         res = tr.step(st, {"real": _torch(real)},
                       None if draws is None else _torch(draws),
                       do_exchange=rt.is_exchange_step(t))
+        out["masks"].append(None if res.mask is None
+                            else res.mask.cpu().numpy())
         st = res.state
         out["metrics"].append({k: float(v) for k, v in res.metrics.items()})
         if t == 0:
@@ -234,48 +232,8 @@ def run_cases(mesh, cases):
 
 
 def assert_states_agree(ref, got, W, n, layout=None, label=""):
-    """`got` against `ref` (named global states) as the port holds itself
-    to the JAX package across frameworks (tests/test_torch_multiworker.py's
-    docstring): params − (1/n)·Σ e1 (− (W/n)·e2 unchunked onto the leaves
-    through the bucket `layout`, two_phase) to float32 rounding of the
-    order of the sums, params within a quantization step, at most 1e-3 of
-    residual elements flipped; versions exactly."""
-    import torch
-    from repro_torch.comm import buckets as B
-    assert list(ref) == list(got), label
-    params = [k for k in ref if k.startswith("params/")]
-    leaf_e1 = [k for k in ref if k.startswith("ef/") and k.endswith("/e1")]
-    if "sched/versions" in ref:
-        np.testing.assert_array_equal(got["sched/versions"],
-                                      ref["sched/versions"], err_msg=label)
-    jp, tp = [ref[k] for k in params], [got[k] for k in params]
-    je, te = [ref[k] for k in leaf_e1], [got[k] for k in leaf_e1]
-    assert len(je) == len(jp) and all(x.shape[0] == W for x in je), label
-    inv_j = [p - e.sum(axis=0) / n for p, e in zip(jp, je)]
-    inv_t = [p - e.sum(axis=0) / n for p, e in zip(tp, te)]
-    emax = max(np.abs(x).max() for x in je)
-    e2 = sorted((k for k in ref if k.startswith("ef/bucket/")),
-                key=lambda k: int(k.split("/")[2]))
-    if e2:
-        je2 = [ref[k].reshape(-1) for k in e2]
-        te2 = [got[k].reshape(-1) for k in e2]
-        flips2 = sum(int((np.abs(a - b) > 1e-3 * np.abs(a).max()).sum())
-                     for a, b in zip(je2, te2)) / sum(x.size for x in je2)
-        assert flips2 <= 1e-3, (label, flips2)
-        uj = B.unpack_into(layout, [torch.from_numpy(x) for x in je2],
-                           [torch.from_numpy(x) for x in jp])
-        ut = B.unpack_into(layout, [torch.from_numpy(x) for x in te2],
-                           [torch.from_numpy(x) for x in tp])
-        inv_j = [a - W / n * u.numpy() for a, u in zip(inv_j, uj)]
-        inv_t = [a - W / n * u.numpy() for a, u in zip(inv_t, ut)]
-        emax = max(emax, W / n * max(np.abs(x).max() for x in je2))
-    flips = sum(int((np.abs(a - b) > 1e-3 * emax).sum())
-                for a, b in zip(je, te)) / sum(x.size for x in je)
-    assert flips <= 1e-3, (label, flips)
-    scale = max(np.abs(x).max() for x in jp)
-    atol = 1e-6 * scale + 1e-6 * 127 * emax
-    for a, b in zip(inv_j, inv_t):
-        np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=label)
-    for a, b in zip(jp, tp):
-        np.testing.assert_allclose(b, a, rtol=0, atol=atol + emax,
-                                   err_msg=label)
+    """`got` against `ref` (named global states) by the rule the port
+    holds itself to across frameworks (`repro_torch.parity`)."""
+    from repro_torch.parity import named_agreement
+    problems = named_agreement(ref, got, W, n, layout).problems
+    assert not problems, (label, problems)
