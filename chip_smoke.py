@@ -76,6 +76,16 @@ result line):
               states bit-equal, the exchange kernels on a non-default
               stream (profiler trace); the share of their time under the
               default stream's kernels and the median steps (reported)
+ 13. obs      the telemetry (repro_torch.obs): one worker through B1 at
+              metrics off, wire and full, 10 steps each, twice, bit-equal,
+              B1 10 times in each, δ̂ per bucket equal to B1's plain version
+              on B1's operands, the kernels a step each level adds; four
+              workers, τ-vector, half reporting, through B2, obs full:
+              δ̂ per bucket against B2's plain version, higher at 127
+              levels than at 7, the staleness histogram summing to 4,
+              NCCL at world size 1 equal to stacked; the CLI's sinks
+              (profiled run + the delayed(2) overlap pair) read by
+              `python -m repro_torch.obs report` and `calibrate`
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -97,6 +107,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import redirect_stdout
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1432,7 +1443,9 @@ def run_steps(trainer, state, batches):
         state = out.state
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        rows.append({k: float(v) for k, v in out.metrics.items()})
+        rows.append({k: (float(v) if k != "obs" else
+                         {n: x.tolist() for n, x in v.items()})
+                     for k, v in out.metrics.items()})
     return state, rows, times
 
 
@@ -1645,6 +1658,338 @@ def phase_overlap(dev, gpu):
         torch.backends.cudnn.deterministic = False
     return out
 
+OBS_STEPS = 10              # phase obs: one worker, each metrics level
+OBS_PAIR_STEPS = 12         # the CLI's delayed(2) overlap off/on pair
+OBS_PROFILE_STEPS = 2       # steps a kernel count is taken over
+OBS_CLI_STEPS, OBS_WINDOW = 10, 8
+
+
+class QuantizeSpy:
+    """Keeps the operands of every `quantize_ef_flat` call (B1's and B2's
+    wrapper, as `core.error_feedback` calls it) since the last `take`.
+    It keeps them without a copy: each is made for the call (the packed
+    or bucketed message, its e, the draw) and nothing writes it after."""
+
+    def __init__(self):
+        from repro_torch.core import error_feedback as EF
+        self.real, self.calls = EF.quantize_ef_flat, []
+
+    def __call__(self, g, e, rand, *, levels=127):
+        self.calls.append((g, e, rand, levels))
+        return self.real(g, e, rand, levels=levels)
+
+    def take(self):
+        out, self.calls = self.calls, []
+        return out
+
+
+def plain_deltas(calls, bucket_rows=None):
+    """[1 − Σe'²/Σm²] of each bucket, e' from B1's/B2's plain version
+    (`kernels.ref.quantize_ef_ref`) on the recorded operands: one call a
+    bucket (B2), or one call over the buckets packed back to back (B1,
+    `bucket_rows` rows each, in order). An empty wire (Σm² = 0, the
+    delayed ring's first heads) reads 1, as `obs.finalize` has it."""
+    import torch
+    from repro_torch.kernels.ref import quantize_ef_ref
+    out = []
+    for g, e, rand, levels in calls:
+        g, e, rand = (x.reshape(-1, 1024) for x in (g, e, rand))
+        _, _, e_new = quantize_ef_ref(g, e, rand, levels)
+        m = g + e
+        splits = bucket_rows or [g.shape[0]]
+        for mb, eb in zip(m.split(splits), e_new.split(splits)):
+            out.append(1.0 - float(torch.sum(eb * eb))
+                       / max(float(torch.sum(mb * mb)), 1e-30))
+    return out
+
+
+def kernels_a_step(tr, st, batches):
+    """(state, CUDA kernels a step) over `batches`, from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, _, _ = run_steps(tr, st, batches)
+    n = len(trace_kernels(prof))
+    check(n > 0, "obs: the profiler saw no CUDA kernel")
+    return st, n / len(batches)
+
+
+def syncs_a_step(tr, st, batch):
+    """(state, the file:line of each synchronizing CUDA call of one step),
+    from PyTorch's sync debug mode (which, by its own warning, does not
+    see every synchronizing operation)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st = tr.step(st, batch).state
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return st, [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+                for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+
+def phase_obs(dev, gpu):
+    """Observability on the card (repro_torch.obs), dcgan32 full width:
+    (a) one worker, batch 64, qsgd8_block1024 over uniform buckets, 10
+        steps at metrics off, wire and full (spans on for full), twice
+        each (off, wire, full with B1's operands kept, then full, wire,
+        off as they run, whose medians are reported): every run's state
+        bit-equal to the first's, B1 10 launches in each; the
+        synchronizing calls of a step at each level (reported);
+        delta_hat and bucket_delta each step equal to 1 − Σe'²/Σm² from
+        B1's plain version on B1's own operands (atol 1e-6, f32
+        rounding); the kernels a step of off, wire and full (profiler);
+    (b) four workers stacked, batch 256, half reporting, adaptive
+        delta_budget 0.75 MiB, delayed with the τ-vector (1, 2, 3, 4),
+        obs full, 8 steps: B2 24 launches; bucket_delta per bucket from
+        B2's plain version as in (a); bucket_delta higher at 127 levels
+        than at 7 once every worker's first message is out (step 4 on);
+        staleness_hist sums to 4; the same steps over the
+        one-rank NCCL group give the same obs (`parity.obs_agreement`);
+    (c) the trainer's CLI: one worker with --obs-metrics full --obs-spans
+        --profile-steps 8 and the delayed(2) pair with overlap off then
+        on, three sinks in one file; every event validates; `python -m
+        repro_torch.obs report --json` has device_phases with ops > 0
+        for field, compress and exchange and an overlap row (hidden_s
+        reported); calibrate runs on the file.
+    Returns {path: (B1 launches, B2 launches)}."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import error_feedback as EF
+    from repro_torch.data import procedural_images
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.obs import __main__ as obs_cli
+    from repro_torch.obs import read_events
+    from repro_torch.parity import obs_agreement
+    from repro_torch.strategy import Strategy
+
+    torch.backends.cudnn.deterministic = True   # the same field each run
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    spy = QuantizeSpy()
+    try:
+        # ---- (a) one worker, B1, off / wire / full -------------------- #
+        gen = torch.Generator(device=dev).manual_seed(41)
+        batches = [{"real": procedural_images(BATCH, 32, 3, generator=gen,
+                                              device=dev)}
+                   for _ in range(OBS_STEPS + OBS_PROFILE_STEPS)]
+        runs, worst, syncs = {}, 0.0, {}
+        # off, wire, full with B1's operands kept for the plain version,
+        # then full, wire, off as they run (their medians are reported);
+        # every run's state must equal the first's
+        for level in ("off", "wire", "full", "full", "wire", "off"):
+            strat = single_strategy().evolve(obs_metrics=level,
+                                             obs_spans=level == "full")
+            tr, st, layout, _ = make_trainer(dev, strat, 1, 7)
+            rows_b = [b.size // 1024 for b in layout.buckets]
+            Q.reset_launches()
+            kept = level != "off" and level not in runs
+            with mock.patch.object(EF, "quantize_ef_flat",
+                                   spy if kept else spy.real):
+                spy.take()
+                rows, times = [], []
+                for b in batches[:OBS_STEPS]:
+                    st, r, t = run_steps(tr, st, [b])
+                    rows += r
+                    times += t
+                    if kept:
+                        want = plain_deltas(spy.take(), rows_b)
+                        got = r[0]["obs"]["bucket_delta"]
+                        check(len(got) == len(want), f"obs {level}: "
+                              f"{len(got)} bucket deltas, {len(want)} "
+                              f"buckets")
+                        d = max(abs(a - b) for a, b in zip(got, want))
+                        agg = r[0]["obs"]["delta_hat"]
+                        worst = max(worst, d)
+                        check(d <= 1e-6, f"obs {level}: bucket_delta "
+                              f"{got} vs B1's plain version {want}")
+                        check(min(want) - 1e-6 <= agg <= max(want) + 1e-6,
+                              f"obs {level}: delta_hat {agg} outside the "
+                              f"buckets' {want}")
+            b1 = Q.launches
+            check((b1, Q.launches_dyn) == (OBS_STEPS, 0),
+                  f"obs {level}: quantize_ef launched {b1} times, "
+                  f"quantize_ef_dyn {Q.launches_dyn}, in {OBS_STEPS} "
+                  f"steps, expected {OBS_STEPS} and 0")
+            state = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in named_state(st).items()}
+            kps = None
+            if level not in runs:
+                st, kps = kernels_a_step(tr, st, batches[OBS_STEPS:])
+                st, syncs[level] = syncs_a_step(tr, st, batches[-1])
+            runs.setdefault(level, []).append((state, rows, times[1:], kps))
+            out[f"obs {level}"] = (b1, 0)
+            del tr, st
+        ref, ref_rows = runs["off"][0][:2]
+        for level, rs in runs.items():
+            for i, (got, rows, _, _) in enumerate(rs):
+                bad = [k for k in ref if not (
+                    torch.equal(ref[k], got[k])
+                    if isinstance(ref[k], torch.Tensor) else ref[k] == got[k])]
+                check(not bad, f"obs {level} run {i}: state differs from "
+                      f"the first off run at {bad[:6]}")
+                check([{k: v for k, v in r.items() if k != "obs"}
+                       for r in rows] == ref_rows,
+                      f"obs {level} run {i}: log rows differ from off")
+        kps = {lv: rs[0][3] for lv, rs in runs.items()}
+        med = {lv: statistics.median(rs[1][2]) for lv, rs in runs.items()}
+        last = runs["full"][0][1][-1]["obs"]
+        print(f"# obs dcgan32 full width, 1 worker, batch {BATCH}, "
+              f"{OBS_STEPS} steps at off / wire / full, twice each: states "
+              f"bit-equal ({len(ref)} members); quantize_ef launches "
+              f"{OBS_STEPS} in each run; CUDA kernels a step {kps['off']:g} "
+              f"/ {kps['wire']:g} / {kps['full']:g} (wire adds "
+              f"{kps['wire'] - kps['off']:g}, full "
+              f"{kps['full'] - kps['off']:g}); median step (the second "
+              f"runs) {med['off']:.3f} / {med['wire']:.3f} / "
+              f"{med['full']:.3f} ms; last step delta_hat {last['delta_hat']:.6f}, "
+              f"bucket_delta {[round(x, 6) for x in last['bucket_delta']]}; "
+              f"max |d| against B1's plain version {worst:.2e}; "
+              f"synchronizing calls a step (sync debug mode) "
+              + "; ".join(f"{lv} {v}" for lv, v in syncs.items())
+              + f"; gpu {gpu}")
+        del runs
+
+        # ---- (b) four workers, B2, τ-vector, stacked and NCCL -------- #
+        gen = torch.Generator(device=dev).manual_seed(43)
+        batches = [{"real": procedural_images(W_BATCH, 32, 3,
+                                              generator=gen, device=dev)}
+                   for _ in range(TAU_STEPS)]
+        strat = Strategy.from_json(TAU_JSON).evolve(obs_metrics="full")
+        mesh = ProcessMesh.init(0, 1, device_type="cuda",
+                                store=dist.HashStore())
+        try:
+            res, worst = {}, 0.0
+            for label, m in (("stacked", None), ("nccl", mesh)):
+                tr, st, layout, _ = make_trainer(dev, strat, WORKERS, 8,
+                                                 mesh=m)
+                family = tr._family(st.params)
+                Q.reset_launches()
+                rows = []
+                with mock.patch.object(EF, "quantize_ef_flat", spy):
+                    spy.take()
+                    for b in batches:
+                        st, r, _ = run_steps(tr, st, [b])
+                        rows += r
+                        want = plain_deltas(spy.take())
+                        got = r[0]["obs"]["bucket_delta"]
+                        d = max(abs(a - b) for a, b in zip(got, want))
+                        worst = max(worst, d)
+                        check(len(got) == len(want) and d <= 1e-6,
+                              f"obs tau_vector {label}: bucket_delta "
+                              f"{got} vs B2's plain version {want}")
+                check((Q.launches, Q.launches_dyn) == (0, 3 * TAU_STEPS),
+                      f"obs tau_vector {label}: quantize_ef, "
+                      f"quantize_ef_dyn launched {Q.launches}, "
+                      f"{Q.launches_dyn} times, expected 0, "
+                      f"{3 * TAU_STEPS}")
+                res[label] = rows
+                out[f"obs tau_vector {label}"] = (0, Q.launches_dyn)
+                del tr, st
+            levels = list(family.levels_table()[N_PART - 1])
+            for i, r in enumerate(res["stacked"]):
+                o = r["obs"]
+                hist = o["staleness_hist"]
+                check(sum(hist) == WORKERS, f"obs tau_vector step {i}: "
+                      f"staleness_hist {hist} does not sum to {WORKERS}")
+                if i < max(TAU_VECTOR):
+                    continue    # a worker's first messages are not out yet
+                hi = [d for d, lv in zip(o["bucket_delta"], levels)
+                      if lv == 127]
+                lo = [d for d, lv in zip(o["bucket_delta"], levels)
+                      if lv == 7]
+                check(hi and lo and min(hi) > max(lo),
+                      f"obs tau_vector step {i}: bucket_delta "
+                      f"{o['bucket_delta']} at levels {levels}: not higher "
+                      f"at 127 than at 7")
+                problems = obs_agreement(o, res["nccl"][i]["obs"])
+                check(not problems, f"obs tau_vector step {i}, NCCL vs "
+                      f"stacked: {problems}")
+            o = res["stacked"][-1]["obs"]
+            print(f"# obs dcgan32 full width, {WORKERS} workers delayed "
+                  f"tau_vector {TAU_VECTOR} ({N_PART} reporting), batch "
+                  f"{W_BATCH}, full, {TAU_STEPS} steps: quantize_ef_dyn "
+                  f"launches {3 * TAU_STEPS} (stacked and NCCL); levels "
+                  f"{levels}; last step bucket_delta "
+                  f"{[round(x, 6) for x in o['bucket_delta']]}, delta_hat "
+                  f"{o['delta_hat']:.6f}, staleness_hist "
+                  f"{o['staleness_hist']}; max |d| against B2's plain "
+                  f"version {worst:.2e}; NCCL obs within "
+                  f"parity.obs_agreement; gpu {gpu}")
+        finally:
+            mesh.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # ---- (c) the CLI: sinks, report, calibrate ------------------------ #
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--arch", "dcgan32", "--batch", str(BATCH), "--optimizer",
+                "omd", "--lr", "1e-4", "--compressor", "qsgd8_block1024",
+                "--comm-plan", "uniform", "--device", "cuda"]
+        runs = [("profiled", ["--steps", str(OBS_CLI_STEPS), "--obs-metrics",
+                              "full", "--obs-spans", "--profile-steps",
+                              str(OBS_WINDOW)])]
+        runs += [(f"delayed(2) overlap={ov}",
+                  ["--steps", str(OBS_PAIR_STEPS), "--schedule", "delayed",
+                   "--staleness-tau", str(TAU)]
+                  + (["--overlap"] if ov else [])) for ov in (False, True)]
+        parts = []
+        for i, (label, argv) in enumerate(runs):
+            path = os.path.join(tmp, f"run{i}.jsonl")
+            Q.reset_launches()
+            history = train.main(base + argv + ["--obs-sink", path])
+            check_rows(history, int(argv[1]))
+            out[f"obs cli {label}"] = (Q.launches, Q.launches_dyn)
+            with open(path) as fh:
+                parts.append(fh.read())
+        sink = os.path.join(tmp, "sink.jsonl")
+        with open(sink, "w") as fh:
+            fh.write("".join(parts))
+        events = read_events(sink)          # validates every event
+        rep_path = os.path.join(tmp, "report.json")
+        with open(os.devnull, "w") as null, redirect_stdout(null):
+            rc = obs_cli.main(["report", sink, "--json", "--out", rep_path])
+        check(rc == 0, f"obs report exited {rc}")
+        with open(rep_path) as fh:
+            rep = json.load(fh)
+        dev_ph = rep.get("profile", {}).get("device_phases", {})
+        for ph in ("field", "compress", "exchange"):
+            check(dev_ph.get(ph, {}).get("ops", 0) > 0,
+                  f"obs report: device phase {ph} has no kernel: {dev_ph}")
+        check(len(rep.get("overlap", [])) == 1,
+              f"obs report: overlap rows {rep.get('overlap')}")
+        cal_path = os.path.join(tmp, "cal.json")
+        with open(os.devnull, "w") as null, redirect_stdout(null):
+            rc = obs_cli.main(["calibrate", sink, "--json", "--out",
+                               cal_path])
+        check(rc == 0, f"obs calibrate exited {rc}")
+        with open(cal_path) as fh:
+            cal = json.load(fh)
+        ov = rep["overlap"][0]
+        prof = rep["profile"]
+        print(f"# obs cli: {len(events)} events valid ("
+              f"{', '.join(sorted({e['kind'] for e in events}))}); profile "
+              f"window {prof['n_steps']} steps, p50 "
+              f"{prof['step_s']['p50'] * 1e3:.3f} ms, device phases "
+              + ", ".join(f"{k} {v['ops']} kernels / {v['bytes']} B"
+                          for k, v in dev_ph.items())
+              + f" over {prof.get('device_phase_steps')} steps; overlap "
+              f"delayed(2): step on {ov['t_on_s'] * 1e3:.3f} ms, off "
+              f"{ov['t_off_s'] * 1e3:.3f} ms, hidden_s {ov['hidden_s']}; "
+              f"calibrate {cal['method']}, max |drift| "
+              f"{cal['max_abs_drift']}; gpu {gpu}")
+    return out
+
 
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
@@ -1715,16 +2060,19 @@ def main():
         timed("quality", phase_quality, gpu)
         dist_b2 = timed("dist", phase_dist, dev, gpu)
         overlapped = timed("overlap", phase_overlap, dev, gpu)
+        observed = timed("obs", phase_obs, dev, gpu)
         # each kernel's launches on the later paths (the main path's
         # count stays "launches")
         b1["launches_by_path"] = {
             **{f"sched {k}": v[0] for k, v in sched.items()},
             **{f"resume {k}": v for k, v in resumed.items()},
-            **{f"overlap {k}": v[0] for k, v in overlapped.items()}}
+            **{f"overlap {k}": v[0] for k, v in overlapped.items()},
+            **{k: v[0] for k, v in observed.items() if v[0]}}
         b2["launches_by_path"] = {
             **{f"sched {k}": v[1] for k, v in sched.items()},
             **{f"dist nccl {k}": v for k, v in dist_b2.items()},
-            **{f"overlap {k}": v[1] for k, v in overlapped.items()}}
+            **{f"overlap {k}": v[1] for k, v in overlapped.items()},
+            **{k: v[1] for k, v in observed.items() if v[1]}}
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -57,8 +57,20 @@ seed, alike on every rank (with one worker the one generator is seeded
 from (seed, step) as before). Or from `draws` handed to `step` (the
 tests replay the JAX package's draws that way).
 
-fsdp, spmd='vmap' and observability are refused at construction, each
-naming the ROADMAP slice that ports it.
+Observability (`repro_torch.obs`, the JAX package's record sites): at
+`metrics` wire or full the step hands an `obs.Collector` to the exchange,
+which records each bucket (or leaf) as it finishes: the message, the
+compression operand m = message + e_prev and the fresh residual e' (B1's
+or B2's own), masked as they went on the wire under partial
+participation; the step adds the post-exchange EF norms and the
+staleness histogram, sums over the ranks and finalizes into
+`metrics["obs"]`. Off hands it a `obs.NullCollector`, which launches
+nothing. The collector only reads: parameters and EF are bit-equal
+across off, wire and full. With `spans` on, `repro.obs/<phase>` profiler
+ranges mark the field, compress, exchange and apply.
+
+fsdp and spmd='vmap' are refused at construction, naming the ROADMAP
+slice that ports them.
 """
 from __future__ import annotations
 
@@ -67,6 +79,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch import tree as T
 from repro_torch.comm import CommLedger
 from repro_torch.comm import buckets as B
@@ -111,9 +124,6 @@ def _unported(strategy: Strategy) -> Optional[str]:
         (s.exchange.fsdp, "parallelism 'fsdp'", "slice 5 (FSDP)"),
         (s.exchange.spmd == "vmap", "spmd 'vmap'",
          "slice 5 (FSDP: the spmd='vmap' path)"),
-        (s.observability.on or s.observability.spans
-         or s.observability.profile,
-         "observability (metrics/spans/profile)", "slice 4 (observability)"),
     )
     for hit, what, where in checks:
         if hit:
@@ -152,6 +162,17 @@ def _ef_tensors(ef):
         if isinstance(leaf, torch.Tensor):
             out.append(leaf)
     return out
+
+
+def _obs_op_err(p, e, ne):
+    """(compression operand, fresh residual) for obs collection: the
+    operand is message + e_prev (what the compressor saw, float32), the
+    residual the new e1. Streams that never compress keep their residual
+    (or none: zeros), as in the JAX package."""
+    e1 = e.get("e1") if e else None
+    op = p if e1 is None else p + e1.float()
+    err = ne.get("e1") if ne else None
+    return op, (torch.zeros_like(p) if err is None else err)
 
 
 def _bcast(mask, x):
@@ -292,6 +313,48 @@ class DQGAN:
             hit = (layout, plan, family, table)
             self._comm_cache[key] = hit
         return hit
+
+    # ------------------------------------------------------------------ #
+    # repro_torch.obs wiring
+    # ------------------------------------------------------------------ #
+    @property
+    def obs_spec(self):
+        """The resolved `repro_torch.obs.MetricSpec` of this trainer."""
+        return self.strategy.observability.spec()
+
+    @property
+    def _obs_spans(self) -> bool:
+        return self.strategy.observability.spans
+
+    def _obs_bins(self) -> int:
+        """Staleness-histogram bins: 0..τ plus one overflow bin (partial
+        participation lets a sitting worker's staleness exceed τ)."""
+        return self.strategy.schedule.staleness + 2
+
+    def _obs_collector(self, tree):
+        """A live `Collector` when metrics are on, else the `NullCollector`
+        (whose record calls do nothing)."""
+        spec = self.obs_spec
+        if not spec.on:
+            return OBS.NullCollector()
+        n_buckets = len(self._comm(tree)[0].buckets) if self.bucketed else 0
+        return OBS.Collector(spec, n_buckets, self.device)
+
+    def _obs_finalize(self, col, new_ef, st_now):
+        """`metrics["obs"]`: the collector's sums, the post-exchange EF
+        norms and the staleness histogram, summed over the ranks."""
+        spec = self.obs_spec
+        sums = col.sums()
+        if spec.ef_norms:
+            sums["e1_sq"], sums["e2_sq"] = OBS.ef_norms_sq(new_ef,
+                                                           self.device)
+        if spec.staleness:
+            # staleness-free schedules: every worker at staleness 0
+            st = st_now if st_now.dim() else st_now.expand(self.n_local)
+            sums["staleness_hist"] = OBS.staleness_hist(st, self._obs_bins())
+        sums = self._workers.sum_dict(sums)
+        return OBS.finalize(spec, sums, col.counts(), self.n_workers,
+                            col.n_buckets)
 
     def _comm(self, params):
         """(BucketLayout, CommPlan): the static (full-participation) view."""
@@ -485,6 +548,7 @@ class DQGAN:
         W, L, off = self.n_workers, self.n_local, self.offset
         wk = self._workers
         sched_c = self.strategy.schedule
+        spans = self._obs_spans
         if sched_c.kind == "local_k":
             if not isinstance(do_exchange, bool):
                 raise TypeError(
@@ -506,6 +570,7 @@ class DQGAN:
         ef_leaf_tree = ef["leaf"] if self.bucketed else ef
         ef_leaves = [dict(e) if e else {}
                      for e in T.flatten_up_to(paths, ef_leaf_tree)]
+        col = self._obs_collector(state.params)
         part = self.strategy.participation.round_setup(
             W, self.generator, draws.get("mask"))
         mask_rows = wk.rows(part[0]) if part is not None else None
@@ -530,9 +595,10 @@ class DQGAN:
         finish = None
         if (self.strategy.exchange.overlap and sched_c.overlappable
                 and pending is not None):
-            finish = self._start_overlapped(
-                state.params, paths, T.flatten_up_to(paths, pending), ef,
-                ef_leaves, plans, rand, part)
+            with OBS.device_span("exchange", spans):
+                finish = self._start_overlapped(
+                    state.params, paths, T.flatten_up_to(paths, pending), ef,
+                    ef_leaves, plans, rand, part, col)
         # a field without `draw_z` must then draw nothing: its draws would
         # follow the exchange's, not precede them as they do blocking
         gen_states = ([g.get_state() for g in self._gens]
@@ -570,11 +636,12 @@ class DQGAN:
 
         # ---------- each worker's stochastic field --------------------- #
         grads_w, losses = [], []
-        for i, b in enumerate(batches):
-            g, met = self.field_fn(worker_params[i], b, z=zs[i],
-                                   generator=self._gens[i])
-            grads_w.append(T.flatten_up_to(paths, g))
-            losses.append(met.get("loss", torch.zeros(())))
+        with OBS.device_span("field", spans):
+            for i, b in enumerate(batches):
+                g, met = self.field_fn(worker_params[i], b, z=zs[i],
+                                       generator=self._gens[i])
+                grads_w.append(T.flatten_up_to(paths, g))
+                losses.append(met.get("loss", torch.zeros(())))
         if gen_states is not None and not all(
                 torch.equal(a, g.get_state())
                 for a, g in zip(gen_states, self._gens)):
@@ -602,13 +669,15 @@ class DQGAN:
                 state.params, state.m, state.v, state.prev_update)
             new_ef = ef
         else:
-            if finish is None:
-                finish = self._start_exchange(
-                    state.params, paths, T.flatten_up_to(paths, exch_msg),
-                    ef, ef_leaves, plans, rand, part)
-            qhat, new_ef = finish()
-            new_params, new_m, new_v, new_prev_update = self._server_update(
-                state, paths, qhat)
+            with OBS.device_span("exchange", spans):
+                if finish is None:
+                    finish = self._start_exchange(
+                        state.params, paths, T.flatten_up_to(paths, exch_msg),
+                        ef, ef_leaves, plans, rand, part, col)
+                qhat, new_ef = finish()
+            with OBS.device_span("apply", spans):
+                new_params, new_m, new_v, new_prev_update = (
+                    self._server_update(state, paths, qhat))
 
         new_prev_grad = None
         if prev_grad is not None:
@@ -634,6 +703,8 @@ class DQGAN:
         out_metrics = {"loss": loss, "grad_norm": gn,
                        "error_norm": en, "staleness_max": st_max,
                        "staleness_mean": st_mean}
+        if col.enabled:
+            out_metrics["obs"] = self._obs_finalize(col, new_ef, st_now)
         return StepOutput(state=new_state, metrics=out_metrics,
                           mask=None if part is None else part[0])
 
@@ -662,12 +733,15 @@ class DQGAN:
         return finish
 
     def _start_exchange(self, params_tree, paths, message, ef, ef_leaves,
-                        plans, rand, part):
+                        plans, rand, part, col):
+        """`col` records each bucket or leaf at its finish (the
+        `obs.Collector`, or the `NullCollector`)."""
         if part is not None:
             return self._start_with_participation(
-                params_tree, paths, message, ef, ef_leaves, plans, rand, part)
+                params_tree, paths, message, ef, ef_leaves, plans, rand, part,
+                col)
         return self._start_plain(params_tree, paths, message, ef, ef_leaves,
-                                 plans, rand)
+                                 plans, rand, col)
 
     def _start_one(self, comp, plan, p, e, rand):
         """The finish of the exchange of one stacked (L, ...) tensor or
@@ -676,24 +750,26 @@ class DQGAN:
             exch = self.strategy.exchange
             handle = exch.start(comp, plan, p, e, self._local_rand(rand),
                                 self._workers, self.dq.error_feedback,
-                                self._gens)
+                                self._gens, spans=self._obs_spans)
             return lambda: exch.finish(handle)
         if plan["strategy"] == "exact" or comp.name == "identity":
             out = (p[0], dict(e))
             return lambda: out
         e1 = e.get("e1", torch.zeros_like(p))
-        _, p_hat, e_new = compress_with_ef_stacked(
-            comp, p, e1, rand, self.generator, use_ef=self.dq.error_feedback)
+        with OBS.device_span("compress", self._obs_spans):
+            _, p_hat, e_new = compress_with_ef_stacked(
+                comp, p, e1, rand, self.generator,
+                use_ef=self.dq.error_feedback)
         ne = dict(e)
         if self.dq.error_feedback:
             ne["e1"] = e_new
         return lambda: (p_hat[0], ne)
 
     def _start_plain(self, params_tree, paths, message, ef, ef_leaves, plans,
-                     rand, plan_sel=None):
+                     rand, col, plan_sel=None):
         if self.bucketed:
             return self._start_bucketed(params_tree, paths, message, ef,
-                                        ef_leaves, rand, plan_sel)
+                                        ef_leaves, rand, col, plan_sel)
         comp = self.compressor
         fins = [self._start_one(comp, plan, p, e, rand.get(i))
                 for i, (p, plan, e) in enumerate(zip(message, plans,
@@ -701,22 +777,25 @@ class DQGAN:
 
         def finish():
             qhat, new_ef = [], []
-            for f in fins:
+            for f, p, e in zip(fins, message, ef_leaves):
                 q, ne = f()
+                if col.enabled:
+                    col.leaf(p, *_obs_op_err(p, e, ne))
                 qhat.append(q)
                 new_ef.append(ne or None)
             return qhat, T.unflatten(paths, new_ef)
         return finish
 
     def _start_with_participation(self, params_tree, paths, message, ef,
-                                  ef_leaves, plans, rand, part):
+                                  ef_leaves, plans, rand, part, col):
         """Partial participation: the sitting workers' messages and
         residuals are masked to zero before the exchange (every compressor
         maps 0 to a zero payload), q̂ is rescaled from 1/W to 1/n, and the
         sitting workers fold their message into their residual. Under an
         adaptive family the round's participant count selects the plan,
         on the device. The mask covers all W workers; this process masks
-        its own rows."""
+        its own rows. `col` records the masked stream and the residual
+        before the merge, what went on the wire."""
         mask, n_part = part
         W = self.n_workers
         rows = self._workers.rows(mask)
@@ -725,7 +804,7 @@ class DQGAN:
                  if "e1" in e else e for e in ef_leaves]
         plan_sel = round_count(mask) - 1 if self.adaptive else None
         inner = self._start_plain(params_tree, paths, msg_in, ef, ef_in,
-                                  plans, rand, plan_sel)
+                                  plans, rand, col, plan_sel)
 
         def finish():
             qhat, new_ef = inner()
@@ -751,7 +830,7 @@ class DQGAN:
         return finish
 
     def _start_bucketed(self, params_tree, paths, message, ef, ef_leaves,
-                        rand, plan_sel=None):
+                        rand, col, plan_sel=None):
         """Pack the message (and e1) into the flat buckets, (L, size) each,
         start each one's exchange with its planned compressor; the finish
         unpacks q̂ and e1 back into leaves. `plan_sel` (a device tensor:
@@ -780,7 +859,8 @@ class DQGAN:
             L = self._packed_levels(layout, cplan)
             if L is not None:
                 out = self._exchange_packed(paths, layout, message,
-                                            e1_leaves, bucket_ef, rand, L)
+                                            e1_leaves, bucket_ef, rand, L,
+                                            col)
                 return lambda: out
         flats = B.pack(layout, message)
         e1_flats = B.pack(layout, e1_leaves) if dq.error_feedback else None
@@ -806,6 +886,9 @@ class DQGAN:
             out_flats, new_e1_flats, new_bucket_ef = [], [], {}
             for b, plan_b, est, fin in fins:
                 q, ne = fin()
+                if col.enabled:
+                    col.bucket(b.bid, flats[b.bid],
+                               *_obs_op_err(flats[b.bid], est, ne))
                 out_flats.append(q)
                 if dq.error_feedback:
                     new_e1_flats.append(ne.get("e1", est.get("e1")))
@@ -833,7 +916,7 @@ class DQGAN:
                              [b.size for b in layout.buckets])
 
     def _exchange_packed(self, paths, layout, message, e1_leaves, bucket_ef,
-                         rand, levels):
+                         rand, levels, col):
         """One worker, every bucket B1 at `levels`: the message and e1
         packed into one buffer each, the buckets back to back; ONE B1
         launch over all of their rows and one dequantization; q̂ and e1
@@ -841,7 +924,10 @@ class DQGAN:
         bucket by bucket (rows are independent and share L). Injected
         draws (`rand[bucket id]`) land on their own bucket's rows; with
         none, one draw covers the whole buffer. One worker leaves the
-        owner EF (e2, two_phase) as it was."""
+        owner EF (e2, two_phase) as it was. `col` records each bucket over
+        views of the packed buffers: the operand is one float32 add over
+        the packed buffer, the kernel's own m = g + e bit for bit, the
+        residual B1's e'."""
         msg = B.pack_concat(layout, message)            # (Σ size,)
         e1 = B.pack_concat(layout, e1_leaves)
         r = None
@@ -850,8 +936,14 @@ class DQGAN:
                 rand[b.bid].reshape(-1) if b.bid in rand else torch.rand(
                     (b.size,), generator=self.generator, device=msg.device)
                 for b in layout.buckets])
-        _, m_hat, e_new = fused_quantize_ef(msg, e1, r, self.generator,
-                                            levels=levels)
+        with OBS.device_span("compress", self._obs_spans):
+            _, m_hat, e_new = fused_quantize_ef(msg, e1, r, self.generator,
+                                                levels=levels)
+        if col.enabled:
+            views = [B.split_concat(layout, x, (1,))
+                     for x in (msg, msg + e1, e_new)]
+            for b, raw, op, err in zip(layout.buckets, *views):
+                col.bucket(b.bid, raw, op, err)
         qhat = B.unpack_into(layout, B.split_concat(layout, m_hat),
                              [m[0] for m in message])
         new_e1 = B.unpack_into(layout, B.split_concat(layout, e_new, (1,)),

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as T
+from repro_torch.obs.tracing import device_span
 
 from .error_feedback import compress_with_ef_stacked, decompress_rows
 
@@ -214,6 +215,10 @@ class StackedWorkers(_Workers):
         """The largest entry of a (W,) vector."""
         return x.max()
 
+    def sum_dict(self, sums):
+        """Sums over all W workers of per-process sums: these already are."""
+        return sums
+
 
 class ProcessGroupWorkers(_Workers):
     """W workers spread over the ranks of a `launch.mesh.ProcessMesh`, a
@@ -283,10 +288,23 @@ class ProcessGroupWorkers(_Workers):
         dist.all_reduce(m, op=dist.ReduceOp.MAX)
         return m
 
+    def sum_dict(self, sums):
+        """A dict of per-rank float32 sums summed over the ranks: one
+        all_reduce of the values packed back to back."""
+        keys = list(sums)
+        flat = torch.cat([sums[k].reshape(-1) for k in keys])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        out, i = {}, 0
+        for k in keys:
+            n = sums[k].numel()
+            out[k] = flat[i:i + n].reshape(sums[k].shape)
+            i += n
+        return out
+
 
 def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
-                   workers: _Workers, use_ef: bool, generator=None
-                   ) -> ExchangeHandle:
+                   workers: _Workers, use_ef: bool, generator=None,
+                   spans: bool = False) -> ExchangeHandle:
     """Start the exchange of one tensor or bucket across the workers.
 
     p: (L, *shape), the messages of this process's L workers (all W on
@@ -303,7 +321,8 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
       allgather : compress+EF, all_gather(codes)   | decompress+mean
       two_phase : phases 1+2 through all_gather    | decompress+unchunk
 
-    A start issues its collective; the finish waits for it."""
+    A start launches its collective; the finish waits for it. `spans` puts
+    each compression in a ``repro.obs/compress`` profiler range."""
     strategy = plan["strategy"]
     new_state = dict(ef_state)
     if strategy == "exact":
@@ -311,12 +330,13 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
         return ExchangeHandle(strategy, lambda: (pend.wait(), new_state))
     if strategy == "two_phase":
         return _start_two_phase(compressor, plan, p, ef_state, new_state,
-                                rand, workers, use_ef, generator)
+                                rand, workers, use_ef, generator, spans)
     if strategy not in ("sim", "allgather"):
         raise ValueError(f"unknown strategy {strategy!r}")
     e1 = ef_state.get("e1", torch.zeros_like(p))
-    payload, p_hat, e_new = compress_with_ef_stacked(
-        compressor, p, e1, rand, generator, use_ef=use_ef)
+    with device_span("compress", spans):
+        payload, p_hat, e_new = compress_with_ef_stacked(
+            compressor, p, e1, rand, generator, use_ef=use_ef)
     if use_ef:
         new_state["e1"] = e_new
     if strategy == "sim":
@@ -345,7 +365,7 @@ def _rest(shape, ax):
 
 
 def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
-                     workers, use_ef, generator) -> ExchangeHandle:
+                     workers, use_ef, generator, spans) -> ExchangeHandle:
     W = workers.n                      # chunks: one per worker, globally
     L = p.shape[0]                     # this process's rows
     ax = plan["chunk_axis"]            # axis of one worker's tensor
@@ -363,10 +383,11 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
         return torch.movedim(t, ax + 1, 1).reshape(
             (L * W, shape[ax] // W) + rest)
 
-    payload, _, e_new = compress_with_ef_stacked(
-        compressor, chunks(p), chunks(e1.to(p.dtype)),
-        None if r1 is None else r1.reshape(L * W, -1), generator,
-        use_ef=use_ef, allow_fused=False)
+    with device_span("compress", spans):
+        payload, _, e_new = compress_with_ef_stacked(
+            compressor, chunks(p), chunks(e1.to(p.dtype)),
+            None if r1 is None else r1.reshape(L * W, -1), generator,
+            use_ef=use_ef, allow_fused=False)
     if use_ef:
         e_new = e_new.reshape((L, shape[ax]) + rest)
         new_state["e1"] = torch.movedim(e_new, 1, ax + 1).to(e1.dtype)
@@ -380,8 +401,9 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
     chunk_mean = contrib.mean(dim=1)   # owner d's chunk of q̂
     # ---- phase 2: owner compress (+ owner EF e2), all-gather ------------- #
     e2 = ef_state["e2"].reshape(chunk_mean.shape)
-    payload2, _, e2_new = compress_with_ef_stacked(
-        compressor, chunk_mean, e2, r2, generator, use_ef=True)
+    with device_span("compress", spans):
+        payload2, _, e2_new = compress_with_ef_stacked(
+            compressor, chunk_mean, e2, r2, generator, use_ef=True)
     new_state["e2"] = e2_new.reshape(ef_state["e2"].shape).to(
         ef_state["e2"].dtype)
     pends = {k: workers.start_all_gather(v) for k, v in payload2.items()}

@@ -62,8 +62,26 @@ versions on the CPU. On CUDA the trainer turns TF32 off for matmuls and
 convolutions: the reference computes in float32. ``--overlap`` under
 ``--schedule delayed`` (and ``--preset ssp_server``) starts each round's
 exchange before the field, on a second CUDA stream. Strategies the port
-does not run yet (spmd='vmap', fsdp, observability) are refused with the
-ROADMAP slice that brings them.
+does not run yet (spmd='vmap', fsdp) are refused with the ROADMAP slice
+that brings them.
+
+Observability (`repro_torch.obs`, the JAX launcher's flags and events):
+``--obs-sink PATH`` writes the versioned JSONL event stream (``run_meta``,
+``train_log``, ``timing``, ``obs_metrics``, ``comm_summary``, ``profile``)
+that ``python -m repro_torch.obs report PATH`` and ``python -m repro.obs
+report PATH`` both read; ``--obs-sink ''`` (the default) prints the log
+rows on stdout exactly as without it, ``stdout`` adds the other events as
+``# obs[kind]`` lines, ``null`` prints none. ``--obs-metrics wire|full``
+adds the step's telemetry (empirical δ̂ per bucket, EF norms, message
+moments, staleness histogram), ``--obs-spans`` the ``repro.obs/<phase>``
+profiler ranges, ``--profile-steps N`` (or ``--obs-profile``) one
+``profile`` event over the first N steps, with kernels per phase when
+spans are on, and ``--profile-trace-dir DIR`` a Chrome trace of the
+window. Under torchrun only rank 0 writes:
+
+    python -m repro_torch.launch.train --arch dcgan32 --steps 20 \
+        --compressor qsgd8_block1024 --comm-plan uniform \
+        --obs-metrics full --obs-spans --profile-steps 8 --obs-sink run.jsonl
 """
 from __future__ import annotations
 
@@ -77,6 +95,7 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch import configs
+from repro_torch import obs as obs_api
 from repro_torch import strategy as strategy_api
 from repro_torch.configs.base import DQConfig
 from repro_torch.core.dqgan import DQGAN
@@ -124,6 +143,19 @@ def main(argv=None):
                          "and continue from its step")
     ap.add_argument("--log-every", type=int, default=1,
                     help="log row every N steps (default: every step)")
+    ap.add_argument("--obs-sink", default="", metavar="PATH",
+                    help="run-sink backend: '' (quiet stdout, the "
+                         "default rendering), 'stdout' (verbose), "
+                         "'null', or a JSONL file path for "
+                         "`python -m repro_torch.obs report`")
+    ap.add_argument("--profile-steps", type=int, default=0, metavar="N",
+                    help="profile a window of N steps and emit one "
+                         "schema-v2 `profile` event into the sink "
+                         "(repro_torch.obs.profile; implies profiling on "
+                         "— --obs-profile alone uses the default window)")
+    ap.add_argument("--profile-trace-dir", default="", metavar="DIR",
+                    help="also keep a torch.profiler Chrome trace of the "
+                         "profiled window in DIR")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' (default) needs a GPU, "
@@ -159,7 +191,8 @@ def main(argv=None):
 
 def _train(args, ap, cfg, device, mesh):
     W = args.workers
-    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
     try:
         strat = strategy_api.strategy_from_args(
             args, worker_axes=("data",) if W > 1 else ())
@@ -225,6 +258,24 @@ def _train(args, ap, cfg, device, mesh):
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""), flush=True)
 
+    # the run sink (repro_torch.obs): every row is one schema event keyed
+    # by the strategy's structural identity; the default backend prints
+    # the log rows as before. Only rank 0 writes.
+    sink = (obs_api.make_sink(args.obs_sink, strategy_hash=strat.short_hash(),
+                              tee_stdout=True)
+            if rank0 else obs_api.NullSink())
+    spans = strat.observability.spans
+    # the step profiler (repro_torch.obs.profile): a NullStepProfiler when
+    # off; kernels per phase when spans are on
+    profiler = obs_api.make_profiler(
+        rank0 and (strat.observability.profile or args.profile_steps > 0),
+        window=args.profile_steps, trace_dir=args.profile_trace_dir,
+        device_phases=spans, device=device)
+    sink.emit("run_meta", steps=args.steps, arch=args.arch,
+              smoke=bool(args.smoke), n_workers=W, start_step=start,
+              strategy_json=strat.to_dict(),
+              obs_metrics=strat.observability.metrics)
+
     # the simulated wall clock (sched.clock): the straggler profile's
     # per-worker compute times around a measured base step, and the
     # modeled exchange of what a round moves
@@ -246,15 +297,22 @@ def _train(args, ap, cfg, device, mesh):
         next(it)
     history = []
     t0 = time.time()
+    interval_s = 0.0       # synced wall time since the last timing event
+    interval_n = 0
     for i in range(start, args.steps):
-        batch = next(it)
+        with obs_api.host_span("data", spans), profiler.phase("data"):
+            batch = next(it)
         do_exchange = sched.is_exchange_step(i)
         _sync(device)
         it_t0 = time.perf_counter()
-        out = trainer.step(state, batch, do_exchange=do_exchange)
-        state = out.state
-        _sync(device)
+        with obs_api.host_span("step", spans), profiler.phase("step"):
+            out = trainer.step(state, batch, do_exchange=do_exchange)
+            state = out.state
+            _sync(device)
         step_s = time.perf_counter() - it_t0
+        profiler.record_step(i, step_s, do_exchange)
+        interval_s += step_s
+        interval_n += 1
         if wall_series is None and (do_exchange in warm
                                     or i == args.steps - 1):
             # the base compute time from the first step past the set-up
@@ -270,7 +328,10 @@ def _train(args, ap, cfg, device, mesh):
         wall = float(wall_series[i]) if wall_series is not None else 0.0
         ledger.tick(exchanged=do_exchange, wall_s=wall, participants=n_part)
         if i % args.log_every == 0 or i == args.steps - 1:
-            m = {k: float(v) for k, v in out.metrics.items()}
+            with obs_api.host_span("eval", spans), profiler.phase("eval"):
+                m = {k: (float(v) if k != "obs"
+                         else {n: x.tolist() for n, x in v.items()})
+                     for k, v in out.metrics.items()}
             rec = {"step": i, "round": sched.round_index(i),
                    **({"participants": n_part}
                       if n_part is not None else {}),
@@ -289,11 +350,21 @@ def _train(args, ap, cfg, device, mesh):
                    "step_s": round(step_s, 6),
                    "elapsed_s": round(time.time() - t0, 1)}
             history.append(rec)
-            say(json.dumps(rec), flush=True)
+            sink.emit("train_log", **rec)
+            sink.emit("timing", step=i, step_s=round(step_s, 6),
+                      interval_s=round(interval_s, 6),
+                      steps_in_interval=interval_n)
+            interval_s = 0.0
+            interval_n = 0
+            if "obs" in m:
+                sink.emit("obs_metrics", step=i, **m["obs"])
         if (args.checkpoint and args.checkpoint_every
                 and (i + 1) % args.checkpoint_every == 0
                 and i != args.steps - 1):
             save_ckpt(args.checkpoint, state)
+    profiler.emit(sink)
+    sink.emit("comm_summary", **ledger.summary())
+    sink.close()
     if args.checkpoint:
         save_ckpt(args.checkpoint, state)
         say(f"# saved DQState to {args.checkpoint}", flush=True)

@@ -10,6 +10,13 @@ flip, as is p − (W/n)·e2 under two_phase: that part of the state is held
 to float32 rounding, the parameters to within one quantization step, and
 at most 1e-3 of the residual elements may differ (flipped codes).
 Versions, where the schedule keeps them, agree exactly.
+
+The step's telemetry (`metrics["obs"]`, `obs_agreement`) follows: the
+staleness histogram counts versions and agrees exactly; a flipped code
+moves its element's residual by one quantization step, so δ̂ = 1 −
+Σe'²/Σm² moves by at most step²/Σm² for it (about 1e-6 for one flip at
+the port's 127-level buckets), and δ̂ and bucket_delta agree within
+1e-4; the moments and EF norms are sums in another order: rtol 1e-5.
 """
 from __future__ import annotations
 
@@ -105,3 +112,34 @@ def named_agreement(ref: dict, got: dict, W: int, n: int,
                      e2=pair(e2) if e2 else None, layout=layout,
                      versions=(ref["sched/versions"], got["sched/versions"])
                      if "sched/versions" in ref else None)
+
+
+DELTA_ATOL = 1e-4
+
+
+def obs_agreement(ref: dict, got: dict, delta_atol: float = DELTA_ATOL
+                  ) -> List[str]:
+    """Problems of `got` against `ref`, two `metrics["obs"]` dicts (tensors,
+    arrays or lists) of runs that agree by `agreement`; empty where they
+    agree (see the module docstring)."""
+    if list(ref) != list(got):
+        return [f"obs keys differ: {list(ref)} vs {list(got)}"]
+    problems = []
+    for k in ref:
+        a, b = _t(ref[k]).double(), _t(got[k]).double()
+        if a.shape != b.shape:
+            problems.append(f"obs {k}: shape {tuple(b.shape)} vs "
+                            f"{tuple(a.shape)}")
+        elif k == "staleness_hist":
+            if not torch.equal(a, b):
+                problems.append(f"obs {k}: {b.tolist()} vs {a.tolist()}")
+        elif k in ("delta_hat", "bucket_delta"):
+            d = (a - b).abs().max().item() if a.numel() else 0.0
+            if not d <= delta_atol:
+                problems.append(f"obs {k} differs by {d:.3e} > "
+                                f"{delta_atol:.0e}")
+        elif not torch.allclose(b, a, rtol=1e-5,
+                                atol=1e-6 * a.abs().max().item()):
+            problems.append(f"obs {k}: {b.tolist()} vs {a.tolist()} "
+                            f"beyond rtol 1e-5")
+    return problems

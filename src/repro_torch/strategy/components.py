@@ -17,8 +17,8 @@ plan (`build_family` the round-adaptive PlanFamily),
 `start`/`finish` run it across the workers, and
 `Participation.round_setup` draws the round's participation mask, and
 `Schedule`'s in-step methods carry the schedule dataflow of the stacked
-step (`core.dqgan`). Observability's arrive with ROADMAP §A slice 4;
-`core.dqgan` refuses it until then.
+step (`core.dqgan`), and `Observability.spec` resolves the
+`repro_torch.obs` metric level the step collects.
 
 Every field that is a CLI knob carries ``metadata`` with its legacy flag
 spelling — `strategy.cli` generates the `launch.train` argparse surface
@@ -294,15 +294,16 @@ class ExchangePlan:
 
     # ------------------------------------------------------------------ #
     def start(self, compressor, plan: dict, p, ef_state: dict, rand,
-              workers, use_ef: bool, generator=None):
+              workers, use_ef: bool, generator=None, spans: bool = False):
         """Start the exchange of one stacked (L, ...) tensor across
         `workers` (`core.exchange.StackedWorkers`, all W rows on one
         device, or `ProcessGroupWorkers`, a rank's L rows): issues the
         collectives and returns a `core.exchange.ExchangeHandle`, whose
-        `finish` waits for them."""
+        `finish` waits for them. `spans` marks each compression with a
+        ``repro.obs/compress`` profiler range."""
         from repro_torch.core import exchange as X
         return X.start_exchange(compressor, plan, p, ef_state, rand,
-                                workers, use_ef, generator)
+                                workers, use_ef, generator, spans)
 
     def finish(self, handle):
         """(q̂, new_ef_state) from a handle returned by `start`."""
@@ -761,3 +762,8 @@ class Observability:
     @property
     def on(self) -> bool:
         return self.metrics != "off"
+
+    def spec(self):
+        """The resolved `repro_torch.obs.MetricSpec` for this level."""
+        from repro_torch.obs import METRIC_SPECS
+        return METRIC_SPECS[self.metrics]

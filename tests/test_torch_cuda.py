@@ -621,3 +621,72 @@ def test_overlap_on_the_card_is_bit_exact(W, kind):
             assert torch.equal(on[k], v), k
         else:
             assert on[k] == v, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,kind", [(1, "sim"), (4, "sim"),
+                                    (4, "two_phase")])
+def test_obs_full_on_the_card_leaves_the_state_bit_equal(W, kind):
+    """metrics off against full with spans on, delayed through B1 (one
+    worker) or B2 (four, the τ-vector, half reporting): the same state,
+    bit for bit, and the same kernel launches."""
+    dev = _device()
+    strat = _delayed(kind, W)
+    off, off_l, _ = _mixture_run(dev, strat, W)
+    full, full_l, _ = _mixture_run(
+        dev, strat.evolve(obs_metrics="full", obs_spans=True), W)
+    assert off_l == full_l and sum(off_l) > 0
+    assert list(off) == list(full)
+    for k, v in off.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(full[k], v), k
+        else:
+            assert full[k] == v, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4])
+def test_obs_delta_equals_the_plain_quantizer_on_its_operands(W):
+    """bucket_delta of each step against 1 − Σe'²/Σm² with e' from the
+    plain version of B1 (one worker, one launch over the packed buckets)
+    or B2 (four workers, one launch a bucket) on the operands the kernel
+    was given: to float32 rounding (atol 1e-6)."""
+    from unittest import mock
+    from repro_torch.configs.base import DQConfig
+    from repro_torch.core import error_feedback as EF
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.models import gan
+    dev = _device()
+    cfg = gan.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
+                        hidden=128)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    strat = _delayed("sim", W).evolve(obs_metrics="full")
+    tr = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=DQConfig.from_strategy(
+        strat, optimizer="omd", lr=1e-2), device=dev, workers=W)
+    st = tr.init(gan.init(cfg, generator=gen, device=dev))
+    layout = tr._comm(st.params)[0]
+    calls, real = [], EF.quantize_ef_flat
+
+    def spy(g, e, rand, *, levels=127):
+        calls.append((g.clone(), e.clone(), rand.clone(), levels))
+        return real(g, e, rand, levels=levels)
+    with mock.patch.object(EF, "quantize_ef_flat", spy):
+        for _ in range(4):
+            calls.clear()
+            out = tr.step(st, {"real": torch.randn((64, 2), generator=gen,
+                                                   device=dev)})
+            st = out.state
+            want = []
+            for g, e, r, lv in calls:
+                g, e, r = (x.reshape(-1, 1024) for x in (g, e, r))
+                _, _, e_new = quantize_ef_ref(g, e, r, lv)
+                m = g + e
+                rows = ([b.size // 1024 for b in layout.buckets]
+                        if len(calls) == 1 else [g.shape[0]])
+                # an empty wire (the delayed ring's first heads) reads 1
+                want += [1.0 - float((eb * eb).sum())
+                         / max(float((mb * mb).sum()), 1e-30)
+                         for mb, eb in zip(m.split(rows), e_new.split(rows))]
+            got = out.metrics["obs"]["bucket_delta"].tolist()
+            assert len(calls) == (1 if W == 1 else len(layout.buckets))
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -13,8 +13,8 @@ the card; in line on the CPU) and finishes after it
   * the schedules whose message is made in the round (every_step,
     local_k) exchange in the blocking order under the flag;
   * the refusals stay: overlap with spmd='vmap' or exchange='exact' is
-    not a strategy; fsdp, spmd='vmap' and observability are refused by
-    the trainer, each naming its slice; an overlapped step refuses a
+    not a strategy; fsdp and spmd='vmap' are refused by the trainer,
+    each naming its slice (observability now runs with overlap); an overlapped step refuses a
     field that draws from its generator without exposing `draw_z`;
   * one delayed overlap run against the JAX package's one-device run of
     the bilinear game (its tests/test_overlap.py `_run_state`), the JAX
@@ -161,15 +161,20 @@ def test_overlap_strategies_refused_stay_refused():
         ExchangePlan(overlap=1)
 
 
+# slice None: ported (slice 4's observability, with overlap): constructs
 @pytest.mark.parametrize("preset,flags,slice_", [
     ("fsdp_zero3", {}, "slice 5"),
     ("fsdp_vmap", {}, "slice 5"),
-    ("overlap", {"obs_metrics": "wire"}, "slice 4"),
+    ("overlap", {"obs_metrics": "wire"}, None),
 ])
 def test_trainer_still_refuses_the_other_features(preset, flags, slice_):
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.strategy import get_preset
     strat = get_preset(preset).evolve(**flags)
+    if slice_ is None:
+        tr = DQGAN(field_fn=None, strategy=strat, device="cpu")
+        assert tr.strategy.exchange.overlap and tr.obs_spec.name == "wire"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + slice_):
         DQGAN(field_fn=None, strategy=strat, device="cpu")
 

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: neither it nor `chip_smoke.py` imports jax
 or the JAX package, its launchers never fall back to the CPU on their own,
 they refuse what the port does not run yet (and train what it now runs:
-overlap, ssp_server), the training CLI trains on the CPU when asked, with
+overlap, ssp_server, observability), the training CLI trains on the CPU when asked, with
 one worker or several, and the serving CLI serves gemma-2b there."""
 import functools
 import json
@@ -53,7 +53,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "launch.serve", "models.model", "kernels.flash_attention",
                 "optim", "sched.schedule", "sched.server", "sched.clock",
                 "sched.straggler", "checkpoint", "gan_common", "quickstart",
-                "strategy.__main__", "launch.mesh", "core.exchange", "parity"):
+                "strategy.__main__", "launch.mesh", "core.exchange", "parity",
+                "obs.tracing", "obs.metrics", "obs.sink", "obs.cli",
+                "obs.report", "obs.calibrate", "obs.__main__", "obs.profile",
+                "obs.trace"):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -141,12 +144,13 @@ def _assert_trains(out, steps=1):
     return rows
 
 
-# slice None: the feature is ported (slice 3's overlap) and trains
+# slice None: the feature is ported (slice 3's overlap, slice 4's
+# observability) and trains
 @pytest.mark.parametrize("flags,slice_", [
     (["--schedule", "delayed", "--overlap"], None),
     (["--spmd", "vmap"], "slice 5"),
     (["--preset", "fsdp_zero3"], "slice 5"),
-    (["--obs-metrics", "wire"], "slice 4"),
+    (["--obs-metrics", "wire"], None),
     (["--preset", "ssp_server"], None),
 ])
 def test_cli_refuses_unported_features(flags, slice_):
