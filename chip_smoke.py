@@ -79,10 +79,12 @@ result line):
  13. obs      the telemetry (repro_torch.obs): one worker through B1 at
               metrics off, wire and full, 10 steps each, twice, bit-equal,
               B1 10 times in each, δ̂ per bucket equal to B1's plain version
-              on B1's operands, the kernels a step each level adds; four
-              workers, τ-vector, half reporting, through B2, obs full:
-              δ̂ per bucket against B2's plain version, higher at 127
-              levels than at 7, the staleness histogram summing to 4,
+              on B1's operands, the kernels a step each level adds, the
+              device phases of full adding up to the trace's kernels and
+              the field phase holding every kernel launched from
+              autograd's backward thread; four workers, τ-vector, half reporting, through B2,
+              obs full: δ̂ per bucket against B2's plain version, higher
+              at 127 levels than at 7, the staleness histogram summing to 4,
               NCCL at world size 1 equal to stacked; the CLI's sinks
               (profiled run + the delayed(2) overlap pair) read by
               `python -m repro_torch.obs report` and `calibrate`
@@ -1704,15 +1706,58 @@ def plain_deltas(calls, bucket_rows=None):
 
 
 def kernels_a_step(tr, st, batches):
-    """(state, CUDA kernels a step) over `batches`, from the profiler."""
-    import torch
+    """(state, CUDA kernels a step, the capture) over `batches`, from the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st, _, _ = run_steps(tr, st, batches)
     n = len(trace_kernels(prof))
     check(n > 0, "obs: the profiler saw no CUDA kernel")
-    return st, n / len(batches)
+    return st, n / len(batches), prof
+
+
+class _Launched:
+    """A capture holding its host events and only the device events that
+    `ids` (launch correlation ids) made."""
+
+    def __init__(self, prof, ids):
+        import torch
+        cpu = torch.autograd.DeviceType.CPU
+        self._events = [e for e in prof.events()
+                        if e.device_type == cpu or e.id in ids]
+
+    def events(self):
+        return self._events
+
+
+def check_phase_costs(prof, kps, steps):
+    """The device phases of a captured window (`obs.profile.phase_costs`)
+    account for every kernel the trace holds (`kps` a step), and every
+    kernel launched from a thread other than the step's (autograd runs
+    the field's backward on its own thread) is charged to the field
+    phase. Returns ({phase: kernels a step}, the share of the kernels in
+    a phase, the backward thread's kernels a step)."""
+    import torch
+    from repro_torch.obs.profile import phase_costs
+    from repro_torch.obs.tracing import PREFIX
+    costs = phase_costs(prof, cuda=True)
+    per = {k: v["ops"] / steps for k, v in costs.items()}
+    check(sum(per.values()) == kps, f"obs: the device phases and the "
+          f"kernels outside them ({per}) do not add up to the trace's "
+          f"{kps:g} kernels a step")
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    step_threads = {e.thread for e in host if e.name == PREFIX + "field"}
+    ids = {e.id for e in host
+           if "Launch" in e.name and e.thread not in step_threads}
+    other = phase_costs(_Launched(prof, ids), cuda=True) if ids else {}
+    check(list(other) == ["field"], f"obs: the kernels launched from "
+          f"another thread than the step's ({len(ids)}) are charged to "
+          f"{ {k: v['ops'] for k, v in other.items()} }, not all to the "
+          f"field phase")
+    return (per, 1.0 - per.get(None, 0.0) / kps,
+            other["field"]["ops"] / steps)
 
 
 def syncs_a_step(tr, st, batch):
@@ -1746,6 +1791,10 @@ def phase_obs(dev, gpu):
         delta_hat and bucket_delta each step equal to 1 − Σe'²/Σm² from
         B1's plain version on B1's own operands (atol 1e-6, f32
         rounding); the kernels a step of off, wire and full (profiler);
+        full's kernels by device phase (`obs.profile.phase_costs`) add up
+        to the trace's, and every kernel launched from a thread other
+        than the step's (autograd's backward) is charged to the field
+        phase (reported: the share in a phase);
     (b) four workers stacked, batch 256, half reporting, adaptive
         delta_budget 0.75 MiB, delayed with the τ-vector (1, 2, 3, 4),
         obs full, 8 steps: B2 24 launches; bucket_delta per bucket from
@@ -1825,7 +1874,11 @@ def phase_obs(dev, gpu):
                      for k, v in named_state(st).items()}
             kps = None
             if level not in runs:
-                st, kps = kernels_a_step(tr, st, batches[OBS_STEPS:])
+                st, kps, prof = kernels_a_step(tr, st, batches[OBS_STEPS:])
+                if level == "full":
+                    phases = check_phase_costs(prof, kps,
+                                               OBS_PROFILE_STEPS)
+                del prof
                 st, syncs[level] = syncs_a_step(tr, st, batches[-1])
             runs.setdefault(level, []).append((state, rows, times[1:], kps))
             out[f"obs {level}"] = (b1, 0)
@@ -1855,6 +1908,11 @@ def phase_obs(dev, gpu):
               f"{med['full']:.3f} ms; last step delta_hat {last['delta_hat']:.6f}, "
               f"bucket_delta {[round(x, 6) for x in last['bucket_delta']]}; "
               f"max |d| against B1's plain version {worst:.2e}; "
+              f"full's kernels a step by device phase "
+              + ", ".join(f"{k or 'outside every phase'} {v:g}"
+                          for k, v in phases[0].items())
+              + f" (share in a phase {phases[1]:.3f}; the field phase holds "
+              f"the {phases[2]:g} a step launched from autograd's thread); "
               f"synchronizing calls a step (sync debug mode) "
               + "; ".join(f"{lv} {v}" for lv, v in syncs.items())
               + f"; gpu {gpu}")
@@ -1966,6 +2024,8 @@ def phase_obs(dev, gpu):
         for ph in ("field", "compress", "exchange"):
             check(dev_ph.get(ph, {}).get("ops", 0) > 0,
                   f"obs report: device phase {ph} has no kernel: {dev_ph}")
+        check("device_unattributed" in rep.get("profile", {}),
+              "obs report: the profile holds no device_unattributed")
         check(len(rep.get("overlap", [])) == 1,
               f"obs report: overlap rows {rep.get('overlap')}")
         cal_path = os.path.join(tmp, "cal.json")
@@ -1983,7 +2043,10 @@ def phase_obs(dev, gpu):
               f"{prof['step_s']['p50'] * 1e3:.3f} ms, device phases "
               + ", ".join(f"{k} {v['ops']} kernels / {v['bytes']} B"
                           for k, v in dev_ph.items())
-              + f" over {prof.get('device_phase_steps')} steps; overlap "
+              + f", outside every phase "
+              f"{prof['device_unattributed']['ops']} kernels / "
+              f"{prof['device_unattributed']['bytes']} B over "
+              f"{prof.get('device_phase_steps')} steps; overlap "
               f"delayed(2): step on {ov['t_on_s'] * 1e3:.3f} ms, off "
               f"{ov['t_off_s'] * 1e3:.3f} ms, hidden_s {ov['hidden_s']}; "
               f"calibrate {cal['method']}, max |drift| "

@@ -17,10 +17,15 @@
   (the first pays the one-time costs: kernel builds, cuDNN's algorithm
   search) to its end, and `device_phase_costs` attributes it to the
   ``repro.obs/<phase>`` ranges of `tracing.device_span`. Each operator
-  belongs to the innermost such range around it. For each phase:
+  belongs to the innermost such range around it on its own thread; an
+  operator of another thread with no such range around it (on CUDA,
+  autograd runs the field's backward on its device thread) belongs to
+  the innermost range, of any thread, open at its start. A kernel
+  belongs where the host call that launched it does. For each phase:
 
-    ``ops``   on a CUDA device, the CUDA kernels the phase's operators
-              and the range itself launched (memcpy and memset excluded);
+    ``ops``   on a CUDA device, the CUDA kernels launched inside the
+              phase, each charged through the launch call that made it
+              (copies, fills and synchronizations excluded);
               on the CPU, the phase's top-level ``aten::`` operators (those
               not called by another aten operator);
     ``bytes`` the bytes the phase's operators allocate: each operator's
@@ -29,9 +34,12 @@
               the CPU).
 
   Both are totals over the captured steps (``device_phase_steps`` in the
-  event). The JAX package counts the compiled step's HLO ops and their
-  result bytes instead (`launch.hlo_analysis.scope_costs`): the two
-  packages' numbers share their keys, not their units. On a CUDA device
+  event); ``device_unattributed`` holds the same two counts of what
+  lies outside every phase (the step's extrapolation, message, schedule
+  fold and metrics, the launcher's data). The JAX package counts the
+  compiled step's HLO ops and their result bytes instead
+  (`launch.hlo_analysis.scope_costs`): the two packages' numbers share
+  their keys, not their units. On a CUDA device
   a capture that saw no kernel is an error, never a report of host
   times.
 * **trace capture** — ``trace_dir`` keeps the capture as a Chrome trace
@@ -111,39 +119,78 @@ def phase_of(event, known=DEVICE_PHASES) -> Optional[str]:
     return None
 
 
-def _is_kernel(k) -> bool:
-    return not k.name.startswith(("Memcpy", "Memset"))
+def _phase_ranges(events):
+    """[(start_us, end_us, phase)] of the capture's ``repro.obs/<phase>``
+    ranges, innermost last among those open at any one time."""
+    out = [(e.time_range.start, e.time_range.end, e.name[len(PREFIX):])
+           for e in events if e.name.startswith(PREFIX)
+           and e.name[len(PREFIX):] in DEVICE_PHASES]
+    return sorted(out)
 
 
-def phase_costs(prof, cuda: bool) -> Dict[str, dict]:
-    """{phase: {"ops", "bytes"}} of a `torch.profiler` capture (see the
-    module docstring for both definitions). `cuda`: the capture ran on a
-    CUDA device with CUDA activity on; it must hold at least one kernel."""
-    out: Dict[str, dict] = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue
-        kernels = sum(1 for k in e.kernels if _is_kernel(k)) if cuda else 0
-        n_kernels += kernels
-        phase = phase_of(e)
-        if phase is None:
-            continue
-        rec = out.setdefault(phase, {"ops": 0, "bytes": 0})
-        if cuda:
-            rec["ops"] += kernels
-            rec["bytes"] += max(int(e.self_device_memory_usage), 0)
-        else:
+def _phase_by_time(ranges, t) -> Optional[str]:
+    """The phase of the innermost range open at time `t`, or None."""
+    phase = None
+    for start, end, name in ranges:
+        if start > t:
+            break
+        if t < end:
+            phase = name
+    return phase
+
+
+def phase_costs(prof, cuda: bool) -> Dict[Optional[str], dict]:
+    """{phase: {"ops", "bytes"}} of a `torch.profiler` capture, plus the
+    same two counts of what lies outside every phase under the key None
+    (see the module docstring for the definitions). `cuda`: the capture
+    ran on a CUDA device with CUDA activity on; it must hold at least one
+    kernel.
+
+    A kernel is a device event that a launch call made
+    (``cudaLaunchKernel``, ``cuLaunchKernel``, ...: the same correlation
+    id), not a copy, a fill or a synchronization, and is charged to the
+    phase of that call: this covers kernels that no aten operator
+    launched, such as the port's own, launched through their C
+    interface."""
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    host = [e for e in events if e.device_type == cpu]
+    ranges = _phase_ranges(host)
+
+    def phase(e):
+        p = phase_of(e)
+        return p if p is not None else _phase_by_time(ranges,
+                                                      e.time_range.start)
+
+    out: Dict[Optional[str], dict] = {}
+
+    def rec(p):
+        return out.setdefault(p, {"ops": 0, "bytes": 0})
+
+    if cuda:
+        launches = {e.id: e for e in host if "Launch" in e.name}
+        kernels = [k for k in events
+                   if k.device_type != cpu and k.id in launches]
+        if not kernels:
+            raise RuntimeError(
+                "obs.profile: the profiler recorded no CUDA kernel on a "
+                "CUDA device; refusing to attribute host times as device "
+                "phases")
+        for k in kernels:
+            rec(phase(launches[k.id]))["ops"] += 1
+        for e in host:
+            nbytes = max(int(e.self_device_memory_usage), 0)
+            if nbytes:
+                rec(phase(e))["bytes"] += nbytes
+    else:
+        for e in host:
+            r = rec(phase(e))
             parent = e.cpu_parent
             if e.name.startswith("aten::") and not (
                     parent is not None and parent.name.startswith("aten::")):
-                rec["ops"] += 1
-            rec["bytes"] += max(int(e.self_cpu_memory_usage), 0)
-    if cuda and n_kernels == 0:
-        raise RuntimeError(
-            "obs.profile: the profiler recorded no CUDA kernel on a CUDA "
-            "device; refusing to attribute host times as device phases")
-    return {k: out[k] for k in DEVICE_PHASES if k in out}
+                r["ops"] += 1
+            r["bytes"] += max(int(e.self_cpu_memory_usage), 0)
+    return {k: out[k] for k in (*DEVICE_PHASES, None) if k in out}
 
 
 class StepProfiler:
@@ -249,7 +296,7 @@ class StepProfiler:
     # ------------------------------------------------------------------ #
     def device_phase_costs(self) -> Dict[str, dict]:
         """Per-phase kernels (CPU: aten operators) and allocated bytes of
-        the captured steps, or {} without a capture."""
+        the captured steps (`phase_costs`), or {} without a capture."""
         if self._prof is None or self._tracing or not self.captured_steps:
             return {}
         return phase_costs(self._prof, self.cuda)
@@ -272,9 +319,12 @@ class StepProfiler:
         }
         if self.device_phases:
             dev = self.device_phase_costs()
-            if dev:
-                out["device_phases"] = dev
+            phases = {k: v for k, v in dev.items() if k is not None}
+            if phases:
+                out["device_phases"] = phases
                 out["device_phase_steps"] = self.captured_steps
+                if None in dev:
+                    out["device_unattributed"] = dev[None]
         if self.trace_dir:
             out["trace_dir"] = self.trace_dir
         return out

@@ -80,15 +80,16 @@ class Collective(NamedTuple):
     dtype: str             # the result's element type
 
 
-def capture(fn, *args, cuda: bool = False, **kwargs):
-    """(fn(*args, **kwargs), the `torch.profiler` capture of the call),
-    with shapes recorded (and CUDA activity when `cuda`)."""
+def capture(fn, *args, **kwargs):
+    """(fn(*args, **kwargs), the `torch.profiler` capture of the call):
+    CPU activity, where the collective calls and the backends' records
+    are, with shapes recorded. Where the process uses a CUDA device, the
+    capture ends after the device has finished the call's work."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                     else [])
-    with profile(activities=acts, record_shapes=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
         out = fn(*args, **kwargs)
-        if cuda:
+        if torch.cuda.is_initialized():
             torch.cuda.synchronize()
     return out, prof
 

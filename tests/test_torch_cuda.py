@@ -690,3 +690,49 @@ def test_obs_delta_equals_the_plain_quantizer_on_its_operands(W):
             got = out.metrics["obs"]["bucket_delta"].tolist()
             assert len(calls) == (1 if W == 1 else len(layout.buckets))
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4])
+def test_obs_device_phases_hold_the_fields_backward(W, tmp_path):
+    """On CUDA autograd runs the field's backward on its own thread: the
+    field phase of a captured step (spans on) holds every kernel of the
+    W field calls made on their own, and the phases with the kernels
+    outside them add up to the kernels the capture holds."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import DQConfig
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.models import gan
+    from repro_torch.obs.profile import phase_costs
+    dev = _device()
+    cfg = gan.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
+                        hidden=128)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    strat = _delayed("sim", W).evolve(obs_metrics="full", obs_spans=True)
+    tr = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=DQConfig.from_strategy(
+        strat, optimizer="omd", lr=1e-2), device=dev, workers=W)
+    st = tr.init(gan.init(cfg, generator=gen, device=dev))
+    batch = {"real": torch.randn((64, 2), generator=gen, device=dev)}
+    st = tr.step(st, batch).state
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def kernels(prof):
+        import json
+        path = str(tmp_path / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return sum(1 for e in json.load(fh)["traceEvents"]
+                       if e.get("cat") == "kernel")
+    with profile(activities=acts) as prof:
+        tr.step(st, batch)
+        torch.cuda.synchronize()
+    z = tr.field_fn.draw_z({"real": batch["real"][:64 // W]}, gen)
+    with profile(activities=acts) as alone:
+        for _ in range(W):
+            tr.field_fn(st.params, {"real": batch["real"][:64 // W]}, z=z)
+        torch.cuda.synchronize()
+    costs = phase_costs(prof, cuda=True)
+    # cuDNN and cuBLAS may launch a kernel more or less from call to call
+    field = kernels(alone)
+    assert field > 0 and abs(costs["field"]["ops"] - field) <= 0.02 * field
+    assert sum(v["ops"] for v in costs.values()) == kernels(prof)

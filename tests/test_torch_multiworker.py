@@ -31,7 +31,9 @@ What is compared, and how tightly:
   * the fraction of residual elements that differ by more than rounding
     (a flipped code): at most 1e-3 (expected none);
   * loss and grad_norm, the means over workers: rtol 1e-5;
-  * under `delayed`, the version vector exactly.
+  * under `delayed`, the version vector exactly;
+  * where the step's telemetry is on (OBS_FULL), every step's
+    metrics["obs"] by the rule of tests/test_torch_obs.py.
 """
 import os
 
@@ -68,6 +70,9 @@ CONFIGS["sim_adaptive_tau_vector"] = (ADAPTIVE, "sim", 0.5,
                                            tau_vector=TAU_VECTOR))
 # steps of a configuration (STEPS unless listed)
 CONFIG_STEPS = {"sim_adaptive_tau_vector": 6}
+# configurations run with the step's telemetry on (metrics full), on both
+# sides; it changes no state
+OBS_FULL = ("sim_adaptive", "sim_adaptive_tau_vector")
 
 SCRIPT = r"""
 import json, warnings
@@ -94,6 +99,10 @@ out = {}
 
 
 def put(name, x):
+    if isinstance(x, dict):
+        for k, v in x.items():
+            put(f"{name}/{k}", v)
+        return
     out[name] = np.asarray(jax.device_get(x))
 
 
@@ -193,13 +202,14 @@ def _steps(name):
     return CONFIG_STEPS.get(name, STEPS)
 
 
-def _jax_strategy_json(comp, kind, frac, schedule=None):
-    from repro.strategy import Compression, ExchangePlan, Participation
-    from repro.strategy import Schedule, Strategy
+def _jax_strategy_json(comp, kind, frac, schedule=None, metrics="off"):
+    from repro.strategy import Compression, ExchangePlan, Observability
+    from repro.strategy import Participation, Schedule, Strategy
     return Strategy(compression=Compression(**comp),
                     exchange=ExchangePlan(kind=kind, worker_axes=("data",)),
                     schedule=Schedule(**(schedule or {})),
-                    participation=Participation(fraction=frac)).to_json()
+                    participation=Participation(fraction=frac),
+                    observability=Observability(metrics=metrics)).to_json()
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +217,9 @@ def jax_runs(tmp_path_factory):
     from conftest import run_multidevice
     path = str(tmp_path_factory.mktemp("mw") / "runs.npz")
     import json
-    configs = {n: _jax_strategy_json(*c) for n, c in CONFIGS.items()}
+    configs = {n: _jax_strategy_json(
+        *c, metrics="full" if n in OBS_FULL else "off")
+        for n, c in CONFIGS.items()}
     steps = {n: _steps(n) for n in CONFIGS}
     out = run_multidevice(SCRIPT % dict(W=W, B=B, path=path,
                                         configs=json.dumps(configs),
@@ -375,6 +387,45 @@ def test_adaptive_runs_select_a_family_member_on_the_device(jax_runs):
     table = fam.levels_table()
     assert fam.n_distinct > 1 and table[1] != table[-1]
     assert tr._comm_full(params)[3].tolist() == [list(r) for r in table]
+
+
+@pytest.mark.multidevice
+@pytest.mark.parametrize("name", OBS_FULL)
+def test_four_worker_obs_matches_jax(jax_runs, name, monkeypatch):
+    """Four workers stacked, half reporting, the adaptive family (B2's
+    plain version), every step's metrics["obs"] against the JAX run on 4
+    devices, by tests/test_torch_obs.py's rule; under the τ-vector the
+    staleness histogram counts each worker's own staleness."""
+    from repro_torch.core import compressors as TC
+    from test_torch_obs import _assert_obs_close, _delta_bound, _Spy
+    configs, data, _ = jax_runs
+    tr = TDQGAN(field_fn=TG.gan_field_fn(TCFG), device="cpu", workers=W,
+                dq=TDQ.from_strategy(TStrategy.from_json(configs[name]),
+                                     optimizer="omd", lr=1e-2,
+                                     message="update"))
+    assert tr.strategy.observability.metrics == "full"
+    paths, _ = T.flatten(TG.init(TCFG, device="meta"))
+    st = tr.init(T.unflatten(paths, [_t(data[f"init/{i}"])
+                                     for i in range(len(paths))]))
+    family = tr._family(st.params)
+    block = family.base_compressor and TC.get(
+        family.base_compressor).per_block
+    spy = _Spy(monkeypatch)
+    worst = 0.0
+    for t in range(_steps(name)):
+        out = tr.step(st, {"real": _t(data[f"{name}/batch/{t}"])},
+                      _replay(data, name, t))
+        st = out.state
+        pre = f"{name}/metrics/{t}/obs/"
+        jo = {k[len(pre):]: v for k, v in data.items() if k.startswith(pre)}
+        n = int(data[f"{name}/draws/{t}/mask"].sum())
+        row = family.levels_table()[n - 1]
+        bound = _delta_bound(spy.step(), dict(enumerate(row)), block)
+        worst = max(worst, _assert_obs_close(jo, out.metrics["obs"], bound,
+                                             f"{name} step {t}"))
+        if "tau" in name:
+            assert float(out.metrics["obs"]["staleness_hist"].sum()) == W
+    assert worst <= 1e-6, worst
 
 
 @pytest.mark.parametrize("strategy", ["exact", "sim", "allgather",

@@ -151,18 +151,84 @@ def test_device_phases_of_a_captured_window(kind, workers):
     for phase in ("field", "compress", "exchange", "apply"):
         assert dev[phase]["ops"] > 0 and dev[phase]["bytes"] > 0, (phase,
                                                                    dev)
+    assert None not in dev and s["device_unattributed"]["ops"] > 0
 
 
 def test_phase_costs_without_spans_and_the_cuda_guard():
-    """No ranges: nothing to attribute. A capture that claims a CUDA
-    device but holds no kernel is refused, not reported."""
+    """No ranges: every operator is outside every phase (the key None). A
+    capture that claims a CUDA device but holds no kernel is refused, not
+    reported."""
     from torch.profiler import ProfilerActivity, profile
     tr, st, batches = _trainer(False)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tr.step(st, batches[0])
-    assert phase_costs(prof, cuda=False) == {}
+    costs = phase_costs(prof, cuda=False)
+    assert list(costs) == [None] and costs[None]["ops"] > 0
     with pytest.raises(RuntimeError, match="no CUDA kernel"):
         phase_costs(prof, cuda=True)
+
+
+class _Range:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _Event:
+    """The FunctionEvent fields `phase_costs` reads: a host event (an
+    operator, a range or a launch call) or, with `cuda`, a kernel."""
+
+    def __init__(self, name, start, end=None, parent=None, id=0, mem=0,
+                 cuda=False):
+        self.name, self.cpu_parent, self.id = name, parent, id
+        self.time_range = _Range(start, start + 1 if end is None else end)
+        self.device_type = (torch.autograd.DeviceType.CUDA if cuda
+                            else torch.autograd.DeviceType.CPU)
+        self.self_device_memory_usage = mem
+
+
+class _Capture:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_phase_costs_charges_kernels_through_their_launch_calls():
+    """A kernel is charged to the phase of the host call that launched it:
+    through the call's operator and ranges on its own thread; on CUDA
+    autograd runs the backward on its own thread, outside the step
+    thread's ranges, so such a launch takes the phase of the innermost
+    range open at its start; a launch outside every range is counted
+    under None; a device event that no launch call made (a copy, a
+    fill, a synchronization) is no kernel."""
+    field = _Event(PREFIX + "field", 0, 90)
+    exch = _Event(PREFIX + "exchange", 100, 200)
+    comp = _Event(PREFIX + "compress", 120, 150, exch)
+    mm = _Event("aten::mm", 10, 20, field, mem=64)
+    bwd = _Event("aten::mm", 30, 40, mem=32)          # the autograd thread
+    add = _Event("aten::add", 160, 170, exch)
+    norm = _Event("aten::norm", 95, 99, mem=8)        # outside every range
+    launch = lambda i, t, parent: _Event("cudaLaunchKernel", t, parent=parent,
+                                         id=i)
+    events = [field, exch, comp, mm, bwd, add, norm,
+              launch(1, 11, mm), launch(2, 12, mm),       # field
+              launch(3, 31, bwd),                         # field by time
+              _Event("cuLaunchKernel", 130, parent=comp, id=4),   # compress
+              launch(5, 135, None),                       # compress by time
+              launch(6, 161, add),                        # exchange
+              launch(7, 96, norm),                        # outside
+              _Event("cudaMemsetAsync", 12, parent=mm, id=8)]
+    events += [_Event("kernel", 300 + i, id=i, cuda=True)
+               for i in (1, 2, 3, 4, 5, 6, 7)]
+    events += [_Event("Memset (Device)", 400, id=8, cuda=True),
+               _Event("Context Sync", 410, id=9, cuda=True)]
+    costs = phase_costs(_Capture(events), cuda=True)
+    assert list(costs) == ["compress", "exchange", "field", None]
+    assert costs == {"compress": {"ops": 2, "bytes": 0},
+                     "exchange": {"ops": 1, "bytes": 0},
+                     "field": {"ops": 3, "bytes": 96},
+                     None: {"ops": 1, "bytes": 8}}
 
 
 def test_trace_dir_keeps_a_chrome_trace(tmp_path):

@@ -199,8 +199,9 @@ def make_trainer(case, mesh=None):
 def run_case(case, mesh=None):
     """Train `case` stacked (mesh None) or on this rank; returns, on rank 0
     or without a mesh, {"state0", "state": {name: array}} (the gathered
-    global state after step 0 and at the end), "metrics" (per step) and
-    "masks" (the participation mask each step applied)."""
+    global state after step 0 and at the end), "metrics" (per step, the
+    telemetry aside) and "masks" (the participation mask each step
+    applied)."""
     import torch
     from repro_torch import checkpoint as CK
     from repro_torch import tree as T
@@ -218,7 +219,8 @@ def run_case(case, mesh=None):
         out["masks"].append(None if res.mask is None
                             else res.mask.cpu().numpy())
         st = res.state
-        out["metrics"].append({k: float(v) for k, v in res.metrics.items()})
+        out["metrics"].append({k: float(v) for k, v in res.metrics.items()
+                               if k != "obs"})
         if t == 0:
             out["state0"] = _named(CK.gather_workers(st, wk))
     out["state"] = _named(CK.gather_workers(st, wk))
