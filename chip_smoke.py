@@ -87,7 +87,21 @@ result line):
               at 127 levels than at 7, the staleness histogram summing to 4,
               NCCL at world size 1 equal to stacked; the CLI's sinks
               (profiled run + the delayed(2) overlap pair) read by
-              `python -m repro_torch.obs report` and `calibrate`
+              `python -m repro_torch.obs report` and `calibrate`; no
+              synchronizing call from core/error_feedback.py (B1's level
+              divisor stays on the device)
+ 14. fsdp     compressed-gradient FSDP through the trainer's CLI, dcgan32
+              full width: (a) four workers stacked, batch 256, ZeRO-3,
+              two_phase + qsgd8_block1024 moments, 10 steps: B1 once a
+              bucket a step on the all-gather leg (3 a step), never on the
+              reduce-scatter leg, B2-B4 never; median step, kernels a
+              step and busy share; (b) ZeRO-2 under oadam, 5 steps; (c)
+              full precision ZeRO-2/3 against replicated exact DDP (rtol
+              1e-5, atol 1e-6); (d) (a) over a one-rank NCCL group against
+              stacked (the port's tolerances), and the exact reduce-scatter
+              through the process group; (e) one worker, B1 on both legs,
+              held bit for bit to its plain version on the all-gather
+              leg's own operands
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -1880,6 +1894,10 @@ def phase_obs(dev, gpu):
                                                OBS_PROFILE_STEPS)
                 del prof
                 st, syncs[level] = syncs_a_step(tr, st, batches[-1])
+                check(not [x for x in syncs[level]
+                           if "error_feedback.py" in x],
+                      f"obs {level}: synchronizing calls from "
+                      f"core/error_feedback.py: {syncs[level]}")
             runs.setdefault(level, []).append((state, rows, times[1:], kps))
             out[f"obs {level}"] = (b1, 0)
             del tr, st
@@ -2054,6 +2072,282 @@ def phase_obs(dev, gpu):
     return out
 
 
+FSDP_STEPS = 10             # phase fsdp (a): four workers, ZeRO-3
+FSDP_Z2_STEPS = 5           # (b): ZeRO-2 under oadam
+FSDP_EQ_STEPS = 5           # (c): full precision against replicated
+FSDP_PROFILE_STEPS = 4
+FSDP_ARGS = ["--arch", "dcgan32", "--workers", str(WORKERS), "--batch",
+             str(W_BATCH), "--lr", "1e-4", "--compressor",
+             "qsgd8_block1024", "--moment-compressor", "qsgd8_block1024",
+             "--log-every", "1", "--device", "cuda"]
+
+
+def fsdp_strategy(zero_stage=3, exact=False, workers=WORKERS):
+    """A dcgan32 fsdp strategy over uniform buckets: two_phase and
+    qsgd8_block1024 on both legs (what FSDP_ARGS select), or exact with
+    identity moments (full precision)."""
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      MomentCompression, Strategy)
+    comp = "identity" if exact else "qsgd8_block1024"
+    return Strategy(
+        compression=Compression(compressor=comp, error_feedback=not exact,
+                                plan="uniform"),
+        exchange=ExchangePlan(kind="exact" if exact else "two_phase",
+                              parallelism="fsdp", zero_stage=zero_stage,
+                              worker_axes=("data",) if workers > 1 else ()),
+        moments=MomentCompression(compressor=comp,
+                                  error_feedback=not exact))
+
+
+def replicated_exact_strategy():
+    from repro_torch.strategy import Compression, ExchangePlan, Strategy
+    return Strategy(compression=Compression(compressor="identity",
+                                            error_feedback=False,
+                                            plan="uniform"),
+                    exchange=ExchangePlan(kind="exact",
+                                          worker_axes=("data",)))
+
+
+def fsdp_cli(argv, steps, want_b1):
+    """The trainer's CLI on `argv`: (log rows, B1 launches), with B2, B3
+    and B4 never launched and B1 exactly `want_b1` times."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    Q.reset_launches()
+    FA.reset_launches()
+    history = train.main(argv)
+    launches = (Q.launches, Q.launches_dyn, FA.launches, FA.flash_launches)
+    check_rows(history, steps)
+    check(launches == (want_b1, 0, 0, 0),
+          f"fsdp {argv[-1]}: quantize_ef, quantize_ef_dyn, paged_attention, "
+          f"flash_attention launched {launches} times in {steps} steps, "
+          f"expected ({want_b1}, 0, 0, 0)")
+    return history, launches[0]
+
+
+def phase_fsdp(dev, gpu):
+    """Compressed-gradient FSDP on the card, dcgan32 full width, omd
+    unless said, through the trainer's CLI where the other train phases
+    use it:
+    (a) four workers stacked, batch 256, --preset fsdp_zero3 with
+        qsgd8_block1024 on both legs, 10 steps: B1 once a bucket a step on
+        the all-gather leg (3 a step: one launch over the four owners'
+        (162, 162, 128) rows a bucket; the reduce-scatter leg rounds with
+        the registry compressor, no kernel), B2-B4 never; each row billed
+        at the ledger's two legs; median step; kernels a step and the
+        busy share (profiler); the synchronizing calls of a step (none
+        from core/error_feedback.py);
+    (b) the same with fsdp_zero2 under oadam, 5 steps (the m, v and dir
+        shards on the card): B1 3 a step;
+    (c) full precision (exact reduce-scatter, identity moments) zero-2
+        and zero-3 against replicated exact DDP, 5 steps: parameters to
+        rtol 1e-5, atol 1e-6;
+    (d) (a)'s workers on a one-rank NCCL group against stacked in this
+        call, within the port's tolerances (`parity.fsdp_agreement`),
+        B1 alike; (c)'s zero-3 over NCCL with its reduce-scatter through
+        the process group (3 calls a step);
+    (e) one worker, batch 64, ZeRO-3 with qsgd8_block1024 on both legs:
+        B1 on both legs (6 a step); B1 against its plain version on the
+        all-gather leg's own operands (the shard, its residual, the
+        draws), bit for bit.
+    Returns {path: B1 launches}."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import error_feedback as EF
+    from repro_torch.data import procedural_images
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels.ref import quantize_ef_ref
+    from repro_torch.launch.mesh import ProcessMesh
+
+    out = {}
+    # ---- (a) ZeRO-3, four workers, through the CLI --------------------- #
+    tr, st, layout, _ = make_trainer(dev, fsdp_strategy(3), WORKERS, 0)
+    nb = len(layout.buckets)
+    shard_rows = [b.size // WORKERS // 1024 for b in layout.buckets]
+    wire_mb = round(tr.comm_ledger(st.params).round_bytes(None)[0] / 1e6, 3)
+    del tr, st
+    history, b1 = fsdp_cli(FSDP_ARGS + ["--preset", "fsdp_zero3",
+                                        "--optimizer", "omd", "--steps",
+                                        str(FSDP_STEPS)],
+                           FSDP_STEPS, nb * FSDP_STEPS)
+    for rec in history:
+        check(rec["wire_mb_step"] == wire_mb,
+              f"fsdp zero3 step {rec['step']}: wire_mb_step "
+              f"{rec['wire_mb_step']} != the ledger's two legs {wire_mb}")
+    out["fsdp zero3 4 workers"] = b1
+    step_ms = statistics.median(r["step_s"] for r in history[1:]) * 1e3
+    print(f"# fsdp dcgan32 full width, {WORKERS} workers, batch {W_BATCH}, "
+          f"zero-3, two_phase + qsgd8_block1024 moments: {FSDP_STEPS} "
+          f"steps, quantize_ef launches {b1} ({nb} a step, one a bucket "
+          f"over {WORKERS} x {shard_rows} rows), median step {step_ms:.3f} "
+          f"ms (first step {history[0]['step_s'] * 1e3:.1f} ms), wire "
+          f"{wire_mb} MB/step (both legs); gpu {gpu}")
+    tr, st, _, gen = make_trainer(dev, fsdp_strategy(3), WORKERS, 2)
+    batches = [{"real": procedural_images(W_BATCH, 32, 3, generator=gen,
+                                          device=dev)}
+               for _ in range(FSDP_PROFILE_STEPS + 3)]
+    st, _, _ = run_steps(tr, st, batches[:2])
+    st, syncs = syncs_a_step(tr, st, batches[2])
+    check(not [x for x in syncs if "error_feedback.py" in x],
+          f"fsdp: synchronizing calls from core/error_feedback.py: {syncs}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _, _ = run_steps(tr, st, batches[3:])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, f"fsdp zero-3 {WORKERS} workers, batch {W_BATCH}",
+                   FSDP_PROFILE_STEPS, wall_ms, "quantize_ef")
+    print(f"# fsdp zero-3: synchronizing calls a step (sync debug mode) "
+          f"{syncs}; gpu {gpu}")
+    del tr, st, prof
+
+    # ---- (b) ZeRO-2 under oadam ---------------------------------------- #
+    history, b1 = fsdp_cli(FSDP_ARGS + ["--preset", "fsdp_zero2",
+                                        "--optimizer", "oadam", "--steps",
+                                        str(FSDP_Z2_STEPS)],
+                           FSDP_Z2_STEPS, nb * FSDP_Z2_STEPS)
+    out["fsdp zero2 oadam"] = b1
+    step_ms = statistics.median(r["step_s"] for r in history[1:]) * 1e3
+    print(f"# fsdp dcgan32 full width, {WORKERS} workers, zero-2 oadam: "
+          f"{FSDP_Z2_STEPS} steps, quantize_ef launches {b1}, median step "
+          f"{step_ms:.3f} ms, last loss {history[-1]['loss']:.6f}; gpu {gpu}")
+
+    torch.backends.cudnn.deterministic = True  # the same field each run
+    torch.backends.cudnn.benchmark = False
+    mesh = ProcessMesh.init(0, 1, device_type="cuda", store=dist.HashStore())
+    try:
+        gen = torch.Generator(device=dev).manual_seed(23)
+        batches = [{"real": procedural_images(W_BATCH, 32, 3,
+                                              generator=gen, device=dev)}
+                   for _ in range(FSDP_STEPS)]
+        # ---- (c) full precision: fsdp ≡ replicated ---------------------- #
+        runs = {}
+        for label, strat in (("replicated", replicated_exact_strategy()),
+                             ("zero2", fsdp_strategy(2, exact=True)),
+                             ("zero3", fsdp_strategy(3, exact=True))):
+            tr, st, layout, _ = make_trainer(dev, strat, WORKERS, 5)
+            st, rows, _ = run_steps(tr, st, batches[:FSDP_EQ_STEPS])
+            runs[label] = (named_state(st), rows)
+            del tr, st
+        worst = 0.0
+        ref = runs["replicated"][0]
+        for label in ("zero2", "zero3"):
+            got = runs[label][0]
+            for k in (k for k in ref if k.startswith("params/")):
+                d = (got[k] - ref[k]).abs()
+                check(bool((d <= 1e-6 + 1e-5 * ref[k].abs()).all()),
+                      f"fsdp {label} exact vs replicated: {k} differs by "
+                      f"{d.max().item():.3e}")
+                worst = max(worst, d.max().item())
+        print(f"# fsdp full precision ({WORKERS} workers, exact "
+              f"reduce-scatter, identity moments) zero-2 and zero-3 vs "
+              f"replicated exact, {FSDP_EQ_STEPS} steps: max|dparams| "
+              f"{worst:.3e} (rtol 1e-5, atol 1e-6); gpu {gpu}")
+
+        # ---- (d) over NCCL against stacked ------------------------------ #
+        res = {}
+        for label, m in (("stacked", None), ("nccl", mesh)):
+            tr, st, layout, _ = make_trainer(dev, fsdp_strategy(3), WORKERS,
+                                             3, mesh=m)
+            Q.reset_launches()
+            st, rows, times = run_steps(tr, st, batches)
+            res[label] = (named_state(st), rows, times, Q.launches)
+            del tr, st
+        (ref, rrows, rtimes, rb1), (got, grows, gtimes, gb1) = (
+            res["stacked"], res["nccl"])
+        check(rb1 == gb1 == nb * FSDP_STEPS and Q.launches_dyn == 0,
+              f"fsdp nccl: quantize_ef launched {gb1} (stacked {rb1}), "
+              f"expected {nb * FSDP_STEPS}")
+        for i, (a, b) in enumerate(zip(rrows, grows)):
+            for k in ("loss", "grad_norm", "error_norm"):
+                check(math.isclose(a[k], b[k], rel_tol=1e-5, abs_tol=1e-7),
+                      f"fsdp nccl step {i}: {k} {b[k]} over NCCL, {a[k]} "
+                      f"stacked")
+        d_par, d_inv = check_states_agree(ref, got, WORKERS, WORKERS, layout,
+                                          "fsdp nccl")
+        out["fsdp nccl"] = gb1
+        scatter = ("reduce_scatter_single"
+                   if hasattr(dist, "reduce_scatter_single")
+                   else "reduce_scatter_tensor")
+        real = getattr(dist, scatter)
+        calls = []
+
+        def counted(*a, **kw):
+            calls.append(1)
+            return real(*a, **kw)
+
+        with mock.patch.object(dist, scatter, counted):
+            tr, st, _, _ = make_trainer(dev, fsdp_strategy(3, exact=True),
+                                        WORKERS, 5, mesh=mesh)
+            st, _, _ = run_steps(tr, st, batches[:FSDP_EQ_STEPS])
+            exact_nccl = named_state(st)
+            del tr, st
+        check(len(calls) == nb * FSDP_EQ_STEPS,
+              f"fsdp nccl exact: dist.{scatter} called {len(calls)} times in "
+              f"{FSDP_EQ_STEPS} steps, expected {nb * FSDP_EQ_STEPS}")
+        ref = runs["zero3"][0]
+        d_exact = max((exact_nccl[k] - ref[k]).abs().max().item()
+                      for k in ref if k.startswith("params/"))
+        check(all(bool(((exact_nccl[k] - ref[k]).abs()
+                        <= 1e-6 + 1e-5 * ref[k].abs()).all())
+                  for k in ref if k.startswith("params/")),
+              f"fsdp nccl exact vs stacked: params differ by {d_exact:.3e}")
+        print(f"# fsdp over NCCL at world size 1 ({WORKERS} workers on the "
+              f"rank) vs stacked, zero-3 compressed, {FSDP_STEPS} steps: "
+              f"max|dparams| {d_par:.3e}, max|d(w - e1/W)| {d_inv:.3e}; "
+              f"quantize_ef launches {gb1}; median step stacked "
+              f"{statistics.median(rtimes[1:]):.3f} ms, NCCL "
+              f"{statistics.median(gtimes[1:]):.3f} ms; exact zero-3 over "
+              f"NCCL: dist.{scatter} {len(calls)} calls in {FSDP_EQ_STEPS} "
+              f"steps, max|dparams| vs stacked {d_exact:.3e}; gpu {gpu}")
+    finally:
+        mesh.close()
+        torch.backends.cudnn.deterministic = False
+
+    # ---- (e) one worker: B1 on both legs ------------------------------- #
+    tr, st, layout, gen = make_trainer(dev, fsdp_strategy(3, workers=1), 1,
+                                       6)
+    nb1 = len(layout.buckets)
+    batches = [{"real": procedural_images(BATCH, 32, 3, generator=gen,
+                                          device=dev)}
+               for _ in range(FSDP_EQ_STEPS)]
+    spy = QuantizeSpy()
+    Q.reset_launches()
+    kept, rows = [], []
+    with mock.patch.object(EF, "quantize_ef_flat", spy):
+        for b in batches:
+            st, r, _ = run_steps(tr, st, [b])
+            rows += r
+            calls = spy.take()
+            check(len(calls) == 2 * nb1, f"fsdp 1 worker: {len(calls)} "
+                  f"quantize_ef_flat calls a step, expected {2 * nb1}")
+            kept += calls[nb1:]     # the all-gather leg's, after the RS's
+    check((Q.launches, Q.launches_dyn) == (2 * nb1 * FSDP_EQ_STEPS, 0),
+          f"fsdp 1 worker: quantize_ef, quantize_ef_dyn launched "
+          f"{Q.launches}, {Q.launches_dyn} times, expected "
+          f"{2 * nb1 * FSDP_EQ_STEPS}, 0")
+    out["fsdp 1 worker"] = Q.launches
+    check_rows([dict(r, step=i) for i, r in enumerate(rows)], FSDP_EQ_STEPS)
+    for g, e, rand, levels in kept:
+        ck, sk, ek = Q.quantize_ef_flat(g, e, rand, levels=levels)
+        cp, sp, ep = quantize_ef_ref(g.reshape(-1, 1024), e.reshape(-1, 1024),
+                                     rand.reshape(-1, 1024), levels)
+        check(torch.equal(ck, cp.reshape(-1)) and torch.equal(
+              sk, sp.reshape(-1)) and torch.equal(ek, ep.reshape(-1)),
+              f"fsdp 1 worker: B1 on the all-gather leg's operands "
+              f"({g.numel()} elements) differs from its plain version")
+    print(f"# fsdp dcgan32 full width, 1 worker, batch {BATCH}, zero-3, "
+          f"qsgd8_block1024 on both legs: {FSDP_EQ_STEPS} steps, "
+          f"quantize_ef launches {out['fsdp 1 worker']} ({2 * nb1} a step: "
+          f"both legs, one a bucket); B1 on the all-gather leg's "
+          f"{len(kept)} operand sets bit-equal to its plain version; "
+          f"gpu {gpu}")
+    return out
+
+
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
     t0 = time.perf_counter()
@@ -2124,13 +2418,15 @@ def main():
         dist_b2 = timed("dist", phase_dist, dev, gpu)
         overlapped = timed("overlap", phase_overlap, dev, gpu)
         observed = timed("obs", phase_obs, dev, gpu)
+        fsdp = timed("fsdp", phase_fsdp, dev, gpu)
         # each kernel's launches on the later paths (the main path's
         # count stays "launches")
         b1["launches_by_path"] = {
             **{f"sched {k}": v[0] for k, v in sched.items()},
             **{f"resume {k}": v for k, v in resumed.items()},
             **{f"overlap {k}": v[0] for k, v in overlapped.items()},
-            **{k: v[0] for k, v in observed.items() if v[0]}}
+            **{k: v[0] for k, v in observed.items() if v[0]},
+            **fsdp}
         b2["launches_by_path"] = {
             **{f"sched {k}": v[1] for k, v in sched.items()},
             **{f"dist nccl {k}": v for k, v in dist_b2.items()},

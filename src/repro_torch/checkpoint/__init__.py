@@ -18,7 +18,7 @@ the corresponding leaf of `like` (or on `device`), in the saved dtype.
 
 Across processes (a `DQState` whose W workers are spread over the ranks of
 a `core.exchange.ProcessGroupWorkers`, each rank holding L rows of the
-per-worker fields prev_grad, ef and sched): pass the backend as
+per-worker fields prev_grad, ef, sched and fsdp): pass the backend as
 `workers`. A save gathers the per-worker rows and rank 0 writes exactly
 what a one-process save of the same global state writes (a sharded save
 then defaults to one shard a rank, as the JAX package defaults to one a
@@ -73,8 +73,9 @@ def _rebuild(like, leaves):
     return next(leaves)
 
 
-# the DQState fields whose leaves lead with the worker axis
-PER_WORKER_FIELDS = ("prev_grad", "ef", "sched")
+# the DQState fields whose leaves lead with the worker axis (fsdp: each
+# owner's shard rows)
+PER_WORKER_FIELDS = ("prev_grad", "ef", "sched", "fsdp")
 
 
 def _spread(workers) -> bool:
@@ -366,9 +367,10 @@ def restore_sharded(path: str, like: Any, device=None, workers=None) -> Any:
             f"sharded checkpoint {path!r} leaf shapes do not match the "
             "requested state:\n  " + "\n  ".join(bad_shapes[:6])
             + ("\n  ..." if len(bad_shapes) > 6 else "")
-            + "\n— per-worker state (EF residuals, schedule slots) is "
-            "laid out by worker count; resume on the saved worker count, "
-            "or restore the params subtree only")
+            + "\n— per-worker state (EF residuals, fsdp shard slots) is "
+            "laid out by worker count and cannot reshard across a "
+            "different mesh; resume on the saved worker count, or "
+            "restore the params subtree only")
     files = {}
 
     def shard(i):

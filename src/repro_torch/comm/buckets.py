@@ -5,9 +5,17 @@ f32 buckets, each padded to a multiple of n_workers·1024, so every bucket
 tiles as (R, 1024) rows for the fused quantize+EF kernel and chunks evenly
 over the workers. The layout must equal the JAX package's element for
 element: it decides which elements share a scale row. Leaves whose spec
-shards a dimension stay on the per-tensor path (``skipped``); bucketing
-them at their local shard shape (the JAX package's shard-aware mode)
-arrives with FSDP (ROADMAP §A slice 5).
+shards a dimension over a mesh axis stay on the per-tensor path
+(``skipped``); "sharding" over an axis of size 1 (``axis_sizes``) is
+replication and does not count.
+
+Shard-aware mode (the JAX package's, DESIGN.md §15.1): given
+``shard_axes`` and the mesh's ``axis_sizes``, a leaf sharded only over
+those axes, evenly, buckets at its *local* (per-owner) shape, in a slot
+marked ``local=True``; pack and unpack then take and give the local
+shard. A leaf sharded over any other axis still skips. The port's
+trainer shards no leaf (it has no model axis), so its layouts use
+neither; the mode is here for layouts built from specs.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ class LeafSlot:
     size: int
     bucket: int
     offset: int                 # element offset inside the bucket
-    local: bool = False         # a shard-aware slot (JAX package only)
+    local: bool = False         # True: shape/size are the per-owner shard
 
 
 @dataclass(frozen=True)
@@ -84,12 +92,39 @@ def _spec_entry_axes(entry) -> Tuple[str, ...]:
     return (entry,)
 
 
-def _spec_shards_locally(spec, shape) -> bool:
-    """True if any dim is partitioned over a mesh axis."""
+def _spec_shards_locally(spec, shape, axis_sizes=None) -> bool:
+    """True if any dim is partitioned over a mesh axis; with
+    ``axis_sizes`` known, over size-1 axes only is replication."""
     if spec is None:
         return False
-    return any(_spec_entry_axes(spec[ax])
-               for ax in range(min(len(spec), len(shape))))
+    for ax in range(min(len(spec), len(shape))):
+        axes = _spec_entry_axes(spec[ax])
+        if not axes:
+            continue
+        if axis_sizes and all(axis_sizes.get(a) == 1 for a in axes):
+            continue
+        return True
+    return False
+
+
+def _local_shape(spec, shape, shard_axes, axis_sizes):
+    """The per-owner local shape of a sharded leaf, or None when it is
+    sharded over an axis outside ``shard_axes`` (or not evenly)."""
+    local = list(shape)
+    for ax in range(min(len(spec), len(shape))):
+        axes = _spec_entry_axes(spec[ax])
+        if not axes:
+            continue
+        if not all(a in shard_axes for a in axes):
+            return None
+        try:
+            div = math.prod(axis_sizes[a] for a in axes)
+        except KeyError:
+            return None
+        if div <= 0 or local[ax] % div:
+            return None
+        local[ax] //= div
+    return tuple(local)
 
 
 def build_layout(
@@ -97,10 +132,14 @@ def build_layout(
     specs_tree=None,
     n_workers: int = 1,
     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+    shard_axes: Tuple[str, ...] = (),
+    axis_sizes=None,
 ) -> BucketLayout:
     """Greedy first-fit bucketing in flatten order. ``shapes_tree`` is a
     nested dict of shape tuples; ``specs_tree`` (optional) the matching
-    per-dimension mesh-axis tuples."""
+    per-dimension mesh-axis tuples. With ``shard_axes`` (and
+    ``axis_sizes``, {axis name: size}), leaves sharded only over those
+    axes bucket at their local shard shape instead of skipping."""
     paths, shapes = T.flatten(shapes_tree)
     specs = ([None] * len(shapes) if specs_tree is None
              else T.flatten_up_to(paths, specs_tree))
@@ -126,14 +165,20 @@ def build_layout(
     for idx, (shape, path, spec) in enumerate(zip(shapes, paths, specs)):
         shape = tuple(shape)
         name = T.keystr(path)
-        if _spec_shards_locally(spec, shape):
-            skipped.append(LeafSlot(idx, name, shape, math.prod(shape), -1,
-                                    0))
-            continue
+        is_local = False
+        if _spec_shards_locally(spec, shape, axis_sizes):
+            local = (_local_shape(spec, shape, shard_axes, axis_sizes or {})
+                     if shard_axes else None)
+            if local is None:
+                skipped.append(LeafSlot(idx, name, shape, math.prod(shape),
+                                        -1, 0))
+                continue
+            shape, is_local = local, True
         size = math.prod(shape)
         if cur_used and cur_used + size > cap:
             close()
-        cur_slots.append(LeafSlot(idx, name, shape, size, -1, cur_used))
+        cur_slots.append(LeafSlot(idx, name, shape, size, -1, cur_used,
+                                  is_local))
         cur_used += size
     close()
 

@@ -98,14 +98,19 @@ class CommLedger:
     # -- registration ------------------------------------------------------- #
     def register(self, tag, strategy, comp: C.Compressor, shape,
                  n_workers: int, fallback: bool = False, bucket: int = -1,
-                 skipped: bool = False):
-        """Record one per-step exchange entry."""
+                 skipped: bool = False, wire_bytes: Optional[float] = None,
+                 carried_bytes: Optional[float] = None):
+        """Record one per-step exchange entry; explicit wire/carried bytes
+        bill a composite exchange (fsdp's reduce-scatter + all-gather) at
+        its two legs instead of the one-collective model."""
         self.entries.append(LedgerEntry(
             tag=tag, strategy=strategy, compressor=comp.name,
             elems=math.prod(shape), n_workers=n_workers,
-            wire_bytes=strategy_wire_bytes(strategy, comp, shape, n_workers),
-            carried_bytes=strategy_wire_bytes(strategy, comp, shape,
-                                              n_workers, carried=True),
+            wire_bytes=(strategy_wire_bytes(strategy, comp, shape, n_workers)
+                        if wire_bytes is None else wire_bytes),
+            carried_bytes=(strategy_wire_bytes(strategy, comp, shape,
+                                               n_workers, carried=True)
+                           if carried_bytes is None else carried_bytes),
             fallback=fallback, bucket=bucket, skipped=skipped,
         ))
 
@@ -113,7 +118,8 @@ class CommLedger:
     def from_plan(cls, layout: BucketLayout, plan: CommPlan, strategy: str,
                   n_workers: int, base_compressor: str,
                   leaf_plans: Optional[list] = None, family=None,
-                  budget_bytes: float = 0.0) -> "CommLedger":
+                  budget_bytes: float = 0.0,
+                  moment_compressor: Optional[str] = None) -> "CommLedger":
         """Ledger for the bucketed path: one entry per bucket (its assigned
         compressor) + one per skipped leaf on the per-tensor path.
         ``leaf_plans`` are the exchange.plan_leaf dicts of the skipped
@@ -122,15 +128,30 @@ class CommLedger:
         PlanFamily, so that rounds billed at participants=n price the
         buckets under the member for n. ``budget_bytes`` is the
         delta_budget target the per-bucket rows report utilization
-        against (the family's when not given)."""
+        against (the family's when not given). ``moment_compressor`` marks
+        the fsdp layout: each bucket is billed for both legs, the gradient
+        reduce-scatter and the moments/parameter all-gather
+        (exchange.modeled_fsdp_wire_bytes), instead of one replicated
+        collective."""
         if not budget_bytes and family is not None:
             budget_bytes = float(getattr(family, "budget_bytes", 0) or 0)
         led = cls(n_workers=max(n_workers, 1), family=family,
                   budget_bytes=float(budget_bytes))
         W = max(n_workers, 2)  # collective multipliers degenerate at W=1
+        mom = C.get(moment_compressor) if moment_compressor else None
         for b, a in zip(layout.buckets, plan.assignments):
-            led.register(f"bucket/{b.bid}", strategy, C.get(a.compressor),
-                         (b.size,), W, bucket=b.bid)
+            comp = C.get(a.compressor)
+            wire = carried = None
+            if mom is not None:
+                wire = X.modeled_fsdp_wire_bytes(
+                    strategy, comp, mom, (b.size,), W)
+                f = (W - 1) / W
+                carried = f * ((4 * b.size if strategy == "exact"
+                                else payload_nbytes(comp, (b.size,)))
+                               + payload_nbytes(mom, (b.size,)))
+            led.register(f"bucket/{b.bid}", strategy, comp, (b.size,), W,
+                         bucket=b.bid, wire_bytes=wire,
+                         carried_bytes=carried)
         base = C.get(base_compressor)
         for i, s in enumerate(layout.skipped):
             if leaf_plans:

@@ -69,8 +69,26 @@ nothing. The collector only reads: parameters and EF are bit-equal
 across off, wire and full. With `spans` on, `repro.obs/<phase>` profiler
 ranges mark the field, compress, exchange and apply.
 
-fsdp and spmd='vmap' are refused at construction, naming the ROADMAP
-slice that ports them.
+Compressed-gradient FSDP (`exchange.parallelism='fsdp'`, ZeRO stages 2
+and 3, the JAX package's `_start_fsdp`): the optimizer state shards over
+the workers, each owning a contiguous (size/W,) chunk of every flat
+bucket (`DQState.fsdp`, rows like every per-worker field). A round packs
+the message, runs each bucket's (compressed) reduce-scatter with the
+workers' e1 residuals, applies the optimizer on each owner's chunk of the
+mean (`_shard_update`), then the (compressed) all-gather of the update
+shard (zero-2) or of the updated parameter shard (zero-3, whose `w` slot
+is authoritative) under `strategy.moments`' compressor with the owners'
+residual `age`, and unpacks the gathered buckets into the parameters,
+identical on every worker. Under `overlap` only the reduce-scatter starts
+before the field. Worker m draws, after its field's latents, its
+reduce-scatter chunks of every bucket, then its all-gather shard of every
+bucket, overlapped or not.
+
+`spmd='vmap'` (the JAX package's `_step_vmap`): the stacked step with
+each leaf compressed by the registry compressor (`allow_fused=False`, so
+no kernel), the mean over the worker axis, and JAX's vmap metrics: the
+global norms over all workers' gradients and residuals, not the mean of
+per-worker norms. It runs on stacked workers only.
 """
 from __future__ import annotations
 
@@ -105,7 +123,11 @@ class DQState(NamedTuple):
     m: Any               # Adam first moment | None
     v: Any               # Adam second moment | None
     sched: Any = None    # schedule buffers: None for every_step
-    fsdp: Any = None     # fsdp shard state: None (not ported)
+    # fsdp shard state, {str(bid): {slot: (L, size/W) float32}}: "age" the
+    # owners' all-gather residual, "m"/"v" Adam moments, "dir" oadam's
+    # previous direction, "w" the authoritative parameter shard (zero-3).
+    # None outside fsdp, where m/v/prev_update hold the replicated state.
+    fsdp: Any = None
 
 
 class StepOutput(NamedTuple):
@@ -114,22 +136,6 @@ class StepOutput(NamedTuple):
     # the round's (W,) participation mask as this rank drew and applied
     # it (None at full participation)
     mask: Optional[torch.Tensor] = None
-
-
-def _unported(strategy: Strategy) -> Optional[str]:
-    """What of `strategy` the port cannot run yet, and the slice that
-    brings it, or None."""
-    s = strategy
-    checks = (
-        (s.exchange.fsdp, "parallelism 'fsdp'", "slice 5 (FSDP)"),
-        (s.exchange.spmd == "vmap", "spmd 'vmap'",
-         "slice 5 (FSDP: the spmd='vmap' path)"),
-    )
-    for hit, what, where in checks:
-        if hit:
-            return (f"repro_torch does not run {what} yet: it arrives with "
-                    f"ROADMAP §A {where}")
-    return None
 
 
 def _worker_norms(tensors, L):
@@ -218,9 +224,13 @@ class DQGAN:
                 "DQGAN: dq and strategy disagree:\n  "
                 + "\n  ".join(self.dq.strategy.diff(self.strategy)))
         self.strategy = self.dq.strategy
-        why = _unported(self.strategy)
-        if why:
-            raise NotImplementedError(why)
+        if self.strategy.exchange.spmd == "vmap" and self.mesh is not None:
+            raise ValueError(
+                "DQGAN: spmd='vmap' runs on stacked workers only, because "
+                "the JAX package's vmap step calls no collective of its "
+                "own (its worker axis is sharded by the compiler), so "
+                "there is nothing to run over a process group; use "
+                "spmd='shard_map' with a mesh")
         if self.workers < 1:
             raise ValueError(f"DQGAN: workers must be >= 1, got "
                              f"{self.workers}")
@@ -283,6 +293,19 @@ class DQGAN:
     @property
     def adaptive(self) -> bool:
         return self.strategy.compression.adaptive
+
+    @property
+    def fsdp(self) -> bool:
+        """True under exchange.parallelism='fsdp': the optimizer state
+        shards over the workers, the gradients ride a (compressed)
+        reduce-scatter and the updates or parameters an all-gather."""
+        return self.strategy.exchange.fsdp
+
+    @property
+    def vmap(self) -> bool:
+        """True when the JAX package would run the vmap step: spmd='vmap'
+        over more than one worker."""
+        return self.strategy.exchange.spmd == "vmap" and self.n_workers > 1
 
     @property
     def ef_dtype(self) -> torch.dtype:
@@ -375,7 +398,9 @@ class DQGAN:
             return CommLedger.from_plan(
                 layout, cplan, strat.exchange.kind, self.n_workers,
                 strat.compression.compressor, family=family,
-                budget_bytes=budget)
+                budget_bytes=budget,
+                moment_compressor=(strat.moments.compressor
+                                   if self.fsdp else None))
         return CommLedger.from_tree(strat.exchange.kind,
                                     strat.compression.compressor, shapes,
                                     None, self.n_workers)
@@ -438,10 +463,12 @@ class DQGAN:
         prev_grad = prev_update = m = v = None
         if dq.optimizer == "omd" and dq.extrapolation == "local":
             prev_grad = tree(lambda x: zeros(x, (L,)))
+        # fsdp: the moments and oadam's previous direction live sharded in
+        # the fsdp slots; omd 'global' is refused below
         if (dq.optimizer == "omd" and dq.extrapolation == "global"
-                or dq.optimizer == "oadam"):
+                or dq.optimizer == "oadam") and not self.fsdp:
             prev_update = tree(zeros)
-        if self.uses_adam:
+        if self.uses_adam and not self.fsdp:
             m, v = tree(zeros), tree(zeros)
 
         def ef_leaf(x, plan):
@@ -459,7 +486,9 @@ class DQGAN:
         if self.bucketed:
             layout, _ = self._comm(params)
             bucket_ef = {}
-            if self.strategy.exchange.owner_ef:
+            # fsdp has no phase-2 owner requantization: the return leg's
+            # owner residual is the per-bucket "age" slot instead of e2
+            if self.strategy.exchange.owner_ef and not self.fsdp:
                 for b in layout.buckets:
                     bucket_ef[str(b.bid)] = {"e2": torch.zeros(
                         (L, b.size // W), dtype=ef_dtype,
@@ -475,8 +504,55 @@ class DQGAN:
             versions_like=lambda: torch.full((L,), -sched_c.tau,
                                              dtype=torch.int32,
                                              device=leaves[0].device))
+        fsdp = self._init_fsdp(params) if self.fsdp else None
         return DQState(step=0, params=params, prev_grad=prev_grad,
-                       prev_update=prev_update, ef=ef, m=m, v=v, sched=sched)
+                       prev_update=prev_update, ef=ef, m=m, v=v, sched=sched,
+                       fsdp=fsdp)
+
+    def _init_fsdp(self, params):
+        """The fsdp shard slots, each (L, size/W) float32: "age" always,
+        "m"/"v" under adam/oadam, "dir" under oadam, and under zero-3 "w",
+        this process's rows of the packed initial parameters (so round 0's
+        all-gather reconstructs w_0 under an exact compressor)."""
+        dq = self.dq
+        W, L = self.n_workers, self.n_local
+        layout, _ = self._comm(params)
+        if layout.skipped:
+            skipped_ix = sorted(s.index for s in layout.skipped)
+            raise ValueError(
+                "exchange.parallelism='fsdp' needs every leaf in a "
+                "flat bucket, but the comm planner skipped leaf "
+                f"index(es) {skipped_ix} (sharded over axes outside "
+                "the fsdp worker axes). Shard those leaves over the "
+                "fsdp axis (shard-aware bucketing, DESIGN.md §15.1), "
+                "unshard them, or use parallelism='replicated'.")
+        if dq.lr_mults:
+            raise ValueError(
+                "lr_mults groups params by top-level key, which is "
+                "undefined on fsdp's flat shard buckets — drop "
+                "lr_mults or use parallelism='replicated'")
+        if dq.optimizer == "omd" and dq.extrapolation == "global":
+            raise ValueError(
+                "extrapolation='global' needs the full applied-update "
+                "tree, which fsdp never materializes at a single "
+                "worker — use extrapolation='local' or "
+                "parallelism='replicated'")
+        _, leaves = T.flatten(params)
+        device = leaves[0].device
+        w_rows = None
+        if self.strategy.exchange.zero_stage == 3:
+            w_rows = [self._workers.rows(f.reshape(W, -1)).clone()
+                      for f in B.pack(layout, [x.float() for x in leaves])]
+        slots = ["age"] + (["m", "v"] if self.uses_adam else []) + (
+            ["dir"] if dq.optimizer == "oadam" else [])
+        fsdp = {}
+        for b in layout.buckets:
+            ent = {k: torch.zeros((L, b.size // W), dtype=torch.float32,
+                                  device=device) for k in slots}
+            if w_rows is not None:
+                ent["w"] = w_rows[b.bid]
+            fsdp[str(b.bid)] = ent
+        return fsdp
 
     # ------------------------------------------------------------------ #
     # the step
@@ -540,7 +616,11 @@ class DQGAN:
                   per-leaf path and the bucket id on the bucketed path,
                   as the JAX package folds them into its key; for
                   two_phase with W > 1 {"phase1": (W, W, ...), "phase2":
-                  (W, ...)} (see core.exchange);
+                  (W, ...)} (see core.exchange); under fsdp
+                  {"reduce_scatter": (W, W, ...) (one worker: (1, ...)),
+                  "all_gather": (W, ...)}, from the JAX package's
+                  split(fold_in(kq, 100_000 + bid), W) and
+                  fold_in(fold_in(kq, 100_000 + bid), 1);
           "mask": (W,) float32 participation mask of the round (partial
                   participation only)."""
         dq = self.dq
@@ -596,9 +676,18 @@ class DQGAN:
         if (self.strategy.exchange.overlap and sched_c.overlappable
                 and pending is not None):
             with OBS.device_span("exchange", spans):
-                finish = self._start_overlapped(
-                    state.params, paths, T.flatten_up_to(paths, pending), ef,
-                    ef_leaves, plans, rand, part, col)
+                # fsdp: only the reduce-scatter starts here; the optimizer,
+                # the all-gather and the unpack wait for its shard
+                if self.fsdp:
+                    finish = self._start_overlapped(
+                        self._start_fsdp, state.params, paths,
+                        T.flatten_up_to(paths, pending), ef_leaves,
+                        state.fsdp, state.step, rand, col)
+                else:
+                    finish = self._start_overlapped(
+                        self._start_exchange, state.params, paths,
+                        T.flatten_up_to(paths, pending), ef, ef_leaves,
+                        plans, rand, part, col)
         # a field without `draw_z` must then draw nothing: its draws would
         # follow the exchange's, not precede them as they do blocking
         gen_states = ([g.get_state() for g in self._gens]
@@ -664,10 +753,22 @@ class DQGAN:
             lambda tree: T.tree_map(torch.zeros_like, tree), off)
 
         # ---------- exchange + server update ---------------------------- #
+        new_fsdp = state.fsdp
         if exch_msg is None:    # mid-round: params, moments and EF stay
             new_params, new_m, new_v, new_prev_update = (
                 state.params, state.m, state.v, state.prev_update)
             new_ef = ef
+        elif self.fsdp:
+            # exchange and apply fused: reduce-scatter, the owners'
+            # optimizer, all-gather, one pass a bucket
+            with OBS.device_span("exchange", spans):
+                if finish is None:
+                    finish = self._start_fsdp(
+                        state.params, paths, T.flatten_up_to(paths, exch_msg),
+                        ef_leaves, state.fsdp, state.step, rand, col)
+            with OBS.device_span("apply", spans):
+                new_params, new_ef, new_fsdp = finish()
+            new_m, new_v, new_prev_update = state.m, state.v, state.prev_update
         else:
             with OBS.device_span("exchange", spans):
                 if finish is None:
@@ -684,22 +785,16 @@ class DQGAN:
             new_prev_grad = T.unflatten(
                 paths, [g.to(o.dtype) for o, g in zip(prev_grad, grads)])
 
-        # metrics: the mean over all W workers of each worker's value (the
-        # JAX package's pmean), the staleness also by max (pmax)
-        gn_w = _worker_norms(grads, L)
-        en_w = _worker_norms(_ef_tensors(new_ef), L).to(gn_w.device)
-        st_now = sched_c.staleness_now(state.step, new_sched, gn_w.device)
-        per_worker = [torch.stack(losses), gn_w, en_w]
-        if st_now.dim():
-            per_worker.append(st_now)
-        means = wk.mean_each(per_worker)
-        loss, gn, en = means[:3]
-        st_max, st_mean = ((wk.max(st_now), means[3]) if st_now.dim()
-                           else (st_now, st_now))
+        if self.vmap:
+            loss, gn, en, st_max, st_mean, st_now = self._vmap_metrics(
+                losses, grads, new_ef, state.step, new_sched)
+        else:
+            loss, gn, en, st_max, st_mean, st_now = self._metrics(
+                losses, grads, new_ef, state.step, new_sched)
         new_state = DQState(step=state.step + 1, params=new_params,
                             prev_grad=new_prev_grad,
                             prev_update=new_prev_update, ef=new_ef,
-                            m=new_m, v=new_v, sched=new_sched)
+                            m=new_m, v=new_v, sched=new_sched, fsdp=new_fsdp)
         out_metrics = {"loss": loss, "grad_norm": gn,
                        "error_norm": en, "staleness_max": st_max,
                        "staleness_mean": st_mean}
@@ -708,22 +803,59 @@ class DQGAN:
         return StepOutput(state=new_state, metrics=out_metrics,
                           mask=None if part is None else part[0])
 
+    def _metrics(self, losses, grads, new_ef, step, new_sched):
+        """(loss, grad_norm, error_norm, staleness max, mean, the (L,)
+        staleness or 0): the mean over all W workers of each worker's
+        value (the JAX package's pmean), the staleness also by max
+        (pmax)."""
+        L, wk = self.n_local, self._workers
+        gn_w = _worker_norms(grads, L)
+        en_w = _worker_norms(_ef_tensors(new_ef), L).to(gn_w.device)
+        st_now = self.strategy.schedule.staleness_now(step, new_sched,
+                                                      gn_w.device)
+        per_worker = [torch.stack(losses), gn_w, en_w]
+        if st_now.dim():
+            per_worker.append(st_now)
+        means = wk.mean_each(per_worker)
+        loss, gn, en = means[:3]
+        st_max, st_mean = ((wk.max(st_now), means[3]) if st_now.dim()
+                           else (st_now, st_now))
+        return loss, gn, en, st_max, st_mean, st_now
+
+    def _vmap_metrics(self, losses, grads, new_ef, step, new_sched):
+        """`_metrics` as the JAX package's vmap step defines them: the loss
+        is the workers' mean, grad_norm and error_norm the global norms of
+        all workers' stacked gradients and residuals (not a mean of
+        per-worker norms), the staleness max and mean over the workers
+        under delayed, else 0."""
+        def global_norm(tensors):
+            return torch.sqrt(sum((torch.square(t.float()).sum()
+                                   for t in tensors),
+                                  torch.zeros((), device=self.device)))
+        st_now = self.strategy.schedule.staleness_now(step, new_sched,
+                                                      self.device)
+        st_max, st_mean = ((st_now.max(), st_now.float().mean())
+                           if st_now.dim() else (st_now, st_now))
+        return (torch.stack(losses).mean(), global_norm(grads),
+                global_norm(_ef_tensors(new_ef)), st_max, st_mean, st_now)
+
     # ------------------------------------------------------------------ #
     # exchange: each `_start_*` issues its work and returns the finish,
     # a callable that waits for the collectives and returns (q̂, new EF)
+    # (fsdp: the new parameters, EF and shard state)
     # ------------------------------------------------------------------ #
-    def _start_overlapped(self, *args):
-        """`_start_exchange` on a side CUDA stream, after the work queued
-        so far; the finish makes the current stream wait for it, and marks
-        what the side stream made as used by the current one. On the CPU
-        the start runs in line."""
+    def _start_overlapped(self, start, *args):
+        """`start(*args)` (`_start_exchange` or `_start_fsdp`) on a side
+        CUDA stream, after the work queued so far; the finish makes the
+        current stream wait for it, and marks what the side stream made as
+        used by the current one. On the CPU the start runs in line."""
         if self.device.type != "cuda":
-            return self._start_exchange(*args)
+            return start(*args)
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            fin = self._start_exchange(*args)
+            fin = start(*args)
 
         def finish():
             cur.wait_stream(side)
@@ -745,7 +877,20 @@ class DQGAN:
 
     def _start_one(self, comp, plan, p, e, rand):
         """The finish of the exchange of one stacked (L, ...) tensor or
-        bucket. One worker: (EF-)compression, whatever the strategy."""
+        bucket. One worker: (EF-)compression, whatever the strategy. The
+        vmap step: each worker's registry compression, then the mean over
+        the worker axis."""
+        if self.vmap:
+            e1 = e.get("e1", torch.zeros_like(p))
+            with OBS.device_span("compress", self._obs_spans):
+                _, p_hat, e_new = compress_with_ef_stacked(
+                    comp, p, e1, rand, self._gens,
+                    use_ef=self.dq.error_feedback, allow_fused=False)
+            ne = dict(e)
+            if self.dq.error_feedback:
+                ne["e1"] = e_new
+            q = p_hat.mean(dim=0)
+            return lambda: (q, ne)
         if self.n_workers > 1:
             exch = self.strategy.exchange
             handle = exch.start(comp, plan, p, e, self._local_rand(rand),
@@ -965,16 +1110,12 @@ class DQGAN:
             if dq.extrapolation == "global":
                 new_prev_update = T.unflatten(paths, update)
         elif dq.optimizer in ("adam", "oadam"):
-            # bias correction counts applied updates (every step here)
-            t = torch.tensor(float((state.step + 1)
-                                   // self.strategy.schedule.period))
             b1, b2 = dq.beta1, dq.beta2
             m = [b1 * m + (1 - b1) * g
                  for m, g in zip(T.flatten_up_to(paths, state.m), qhat)]
             v = [b2 * v + (1 - b2) * torch.square(g)
                  for v, g in zip(T.flatten_up_to(paths, state.v), qhat)]
-            bc1 = (1.0 - torch.tensor(b1) ** t).to(qhat[0].device)
-            bc2 = (1.0 - torch.tensor(b2) ** t).to(qhat[0].device)
+            bc1, bc2 = self._bias_corrections(state.step, qhat[0].device)
             direction = self._scale_groups(
                 paths, [(mm / bc1) / (torch.sqrt(vv / bc2) + dq.eps)
                         for mm, vv in zip(m, v)])
@@ -994,3 +1135,113 @@ class DQGAN:
         else:
             raise ValueError(dq.optimizer)
         return T.unflatten(paths, new_params), new_m, new_v, new_prev_update
+
+    def _bias_corrections(self, step: int, device):
+        """Adam's (1 − β1^t, 1 − β2^t) on `device`, float32: the bias
+        correction counts applied updates (one a round)."""
+        t = torch.tensor(float((step + 1) // self.strategy.schedule.period))
+        b1, b2 = self.dq.beta1, self.dq.beta2
+        return ((1.0 - torch.tensor(b1) ** t).to(device),
+                (1.0 - torch.tensor(b2) ** t).to(device))
+
+    # ------------------------------------------------------------------ #
+    # compressed-gradient FSDP
+    # ------------------------------------------------------------------ #
+    def _start_fsdp(self, params_tree, paths, message, ef_leaves, fb, step,
+                    rand, col):
+        """One fsdp round over the flat buckets: pack the (L, ...) message
+        and e1, start each bucket's (compressed) reduce-scatter with its
+        planned compressor. The returned finish waits for each bucket's
+        shard of the mean, applies the optimizer on it (`_shard_update`),
+        runs the all-gather of the update (zero-2) or the updated
+        parameter shard (zero-3) under `strategy.moments` with the owners'
+        residual `age`, and unpacks; it returns (new params, new EF
+        {"leaf": e1 leaves, "bucket": {}}, new shard state). `col` records
+        each bucket's reduce-scatter operand and residual."""
+        dq = self.dq
+        exch = self.strategy.exchange
+        mom = self.strategy.moments
+        mom_comp = mom.get()
+        spans = self._obs_spans
+        layout, cplan = self._comm(params_tree)
+        e1_leaves = e1_flats = None
+        if dq.error_feedback:
+            e1_leaves = [e.get("e1", torch.zeros(l.shape, dtype=self.ef_dtype,
+                                                 device=l.device))
+                         for l, e in zip(message, ef_leaves)]
+            e1_flats = B.pack(layout, e1_leaves)
+        flats = B.pack(layout, message)
+        started = []
+        for b, assign in zip(layout.buckets, cplan.assignments):
+            est = {"e1": e1_flats[b.bid]} if dq.error_feedback else {}
+            r = self._local_rand(rand.get(b.bid)) or {}
+            h = exch.start_reduce_scatter(
+                C.get(assign.compressor), flats[b.bid], est,
+                r.get("reduce_scatter"), self._workers, dq.error_feedback,
+                self._gens, spans)
+            started.append((b, est, h, r.get("all_gather")))
+
+        def finish():
+            params = T.flatten_up_to(paths, params_tree)
+            w_flats = (None if exch.zero_stage == 3 else
+                       B.pack(layout, [p.float() for p in params]))
+            bc = (self._bias_corrections(step, self.device)
+                  if self.uses_adam else None)
+            new_w, new_e1_flats, new_fb = [], [], {}
+            for b, est, h, r_ag in started:
+                q_shard, ne = exch.finish(h)
+                if col.enabled:
+                    col.bucket(b.bid, flats[b.bid],
+                               *_obs_op_err(flats[b.bid], est, ne))
+                if dq.error_feedback:
+                    new_e1_flats.append(ne.get("e1", est.get("e1")))
+                fb_b = fb[str(b.bid)]
+                ent, ag_in = self._shard_update(q_shard.float(), fb_b, bc)
+                h_ag = exch.start_all_gather_shard(
+                    mom_comp, ag_in, fb_b["age"], r_ag, self._workers,
+                    mom.error_feedback, self._gens, spans)
+                full, ent["age"] = exch.finish(h_ag)
+                new_fb[str(b.bid)] = ent
+                new_w.append(full if w_flats is None
+                             else w_flats[b.bid] - full)
+            new_params = T.unflatten(paths, B.unpack_into(layout, new_w,
+                                                          params))
+            new_leaf_ef = [None] * len(message)
+            if dq.error_feedback:
+                new_leaf_ef = [{"e1": x} for x in B.unpack_into(
+                    layout, new_e1_flats, e1_leaves)]
+            return (new_params, {"leaf": T.unflatten(paths, new_leaf_ef),
+                                 "bucket": {}}, new_fb)
+        return finish
+
+    def _shard_update(self, q_shard, fb_b, bc):
+        """The optimizer on the owners' (L, c) chunk of the mean message:
+        `_server_update`'s elementwise arithmetic, applied by each shard
+        owner (bucket padding stays zero: zero message, zero moments, zero
+        update). `bc` holds Adam's bias corrections. Returns (the new
+        shard slots, the all-gather operand: the update shard under
+        zero-2, the updated parameter shard under zero-3)."""
+        dq = self.dq
+        eta = dq.lr
+        ent = {}
+        if dq.optimizer == "omd":
+            update = q_shard if dq.message == "update" else eta * q_shard
+        elif dq.optimizer in ("adam", "oadam"):
+            b1, b2 = dq.beta1, dq.beta2
+            m = b1 * fb_b["m"] + (1 - b1) * q_shard
+            v = b2 * fb_b["v"] + (1 - b2) * torch.square(q_shard)
+            direction = (m / bc[0]) / (torch.sqrt(v / bc[1]) + dq.eps)
+            ent["m"], ent["v"] = m, v
+            if dq.optimizer == "oadam":
+                update = eta * (2.0 * direction - fb_b["dir"])
+                ent["dir"] = direction
+            else:
+                update = eta * direction
+        elif dq.optimizer == "sgd":
+            update = eta * q_shard
+        else:
+            raise ValueError(dq.optimizer)
+        if self.strategy.exchange.zero_stage == 3:
+            ent["w"] = fb_b["w"] - update
+            return ent, ent["w"]
+        return ent, update

@@ -14,6 +14,7 @@ packed back to back is exact.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -203,11 +204,19 @@ def fused_quantize_ef(message_flat, e_prev, rand=None, generator=None, *,
     # the kernel's step s/L, by IEEE division (see kernels.ref), so that
     # m_hat + e_new = m holds to the last bit
     lvl = (levels.reshape(1, 1) if isinstance(levels, torch.Tensor)
-           else scales.new_tensor(float(levels)))
+           else _level_divisor(scales.device, levels))
     step = scales[:, None] / lvl
     m_hat = (codes.reshape(R, -1).float() * step).reshape(message_flat.shape)
     return ({"codes": codes.reshape(R, -1), "scale": scales.reshape(R, 1)},
             m_hat.to(message_flat.dtype), e_new.to(e_prev.dtype))
+
+
+@functools.lru_cache(maxsize=64)
+def _level_divisor(device, levels: int):
+    """B1's static level count as a float32 scalar on `device`, made once
+    a (device, levels) by a fill on the device: no copy from the host, so
+    no B1 call synchronizes with it."""
+    return torch.full((), float(levels), dtype=torch.float32, device=device)
 
 
 def lemma1_bound(eta, delta, G, sigma, B):

@@ -12,16 +12,18 @@ workers are a leading axis of every per-worker tensor — message, EF
 residuals, payloads, draws: all W of them on one device
 (`StackedWorkers`), or a contiguous block of L = W / world of them on
 each rank of a `torch.distributed` process group (`ProcessGroupWorkers`).
-A strategy calls only the backend's `mean`, `all_gather` and
-`all_to_all`, each with a start form that returns a handle; it tells the
-global worker count W (the chunks of two_phase) from the rows it holds
-(L). With one worker every strategy degenerates to (EF-)compression,
-which `core.dqgan` does itself.
+A strategy calls only the backend's `mean`, `all_gather`, `all_to_all`
+and `reduce_scatter`, each with a start form that returns a handle; it
+tells the global worker count W (the chunks of two_phase) from the rows
+it holds (L). With one worker every strategy degenerates to
+(EF-)compression, which `core.dqgan` does itself.
 
 Split phase: `start_exchange` returns an `ExchangeHandle` whose `finish`
 yields (q̂, new EF state); q̂ is replicated (one copy), the EF state
-stays per worker. Also here: the static plans, EF state shapes and the
-analytic wire model.
+stays per worker. fsdp splits the exchange around the shard owner's
+optimizer: `start_reduce_scatter` (the gradient leg) and
+`start_all_gather_shard` (the update or parameter leg). Also here: the
+static plans, EF state shapes and the analytic wire model.
 """
 from __future__ import annotations
 
@@ -161,18 +163,33 @@ class _Pending:
 
 
 class _Workers:
-    """The three collectives a strategy calls, each in a start form that
-    returns a handle (`start_mean`, `start_all_gather`,
-    `start_all_to_all`; `handle.wait()` gives the result) and a blocking
-    form. `n` is the global worker count W, `n_local` the rows this
-    process holds (L), `offset` the global index of its first row."""
+    """The collectives a strategy calls, each in a start form that returns
+    a handle (`start_mean`, `start_all_gather`, `start_all_to_all`,
+    `start_reduce_scatter`; `handle.wait()` gives the result) and a
+    blocking form. `n` is the global worker count W, `n_local` the rows
+    this process holds (L), `offset` the global index of its first row."""
 
     n: int
     n_local: int
     offset: int = 0
 
+    def _over_n(self, x):
+        """x / W, dividing by a device tensor (IEEE division: PyTorch
+        multiplies by the reciprocal of a Python scalar), made once a
+        (device, dtype)."""
+        key = (x.device, x.dtype)
+        d = self._divisor.get(key)
+        if d is None:
+            d = self._divisor[key] = torch.full((), float(self.n),
+                                                dtype=x.dtype,
+                                                device=x.device)
+        return x / d
+
     def mean(self, x):
         return self.start_mean(x).wait()
+
+    def reduce_scatter(self, x):
+        return self.start_reduce_scatter(x).wait()
 
     def all_gather(self, x):
         return self.start_all_gather(x).wait()
@@ -190,16 +207,26 @@ class StackedWorkers(_Workers):
     device: the port's counterpart of the JAX package's `data` mesh axis.
     Each collective is a tensor operation over that axis:
 
-        mean        pmean       (W, ...) -> (...), what every worker gets
-        all_gather  all_gather  (W, ...) -> (W, ...), the stack itself
-        all_to_all  all_to_all  (W_src, W_chunk, ...) -> (W_dst, W_src, ...)
+        mean            pmean         (W, ...) -> (...), what every worker
+                                      gets
+        all_gather      all_gather    (W, ...) -> (W, ...), the stack
+        all_to_all      all_to_all    (W_src, W_chunk, ...)
+                                      -> (W_dst, W_src, ...)
+        reduce_scatter  psum_scatter  (W, d) -> (W, d/W): row w the mean
+                        / W           over the workers of chunk w
     """
 
     def __init__(self, n: int):
         self.n = self.n_local = n
+        self._divisor = {}
 
     def start_mean(self, x):
         return _Ready(x.mean(dim=0))
+
+    def start_reduce_scatter(self, x):
+        W = self.n
+        s = x.reshape((W, W, x.shape[1] // W)).sum(dim=0)
+        return _Ready(self._over_n(s))
 
     def start_all_gather(self, x):
         return _Ready(x)
@@ -231,6 +258,9 @@ class ProcessGroupWorkers(_Workers):
         all_gather  all_gather_into_tensor: (L, ...) -> (W, ...)
         all_to_all  all_to_all_single: (L_src, W_chunk, ...)
                     -> (L_dst, W_src, ...)
+        reduce_scatter  local sum of the L rows, reduce_scatter over the
+                    group (SUM), / W: (L, d) -> (L, d/W); the rank's
+                    chunk of L·d/W elements is its workers' L chunks
 
     A start form issues its collective asynchronously; the handle's
     `wait` finishes it."""
@@ -240,15 +270,6 @@ class ProcessGroupWorkers(_Workers):
         self.n = n
         self.offset, self.n_local = mesh.rows(n)
         self._divisor = {}
-
-    def _over_n(self, x):
-        key = (x.device, x.dtype)
-        d = self._divisor.get(key)
-        if d is None:
-            d = self._divisor[key] = torch.tensor(float(self.n),
-                                                  dtype=x.dtype,
-                                                  device=x.device)
-        return x / d
 
     def start_mean(self, x):
         s = x.sum(dim=0)
@@ -262,6 +283,15 @@ class ProcessGroupWorkers(_Workers):
                   or dist.all_gather_into_tensor)
         work = gather(out, x, async_op=True)
         return _Pending(work, out)
+
+    def start_reduce_scatter(self, x):
+        L = self.n_local
+        s = x.sum(dim=0)
+        out = s.new_empty((s.shape[0] // self.mesh.world,))
+        scatter = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
+        work = scatter(out, s, op=dist.ReduceOp.SUM, async_op=True)
+        return _Pending(work, out, lambda o: self._over_n(o.reshape(L, -1)))
 
     def start_all_to_all(self, x):
         L, world = self.n_local, self.mesh.world
@@ -416,6 +446,102 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
         return q.to(p.dtype), new_state
 
     return ExchangeHandle("two_phase", _finish_two_phase)
+
+
+# --------------------------------------------------------------------------- #
+# fsdp split-phase primitives
+# --------------------------------------------------------------------------- #
+def start_reduce_scatter(compressor, kind: str, p, ef_state: dict, rand,
+                         workers: _Workers, use_ef: bool, generator=None,
+                         spans: bool = False) -> ExchangeHandle:
+    """The fsdp gradient leg: the (compressed) reduce-scatter of one flat
+    bucket, p (L, d) with d % W == 0. The handle finishes to (q_shard,
+    new EF state), q_shard (L, d/W) holding each of this process's workers'
+    chunk of the mean message. `rand` (None: drawn from `generator`) holds
+    the draws of these rows: (L, W, ...) for two_phase, worker w's for
+    chunk j; with one worker the bucket's own (1, ...). Split points
+    (start | finish), as in the JAX package:
+
+      exact     : reduce_scatter(p)                    | identity
+      two_phase : compress+EF per chunk, all_to_all    | decompress+mean
+
+    two_phase is phase 1 of the two_phase exchange (worker-side e1, the
+    registry compressor's rounding, int8 on the wire) without its phase 2:
+    the shard owner consumes q_shard, and what returns to the workers is
+    the all-gather leg (`start_all_gather_shard`). With one worker the
+    shard is the bucket, compressed as the W > 1 workers compress theirs
+    (through the fused kernel where it applies)."""
+    W = workers.n
+    new_state = dict(ef_state)
+    if W == 1:
+        if kind == "exact":
+            return _resolved(kind, p, new_state)
+        e1 = ef_state.get("e1", torch.zeros_like(p))
+        with device_span("compress", spans):
+            _, p_hat, e_new = compress_with_ef_stacked(
+                compressor, p, e1, rand, generator, use_ef=use_ef)
+        if use_ef:
+            new_state["e1"] = e_new.to(e1.dtype)
+        return _resolved(kind, p_hat.to(p.dtype), new_state)
+    if kind == "exact":
+        pend = workers.start_reduce_scatter(p)
+        return ExchangeHandle(kind, lambda: (pend.wait().to(p.dtype),
+                                             new_state))
+    if kind != "two_phase":
+        raise ValueError(
+            f"fsdp reduce-scatter: kind must be 'exact' or 'two_phase', "
+            f"got {kind!r}")
+    L, d = p.shape
+    c = d // W
+    e1 = ef_state.get("e1", torch.zeros_like(p))
+    with device_span("compress", spans):
+        payload, _, e_new = compress_with_ef_stacked(
+            compressor, p.reshape(L * W, c), e1.to(p.dtype).reshape(L * W, c),
+            None if rand is None else rand.reshape(L * W, -1), generator,
+            use_ef=use_ef, allow_fused=False)
+    if use_ef:
+        new_state["e1"] = e_new.reshape(L, d).to(e1.dtype)
+    # int8 on the wire: (L_src, W_chunk, ...) -> (L_dst, W_src, ...)
+    pends = {k: workers.start_all_to_all(v.reshape((L, W) + v.shape[1:]))
+             for k, v in payload.items()}
+
+    def _finish_rs():
+        moved = {k: h.wait() for k, h in pends.items()}
+        contrib = decompress_rows(
+            compressor, {k: v.reshape((L * W,) + v.shape[2:])
+                         for k, v in moved.items()}, (c,), torch.float32)
+        return contrib.reshape(L, W, c).mean(dim=1).to(p.dtype), new_state
+
+    return ExchangeHandle(kind, _finish_rs)
+
+
+def start_all_gather_shard(compressor, shard, ag_ef, rand,
+                           workers: _Workers, use_ef: bool, generator=None,
+                           spans: bool = False) -> ExchangeHandle:
+    """The fsdp return leg: the (compressed) all-gather of each owner's
+    shard, shard and ag_ef (L, c) (the quantized optimizer-state exchange
+    of arXiv 2004.14180). Each owner compresses (shard + residual) and
+    keeps e' = (shard + e) − Q(shard + e): one stacked compress over the L
+    rows, so one fused-kernel launch over all of their L·c/1024 scale rows
+    where the compressor is the kernel's. Every worker decompresses the
+    same W payloads, so the gathered flat bucket (W·c,) is identical on
+    all of them. Finishes to (that bucket, the owners' new residual)."""
+    with device_span("compress", spans):
+        payload, c_hat, e_new = compress_with_ef_stacked(
+            compressor, shard, ag_ef, rand, generator, use_ef=use_ef)
+    new_ef = e_new if use_ef else ag_ef
+    if workers.n == 1:
+        return _resolved("allgather_shard", c_hat.reshape(-1).to(shard.dtype),
+                         new_ef)
+    pends = {k: workers.start_all_gather(v) for k, v in payload.items()}
+
+    def _finish_ag():
+        gathered = {k: h.wait() for k, h in pends.items()}
+        chunks = decompress_rows(compressor, gathered, tuple(shard.shape[1:]),
+                                 torch.float32)
+        return chunks.reshape(-1).to(shard.dtype), new_ef
+
+    return ExchangeHandle("allgather_shard", _finish_ag)
 
 
 # --------------------------------------------------------------------------- #

@@ -61,9 +61,20 @@ when no CUDA device is present; ``--device cpu`` runs the kernels' plain
 versions on the CPU. On CUDA the trainer turns TF32 off for matmuls and
 convolutions: the reference computes in float32. ``--overlap`` under
 ``--schedule delayed`` (and ``--preset ssp_server``) starts each round's
-exchange before the field, on a second CUDA stream. Strategies the port
-does not run yet (spmd='vmap', fsdp) are refused with the ROADMAP slice
-that brings them.
+exchange before the field, on a second CUDA stream.
+
+Compressed-gradient FSDP (``--preset fsdp_zero2|fsdp_zero3``, or
+``--parallelism fsdp --zero-stage 2|3 --moment-compressor C
+--moment-ef``): the optimizer state shards over the workers, the
+gradients ride a (compressed) reduce-scatter and the update or parameter
+shards a quantized all-gather; the ``# comm: fsdp`` line bills both legs,
+and ``wire_mb_step`` is their sum. ``--spmd vmap`` runs the JAX package's
+vmap step (``sim`` per leaf, no kernel) on stacked workers; under
+torchrun it is refused:
+
+    python -m repro_torch.launch.train --arch dcgan32 --workers 4 \
+        --batch 256 --optimizer omd --lr 1e-4 --preset fsdp_zero3 \
+        --compressor qsgd8_block1024 --moment-compressor qsgd8_block1024
 
 Observability (`repro_torch.obs`, the JAX launcher's flags and events):
 ``--obs-sink PATH`` writes the versioned JSONL event stream (``run_meta``,
@@ -205,7 +216,7 @@ def _train(args, ap, cfg, device, mesh):
     try:
         trainer = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=device,
                         seed=args.seed + 1, workers=W, mesh=mesh)
-    except NotImplementedError as e:
+    except ValueError as e:
         ap.error(str(e))
 
     # one stream for the initial weights and then the data batches
@@ -248,6 +259,13 @@ def _train(args, ap, cfg, device, mesh):
         family = trainer._family(params)
         if family is not None:
             say(f"# comm: {family.describe()}", flush=True)
+        if strat.exchange.fsdp:
+            ex, mom = strat.exchange, strat.moments
+            say(f"# comm: fsdp zero-{ex.zero_stage}: reduce-scatter "
+                f"({ex.kind}, {strat.compression.compressor}) + all-gather "
+                f"({mom.compressor}, ef={mom.error_feedback}): "
+                f"{ledger.wire_bytes_per_step / 1e6:.3f} MB a round a "
+                f"worker, both legs", flush=True)
     # count-exact participation: each round has n participants, billed at
     # what they move (the selected family member under an adaptive plan)
     n_part = (n_participants(strat.participation.fraction, W)

@@ -10,9 +10,11 @@ off a `torch.profiler` capture of the step instead (``record_shapes=True``;
   the call with its input's shape and dtype (``gloo:<op>``, which gloo
   makes on its worker thread, outside any range; ``nccl:<op>`` where
   NCCL leaves one). The two are paired in order within each kind of
-  collective, and a capture where they do not pair up is refused. A
-  call is attributed to the phase of its ``c10d::`` operator and timed
-  by its start. (The checks are exercised over gloo ranks.)
+  collective, and a capture where they do not pair up is refused (gloo
+  records a reduce-scatter as the all-reduce it runs; such a call counts
+  by its own record of its output). A call is attributed to the phase of
+  its ``c10d::`` operator and timed by its start. (The checks are
+  exercised over gloo ranks.)
 * a collective's bytes are its result's, what the call's output holds on
   this rank (the output tensor the call records, or for all_reduce, whose
   output is its input, the backend's record of the input): the quantity
@@ -40,8 +42,12 @@ over the workers, the staleness max, the obs sums) are collectives too,
 called outside the exchange phase. As in `repro.obs.hlo`, they are told
 apart from the exchange's by phase where spans are on and by size in the
 mid-round check: a few scalars against a bucket's payload.
-
-`check_fsdp_structure` waits for the port's FSDP (ROADMAP slice 5).
+* `check_fsdp_structure` / `assert_fsdp_structure` — a ZeRO-shaped
+  step: a scatter collective (reduce-scatter or all-to-all) and an
+  all-gather, all-reduce bytes below half of their payload, and int8
+  bytes on the wire when compressed (the rules of
+  `repro.obs.hlo.check_fsdp_structure`, over the exchange and apply
+  phases where spans are on: fsdp's all-gather runs in its apply phase).
 """
 from __future__ import annotations
 
@@ -117,6 +123,7 @@ def collectives(prof) -> List[Collective]:
             calls.setdefault(kind, []).append(e)
         elif e.name.startswith(("gloo:", "nccl:")):
             records.setdefault(kind, []).append(e)
+    _claim_gloo_reduce_scatters(calls, records)
     dtypes = _dtypes(prof)
     out = []
     for kind, cs in calls.items():
@@ -142,6 +149,29 @@ def collectives(prof) -> List[Collective]:
             out.append(Collective(kind, phase_of(c), c.time_range.start,
                                   n * _DTYPE_BYTES[dtype], dtype))
     return sorted(out, key=lambda c: c.start_us)
+
+
+def _claim_gloo_reduce_scatters(calls, records):
+    """gloo runs a reduce-scatter as an all-reduce of its whole input, so
+    its record reads ``gloo:all_reduce``. Where the reduce-scatter calls
+    have no records of their own, each takes out of the all-reduce
+    records the first one after it over an input of its input's shape
+    (which of two such records it takes changes no count and no byte),
+    and is its own record: the call records its output."""
+    rs = calls.get("reduce-scatter", [])
+    if not rs or records.get("reduce-scatter"):
+        return
+    ars = records.get("all-reduce", [])
+    for c in rs:
+        shape = c.input_shapes[1] if len(c.input_shapes) > 1 else None
+        i = next((i for i, r in enumerate(ars)
+                  if r.input_shapes and r.input_shapes[0] == shape
+                  and r.time_range.start >= c.time_range.start), None)
+        if i is None:
+            raise ValueError(f"obs.trace: no backend record of the "
+                             f"reduce-scatter over {shape}")
+        ars.pop(i)
+    records["reduce-scatter"] = list(rs)
 
 
 def spans_present(prof) -> bool:
@@ -294,4 +324,71 @@ def assert_schedule_structure(schedule, exchange_prof, midround_prof=None,
         raise AssertionError(
             f"schedule structure violated for {report['schedule']}: "
             + "; ".join(report["violations"]))
+    return report
+
+
+# --------------------------------------------------------------------------- #
+def check_fsdp_structure(prof, compressed: bool = False) -> dict:
+    """FSDP-shaped checks over a captured step (the rules of
+    `repro.obs.hlo.check_fsdp_structure`). A ZeRO step calls a *scatter*
+    collective (reduce-scatter for the exact path, all-to-all for the
+    quantized two_phase path) to move each worker's shard in, and an
+    all-gather to send the shard update (zero-2) or the updated shard
+    parameters (zero-3) back out. It must not fall back to whole-payload
+    all-reduces: the all-reduces left are the metric reductions, small
+    next to the scatter and gather payload. With ``compressed=True`` the
+    payload must also ride as int8. Where spans are on, only the exchange
+    and apply phases' collectives count (the fsdp round spans both).
+    Returns {"ok": bool, "violations": [...], ...evidence};
+    `assert_fsdp_structure` raises on violations."""
+    violations: List[str] = []
+    spans = spans_present(prof)
+    colls = _summary([c for c in collectives(prof)
+                      if not spans or c.phase in ("exchange", "apply")])
+
+    def cat(name):
+        return colls.get(name, {"count": 0, "bytes": 0, "int8_bytes": 0})
+
+    scatter_ops = cat("reduce-scatter")["count"] + cat("all-to-all")["count"]
+    scatter_bytes = cat("reduce-scatter")["bytes"] + cat("all-to-all")["bytes"]
+    gather = cat("all-gather")
+    ar = cat("all-reduce")
+    payload_bytes = scatter_bytes + gather["bytes"]
+    report: Dict[str, object] = {
+        "collectives": colls,
+        "scatter_ops": scatter_ops,
+        "scatter_bytes": scatter_bytes,
+        "all_gather_ops": gather["count"],
+        "all_gather_bytes": gather["bytes"],
+        "all_reduce_bytes": ar["bytes"],
+    }
+    if scatter_ops < 1:
+        violations.append(
+            f"fsdp exchange step calls no scatter collective "
+            f"(reduce-scatter or all-to-all); got {sorted(colls)}")
+    if gather["count"] < 1:
+        violations.append(
+            "fsdp exchange step calls no all-gather (the shard "
+            "update/params never return to the other workers)")
+    if payload_bytes and ar["bytes"] >= 0.5 * payload_bytes:
+        violations.append(
+            f"all-reduce bytes ({ar['bytes']:.0f}) not < half the "
+            f"scatter+gather payload ({payload_bytes:.0f}) — the fsdp "
+            f"step is moving whole-payload all-reduces")
+    if compressed:
+        i8 = sum(v["int8_bytes"] for v in colls.values())
+        report["int8_bytes"] = i8
+        if i8 <= 0:
+            violations.append(
+                "compressed fsdp step moves no int8 payload on the wire")
+    report["ok"] = not violations
+    report["violations"] = violations
+    return report
+
+
+def assert_fsdp_structure(prof, compressed: bool = False) -> dict:
+    report = check_fsdp_structure(prof, compressed=compressed)
+    if not report["ok"]:
+        raise AssertionError("fsdp structure violated: "
+                             + "; ".join(report["violations"]))
     return report

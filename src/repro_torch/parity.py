@@ -11,6 +11,15 @@ to float32 rounding, the parameters to within one quantization step, and
 at most 1e-3 of the residual elements may differ (flipped codes).
 Versions, where the schedule keeps them, agree exactly.
 
+Under fsdp the shard owners hold the authoritative state, P: under zero-3
+the parameter shards `w`; under zero-2 the replicated parameters less the
+all-gather residuals `age` (the gathered update is u + age_prev − age).
+P − (1/W)·Σ_w e1_w moves by the mean message whatever the codes of either
+leg did, so `fsdp_agreement` holds P by `agreement`'s rule, the
+replicated parameters to P within four all-gather residuals (two each
+side), and at most 1e-3 of the residuals `age` may differ by more than
+1e-3 of their largest plus the invariant's float32 rounding bound.
+
 The step's telemetry (`metrics["obs"]`, `obs_agreement`) follows: the
 staleness histogram counts versions and agrees exactly; a flipped code
 moves its element's residual by one quantization step, so δ̂ = 1 −
@@ -101,10 +110,13 @@ def named_agreement(ref: dict, got: dict, W: int, n: int,
                     layout: Optional[object] = None) -> Agreement:
     """`agreement` of two named global states ({name: array}, the
     checkpoint layout's names: params/..., ef/leaf/.../e1,
-    ef/bucket/<bid>/e2, sched/versions)."""
+    ef/bucket/<bid>/e2, sched/versions; fsdp/<bid>/<slot> under fsdp,
+    which `fsdp_agreement` holds, given the bucket `layout`)."""
     if list(ref) != list(got):
         return Agreement(float("inf"), float("inf"), 0.0, 0.0,
                          ["the states hold different members"])
+    if any(k.startswith("fsdp/") for k in ref):
+        return fsdp_agreement(ref, got, W, layout)
     params = [k for k in ref if k.startswith("params/")]
     e1 = [k for k in ref if k.startswith("ef/") and k.endswith("/e1")]
     e2 = sorted((k for k in ref if k.startswith("ef/bucket/")),
@@ -114,6 +126,53 @@ def named_agreement(ref: dict, got: dict, W: int, n: int,
                      e2=pair(e2) if e2 else None, layout=layout,
                      versions=(ref["sched/versions"], got["sched/versions"])
                      if "sched/versions" in ref else None)
+
+
+def fsdp_agreement(ref: dict, got: dict, W: int, layout) -> Agreement:
+    """`agreement` of two named fsdp states of W workers over the bucket
+    `layout` (see the module docstring). Without EF (an exact gradient
+    leg) the residuals count as zeros."""
+    params = [k for k in ref if k.startswith("params/")]
+    bids = [b.bid for b in layout.buckets]
+    zero3 = f"fsdp/{bids[0]}/w" in ref
+
+    def unpacked(state, slot):
+        flats = [_t(state[f"fsdp/{b}/{slot}"]).reshape(-1) for b in bids]
+        return B.unpack_into(layout, flats,
+                             [_t(state[k]) for k in params])
+
+    def authoritative(state):
+        if zero3:
+            return unpacked(state, "w")
+        return [_t(state[k]) - a
+                for k, a in zip(params, unpacked(state, "age"))]
+
+    def residuals(state):
+        e1 = [k for k in state if k.startswith("ef/") and k.endswith("/e1")]
+        if e1:
+            return [state[k] for k in e1]
+        return [torch.zeros((W,) + tuple(_t(state[k]).shape))
+                for k in params]
+
+    agree = agreement((authoritative(ref), authoritative(got)),
+                      (residuals(ref), residuals(got)), W, W)
+    problems = list(agree.problems)
+    ra = [_t(ref[f"fsdp/{b}/age"]).reshape(-1) for b in bids]
+    ga = [_t(got[f"fsdp/{b}/age"]).reshape(-1) for b in bids]
+    amax = max(a.abs().max().item() for a in ra)
+    # beyond rounding: a residual next to zero (zero-2's update shard
+    # already on the quantizer's grid) differs by float32 rounding of its
+    # operand, which the invariant's atol bounds
+    flips = _flipped(ra, ga, [1e-3 * amax + agree.atol] * len(ra))
+    if not flips <= MAX_FLIPPED:
+        problems.append(f"{flips:.2e} of the age residuals flipped")
+    d_rep = max((_t(ref[k]) - _t(got[k])).abs().max().item()
+                for k in params)
+    bound = agree.atol + agree.emax + 4 * amax
+    if not d_rep <= bound:
+        problems.append(f"replicated params differ by {d_rep:.3e} > "
+                        f"{bound:.3e}")
+    return agree._replace(d_params=d_rep, problems=problems)
 
 
 # 1 − δ̂ = Σe'²/Σm², the residual's share of the operand: a flipped code

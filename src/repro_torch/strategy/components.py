@@ -170,13 +170,18 @@ class Compression:
         semantics cannot bucket)."""
         return self.plan != "none"
 
-    def build(self, shapes_tree, param_specs, n_workers: int):
+    def build(self, shapes_tree, param_specs, n_workers: int,
+              shard_axes: Tuple[str, ...] = (), axis_sizes=None):
         """(BucketLayout, CommPlan): the planner+compressor pipeline,
-        statically derived from leaf shapes (DESIGN.md §3)."""
+        statically derived from leaf shapes (DESIGN.md §3). With
+        ``shard_axes`` the layout is shard-aware: leaves sharded only
+        over those axes bucket at their local shard shape (DESIGN.md
+        §15.1) instead of bypassing buckets."""
         from repro_torch import comm as RC
         layout = RC.build_layout(
             shapes_tree, param_specs, max(n_workers, 1),
-            bucket_bytes=int(self.bucket_mb * (1 << 20)))
+            bucket_bytes=int(self.bucket_mb * (1 << 20)),
+            shard_axes=shard_axes, axis_sizes=axis_sizes)
         plan = RC.plan_comm(
             layout, self.compressor, self.plan,
             budget_bytes=int(self.budget_mb * (1 << 20)))
@@ -327,6 +332,28 @@ class ExchangePlan:
         """True when params/moments shard across the worker axes (the
         typed replacement for string-matching on ``parallelism``)."""
         return self.parallelism == "fsdp"
+
+    def start_reduce_scatter(self, compressor, p, ef_state: dict, rand,
+                             workers, use_ef: bool, generator=None,
+                             spans: bool = False):
+        """Start the (compressed) reduce-scatter of one stacked (L, d)
+        flat bucket across `workers`; the handle finishes to each local
+        worker's (d/W,) shard of the mean message and the new EF state
+        (core.exchange.start_reduce_scatter, DESIGN.md §15.2)."""
+        from repro_torch.core import exchange as X
+        return X.start_reduce_scatter(compressor, self.kind, p, ef_state,
+                                      rand, workers, use_ef, generator,
+                                      spans)
+
+    def start_all_gather_shard(self, compressor, shard, ag_ef, rand,
+                               workers, use_ef: bool, generator=None,
+                               spans: bool = False):
+        """Start the (compressed) all-gather of the owners' (L, c) shards;
+        the handle finishes to (the full flat bucket, the owners' new
+        residual) (core.exchange.start_all_gather_shard)."""
+        from repro_torch.core import exchange as X
+        return X.start_all_gather_shard(compressor, shard, ag_ef, rand,
+                                        workers, use_ef, generator, spans)
 
     @property
     def owner_ef(self) -> bool:

@@ -736,3 +736,62 @@ def test_obs_device_phases_hold_the_fields_backward(W, tmp_path):
     field = kernels(alone)
     assert field > 0 and abs(costs["field"]["ops"] - field) <= 0.02 * field
     assert sum(v["ops"] for v in costs.values()) == kernels(prof)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,shard_rows", [(4, (162, 162, 128)),
+                                          (1, (648, 648, 512))])
+def test_fsdp_all_gather_leg_b1_matches_plain_version(W, shard_rows):
+    """The fsdp all-gather leg at dcgan32's shard shapes (four workers:
+    (162, 162, 128) rows of 1024 a worker; one: the buckets): one B1
+    launch a bucket over all W owners' rows, the payload and the owners'
+    residual bit-equal to the plain version on the same operands; the
+    gathered bucket is the payload's decompression on every worker, and
+    with one worker the owner's own dequantization (codes · (s / L), IEEE
+    division), as in the JAX package."""
+    from repro_torch.core import compressors as C
+    from repro_torch.core import exchange as X
+    dev = _device()
+    comp = C.get("qsgd8_block1024")
+    for i, rows in enumerate(shard_rows):
+        g, e, r = (x.reshape(W, rows * 1024)
+                   for x in _operands(i, W * rows, 1024, dev))
+        before = Q.launches
+        h = X.start_all_gather_shard(comp, g, e, r, X.StackedWorkers(W),
+                                     True)
+        full, age = h.finish()
+        assert Q.launches == before + 1
+        cp, sp, ep = quantize_ef_ref(g.reshape(-1, 1024), e.reshape(-1, 1024),
+                                     r.reshape(-1, 1024), 127)
+        assert torch.equal(age, ep.reshape(W, -1))
+        if W == 1:
+            want = (cp.float() * (sp / sp.new_tensor(127.0))).reshape(-1)
+        else:
+            want = comp.decompress({"codes": cp, "scale": sp},
+                                   (W * rows * 1024,), torch.float32)
+        assert torch.equal(full, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4])
+def test_fsdp_step_runs_b1_on_the_all_gather_leg(W):
+    """Compressed zero-3 (two_phase, a block-1024 moment compressor) on the
+    mixture GAN: B1 once a bucket on the all-gather leg, and at W = 1 once
+    a bucket on the reduce-scatter leg too (at W > 1 that leg rounds with
+    the registry compressor); never B2."""
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      MomentCompression, Strategy)
+    dev = _device()
+    strat = Strategy(
+        compression=Compression(compressor="qsgd8_block1024",
+                                plan="uniform", bucket_mb=0.03),
+        exchange=ExchangePlan(kind="two_phase", parallelism="fsdp",
+                              zero_stage=3,
+                              worker_axes=("data",) if W > 1 else ()),
+        moments=MomentCompression(compressor="qsgd8_block1024"))
+    state, launches, _ = _mixture_run(dev, strat, W, steps=3)
+    n_buckets = sum(1 for k in state if k.endswith("/age"))
+    assert n_buckets > 1
+    assert launches == ((2 if W == 1 else 1) * 3 * n_buckets, 0)
+    assert all(torch.isfinite(v).all() for k, v in state.items()
+               if k.startswith("params/"))

@@ -20,6 +20,14 @@ to against the JAX package, tests/test_torch_multiworker.py's docstring:
   * with injected draws and without: worker m draws from a generator
     seeded from (seed, step, m), whatever the split (draw invariance).
 
+fsdp (zero-3 through two_phase and a block-1024 moment compressor, zero-2
+under oadam, and exact zero-3) over 2 and 4 ranks against stacked: the
+compressed runs bit for bit (no float sum crosses ranks: the all_to_all
+moves codes, each owner averages its chunk in the stacked order, every
+worker decompresses the same gathered payload), the exact run to float32
+rounding of the reduce-scatter's sum (atol 1e-6 of the largest
+parameter); and the reduce-scatter collective against the stacked one.
+
 Also here: the two_phase phase-1 compress over the stacked chunk rows is
 the per-chunk loop bit for bit; ports of the JAX package's
 tests/test_distributed.py to 4 ranks; checkpoints saved across ranks
@@ -41,9 +49,9 @@ from repro_torch.core import compressors as TC
 from repro_torch.core import error_feedback as TEF
 from repro_torch.core import exchange as TX
 from repro_torch.strategy import Compression, ExchangePlan, Strategy
-from torch_ranks import (MIXTURE_CONFIGS, assert_states_agree, make_trainer,
-                         mixture_case, mixture_params, run_case, run_cases,
-                         run_ranks)
+from torch_ranks import (MIXTURE_CONFIGS, assert_states_agree, fsdp_strategy,
+                         make_trainer, mixture_case, mixture_params, run_case,
+                         run_cases, run_ranks, strategy_case)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = 4
@@ -52,6 +60,18 @@ WORLDS = (2, 4)
 
 
 CASES = [(name, inject) for name in CONFIGS for inject in (True, False)]
+# fsdp cases: name -> (fsdp_strategy keywords, optimizer)
+FSDP_CASES = {
+    "zero3_two_phase": (dict(zero_stage=3), "omd"),
+    "zero2_two_phase_oadam": (dict(zero_stage=2), "oadam"),
+    "zero3_exact": (dict(zero_stage=3, kind="exact", moments="identity"),
+                    "omd"),
+}
+
+
+def _fsdp_case(name):
+    kw, opt = FSDP_CASES[name]
+    return strategy_case(fsdp_strategy(**kw), optimizer=opt)
 
 
 def _collectives(mesh, seed):
@@ -62,9 +82,13 @@ def _collectives(mesh, seed):
     x = torch.from_numpy(rs.randn(W, 6, 5).astype(np.float32))
     y = torch.from_numpy(rs.randn(W, W, 3, 2).astype(np.float32))
     c = torch.from_numpy(rs.randint(-127, 128, (W, 7)).astype(np.int8))
-    hm, hg, ha = (wk.start_mean(wk.rows(x)), wk.start_all_gather(wk.rows(c)),
-                  wk.start_all_to_all(wk.rows(y)))
+    z = torch.from_numpy(rs.randn(W, 8 * W).astype(np.float32))
+    hm, hg, ha, hr = (wk.start_mean(wk.rows(x)),
+                      wk.start_all_gather(wk.rows(c)),
+                      wk.start_all_to_all(wk.rows(y)),
+                      wk.start_reduce_scatter(wk.rows(z)))
     return {"all_to_all": ha.wait().numpy(), "all_gather": hg.wait().numpy(),
+            "reduce_scatter": hr.wait().numpy(),
             "mean": hm.wait().numpy(), "offset": wk.offset,
             "n_local": wk.n_local,
             "max": float(wk.max(wk.rows(x)[:, 0, 0])),
@@ -87,9 +111,16 @@ def stacked():
 
 
 @pytest.fixture(scope="module")
+def fsdp_stacked():
+    return {n: run_case(_fsdp_case(n)) for n in FSDP_CASES}
+
+
+@pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """{world: [each rank's results]}, one spawn a world size."""
-    cases = [mixture_case(*c) for c in CASES]
+    """{world: [each rank's results]}, one spawn a world size (the fsdp
+    cases after the mixture cases)."""
+    cases = ([mixture_case(*c) for c in CASES]
+             + [_fsdp_case(n) for n in FSDP_CASES])
     out = {}
     for world in WORLDS:
         ckpt = (str(tmp_path_factory.mktemp("ckpt")) if world == 2
@@ -102,13 +133,15 @@ def ranks(tmp_path_factory):
 
 
 def _n_part(name):
+    if name in FSDP_CASES:      # fsdp runs every worker every round
+        return W
     frac = CONFIGS[name][2]
     return max(1, round(frac * W))
 
 
 def _layout(name):
     _, _, params = mixture_params()
-    return make_trainer(mixture_case(name, False))._comm(params)[0]
+    return make_trainer(_ckpt_case(name))._comm(params)[0]
 
 
 @pytest.mark.parametrize("name,inject", CASES)
@@ -148,12 +181,33 @@ def test_bit_equal_where_no_sum_crosses_ranks(stacked, ranks, world, name,
                 np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+@pytest.mark.parametrize("world", WORLDS)
+def test_fsdp_ranks_match_stacked(fsdp_stacked, ranks, world, name):
+    ref = fsdp_stacked[name]
+    got = ranks[world][0]["cases"][len(CASES) + list(FSDP_CASES).index(name)]
+    a, b = ref["state"], got["state"]
+    assert list(a) == list(b) and any(k.startswith("fsdp/") for k in a)
+    scale = max(np.abs(v).max() for k, v in a.items()
+                if k.startswith("params/"))
+    for k in a:
+        if "exact" in name:
+            np.testing.assert_allclose(b[k], a[k], rtol=0,
+                                       atol=1e-6 * scale, err_msg=k)
+        else:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    for ma, mb in zip(ref["metrics"], got["metrics"]):
+        for k in ("loss", "grad_norm", "error_norm"):
+            np.testing.assert_allclose(mb[k], ma[k], rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_collectives_match_the_stacked_backend(ranks, world):
     rs = np.random.RandomState(5)
     x = torch.from_numpy(rs.randn(W, 6, 5).astype(np.float32))
     y = torch.from_numpy(rs.randn(W, W, 3, 2).astype(np.float32))
     c = torch.from_numpy(rs.randint(-127, 128, (W, 7)).astype(np.int8))
+    z = torch.from_numpy(rs.randn(W, 8 * W).astype(np.float32))
     st = TX.StackedWorkers(W)
     assert st.n == st.n_local == W and st.offset == 0
     for r, res in enumerate(r["coll"] for r in ranks[world]):
@@ -164,6 +218,12 @@ def test_collectives_match_the_stacked_backend(ranks, world):
         np.testing.assert_array_equal(res["all_to_all"],
                                       st.all_to_all(y).numpy()[rows])
         np.testing.assert_allclose(res["mean"], st.mean(x).numpy(),
+                                   rtol=0, atol=1e-6)
+        # row w: the mean over the workers of chunk w
+        want = z.reshape(W, W, 8).mean(dim=0).numpy()
+        np.testing.assert_allclose(res["reduce_scatter"], want[rows],
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(st.reduce_scatter(z).numpy(), want,
                                    rtol=0, atol=1e-6)
         assert res["max"] == float(st.max(x[:, 0, 0]))
         np.testing.assert_allclose(
@@ -319,7 +379,18 @@ def test_exchange_semantics(ranks):
 # --------------------------------------------------------------------------- #
 # checkpoints across ranks
 # --------------------------------------------------------------------------- #
-CKPT_CONFIGS = ("two_phase_adaptive", "sim_adaptive_tau_vector")
+CKPT_CONFIGS = ("two_phase_adaptive", "sim_adaptive_tau_vector",
+                "zero3_two_phase")
+
+
+def _ckpt_case(name, steps=None):
+    """A checkpoint config's case: a mixture config, or an fsdp case
+    (whose shard slots gather to rank 0 like every per-worker field)."""
+    if name in FSDP_CASES:
+        kw, opt = FSDP_CASES[name]
+        return strategy_case(fsdp_strategy(**kw), steps=steps or 3,
+                             optimizer=opt)
+    return mixture_case(name, False, steps=steps)
 CKPT_FORMATS = ("npz", "sharded")
 
 
@@ -347,7 +418,7 @@ def _checkpoints(mesh, root):
     resumed state equals the uninterrupted one bit for bit."""
     out = {"dir": root, "resumed_equal": {}}
     for name in CKPT_CONFIGS:
-        case = mixture_case(name, False, steps=6)
+        case = _ckpt_case(name, steps=6)
         tr = make_trainer(case, mesh)
         st = tr.init(T.unflatten(case["paths"], [torch.from_numpy(x)
                                                  for x in case["params"]]))
@@ -386,7 +457,7 @@ def _files(path):
 def test_rank_save_equals_the_stacked_save(ranks, name, fmt, tmp_path):
     """The 2-rank save holds exactly the files of the one-process save of
     the same state with 2 shards, member for member."""
-    case = mixture_case(name, False, steps=6)
+    case = _ckpt_case(name, steps=6)
     tr = make_trainer(case)
     st = _steps(tr, tr.init(T.unflatten(case["paths"], [
         torch.from_numpy(x) for x in case["params"]])), case, 0, 3)
@@ -433,7 +504,7 @@ def test_rank_save_restores_in_jax(ranks, name, fmt):
     from repro import checkpoint as JCK
     from repro.core.dqgan import DQState as JDQState
     path = os.path.join(ranks["ckpt_dir"], name, "ranks." + fmt)
-    case = mixture_case(name, False)
+    case = _ckpt_case(name)
     tr = make_trainer(case)
     like = tr.init(T.unflatten(case["paths"], [torch.from_numpy(x)
                                                for x in case["params"]]))

@@ -17,12 +17,17 @@ gloo ranks (`torch_ranks`), four workers of the mixture GAN, spans on:
     starts before the field's first operator; blocking, it starts after;
   * the ranks' `metrics["obs"]` (metrics full; half reporting, the
     adaptive family, and the τ-vector) equal the stacked run's within
-    `repro_torch.parity.obs_agreement`.
+    `repro_torch.parity.obs_agreement`;
+  * `check_fsdp_structure` passes an fsdp step (zero-3: two_phase's
+    all_to_all of int8 codes, the shards' all-gather; exact: the
+    reduce-scatter) and reports the violations of a replicated `exact`
+    step (no scatter, no all-gather) and of an exact fsdp step held to
+    the compressed rule (no int8 on the wire).
 """
 import pytest
 
 from repro_torch.parity import obs_agreement
-from torch_ranks import mixture_case, run_ranks
+from torch_ranks import fsdp_strategy, mixture_case, run_ranks, strategy_case
 
 WORLDS = (2, 4)
 KINDS = ("sim", "allgather", "two_phase")
@@ -78,6 +83,24 @@ def _ranks_main(mesh):
         _, prof = _step(tr, st, batches[1])
         out[f"overlap_{ov}"] = trace.check_schedule_structure(
             tr.strategy.schedule, prof, overlap=True)
+    # fsdp against replicated exact
+    from repro_torch.strategy import Compression, ExchangePlan, Strategy
+    replicated = Strategy(
+        compression=Compression(compressor="identity", error_feedback=False,
+                                plan="uniform", bucket_mb=0.03),
+        exchange=ExchangePlan(kind="exact", worker_axes=("data",)))
+    out["fsdp"] = {}
+    for label, strat in (
+            ("zero3", fsdp_strategy(3)),
+            ("exact_zero3", fsdp_strategy(3, kind="exact",
+                                          moments="identity")),
+            ("replicated_exact", replicated)):
+        tr, st, batches = _trainer(strategy_case(strat), mesh,
+                                   obs_spans=True)
+        st = tr.step(st, batches[0]).state
+        _, prof = _step(tr, st, batches[1])
+        out["fsdp"][label] = {c: trace.check_fsdp_structure(prof, c)
+                              for c in (False, True)}
     # metrics["obs"], full, every step
     for name in ("sim_adaptive", "sim_adaptive_tau_vector"):
         case = mixture_case(name, True, steps=4)
@@ -164,3 +187,23 @@ def test_ranks_obs_equal_the_stacked_obs(ranks, world, name):
         assert not obs_agreement(a, b), (t, obs_agreement(a, b))
     for r in ranks[world][1:]:
         assert r["obs"][name] == got       # every rank holds the fleet's
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_fsdp_structure_separates_fsdp_from_replicated(ranks, world):
+    for r in ranks[world]:
+        rep = r["fsdp"]
+        z3 = rep["zero3"][True]
+        assert z3["ok"], z3["violations"]
+        # two_phase's reduce-scatter is an all_to_all of codes and scales
+        assert z3["collectives"]["all-to-all"]["int8_bytes"] > 0
+        assert z3["all_gather_ops"] >= 1 and z3["int8_bytes"] > 0
+        ex = rep["exact_zero3"]
+        assert ex[False]["ok"], ex[False]["violations"]
+        assert ex[False]["collectives"]["reduce-scatter"]["count"] >= 1
+        assert not ex[True]["ok"]
+        assert any("int8" in v for v in ex[True]["violations"])
+        repl = rep["replicated_exact"][False]
+        assert not repl["ok"]
+        assert any("no scatter" in v for v in repl["violations"])
+        assert any("no all-gather" in v for v in repl["violations"])

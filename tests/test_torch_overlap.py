@@ -161,22 +161,27 @@ def test_overlap_strategies_refused_stay_refused():
         ExchangePlan(overlap=1)
 
 
-# slice None: ported (slice 4's observability, with overlap): constructs
-@pytest.mark.parametrize("preset,flags,slice_", [
-    ("fsdp_zero3", {}, "slice 5"),
-    ("fsdp_vmap", {}, "slice 5"),
-    ("overlap", {"obs_metrics": "wire"}, None),
+# every feature beside overlap is ported (slice 4's observability, slice
+# 5's fsdp and vmap): each constructs; vmap alone refuses a process mesh,
+# as the JAX package's vmap step has no collectives of its own
+@pytest.mark.parametrize("preset,flags", [
+    ("fsdp_zero3", {}),
+    ("fsdp_vmap", {}),
+    ("overlap", {"obs_metrics": "wire"}),
 ])
-def test_trainer_still_refuses_the_other_features(preset, flags, slice_):
+def test_trainer_still_refuses_the_other_features(preset, flags):
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.strategy import get_preset
     strat = get_preset(preset).evolve(**flags)
-    if slice_ is None:
-        tr = DQGAN(field_fn=None, strategy=strat, device="cpu")
+    tr = DQGAN(field_fn=None, strategy=strat, device="cpu")
+    if preset == "overlap":
         assert tr.strategy.exchange.overlap and tr.obs_spec.name == "wire"
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + slice_):
-        DQGAN(field_fn=None, strategy=strat, device="cpu")
+    elif preset == "fsdp_zero3":
+        assert tr.fsdp and tr.strategy.exchange.zero_stage == 3
+    else:
+        with pytest.raises(ValueError, match="stacked workers only"):
+            DQGAN(field_fn=None, strategy=strat, device="cpu", workers=4,
+                  mesh=object())
 
 
 def test_delayed_overlap_matches_the_jax_one_device_run():

@@ -144,40 +144,28 @@ def _assert_trains(out, steps=1):
     return rows
 
 
-# slice None: the feature is ported (slice 3's overlap, slice 4's
-# observability) and trains
-@pytest.mark.parametrize("flags,slice_", [
-    (["--schedule", "delayed", "--overlap"], None),
-    (["--spmd", "vmap"], "slice 5"),
-    (["--preset", "fsdp_zero3"], "slice 5"),
-    (["--obs-metrics", "wire"], None),
-    (["--preset", "ssp_server"], None),
+# every feature of the training CLI is ported (slice 3's overlap, slice
+# 4's observability, slice 5's vmap and fsdp): none is refused, each trains
+@pytest.mark.parametrize("flags", [
+    ["--schedule", "delayed", "--overlap"],
+    ["--spmd", "vmap"],
+    ["--preset", "fsdp_zero3"],
+    ["--obs-metrics", "wire"],
+    ["--preset", "ssp_server"],
 ])
-def test_cli_refuses_unported_features(flags, slice_):
-    out = _run(TRAIN + ["--device", "cpu", "--steps", "1"] + flags)
-    if slice_ is None:
-        _assert_trains(out)
-        return
-    assert out.returncode == 2
-    assert "ROADMAP" in out.stderr and slice_ in out.stderr
+def test_cli_refuses_unported_features(flags):
+    _assert_trains(_run(TRAIN + ["--device", "cpu", "--steps", "1"] + flags))
 
 
-@pytest.mark.parametrize("name,ported", [
-    ("paper_dqgan", True), ("exact_baseline", True),
-    ("quantized_no_ef", True), ("byte_budget", True),
-    ("low_bandwidth", True), ("adaptive_budget", True),
-    ("overlap", True), ("ssp_server", True),
-    ("partial_participation", True), ("fsdp_vmap", False),
-    ("fsdp_zero2", False), ("fsdp_zero3", False),
-])
-def test_trainer_runs_or_refuses_each_preset(name, ported):
+@pytest.mark.parametrize("name", [
+    "paper_dqgan", "exact_baseline", "quantized_no_ef", "byte_budget",
+    "low_bandwidth", "adaptive_budget", "overlap", "ssp_server",
+    "partial_participation", "fsdp_vmap", "fsdp_zero2", "fsdp_zero3"])
+def test_trainer_runs_or_refuses_each_preset(name):
+    """Every preset constructs a trainer: the port refuses none."""
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.strategy import get_preset
-    if ported:
-        DQGAN(field_fn=None, strategy=get_preset(name), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DQGAN(field_fn=None, strategy=get_preset(name), device="cpu")
+    DQGAN(field_fn=None, strategy=get_preset(name), device="cpu")
 
 
 def test_cli_trains_on_the_cpu_when_asked():
@@ -261,19 +249,24 @@ ADAPTIVE = ["--workers", "4", "--batch", "8", "--optimizer", "omd",
             "--participation", "0.5"]
 
 
-# slice None: ported, trains (four workers, delayed with overlap)
-@pytest.mark.parametrize("flags,slice_", [
-    (["--spmd", "vmap"], "slice 5"),
-    (["--schedule", "delayed", "--overlap"], None),
+# four workers: each ported path trains (vmap, delayed with overlap, fsdp
+# zero-3 with its block-1024 all-gather, whose # comm: line bills both
+# legs)
+@pytest.mark.parametrize("flags", [
+    ["--spmd", "vmap"],
+    ["--schedule", "delayed", "--overlap"],
+    ["--preset", "fsdp_zero3", "--compressor", "qsgd8_block1024",
+     "--moment-compressor", "qsgd8_block1024"],
 ])
-def test_cli_with_workers_still_refuses(flags, slice_):
+def test_cli_with_workers_still_refuses(flags):
     out = _run(TRAIN + ["--device", "cpu", "--steps", "1", "--workers",
                         "4", "--batch", "8"] + flags)
-    if slice_ is None:
-        _assert_trains(out)
-        return
-    assert out.returncode == 2
-    assert "ROADMAP" in out.stderr and slice_ in out.stderr
+    rows = _assert_trains(out)
+    if "fsdp_zero3" in flags:
+        line = next(x for x in out.stdout.splitlines()
+                    if x.startswith("# comm: fsdp zero-3"))
+        assert "reduce-scatter (two_phase, qsgd8_block1024)" in line
+        assert f"{rows[0]['wire_mb_step']:.3f} MB" in line
 
 
 def test_cli_trains_four_workers_adaptive_on_the_cpu():

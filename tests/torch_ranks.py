@@ -166,6 +166,39 @@ def mixture_case(name, inject, seed=1, steps=None, overlap=False):
     return case
 
 
+def fsdp_strategy(zero_stage=3, kind="two_phase", moments="qsgd8_block1024",
+                  overlap=False, schedule=None):
+    """A four-worker fsdp strategy over the mixture GAN's uniform
+    buckets: the gradient leg `kind` under qsgd8_block1024, the all-gather
+    leg under `moments` (with its residual unless it is exact)."""
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      MomentCompression, Schedule, Strategy)
+    lossless = moments == "identity"
+    return Strategy(
+        compression=Compression(**(
+            dict(FULL, compressor="identity", error_feedback=False)
+            if kind == "exact" else FULL)),
+        exchange=ExchangePlan(kind=kind, worker_axes=("data",),
+                              parallelism="fsdp", zero_stage=zero_stage,
+                              overlap=overlap),
+        schedule=(getattr(Schedule, schedule[0])(schedule[1])
+                  if schedule else Schedule()),
+        moments=MomentCompression(compressor=moments,
+                                  error_feedback=not lossless))
+
+
+def strategy_case(strat, seed=1, steps=MIX_STEPS, optimizer="omd"):
+    """A picklable case of any strategy over the mixture GAN, W = 4 at
+    batch 64: initial params and batches; the workers draw from their
+    generators."""
+    paths, leaves, _ = mixture_params()
+    rs = np.random.RandomState(seed)
+    return dict(strategy=strat.to_json(), W=MIX_W, paths=paths,
+                params=leaves, seed=seed, optimizer=optimizer,
+                batches=[rs.randn(MIX_B, 2).astype(np.float32)
+                         for _ in range(steps)])
+
+
 def _torch(x):
     import torch
     if isinstance(x, dict):
