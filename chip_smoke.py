@@ -102,6 +102,25 @@ result line):
               through the process group; (e) one worker, B1 on both legs,
               held bit for bit to its plain version on the all-gather
               leg's own operands
+ 15. quant    quantized weights, gemma-2b full width bf16, 16 requests of
+              256 + 64 tokens, qsgd8_linf: the launcher with --weight-plan
+              uniform (4 MiB buckets: B1 once a bucket at load, 11; B3
+              once a layer a decode step) and delta_budget at 2000 MiB (a
+              mix of 8- and 4-bit buckets, B1 once a bucket); B1's load
+              held bit for bit to its plain version on the same draws; a
+              second engine from the same seed (B1's device time at load
+              by CUDA events) with a bit-identical payload and the same
+              tokens; decode step time, kernels a step, busy share and
+              peak memory, quantized against unquantized
+ 16. quant parity  gemma-2b full width float32 with 8-bit weights: the
+              engine's tokens equal the sequential baseline's (churn)
+ 17. long     gemma-2b full width float32, a 4096-token prompt bucket, two
+              requests: attention_chunked in 4 chunks a layer at prefill,
+              engine == sequential, token for token
+ 18. swa      gemma-2b-swa: reduced() in float32, a 3072-token chunked
+              prefill and 40 rolling decode steps held to a full forward;
+              full width bf16, an 8192-token prefill (chunks of 1024 x
+              5120 keys), the rolling fill, 32 decode steps (times)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -737,7 +756,7 @@ def report_profile(prof, label, steps, wall_ms, ours):
     if not kern:
         print(f"# profile {label}: the profiler recorded no device time "
               f"(not measured)")
-        return
+        return None
     print(f"# profile {label}, {steps} steps: wall "
           f"{wall_ms / steps:.3f} ms/step (profiler on), device busy "
           f"{busy_ms / steps:.3f} ms/step, busy share {busy_ms / wall_ms:.3f}, "
@@ -748,6 +767,10 @@ def report_profile(prof, label, steps, wall_ms, ours):
     q = sum(t for n, (t, _) in kern.items() if ours in n)
     print(f"#   {ours} kernels: {q / steps:.4f} ms/step "
           f"({q / busy_ms:.3f} of device busy time)")
+    return {"wall_ms": wall_ms / steps, "busy_ms": busy_ms / steps,
+            "busy_share": busy_ms / wall_ms,
+            "kernels": sum(c for _, c in kern.values()) / steps,
+            "ours_ms": q / steps}
 
 
 # --------------------------------------------------------------------------- #
@@ -1059,36 +1082,50 @@ def phase_flash_kernel(dev):
     return rec
 
 
+def serve_cli(argv, label):
+    """The serving launcher (S_ARGS' traffic) with every kernel's count
+    zeroed just before and read just after. Checks the tokens and engine
+    steps (prompt 256 is a bucket: the prefill yields token 0, then one
+    decode step a further token, all requests in one batch), B3 once a
+    layer a step under --attn-impl kernel and never else, B2 and B4
+    never. Returns (result, {kernel: launches})."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import serve
+    FA.reset_launches()
+    Q.reset_launches()
+    res = serve.main(argv)
+    counts = {"quantize_ef": Q.launches, "quantize_ef_dyn": Q.launches_dyn,
+              "paged_attention": FA.launches,
+              "flash_attention": FA.flash_launches}
+    row, steps = res["row"], res["stats"]["steps"]
+    layers = get("gemma-2b").num_layers
+    check(row["generated"] == S_BATCH * S_GEN and steps == S_GEN - 1,
+          f"{label}: {row['generated']} tokens in {steps} engine steps, "
+          f"expected {S_BATCH * S_GEN} in {S_GEN - 1}")
+    b3 = steps * layers if row["attn_impl"] == "kernel" else 0
+    check(counts["paged_attention"] == b3,
+          f"{label}: paged_attention launched {counts['paged_attention']} "
+          f"times in {steps} steps of {layers} layers, expected {b3}")
+    check(counts["quantize_ef_dyn"] == counts["flash_attention"] == 0,
+          f"{label}: quantize_ef_dyn, flash_attention launched "
+          f"{counts['quantize_ef_dyn']}, {counts['flash_attention']} times")
+    return res, counts
+
+
 def phase_serve():
     """Serve gemma-2b at full width through the launcher, with B3 (kernel)
     and with the gather path; returns B3's launches on the kernel run."""
     import torch
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import quantize as Q
-    from repro_torch.launch import serve
-    from repro_torch.configs import get
-    layers = get("gemma-2b").num_layers
     runs = {}
     for impl in ("kernel", "gather"):
-        FA.reset_launches()
-        Q.reset_launches()
-        res = serve.main(S_ARGS + ["--attn-impl", impl])
-        b3, b1, b2, b4 = (FA.launches, Q.launches, Q.launches_dyn,
-                          FA.flash_launches)
+        res, counts = serve_cli(S_ARGS + ["--attn-impl", impl],
+                                f"serve {impl}")
         row, steps = res["row"], res["stats"]["steps"]
-        # prompt 256 is a bucket: the prefill yields token 0, then one
-        # decode step per further token, all 16 requests in one batch
-        check(row["generated"] == S_BATCH * S_GEN,
-              f"serve {impl}: generated {row['generated']} tokens, expected "
-              f"{S_BATCH * S_GEN}")
-        check(steps == S_GEN - 1, f"serve {impl}: {steps} engine steps, "
-              f"expected {S_GEN - 1}")
-        check(b3 == (steps * layers if impl == "kernel" else 0),
-              f"serve {impl}: paged_attention launched {b3} times in {steps} "
-              f"steps of {layers} layers")
-        check(b1 == b2 == b4 == 0, f"serve {impl}: quantize_ef launched "
-              f"{b1}, quantize_ef_dyn {b2}, flash_attention {b4} times, "
-              f"expected 0")
+        b3 = counts["paged_attention"]
+        check(counts["quantize_ef"] == 0, f"serve {impl}: quantize_ef "
+              f"launched {counts['quantize_ef']} times, expected 0")
         print(f"# serve gemma-2b full width bf16, --attn-impl {impl}: "
               f"{row['generated']} tokens in {steps} engine steps, "
               f"{row['tokens_per_s']} tokens/s, median decode step "
@@ -2348,6 +2385,513 @@ def phase_fsdp(dev, gpu):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# quantized weights, long prompts, the sliding-window cache
+# --------------------------------------------------------------------------- #
+Q_ARGS = S_ARGS + ["--attn-impl", "kernel", "--quantize-weights",
+                   "qsgd8_linf"]
+# a delta_budget payload target that the planner's descent meets with a mix
+# of 8- and 4-bit buckets at gemma-2b (its 8-bit payload models 2890 MiB)
+Q_BUDGET_MB = 2000
+Q_PLANS = {"uniform": ["--weight-plan", "uniform"],
+           "delta_budget": ["--weight-plan", "delta_budget",
+                            "--weight-budget-mb", str(Q_BUDGET_MB)]}
+Q_SEED = 11
+Q_PROFILE_STEPS = 10
+LONG_PROMPT, LONG_GEN = 4096, 8      # phase long: two requests
+SWA_PROMPT, SWA_DECODE = 8192, 32    # phase swa at full width
+SWA_R_PROMPT, SWA_R_DECODE = 3072, 40  # phase swa's f32 gate, reduced()
+
+
+def gib(nbytes):
+    return nbytes / 2**30
+
+
+def weight_buckets(cfg):
+    """The bucket count of `cfg`'s weights at the default 4 MiB buckets
+    (shapes only: the params on the meta device)."""
+    import torch
+    from repro_torch.comm import layout_for_params
+    from repro_torch.models import model as lm
+    return len(layout_for_params(
+        lm.init(cfg, device=torch.device("meta"))).buckets)
+
+
+def payload_diff(a, b):
+    """The buckets of two quantized payloads that differ (by key)."""
+    import torch
+    return [k for k in a
+            if sorted(a[k]) != sorted(b[k])
+            or not all(torch.equal(a[k][f], b[k][f]) for f in a[k])]
+
+
+def plain_quantize_ef_flat(g, e, rand, *, levels=127):
+    """`kernels.quantize.quantize_ef_flat` computed by B1's plain version,
+    on the operands' device (the card)."""
+    from repro_torch.kernels.ref import quantize_ef_ref
+    n = g.shape[0]
+    codes, scale, e_new = quantize_ef_ref(
+        g.reshape(-1, 1024), e.reshape(-1, 1024), rand.reshape(-1, 1024),
+        levels)
+    return codes.reshape(n), scale.reshape(-1), e_new.reshape(n)
+
+
+def run_engine(eng, requests, profile_steps=0, label=""):
+    """Drain `requests` through an engine: after 3 steps (admission and
+    warm-up) `profile_steps` steps under torch.profiler, the rest timed.
+    Returns (outputs, median step ms of the timed steps, profile numbers,
+    peak bytes allocated while decoding)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for r in requests:
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof_out = None
+    if profile_steps:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profile_steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof_out = report_profile(prof, label, profile_steps, wall_ms,
+                                  "quantize_ef")
+    times = []
+    while not eng.idle:
+        t0 = time.perf_counter()
+        eng.step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return (dict(eng.outputs), statistics.median(times) if times else None,
+            prof_out, peak)
+
+
+class TimedQuantize:
+    """Wraps `quantize_ef_flat` (one B1 launch a call, nothing else on the
+    device) with CUDA events: a sleep kernel ahead of each call lets the
+    host queue the launch before the device reaches it, as `time_ms`
+    does, so the events see B1's device time. (A torch.profiler capture
+    of the load dropped the first of the 11 launches.)"""
+
+    def __init__(self, real):
+        self.real, self.pairs = real, []
+
+    def __call__(self, *a, **kw):
+        import torch
+        torch.cuda._sleep(1_000_000)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = self.real(*a, **kw)
+        ev[1].record()
+        self.pairs.append(ev)
+        return out
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def phase_quant(dev, gpu):
+    """Quantized weights (the JAX package's serve.quantized_weights), gemma-2b
+    full width bf16, 16 requests of 256 + 64 tokens, qsgd8_linf:
+    (a) the launcher with --weight-plan uniform (4 MiB buckets): B1 once
+        a bucket at load (11), B3 once a layer a decode step, B2 and B4
+        never; then engines built here from one seed: B1's load against
+        its plain version on the same draws, bucket by bucket, bit for
+        bit; a second engine from the same seed (B1's summed device time
+        at load, by CUDA events) with a bit-identical payload and the
+        same tokens; decode_step_s, kernels a step, busy share and peak memory
+        at load and in decode, quantized against unquantized;
+    (b) the launcher with --weight-plan delta_budget at Q_BUDGET_MB: at
+        least two bit widths, B1 once a non-identity bucket.
+    Returns ({path: B1 launches}, {path: B3 launches})."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.serve import build_serve_config
+    from repro_torch.models import model as lm
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve import quantized_weights as QW
+    from repro_torch.strategy import Compression
+
+    cfg = get("gemma-2b")
+    nbuckets = weight_buckets(cfg)
+    b1, b3 = {}, {}
+    # ---- (a), (b) through the launcher ---------------------------------- #
+    for plan, flags in Q_PLANS.items():
+        res, counts = serve_cli(Q_ARGS + flags, f"quant {plan}")
+        row = res["row"]
+        bits = sorted({int(m) for m in re.findall(r"(\d+)bx\d+",
+                                                  row["weights"])})
+        n_id = sum(int(n) for n in re.findall(r"32bx(\d+)", row["weights"]))
+        check(counts["quantize_ef"] == nbuckets - n_id,
+              f"quant {plan}: quantize_ef launched {counts['quantize_ef']} "
+              f"times at load, expected {nbuckets - n_id} (one a bucket "
+              f"of {nbuckets}, {n_id} raw)")
+        if plan == "delta_budget":
+            check(len(set(bits) - {32}) >= 2, f"quant {plan} at "
+                  f"{Q_BUDGET_MB} MiB: bits {bits}, expected a mix")
+        b1[f"quant {plan} load"] = counts["quantize_ef"]
+        b3[f"quant {plan}"] = counts["paged_attention"]
+        print(f"# quant gemma-2b full width bf16, {plan}: {row['weights']}; "
+              f"load {row['load_s'] * 1e3:.1f} ms, quantize_ef launches "
+              f"{counts['quantize_ef']}; {row['generated']} tokens, "
+              f"{row['tokens_per_s']} tokens/s, median decode step "
+              f"{row['decode_step_s'] * 1e3:.3f} ms, paged_attention "
+              f"launches {counts['paged_attention']}, sample "
+              f"{row['sample_tokens']}")
+        del res
+        torch.cuda.empty_cache()
+
+    # ---- (a) engines built here ---------------------------------------- #
+    comp = Compression(compressor="qsgd8_linf", plan="uniform")
+    scfg = build_serve_config(S_PROMPT, S_GEN, S_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(Q_SEED)
+    params = lm.init(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    # bytes allocated once loaded (the unquantized engine holds the
+    # params); peaks while loading (quantized) and while decoding
+    mem = {"unquantized load": torch.cuda.memory_allocated()}
+    prompts = torch.randint(0, cfg.vocab_size, (S_BATCH, S_PROMPT),
+                            generator=gen, device=dev).tolist()
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new=S_GEN)
+                for i, p in enumerate(prompts)]
+
+    eng = Engine(cfg, scfg, params, attn_impl="kernel")
+    _, step_u, prof_u, mem["unquantized decode"] = run_engine(
+        eng, requests(), Q_PROFILE_STEPS, "quant: unquantized decode, "
+        f"{S_BATCH} rows")
+    del eng
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, scfg, params, compression=comp, seed=Q_SEED,
+                 attn_impl="kernel")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    mem["quantized load"] = torch.cuda.max_memory_allocated()
+    check(Q.launches == nbuckets, f"quant engine: quantize_ef launched "
+          f"{Q.launches} times at load, expected {nbuckets}")
+    b1["quant engine load"] = Q.launches
+    meta, payload = eng.weights.meta, eng.weights.stored
+    # B1's plain version on the card, on the same draws
+    with mock.patch.object(QW, "quantize_ef_flat", plain_quantize_ef_flat):
+        _, plain = QW.quantize_weights(params, comp, seed=Q_SEED)
+    bad = payload_diff(payload, plain)
+    check(not bad and Q.launches == nbuckets, f"quant: B1's codes or scales "
+          f"differ from its plain version's on the same draws in buckets "
+          f"{bad}")
+    del plain
+    torch.cuda.empty_cache()
+    # a second engine from the same seed, B1 timed by CUDA events
+    timed_b1 = TimedQuantize(QW.quantize_ef_flat)
+    with mock.patch.object(QW, "quantize_ef_flat", timed_b1):
+        eng2 = Engine(cfg, scfg, params, compression=comp, seed=Q_SEED,
+                      attn_impl="kernel")
+    b1_ms, b1_n = timed_b1.ms(), len(timed_b1.pairs)
+    check(b1_n == nbuckets and Q.launches == 2 * nbuckets,
+          f"quant: the second load made {b1_n} quantize_ef_flat calls, "
+          f"{Q.launches - nbuckets} launches, expected {nbuckets}")
+    bad = payload_diff(payload, eng2.weights.stored)
+    check(not bad, f"quant: a second engine from seed {Q_SEED} has another "
+          f"payload in buckets {bad}")
+    n = sum(b.size for b in meta.layout.buckets)
+    rows = n // 1024
+    # B1 at load reads g, e, rand and writes codes, e'; a scale a row
+    load_bound = (n * 17 + rows * 4) / PEAK_BYTES_S * 1e3
+    del params
+    out_2, *_ = run_engine(eng2, requests())
+    del eng2
+    torch.cuda.empty_cache()
+    mem["quantized resident"] = torch.cuda.memory_allocated()
+
+    out_q, step_q, prof_q, mem["quantized decode"] = run_engine(
+        eng, requests(), Q_PROFILE_STEPS, f"quant: qsgd8_linf decode, "
+        f"{S_BATCH} rows")
+    check(out_q == out_2, "quant: two engines from one seed decode other "
+          "tokens")
+    check(all(len(out_q[i]) == S_GEN for i in range(S_BATCH)),
+          "quant: a request did not get its tokens")
+    print(f"# quant load, {meta.describe()}: wall {load_ms:.1f} ms; B1 "
+          f"{b1_n} launches, {b1_ms:.3f} ms of device time (CUDA events), "
+          f"share of the bound {load_bound / b1_ms:.3f}, bound "
+          f"{load_bound:.3f} ms "
+          f"({n * 17 / 1e9:.2f} GB at {PEAK_BYTES_S / 1e12:.2f} TB/s); "
+          f"payload bit-equal to B1's plain version on the same draws and "
+          f"to a second engine's from seed {Q_SEED}; tokens equal; "
+          f"gpu {gpu}")
+    for label, step, pr in (("unquantized", step_u, prof_u),
+                            ("quantized", step_q, prof_q)):
+        extra = (f", {pr['kernels']:.0f} kernels/step, busy "
+                 f"{pr['busy_ms']:.3f} ms/step, busy share "
+                 f"{pr['busy_share']:.3f}" if pr else ", not profiled")
+        print(f"# quant decode {label}: median step {step:.3f} ms (profiler "
+              f"off){extra}; peak in decode "
+              f"{gib(mem[label + ' decode']):.2f} GiB; gpu {gpu}")
+    print(f"# quant memory: unquantized weights {gib(mem['unquantized load']):.2f}"
+          f" GiB allocated once loaded; quantized load peak "
+          f"{gib(mem['quantized load']):.2f} GiB (the bf16 params, the "
+          f"payload so far and one bucket's f32 operands), "
+          f"{gib(mem['quantized resident']):.2f} GiB allocated once the "
+          f"params are dropped (the payload)")
+    del eng, payload
+    torch.cuda.empty_cache()
+    return b1, b3
+
+
+def phase_quant_parity(dev):
+    """gemma-2b at full width in float32 with 8-bit weights (uniform, 4 MiB
+    buckets): 4 requests of ragged prompts, 4 slots, requests joining
+    mid-stream; the engine's greedy tokens equal the sequential
+    baseline's, both rebuilding the weights at every step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    from repro_torch.serve import (Engine, Request, SequentialGenerator,
+                                   ServeConfig)
+    from repro_torch.strategy import Compression
+
+    cfg = dataclasses.replace(get("gemma-2b"), param_dtype="float32")
+    params = lm.init(cfg, generator=torch.Generator(device=dev).manual_seed(
+        5), device=dev)
+    comp = Compression(compressor="qsgd8_linf", plan="uniform")
+    scfg = ServeConfig(max_batch=4, block_size=16, num_blocks=4 * 20 + 2,
+                       max_blocks_per_seq=20,
+                       prompt_buckets=(16, 32, 64, 128, 256))
+    rs = np.random.RandomState(8)
+    reqs = [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size, P).tolist(),
+                    max_new=G)
+            for i, (P, G) in enumerate([(20, 6), (300, 6), (256, 4),
+                                        (77, 6)])]
+    t0 = time.perf_counter()
+    eng = Engine(cfg, scfg, params, compression=comp, seed=Q_SEED,
+                 attn_impl="kernel")
+    for r in reqs[:2]:
+        eng.submit(r)
+    for r in reqs[2:]:
+        eng.step()
+        eng.submit(r)
+    while not eng.idle:
+        eng.step()
+    out, steps = eng.outputs, eng.steps
+    del eng
+    seq = SequentialGenerator(cfg, scfg, params, compression=comp,
+                              seed=Q_SEED)
+    del params
+    diff = [r.rid for r in reqs
+            if seq.generate(list(r.prompt), r.max_new, rid=r.rid)
+            != out[r.rid]]
+    check(not diff, f"quant parity f32: engine and sequential differ on "
+          f"requests {diff}")
+    print(f"# quant parity gemma-2b full width f32, 8-bit weights, TF32 "
+          f"off: {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}), 4 slots, churn: engine == "
+          f"sequential, token for token ({sum(map(len, out.values()))} "
+          f"tokens, {steps} engine steps, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del seq
+    torch.cuda.empty_cache()
+
+
+class ChunkSpy:
+    """Counts `attention_chunked` calls and the (query rows, key rows) of
+    the `attention_dense` calls made inside them."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.calls, self.chunks = [], []
+        self._depth = 0
+
+    def __enter__(self):
+        L = self.layers
+        real_chunked, real_dense = L.attention_chunked, L.attention_dense
+
+        def chunked(q, k, v, **kw):
+            self.calls.append(q.shape[1])
+            self._depth += 1
+            try:
+                return real_chunked(q, k, v, **kw)
+            finally:
+                self._depth -= 1
+
+        def dense(q, k, *a, **kw):
+            if self._depth:
+                self.chunks.append((q.shape[1], k.shape[1]))
+            return real_dense(q, k, *a, **kw)
+
+        self._patches = [mock.patch.object(L, "attention_chunked", chunked),
+                         mock.patch.object(L, "attention_dense", dense)]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def phase_long(dev, gpu):
+    """A long prompt through the engine: gemma-2b full width in float32
+    (TF32 off), a ServeConfig with a 4096-token prompt bucket, two
+    requests (4096 tokens, and 4100: the bucket plus a 4-token tail
+    through decode), 8 tokens each. Each prefill runs attention_chunked
+    in 4 chunks of 1024 queries over all 4096 keys in every layer; the
+    engine's tokens equal the sequential baseline's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    from repro_torch.serve import (Engine, Request, SequentialGenerator,
+                                   ServeConfig, cdiv)
+
+    cfg = dataclasses.replace(get("gemma-2b"), param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = lm.init(cfg, generator=gen, device=dev)
+    mbps = cdiv(LONG_PROMPT + 4 + LONG_GEN - 1, 16)
+    scfg = ServeConfig(max_batch=2, block_size=16, num_blocks=2 * mbps + 2,
+                       max_blocks_per_seq=mbps,
+                       prompt_buckets=(256, 1024, LONG_PROMPT))
+    prompts = torch.randint(0, cfg.vocab_size, (2, LONG_PROMPT + 4),
+                            generator=gen, device=dev).tolist()
+    reqs = [Request(rid=0, prompt=prompts[0][:LONG_PROMPT], max_new=LONG_GEN),
+            Request(rid=1, prompt=prompts[1], max_new=LONG_GEN)]
+    t0 = time.perf_counter()
+    with ChunkSpy() as spy:
+        eng = Engine(cfg, scfg, params)
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        t_eng = time.perf_counter() - t0
+        seq = SequentialGenerator(cfg, scfg, params)
+        got = {r.rid: seq.generate(list(r.prompt), r.max_new, rid=r.rid)
+               for r in reqs}
+    n_pref = 2 * 2 * cfg.num_layers         # 2 requests, engine + sequential
+    check(spy.calls == [LONG_PROMPT] * n_pref
+          and spy.chunks == [(1024, LONG_PROMPT)] * (4 * n_pref),
+          f"long: attention_chunked calls {spy.calls[:4]}... "
+          f"({len(spy.calls)}), chunks {sorted(set(spy.chunks))} "
+          f"({len(spy.chunks)}), expected {n_pref} calls of 4 chunks")
+    check(got == out and all(len(v) == LONG_GEN for v in out.values()),
+          f"long: engine {out} and sequential {got} differ")
+    print(f"# long gemma-2b full width f32, prompts {LONG_PROMPT} and "
+          f"{LONG_PROMPT + 4} (bucket {LONG_PROMPT}): attention_chunked "
+          f"{len(spy.calls)} calls of 4 chunks (1024 queries x "
+          f"{LONG_PROMPT} keys); engine == sequential, token for token "
+          f"({out}); engine {t_eng:.2f} s; gpu {gpu}")
+    del params, eng, seq
+    torch.cuda.empty_cache()
+
+
+def phase_swa(dev, gpu):
+    """gemma-2b-swa (gemma-2b with a 4096-token window), the rolling
+    sliding-window cache on the dense-cache path (`lm.prefill`,
+    `lm.decode_step`; the paged engine refuses windowed models, as the
+    JAX package's does):
+    (a) reduced() in float32 (window 32): a 3072-token prefill
+        (attention_chunked, bands of 2048 keys), the rolling fill of 32
+        slots, 40 teacher-forced decode steps that wrap the window; each
+        step's logits against a full forward over the sequence (causal:
+        position t sees tokens <= t only), to float32 rounding;
+    (b) full width in bfloat16: an 8192-token prefill, chunked with bands
+        of 5120 keys (8 chunks a layer), the rolling fill of 4096 slots,
+        32 decode steps (slots 0..31 written again); times reported,
+        logits finite."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+
+    # ---- (a) the float32 gate ------------------------------------------ #
+    cfg = get("gemma-2b-swa").reduced()
+    win = cfg.attention_window
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = lm.init(cfg, generator=gen, device=dev)
+    S = SWA_R_PROMPT + SWA_R_DECODE
+    seq = torch.randint(1, cfg.vocab_size, (2, 4096), generator=gen,
+                        device=dev)
+    hidden, _, _ = lm.forward(params, cfg, seq, torch.arange(4096,
+                                                            device=dev))
+    ref = lm.logits_fn(params, cfg, hidden)          # (2, 4096, V)
+    with ChunkSpy() as spy:
+        lg, caches = lm.prefill(params, cfg, seq[:, :SWA_R_PROMPT])
+    check(spy.chunks == [(1024, 2048)] * (3 * cfg.num_layers),
+          f"swa reduced: chunks {sorted(set(spy.chunks))} "
+          f"({len(spy.chunks)}), expected {3 * cfg.num_layers} of "
+          f"(1024, 2048)")
+    check(caches["scan"]["b0"]["k"].shape[2] == win,
+          f"swa reduced: cache of {caches['scan']['b0']['k'].shape[2]} "
+          f"slots, expected {win}")
+    scale = ref.abs().max().item()
+    errs = [(lg - ref[:, SWA_R_PROMPT - 1]).abs().max().item()]
+    for t in range(SWA_R_PROMPT, S):
+        lg, caches = lm.decode_step(params, cfg, seq[:, t:t + 1], caches)
+        errs.append((lg - ref[:, t]).abs().max().item())
+    check(max(errs) <= 1e-4 * scale, f"swa reduced f32: rolling decode "
+          f"logits off the full forward by {max(errs):.3e} (max |logit| "
+          f"{scale:.3e})")
+    print(f"# swa gemma-2b-swa reduced() f32 (window {win}): prefill "
+          f"{SWA_R_PROMPT} (chunks of 1024 x 2048 keys), {SWA_R_DECODE} "
+          f"rolling decode steps: max |logits - full forward| "
+          f"{max(errs):.3e} (max |logit| {scale:.3e})")
+    del params, caches, ref, hidden
+
+    # ---- (b) full width, bfloat16 -------------------------------------- #
+    cfg = get("gemma-2b-swa")
+    win = cfg.attention_window
+    gen = torch.Generator(device=dev).manual_seed(19)
+    params = lm.init(cfg, generator=gen, device=dev)
+    seq = torch.randint(1, cfg.vocab_size, (1, SWA_PROMPT + SWA_DECODE),
+                        generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ChunkSpy() as spy:
+        t0 = time.perf_counter()
+        lg, caches = lm.prefill(params, cfg, seq[:, :SWA_PROMPT])
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+    span = 1024 * (-(-win // 1024) + 1)
+    n_chunks = SWA_PROMPT // 1024 * cfg.num_layers
+    check(spy.chunks == [(1024, span)] * n_chunks,
+          f"swa: chunks {sorted(set(spy.chunks))} ({len(spy.chunks)}), "
+          f"expected {n_chunks} of (1024, {span})")
+    ck = caches["scan"]["b0"]["k"]
+    check(ck.shape[2] == win and int(caches["scan"]["b0"]["pos"][0])
+          == SWA_PROMPT, f"swa: cache {tuple(ck.shape)}, expected {win} "
+          f"slots at position {SWA_PROMPT}")
+    times = []
+    for t in range(SWA_PROMPT, SWA_PROMPT + SWA_DECODE):
+        t0 = time.perf_counter()
+        lg, caches = lm.decode_step(params, cfg, seq[:, t:t + 1], caches)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (1, cfg.vocab_size),
+          f"swa: decode logits {tuple(lg.shape)}, finite "
+          f"{bool(torch.isfinite(lg).all())}")
+    print(f"# swa gemma-2b-swa full width bf16 (window {win}): prefill "
+          f"{SWA_PROMPT} tokens in {pre_ms:.1f} ms ({len(spy.chunks)} "
+          f"chunks of 1024 queries x {span} keys), rolling cache of {win} "
+          f"slots, {SWA_DECODE} decode steps writing slots 0..."
+          f"{SWA_DECODE - 1} again: median {statistics.median(times):.3f} "
+          f"ms a step (batch 1); peak memory "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB; gpu {gpu}")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
     t0 = time.perf_counter()
@@ -2419,6 +2963,10 @@ def main():
         overlapped = timed("overlap", phase_overlap, dev, gpu)
         observed = timed("obs", phase_obs, dev, gpu)
         fsdp = timed("fsdp", phase_fsdp, dev, gpu)
+        quant_b1, quant_b3 = timed("quant", phase_quant, dev, gpu)
+        timed("quant parity", phase_quant_parity, dev)
+        timed("long", phase_long, dev, gpu)
+        timed("swa", phase_swa, dev, gpu)
         # each kernel's launches on the later paths (the main path's
         # count stays "launches")
         b1["launches_by_path"] = {
@@ -2426,7 +2974,8 @@ def main():
             **{f"resume {k}": v for k, v in resumed.items()},
             **{f"overlap {k}": v[0] for k, v in overlapped.items()},
             **{k: v[0] for k, v in observed.items() if v[0]},
-            **fsdp}
+            **fsdp, **quant_b1}
+        b3["launches_by_path"] = quant_b3
         b2["launches_by_path"] = {
             **{f"sched {k}": v[1] for k, v in sched.items()},
             **{f"dist nccl {k}": v for k, v in dist_b2.items()},

@@ -6,6 +6,7 @@ from .buckets import (  # noqa: F401
     BucketLayout,
     LeafSlot,
     build_layout,
+    layout_for_params,
     pack,
     unpack_into,
 )

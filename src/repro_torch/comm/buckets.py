@@ -186,6 +186,16 @@ def build_layout(
                         n_workers=n_workers, align=align, n_leaves=len(shapes))
 
 
+def layout_for_params(params, specs_tree=None, n_workers: int = 1,
+                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                      shard_axes: Tuple[str, ...] = (),
+                      axis_sizes=None) -> BucketLayout:
+    """`build_layout` over the shapes of a tree of tensors."""
+    shapes = T.tree_map(lambda x: tuple(x.shape), params)
+    return build_layout(shapes, specs_tree, n_workers, bucket_bytes,
+                        shard_axes=shard_axes, axis_sizes=axis_sizes)
+
+
 def _lead(x, slot):
     """The leading (worker) dims of leaf `x` in front of its slot shape."""
     return tuple(x.shape[:x.dim() - len(slot.shape)])

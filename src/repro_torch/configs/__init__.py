@@ -1,6 +1,7 @@
 """Configs of the port (counterpart of `repro.configs`): the GAN of the
-paper and, of the LM zoo, gemma-2b (the serving slice). The other archs of
-the JAX package are refused with the ROADMAP slice that brings them."""
+paper and, of the LM zoo, gemma-2b and gemma-2b-swa (the serving slice).
+The other archs of the JAX package are refused with the ROADMAP slice
+that brings them."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -16,13 +17,13 @@ from .base import (  # noqa: F401
 
 _ARCH_MODULES = {
     "gemma-2b": "gemma_2b",
+    "gemma-2b-swa": "gemma_2b_swa",
     "dcgan32": "dcgan32",
 }
 
 # archs of the JAX package the port does not build yet -> what brings them
 UNPORTED = {
-    "recurrentgemma-2b": "ROADMAP §A slice 6 (LM zoo: the RG-LRU mixer and "
-                         "the sliding-window cache)",
+    "recurrentgemma-2b": "ROADMAP §A slice 6 (LM zoo: the RG-LRU mixer)",
     "mamba2-1.3b": "ROADMAP §A slice 6 (LM zoo: the SSD mixer)",
     "qwen3-moe-30b-a3b": "ROADMAP §A slice 6 (LM zoo: MoE)",
     "arctic-480b": "ROADMAP §A slice 6 (LM zoo: MoE)",
@@ -32,7 +33,6 @@ UNPORTED = {
     "command-r-plus-104b": "ROADMAP §A slice 6 (LM zoo: the other dense "
                            "archs)",
     "starcoder2-7b": "ROADMAP §A slice 6 (LM zoo: the other dense archs)",
-    "gemma-2b-swa": "ROADMAP §A slice 7 (serving: the sliding-window cache)",
 }
 
 

@@ -20,11 +20,19 @@ It prints one JSON row: the JAX launcher's ``arch``, ``mode``, ``batch``,
 ``prompt_len``, ``generated``, ``tokens_per_s`` (wall clock of the run,
 prefills included), ``weights`` and ``sample_tokens``, plus ``attn_impl``
 and ``decode_step_s``, the median wall time of one engine step (which
-ends with its tokens on the host, a device sync); null with
-``--sequential``. The JAX launcher's ``--assert-single-trace`` has no
-counterpart: the port runs eagerly and traces nothing. Quantized weights
-(``--quantize-weights``, ``--weight-plan``, ``--weight-budget-mb``) are
-refused with the ROADMAP slice that brings them.
+ends with its tokens on the host, a device sync; null with
+``--sequential``), and ``load_s``, the wall time of building the runner
+(the weight quantization included; outside ``tokens_per_s``). The JAX
+launcher's ``--assert-single-trace`` has no counterpart: the port runs
+eagerly and traces nothing.
+
+``--quantize-weights COMPRESSOR`` (a linf quantizer, e.g. qsgd8_linf)
+serves quantized weights, B1 once a bucket at load: ``--weight-plan``
+picks the per-bucket bits (none|uniform|size_tiered|delta_budget) and
+``--weight-budget-mb`` the delta_budget payload; ``weights`` then
+describes the payload. Without ``--quantize-weights`` both are ignored,
+as in the JAX launcher. Sliding-window models (gemma-2b-swa) are refused:
+the paged cache does not take them, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -44,7 +52,9 @@ from repro_torch.serve import (
     ServeConfig,
     ServeError,
     cdiv,
+    check_model_servable,
 )
+from repro_torch.strategy import Compression, StrategyError
 
 
 def build_serve_config(prompt_len: int, gen: int, batch: int) -> ServeConfig:
@@ -88,22 +98,16 @@ def main(argv=None):
                     help="paged decode attention: gather (default) or "
                          "kernel (B3, the CUDA kernel)")
     ap.add_argument("--quantize-weights", default=None, metavar="COMPRESSOR",
-                    help="not ported yet (ROADMAP §A slice 7)")
+                    help="serve quantized weights, e.g. qsgd8_linf")
     ap.add_argument("--weight-plan", default="none",
-                    help="not ported yet (ROADMAP §A slice 7)")
-    ap.add_argument("--weight-budget-mb", type=float, default=0.0,
-                    help="not ported yet (ROADMAP §A slice 7)")
+                    help="per-bucket bit plan: none|uniform|size_tiered|"
+                         "delta_budget")
+    ap.add_argument("--weight-budget-mb", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' (default) needs a GPU, "
                          "'cpu' runs the kernels' plain versions")
     args = ap.parse_args(argv)
 
-    if (args.quantize_weights or args.weight_plan != "none"
-            or args.weight_budget_mb):
-        ap.error("quantized weights (--quantize-weights, --weight-plan, "
-                 "--weight-budget-mb) arrive with ROADMAP §A slice 7 "
-                 "(serving: quantized weights); repro_torch serves "
-                 "unquantized weights")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is available (pass "
@@ -116,10 +120,15 @@ def main(argv=None):
         cfg = cfg.reduced()
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    compression = None
     try:
-        lm.check_supported(cfg)
+        check_model_servable(cfg)
         scfg = build_serve_config(args.prompt_len, args.gen, args.batch)
-    except (NotImplementedError, ServeError) as e:
+        if args.quantize_weights:
+            compression = Compression(compressor=args.quantize_weights,
+                                      plan=args.weight_plan,
+                                      budget_mb=args.weight_budget_mb)
+    except (NotImplementedError, ServeError, StrategyError) as e:
         ap.error(str(e))
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -130,18 +139,26 @@ def main(argv=None):
                         temperature=args.temperature)
                 for i in range(args.batch)]
 
-    step_s = []
     _sync(device)
+    t_load = time.perf_counter()
+    try:
+        runner = (SequentialGenerator if args.sequential else Engine)(
+            cfg, scfg, params, compression=compression, seed=args.seed,
+            **({} if args.sequential else {"attn_impl": args.attn_impl}))
+    except ServeError as e:       # a compressor that is not linf
+        ap.error(str(e))
+    del params        # a quantized runner keeps only its payload
+    _sync(device)
+    load_s = time.perf_counter() - t_load
+
+    step_s = []
     t0 = time.perf_counter()
     if args.sequential:
-        runner = SequentialGenerator(cfg, scfg, params, seed=args.seed)
         outputs = {r.rid: runner.generate(list(r.prompt), r.max_new,
                                           rid=r.rid,
                                           temperature=r.temperature)
                    for r in requests}
     else:
-        runner = Engine(cfg, scfg, params, seed=args.seed,
-                        attn_impl=args.attn_impl)
         for r in requests:
             runner.submit(r)
         while not runner.idle:
@@ -167,6 +184,7 @@ def main(argv=None):
         "attn_impl": "dense" if args.sequential else args.attn_impl,
         "decode_step_s": (round(statistics.median(step_s), 6)
                           if step_s else None),
+        "load_s": round(load_s, 6),
     }
     print(json.dumps(row), flush=True)
     return {"row": row, "outputs": outputs, "stats": runner.stats()}

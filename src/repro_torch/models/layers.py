@@ -9,9 +9,12 @@ tensors in place (the JAX functions return new arrays; here the K/V
 written for the new token go into the caller's cache tensors, and the
 returned cache is the same dict).
 
-Not ported yet, and refused by name: `attention_chunked` (prefill above
-2048 tokens), the rolling sliding-window cache and cross-attention
-(ROADMAP §A slices 6 and 7).
+Prefill above 2048 tokens takes `attention_chunked` (a loop over query
+chunks, each against its KV band; an XLA scan in the JAX package, no
+Pallas kernel). A model with ``attention_window > 0`` keeps a rolling
+cache of ``window`` slots: slot i holds the position p with p ≡ i (mod
+window). Not ported yet, and refused by name: cross-attention (ROADMAP §A
+slice 6).
 """
 from __future__ import annotations
 
@@ -135,9 +138,18 @@ def _gelu_tanh(v):
     return v * cdf
 
 
+def _silu(v):
+    """`jax.nn.silu(v)` as the reference evaluates it on the CPU backend:
+    ``v * (1 / (1 + exp(-v)))`` (`lax.logistic` expanded), op by op in v's
+    dtype, each result rounded to it. (`F.silu` computes in float32 and
+    rounds once, which differs from the reference in about 37 % of
+    bfloat16 outputs.)"""
+    return v * (1.0 / (1.0 + torch.exp(-v)))
+
+
 def mlp(p, x, activation: str):
     if activation in ("silu", "geglu"):
-        act = F.silu if activation == "silu" else _gelu_tanh
+        act = _silu if activation == "silu" else _gelu_tanh
         h = act(linear(p["gate"], x)) * linear(p["up"], x)
     else:
         h = _gelu_tanh(linear(p["up"], x))
@@ -220,6 +232,33 @@ def attention_dense(q, k, v, q_pos, k_pos, window=0, causal=True,
     return out.reshape(B, Sq, H * hd)
 
 
+def attention_chunked(q, k, v, window=0, causal=True, q_chunk=1024):
+    """Memory-bounded attention for long sequences: query chunks of
+    `q_chunk` rows, each against a KV band, through `attention_dense`. With
+    a window the band is ``min(S, q_chunk·(⌈window/q_chunk⌉+1))`` keys
+    ending at the chunk's last row, so the work is O(S·band), not O(S²).
+
+    q: (B, S, H, hd), k/v: (B, S, K, hd), self-attention at aligned
+    positions; S a multiple of q_chunk."""
+    B, S, H, hd = q.shape
+    if S % q_chunk:
+        raise ValueError(f"attention_chunked: S={S} is not a multiple of "
+                         f"q_chunk={q_chunk}")
+    kv_span = (S if window <= 0
+               else min(S, q_chunk * (-(-window // q_chunk) + 1)))
+    outs = []
+    for q_start in range(0, S, q_chunk):
+        k_start = 0 if window <= 0 else max(q_start + q_chunk - kv_span, 0)
+        kc = k[:, k_start:k_start + kv_span]
+        vc = v[:, k_start:k_start + kv_span]
+        q_pos = torch.arange(q_start, q_start + q_chunk, device=q.device)
+        k_pos = torch.arange(k_start, k_start + kc.shape[1], device=q.device)
+        outs.append(attention_dense(q[:, q_start:q_start + q_chunk], kc, vc,
+                                    q_pos, k_pos, window=window,
+                                    causal=causal))
+    return torch.cat(outs, dim=1)
+
+
 def _grouped_decode(q, ck, cv, valid, cfg):
     """The grouped-GQA decode math of the dense-cache and gather branches:
     q (B, S, H, hd) against ck/cv (B, Sc, K, hd) with `valid` (B or 1, Sc)
@@ -255,21 +294,25 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
+    win = cfg.attention_window
     if cache is None:  # train / prefill
         if S > _CHUNKED_PREFILL:
-            raise NotImplementedError(
-                f"prefill of {S} > {_CHUNKED_PREFILL} tokens takes "
-                f"attention_chunked, which arrives with ROADMAP §A slice 7 "
-                f"(serving: attention_chunked)")
-        pos = torch.arange(S, device=x.device)
-        out = attention_dense(q, k, v, pos, pos,
-                              window=cfg.attention_window, causal=causal)
+            out = attention_chunked(q, k, v, window=win, causal=causal)
+        else:
+            pos = torch.arange(S, device=x.device)
+            out = attention_dense(q, k, v, pos, pos, window=win,
+                                  causal=causal)
         new_cache = None
         if fill_cache:
-            if cfg.attention_window > 0:
-                raise NotImplementedError(
-                    "the rolling sliding-window cache arrives with ROADMAP "
-                    "§A slice 7 (serving: the sliding-window cache)")
+            if win > 0 and S >= win:
+                # rolling layout: slot i holds position
+                # S - win + ((i - S) mod win), so that it is ≡ i (mod win)
+                idx = S - win + torch.remainder(
+                    torch.arange(win, device=x.device) - S, win)
+                k, v = k.index_select(1, idx), v.index_select(1, idx)
+            elif win > 0:  # prompt shorter than the window: win slots
+                k = F.pad(k, (0, 0, 0, 0, 0, win - S))
+                v = F.pad(v, (0, 0, 0, 0, 0, win - S))
             new_cache = {"k": k, "v": v,
                          "pos": torch.tensor(S, dtype=torch.int32)}
         return linear(p["o"], out), new_cache
@@ -278,15 +321,20 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
     if "table" in cache:
         return _paged_attn_decode(p, cfg, q, k, v, cache, positions)
     ck, cv = cache["k"], cache["v"]
-    if cfg.attention_window > 0 and ck.shape[1] == cfg.attention_window:
-        raise NotImplementedError(
-            "the rolling sliding-window cache arrives with ROADMAP §A slice "
-            "7 (serving: the sliding-window cache)")
     # "pos" is host state (a CPU int32 tensor): reading it needs no sync
     t = int(cache["pos"])
-    ck[:, t:t + S] = k
-    cv[:, t:t + S] = v
-    valid = (torch.arange(ck.shape[1], device=x.device) <= t)[None]
+    if win > 0 and ck.shape[1] == win:
+        # rolling: write at t mod win; slot i holds t - ((slot - i) mod win)
+        slot = t % win
+        ck[:, slot:slot + S] = k
+        cv[:, slot:slot + S] = v
+        k_pos = t - torch.remainder(
+            slot - torch.arange(win, device=x.device), win)
+        valid = (k_pos >= 0)[None]
+    else:
+        ck[:, t:t + S] = k
+        cv[:, t:t + S] = v
+        valid = (torch.arange(ck.shape[1], device=x.device) <= t)[None]
     out = _grouped_decode(q, ck, cv, valid, cfg)
     cache["pos"] += S
     return linear(p["o"], out), cache
@@ -333,11 +381,11 @@ def _paged_attn_decode(p, cfg, q, k, v, cache, positions):
 
 
 def attn_cache_init(cfg, batch, seq, dtype, device=None):
-    if cfg.attention_window > 0:
-        raise NotImplementedError(
-            "the sliding-window cache arrives with ROADMAP §A slice 7 "
-            "(serving: the sliding-window cache)")
-    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    """A dense cache of `seq` positions; a windowed model's is rolling and
+    holds min(seq, window)."""
+    win = cfg.attention_window
+    length = min(seq, win) if win > 0 else seq
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32)}

@@ -270,7 +270,8 @@ def decode_step_paged(params, cfg, tokens, caches, lengths):
 
 def prefill(params, cfg, tokens, enc_embeds=None, max_len: int = 0):
     """Run the whole prompt in one pass; return (last_logits, decode-ready
-    caches). max_len > prompt length reserves decode positions."""
+    caches). max_len > prompt length reserves decode positions in
+    global-attention caches (rolling-window caches are fixed-size)."""
     if enc_embeds is not None:
         encode()
     positions = torch.arange(tokens.shape[1], device=tokens.device)

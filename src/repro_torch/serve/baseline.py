@@ -4,7 +4,8 @@ throughput baseline (counterpart of `repro.serve.baseline`).
 Runs the same floor-bucket prefill + tail-decode schedule and the same
 `sample_token` draw as the continuous-batching engine, over the model's
 dense decode cache sized once to `ServeConfig.max_context`, the length
-the paged decode's gathered view has.
+the paged decode's gathered view has. With ``compression=`` it quantizes
+and dequantizes the weights as the engine does.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.models import model as lm
 
-from .engine import _WEIGHTS, refuse_compression, sample_token
+from .engine import _Weights, sample_token
 from .kv_cache import (
     ServeConfig,
     check_model_servable,
@@ -30,11 +31,10 @@ class SequentialGenerator:
     def __init__(self, cfg, serve_cfg: ServeConfig, params, *,
                  compression=None, seed: int = 0):
         check_model_servable(cfg)
-        refuse_compression(compression)
         self.cfg = cfg
         self.scfg = serve_cfg
-        self._weights = params
         self.device = params["embed"].device
+        self.weights = _Weights(cfg, params, compression, seed)
         self._seed = seed
         self.steps = 0
 
@@ -48,7 +48,7 @@ class SequentialGenerator:
         out: List[int] = []
 
         if bucket > 0:
-            logits, caches = lm.prefill(self._weights, self.cfg,
+            logits, caches = lm.prefill(self.weights.params(), self.cfg,
                                         self._tokens([prompt[:bucket]]),
                                         max_len=dense_cache_len(self.scfg))
         else:
@@ -67,7 +67,7 @@ class SequentialGenerator:
 
         while True:
             inp = to_feed[0] if to_feed else last
-            logits, caches = lm.decode_step(self._weights, self.cfg,
+            logits, caches = lm.decode_step(self.weights.params(), self.cfg,
                                             self._tokens([[inp]]), caches)
             self.steps += 1
             if to_feed:
@@ -82,5 +82,4 @@ class SequentialGenerator:
             last = tok
 
     def stats(self) -> dict:
-        return {"steps": self.steps,
-                "weights": _WEIGHTS[self.cfg.param_dtype]}
+        return {"steps": self.steps, "weights": self.weights.describe()}

@@ -26,8 +26,13 @@ tokens agree with the port's own sequential baseline, not with JAX's.
 ``attn_impl`` selects the paged decode attention: "gather" (the default,
 as in the JAX engine) or "kernel", B3 as a CUDA kernel (the counterpart of
 the JAX engine's "pallas"); on CPU tensors "kernel" runs B3's plain
-version. Quantized weights (``compression=``) are refused: they arrive
-with ROADMAP §A slice 7 (serving: quantized weights).
+version.
+
+With ``compression=`` the weights are quantized at construction (B1 once
+a bucket, `quantized_weights.quantize_weights`, seeded by ``seed``) and
+the engine keeps only the payload: every prefill and decode step rebuilds
+the weights from it (dequant-on-read, as the JAX engine's jitted steps
+do), and drops them when the step ends.
 """
 from __future__ import annotations
 
@@ -49,15 +54,33 @@ from .kv_cache import (
     init_paged_cache,
     plan_request,
 )
+from .quantized_weights import _mix64, dequantize_weights, quantize_weights
 
 _WEIGHTS = {"float32": "f32", "bfloat16": "bf16"}
 
 
-def refuse_compression(compression) -> None:
-    if compression is not None:
-        raise ServeError(
-            "quantized weights (compression=) arrive with ROADMAP §A slice 7 "
-            "(serving: quantized weights)")
+class _Weights:
+    """The serving weights: the params as given, or a quantized payload
+    rebuilt into params at every `params()` call (dequant-on-read)."""
+
+    def __init__(self, cfg, params, compression, seed):
+        self.cfg = cfg
+        self.meta = None
+        if compression is not None:
+            self.meta, self.stored = quantize_weights(params, compression,
+                                                      seed=seed)
+        else:
+            self.stored = params
+
+    def params(self):
+        if self.meta is None:
+            return self.stored
+        return dequantize_weights(self.meta, self.stored)
+
+    def describe(self) -> str:
+        if self.meta is None:
+            return _WEIGHTS[self.cfg.param_dtype]
+        return self.meta.describe()
 
 
 # --------------------------------------------------------------------------- #
@@ -71,14 +94,6 @@ class Request:
     temperature: float = 0.0
     stop_token: Optional[int] = None
     arrival: float = 0.0            # virtual seconds (load generator clock)
-
-
-def _mix64(x: int) -> int:
-    """splitmix64's finalizer: a well-spread 64-bit value of x."""
-    x &= (1 << 64) - 1
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
-    return x ^ (x >> 31)
 
 
 def draw_seed(seed: int, rid: int, index: int) -> int:
@@ -226,12 +241,11 @@ class Engine:
         if attn_impl not in ("gather", "kernel"):
             raise ServeError(f"attn_impl must be gather|kernel, "
                              f"got {attn_impl!r}")
-        refuse_compression(compression)
         self.cfg = cfg
         self.scfg = serve_cfg
         self.attn_impl = attn_impl
-        self._weights = params
         self.device = params["embed"].device
+        self.weights = _Weights(cfg, params, compression, seed)
 
         self.cache = init_paged_cache(cfg, serve_cfg, device=self.device)
         self.alloc = BlockAllocator(serve_cfg.num_blocks)
@@ -254,13 +268,14 @@ class Engine:
         try:
             _park_tables(self.cache, active)
             logits, self.cache = lm.decode_step_paged(
-                self._weights, self.cfg, tokens, self.cache, lengths)
+                self.weights.params(), self.cfg, tokens, self.cache,
+                lengths)
         finally:
             layers.set_paged_attn_impl(prev)
         return logits
 
     def _prefill(self, prompt):
-        return lm.prefill(self._weights, self.cfg,
+        return lm.prefill(self.weights.params(), self.cfg,
                           self._tensor(np.asarray([prompt], np.int64)))
 
     # -- request lifecycle ------------------------------------------------- #
@@ -398,5 +413,5 @@ class Engine:
             "occupancy": self.alloc.occupancy(),
             "peak_occupancy": self.peak_occupancy,
             "live_tokens": sum(self._lengths),
-            "weights": _WEIGHTS[self.cfg.param_dtype],
+            "weights": self.weights.describe(),
         }

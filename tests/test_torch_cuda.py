@@ -795,3 +795,48 @@ def test_fsdp_step_runs_b1_on_the_all_gather_leg(W):
     assert launches == ((2 if W == 1 else 1) * 3 * n_buckets, 0)
     assert all(torch.isfinite(v).all() for k, v in state.items()
                if k.startswith("params/"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_weights_on_the_card(dtype):
+    """Load-time quantization on the card: B1 once a bucket, codes and
+    scales bit-equal to B1's plain version on the same draws, and the
+    rebuilt tree bit-equal to the CPU's rebuild of the same payload (the
+    step s/L an IEEE division on both devices, the product rounded once
+    to the leaves' dtype)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.models import model as lm
+    from repro_torch.serve import quantized_weights as QW
+    from repro_torch.strategy import Compression
+    dev = _device()
+    cfg = dataclasses.replace(configs.get("gemma-2b").reduced(),
+                              param_dtype=dtype)
+    params = lm.init(cfg, generator=torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    comp = Compression(compressor="qsgd8_linf", plan="uniform",
+                       bucket_mb=0.25)
+    before = Q.launches
+    meta, pay = QW.quantize_weights(params, comp, seed=3)
+    assert Q.launches - before == len(meta.layout.buckets)
+
+    def plain(g, e, rand, *, levels=127):
+        c, s, en = quantize_ef_ref(g.reshape(-1, 1024), e.reshape(-1, 1024),
+                                   rand.reshape(-1, 1024), levels)
+        return c.reshape(-1), s.reshape(-1), en.reshape(-1)
+
+    with mock.patch.object(QW, "quantize_ef_flat", plain):
+        _, want = QW.quantize_weights(params, comp, seed=3)
+    for k in pay:
+        for f in pay[k]:
+            assert torch.equal(pay[k][f], want[k][f]), (k, f)
+    got = QW.dequantize_weights(meta, pay)
+    ref = QW.dequantize_weights(meta, {k: {f: x.cpu() for f, x in v.items()}
+                                       for k, v in pay.items()})
+    for a, b in zip(T.leaves(got), T.leaves(ref)):
+        assert a.dtype == getattr(torch, dtype)
+        assert torch.equal(a.cpu(), b)

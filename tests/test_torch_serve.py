@@ -306,8 +306,10 @@ def test_engine_request_validation(weights):
         eng.submit(Request(rid=2, prompt=[5], max_new=1))
     with pytest.raises(ServeError, match="gather|kernel"):
         Engine(TCFG, SCFG, tparams, attn_impl="pallas")
-    with pytest.raises(ServeError, match="slice 7"):
-        Engine(TCFG, SCFG, tparams, compression=object())
+    from repro_torch.strategy import Compression
+    with pytest.raises(ServeError, match="linf"):
+        Engine(TCFG, SCFG, tparams, compression=Compression(
+            compressor="qsgd8_l2"))
 
 
 def test_sliding_window_and_unported_blocks_are_refused(weights):
