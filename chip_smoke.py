@@ -121,6 +121,22 @@ result line):
               prefill and 40 rolling decode steps held to a full forward;
               full width bf16, an 8192-token prefill (chunks of 1024 x
               5120 keys), the rolling fill, 32 decode steps (times)
+ 19. lm train LM training through the trainer (run after phase flash):
+              starcoder2-7b at its published widths in bf16, 4 of its 32
+              layers (1.32 B parameters: the training state must fit
+              the card), batch 2 x 2048 tokens, omd, qsgd8_block1024 over
+              uniform 4 MiB buckets, 10 steps: B1 once a step over the
+              whole packed gradient (~1.29 M rows), finite losses, median
+              step, peak memory, a profiled window (busy share, kernels a
+              step, B1's device time against its bound), one step's host
+              time by function, B1 on one step's packed operands bit-equal
+              to its plain version, model FLOPs a step against the bf16
+              peak; 3 steps with B1's plain version from the same seed,
+              params bit-equal; qwen3-moe-30b-a3b at its widths, 1 of 48
+              layers, 5 steps (aux losses, B1 once a step); the CLI at
+              starcoder2 reduced, --seq 64 (B1 5 in 5 steps); four stacked
+              workers at yi-34b reduced, half reporting, adaptive
+              delta_budget 1 MiB (B2 once a bucket a step)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -2425,17 +2441,6 @@ def payload_diff(a, b):
             or not all(torch.equal(a[k][f], b[k][f]) for f in a[k])]
 
 
-def plain_quantize_ef_flat(g, e, rand, *, levels=127):
-    """`kernels.quantize.quantize_ef_flat` computed by B1's plain version,
-    on the operands' device (the card)."""
-    from repro_torch.kernels.ref import quantize_ef_ref
-    n = g.shape[0]
-    codes, scale, e_new = quantize_ef_ref(
-        g.reshape(-1, 1024), e.reshape(-1, 1024), rand.reshape(-1, 1024),
-        levels)
-    return codes.reshape(n), scale.reshape(-1), e_new.reshape(n)
-
-
 def run_engine(eng, requests, profile_steps=0, label=""):
     """Drain `requests` through an engine: after 3 steps (admission and
     warm-up) `profile_steps` steps under torch.profiler, the rest timed.
@@ -2586,7 +2591,7 @@ def phase_quant(dev, gpu):
     b1["quant engine load"] = Q.launches
     meta, payload = eng.weights.meta, eng.weights.stored
     # B1's plain version on the card, on the same draws
-    with mock.patch.object(QW, "quantize_ef_flat", plain_quantize_ef_flat):
+    with mock.patch.object(QW, "quantize_ef_flat", plain_quantize_ef_rows):
         _, plain = QW.quantize_weights(params, comp, seed=Q_SEED)
     bad = payload_diff(payload, plain)
     check(not bad and Q.launches == nbuckets, f"quant: B1's codes or scales "
@@ -2892,6 +2897,411 @@ def phase_swa(dev, gpu):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# LM training
+# --------------------------------------------------------------------------- #
+# starcoder2-7b at its published widths (d_model 4608, 36 heads over 4 KV
+# heads, d_ff 18432, vocab 49152, bf16) cut to LM_LAYERS of its 32 layers
+# (the training state, ~43 B a parameter at the step's peak, must fit one
+# 80 GB card); qwen3-moe-30b-a3b at its widths (128 experts, top-8) cut to
+# one of its 48 layers
+LM_ARCH, LM_LAYERS, LM_STEPS, LM_PROFILE_STEPS = "starcoder2-7b", 4, 10, 5
+MOE_ARCH, MOE_LAYERS, MOE_STEPS = "qwen3-moe-30b-a3b", 1, 5
+LM_BATCH, LM_SEQ = 2, 2048
+LM_PARITY_STEPS = 3
+PLAIN_ROWS = 1 << 16      # rows a call of B1's plain version on the LM path
+LM_W_ARGS = ["--arch", "yi-34b", "--smoke", "--workers", str(WORKERS),
+             "--batch", "8", "--optimizer", "omd", "--compressor",
+             "qsgd8_block1024", "--comm-plan", "delta_budget",
+             "--comm-budget-mb", "1.0", "--comm-adaptive", "--participation",
+             "0.5", "--log-every", "1", "--device", "cuda"]
+
+
+def plain_quantize_ef_rows(g, e, rand, *, levels=127):
+    """`kernels.quantize.quantize_ef_flat` computed by B1's plain version
+    on the operands' device (the card), PLAIN_ROWS rows a call: rows are
+    independent, so the result is the plain version's over all of them,
+    and one call over the LM path's 1.3 M rows would need ~25 GB of
+    temporaries beside the training state."""
+    import torch
+    from repro_torch.kernels.ref import quantize_ef_ref
+    n = g.shape[0]
+    R = n // 1024
+    codes = torch.empty(n, dtype=torch.int8, device=g.device)
+    scale = torch.empty(R, dtype=torch.float32, device=g.device)
+    e_new = torch.empty(n, dtype=torch.float32, device=g.device)
+    for r0 in range(0, R, PLAIN_ROWS):
+        r1 = min(R, r0 + PLAIN_ROWS)
+        s = slice(r0 * 1024, r1 * 1024)
+        c, sc, en = quantize_ef_ref(*(x[s].reshape(-1, 1024)
+                                      for x in (g, e, rand)), levels)
+        codes[s] = c.reshape(-1)
+        scale[r0:r1] = sc.reshape(-1)
+        e_new[s] = en.reshape(-1)
+    return codes, scale, e_new
+
+
+class B1Check:
+    """Wraps `quantize_ef_flat` for one trainer step: B1's launch as the
+    step makes it, then B1's plain version on the same packed operands,
+    PLAIN_ROWS rows at a time, compared bit for bit (codes, scales,
+    e')."""
+
+    def __init__(self, real):
+        self.real, self.calls = real, []
+
+    def __call__(self, g, e, rand, *, levels=127):
+        codes, scale, e_new = self.real(g, e, rand, levels=levels)
+        pc, ps, pe = plain_quantize_ef_rows(g, e, rand, levels=levels)
+        import torch
+        self.calls.append({
+            "rows": scale.shape[0], "codes": torch.equal(codes, pc),
+            "scale": torch.equal(scale, ps), "e": torch.equal(e_new, pe),
+            "max_abs_err": (e_new - pe).abs().max().item()})
+        del pc, ps, pe
+        return codes, scale, e_new
+
+
+def lm_trainer(dev, arch, layers, seed, strat=None):
+    """(trainer, state, batches, cfg, field metrics) of `arch` at its
+    published widths cut to `layers` layers: one worker, omd/update,
+    qsgd8_block1024 over uniform 4 MiB buckets (one packed B1 launch a
+    step), weights and batches (LM_BATCH x LM_SEQ tokens) from one seeded
+    generator, as the trainer's CLI draws them. The field's metrics (the
+    loss and the MoE aux losses that entered the gradient) are appended
+    to the list each step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import DQConfig, get
+    from repro_torch.core import dqgan
+    from repro_torch.data import lm_batch_iterator
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get(arch), num_layers=layers)
+    bundle = build(cfg)
+    seen = []
+
+    def field_fn(params, batch, z=None, generator=None):
+        grads, metrics = bundle.field_fn(params, batch, z, generator)
+        seen.append(metrics)
+        return grads, metrics
+
+    dq = DQConfig.from_strategy(strat or single_strategy(), optimizer="omd",
+                                lr=1e-4, message="update")
+    trainer = dqgan.DQGAN(field_fn=field_fn, dq=dq, device=dev,
+                          seed=seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = trainer.init(bundle.init(generator=gen, device=dev,
+                                     max_seq=LM_SEQ))
+    return trainer, state, lm_batch_iterator(
+        LM_BATCH, LM_SEQ, cfg.vocab_size, generator=gen, device=dev), cfg, \
+        seen
+
+
+def free_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_steps(trainer, state, batches, steps, label, seen=()):
+    """`steps` trainer steps, each synchronized and timed, with B1's
+    launches counted a step. Returns (state, [step_s], [loss], [the MoE
+    aux losses of each step's field, from `seen`])."""
+    import torch
+    from repro_torch.kernels import quantize as Q
+    times, losses, auxes = [], [], []
+    for i in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        before = Q.launches
+        t0 = time.perf_counter()
+        out = trainer.step(state, batch)
+        state = out.state
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(Q.launches - before == 1, f"{label} step {i}: quantize_ef "
+              f"launched {Q.launches - before} times, expected 1")
+        loss = out.metrics["loss"].item()
+        check(math.isfinite(loss), f"{label} step {i}: loss {loss}")
+        losses.append(loss)
+        if seen:
+            auxes.append({k: float(v) for k, v in seen[-1].items()
+                          if k.startswith("moe_")})
+    return state, times, losses, auxes
+
+
+def host_params(state):
+    from repro_torch import tree as T
+    return [x.detach().cpu() for x in T.leaves(state.params)]
+
+
+def host_breakdown(trainer, state, batch, top=8):
+    """Where one step's host time goes: cProfile of one step (the device
+    synchronized at its end), the functions of the port by their own
+    time."""
+    import cProfile
+    import pstats
+
+    import torch
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    out = trainer.step(state, batch)
+    t_queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[2], f"{os.path.basename(k[0])}:{k[1]}({k[2]})", v[1])
+                   for k, v in stats.items()), reverse=True)[:top]
+    print(f"#   host: one step under cProfile {t_all * 1e3:.1f} ms, "
+          f"{t_queued * 1e3:.1f} ms of it until the step returned "
+          f"(queued); largest own times:")
+    for t, name, n in rows:
+        print(f"#     {t * 1e3:8.2f} ms {n:6d} calls  {name}")
+    return out.state
+
+
+def phase_lm_train(dev, gpu):
+    """LM training through the trainer on the card (the JAX launcher's LM
+    path, B1 once a step over the whole packed gradient):
+    (a) starcoder2-7b at full width, LM_LAYERS layers, batch LM_BATCH x
+        LM_SEQ, omd, qsgd8_block1024 over uniform 4 MiB buckets, LM_STEPS
+        steps: one B1 launch a step, finite losses, median step_s
+        (steps 1..) and step 0 apart, peak memory; a profiled window of
+        LM_PROFILE_STEPS steps (busy share, kernels a step, B1's device
+        time against its bound); one step's host time by function; one
+        step with B1's packed operands held bit for bit against its
+        plain version; model FLOPs a step over the step time against
+        the card's dense bf16 peak (reported);
+    (b) the first LM_PARITY_STEPS steps again from the same seed with
+        B1's plain version in the step: params bit-equal on the host;
+    (c) qwen3-moe-30b-a3b at full width, MOE_LAYERS layer, MOE_STEPS
+        steps: finite losses, both aux losses, one B1 launch a step, peak
+        memory, median step;
+    (d) the trainer's CLI on the card, starcoder2 reduced, --seq 64, 5
+        steps: rows with finite step_s, B1 5 launches;
+    (e) four stacked workers at yi-34b reduced through the CLI, half
+        reporting, adaptive delta_budget at 1 MiB (a family of more than
+        one member): B2 once a bucket a step.
+    Returns ({path: B1 launches}, {path: B2 launches}, the timed B1
+    record's fields for the LM call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree as T
+    from repro_torch.core import error_feedback
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+
+    free_cuda()
+    free, total = torch.cuda.mem_get_info()
+    print(f"# lm: device memory free {gib(free):.2f} of {gib(total):.2f} GiB")
+    b1_paths, b2_paths = {}, {}
+
+    # ---- (a) starcoder2-7b ------------------------------------------------ #
+    tr, st, batches, cfg, _ = lm_trainer(dev, LM_ARCH, LM_LAYERS, 7)
+    layout = tr._comm(st.params)[0]
+    n_params = sum(x.numel() for x in T.leaves(st.params))
+    n_elem = sum(b.size for b in layout.buckets)
+    rows = n_elem // 1024
+    print(f"# lm {LM_ARCH}: {LM_LAYERS} of 32 layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}: "
+          f"{n_params} parameters (param_count {cfg.param_count()}); "
+          f"{len(layout.buckets)} buckets, {rows} rows of 1024 in B1's "
+          f"one launch")
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    FA.reset_launches()
+    kept = None
+    times, losses = [], []
+    for i in range(LM_STEPS):
+        st, t, l, _ = lm_steps(tr, st, batches, 1, LM_ARCH)
+        times += t
+        losses += l
+        if i == LM_PARITY_STEPS - 1:
+            kept = host_params(st)       # outside the timed steps
+    launches = Q.launches
+    check(launches == LM_STEPS and Q.launches_dyn == 0
+          and FA.flash_launches == 0,
+          f"lm {LM_ARCH}: quantize_ef {launches}, quantize_ef_dyn "
+          f"{Q.launches_dyn}, flash_attention {FA.flash_launches} launches "
+          f"in {LM_STEPS} steps, expected {LM_STEPS}, 0, 0")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    tokens = LM_BATCH * LM_SEQ
+    hd = cfg.head_dim
+    flops = tokens * (6 * n_params + 12 * cfg.num_layers * cfg.num_heads
+                      * hd * LM_SEQ)
+    print(f"# lm {LM_ARCH} train, 1 worker, batch {LM_BATCH} x {LM_SEQ}: "
+          f"{LM_STEPS} steps, quantize_ef launches {launches}, median step "
+          f"{step_s * 1e3:.3f} ms (first step {times[0] * 1e3:.1f} ms), "
+          f"losses {[round(x, 4) for x in losses]}, peak memory "
+          f"{gib(peak):.2f} GiB; model FLOPs a step {flops / 1e12:.2f} T "
+          f"(6 N tokens + attention), {flops / step_s / 1e12:.1f} TFLOP/s, "
+          f"{flops / step_s / PEAK_BF16_FLOP_S:.3f} of the dense bf16 peak; "
+          f"gpu {gpu}")
+    b1_paths[f"lm {LM_ARCH}"] = launches
+
+    # profiled window: busy share, kernels a step, B1's device time
+    prof_batches = [next(batches) for _ in range(LM_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in prof_batches:
+            st = tr.step(st, b).state
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del prof_batches
+    rep = report_profile(prof, f"lm {LM_ARCH}, 1 worker", LM_PROFILE_STEPS,
+                         wall_ms, "quantize_ef")
+    del prof
+    nbytes = n_elem * 17 + rows * 4
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    b1_ms = rep["ours_ms"] if rep else None
+    print(f"# lm B1 one launch over {rows} rows ({n_elem} elements, "
+          f"{nbytes / 1e9:.2f} GB): device time "
+          + (f"{b1_ms:.4f} ms a step, bound {bound:.4f} ms (bytes), bound "
+             f"share {bound / b1_ms:.3f}" if b1_ms else "not measured")
+          + f"; gpu {gpu}")
+    st = host_breakdown(tr, st, next(batches))
+
+    # one step's packed operands: B1 against its plain version
+    spy = B1Check(error_feedback.quantize_ef_flat)
+    with mock.patch.object(error_feedback, "quantize_ef_flat", spy):
+        st = tr.step(st, next(batches)).state
+    torch.cuda.synchronize()
+    check(len(spy.calls) == 1 and spy.calls[0]["rows"] == rows,
+          f"lm: the checked step made {len(spy.calls)} B1 calls")
+    c = spy.calls[0]
+    check(c["codes"] and c["scale"] and c["e"],
+          f"lm: B1 on the step's packed operands ({rows} rows) differs "
+          f"from its plain version: {c}")
+    print(f"# lm B1 on one step's packed operands ({rows} rows): codes, "
+          f"scales and e' bit-equal to its plain version "
+          f"(max|de'| {c['max_abs_err']:.3e})")
+    del tr, st, batches, spy
+    free_cuda()
+
+    # ---- (b) the same first steps with B1's plain version ------------- #
+    tr, st, batches, _, _ = lm_trainer(dev, LM_ARCH, LM_LAYERS, 7)
+    before = Q.launches
+    with mock.patch.object(error_feedback, "quantize_ef_flat",
+                           plain_quantize_ef_rows):
+        for _ in range(LM_PARITY_STEPS):
+            st = tr.step(st, next(batches)).state
+    torch.cuda.synchronize()
+    check(Q.launches == before, "lm: the plain steps launched B1")
+    plain = host_params(st)
+    del tr, st, batches
+    free_cuda()
+    same = all(torch.equal(a, b) for a, b in zip(kept, plain))
+    ndiff = sum(int((a != b).sum()) for a, b in zip(kept, plain))
+    check(same, f"lm: params after {LM_PARITY_STEPS} steps differ between "
+          f"B1 and its plain version in {ndiff} elements")
+    print(f"# lm parity: {LM_PARITY_STEPS} steps with B1 and with its plain "
+          f"version from one seed: params bit-equal ({n_params} elements, "
+          f"compared on the host)")
+    del kept, plain
+
+    # ---- (c) qwen3-moe ---------------------------------------------------- #
+    tr, st, batches, mcfg, seen = lm_trainer(dev, MOE_ARCH, MOE_LAYERS, 8)
+    m_params = sum(x.numel() for x in T.leaves(st.params))
+    m_rows = sum(b.size for b in tr._comm(st.params)[0].buckets) // 1024
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    st, times, losses, auxes = lm_steps(tr, st, batches, MOE_STEPS,
+                                        MOE_ARCH, seen)
+    check(Q.launches == MOE_STEPS, f"lm {MOE_ARCH}: quantize_ef launched "
+          f"{Q.launches} times in {MOE_STEPS} steps")
+    check(len(auxes) == MOE_STEPS
+          and all(sorted(a) == ["moe_load_balance", "moe_router_z"]
+              and all(math.isfinite(v) for v in a.values()) for a in auxes),
+          f"lm {MOE_ARCH}: aux losses {auxes}")
+    b1_paths[f"lm {MOE_ARCH}"] = Q.launches
+    print(f"# lm {MOE_ARCH} train, {MOE_LAYERS} of 48 layers, "
+          f"{mcfg.moe.num_experts} experts top-{mcfg.moe.top_k}, batch "
+          f"{LM_BATCH} x {LM_SEQ}: {m_params} parameters, B1 over {m_rows} "
+          f"rows, {MOE_STEPS} steps, quantize_ef launches {Q.launches}, "
+          f"median step {statistics.median(times[1:]) * 1e3:.3f} ms (first "
+          f"{times[0] * 1e3:.1f} ms), losses "
+          f"{[round(x, 4) for x in losses]}, aux (last step) "
+          f"{ {k: round(v, 6) for k, v in auxes[-1].items()} }, peak memory "
+          f"{gib(torch.cuda.max_memory_allocated()):.2f} GiB; gpu {gpu}")
+    del tr, st, batches, seen
+    free_cuda()
+
+    # ---- (d) the CLI on the card ------------------------------------------ #
+    Q.reset_launches()
+    history = train.main(["--arch", LM_ARCH, "--smoke", "--seq", "64",
+                          "--steps", "5", "--optimizer", "omd",
+                          "--compressor", "qsgd8_block1024", "--comm-plan",
+                          "uniform", "--log-every", "1", "--device", "cuda"])
+    check_rows(history, 5)
+    check(all(math.isfinite(r["step_s"]) and r["step_s"] > 0
+              for r in history), f"lm cli: step_s {history}")
+    check(Q.launches == 5 and Q.launches_dyn == 0,
+          f"lm cli: quantize_ef {Q.launches}, quantize_ef_dyn "
+          f"{Q.launches_dyn} launches in 5 steps, expected 5, 0")
+    b1_paths[f"lm cli {LM_ARCH} smoke"] = Q.launches
+    print(f"# lm cli {LM_ARCH} --smoke --seq 64: 5 rows, quantize_ef "
+          f"launches {Q.launches}, median step "
+          f"{statistics.median(r['step_s'] for r in history[1:]) * 1e3:.3f} "
+          f"ms")
+
+    # ---- (e) four stacked workers, B2 ------------------------------------ #
+    import dataclasses
+
+    from repro_torch.configs import DQConfig, get
+    from repro_torch.core import dqgan
+    from repro_torch.models import build
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      Participation, Strategy)
+    ycfg = get("yi-34b").reduced()
+    strat = Strategy(compression=Compression(
+        compressor="qsgd8_block1024", plan="delta_budget", budget_mb=1.0,
+        adaptive=True), exchange=ExchangePlan(kind="sim",
+                                              worker_axes=("data",)),
+        participation=Participation(fraction=0.5))
+    ytr = dqgan.DQGAN(field_fn=build(ycfg).field_fn,
+                      dq=DQConfig.from_strategy(strat, optimizer="omd"),
+                      device=dev, workers=WORKERS)
+    yparams = build(ycfg).init(device=dev)
+    family = ytr._family(yparams)
+    n_buckets = len(ytr._comm(yparams)[0].buckets)
+    table = family.levels_table()
+    members = {tuple(r) for r in table}
+    check(len(members) > 1, f"lm 4 workers: the family has one member "
+          f"({family.describe()})")
+    del ytr, yparams
+    Q.reset_launches()
+    steps = 5
+    history = train.main(LM_W_ARGS + ["--steps", str(steps)])
+    check_rows(history, steps)
+    check(Q.launches_dyn == steps * n_buckets and Q.launches == 0,
+          f"lm 4 workers: quantize_ef_dyn {Q.launches_dyn}, quantize_ef "
+          f"{Q.launches} launches in {steps} steps, expected "
+          f"{steps * n_buckets} and 0")
+    check(all(r.get("participants") == N_PART for r in history),
+          "lm 4 workers: participants")
+    b2_paths["lm yi-34b smoke 4 workers"] = Q.launches_dyn
+    print(f"# lm yi-34b reduced, {WORKERS} workers ({N_PART} reporting), "
+          f"adaptive delta_budget 1.0 MiB, {family.describe()}: {steps} "
+          f"steps, quantize_ef_dyn launches {Q.launches_dyn} ({n_buckets} "
+          f"buckets a step), median step "
+          f"{statistics.median(r['step_s'] for r in history[1:]) * 1e3:.3f} "
+          f"ms")
+    free_cuda()
+    return b1_paths, b2_paths, {"lm_rows": rows, "lm_ms": b1_ms,
+                                "lm_bound_ms": bound}
+
+
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
     t0 = time.perf_counter()
@@ -2947,6 +3357,7 @@ def main():
                    for i in range(S_BATCH)]
         b3 = timed("kernel B3", phase_paged_kernel, dev, scfg, lengths)
         b4 = timed("flash", phase_flash_kernel, dev)
+        lm_b1, lm_b2, lm_call = timed("lm train", phase_lm_train, dev, gpu)
         b1["launches"] = timed("train 1 worker", phase_train)
         b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
         b3["launches"] = timed("serve", phase_serve)
@@ -2974,13 +3385,16 @@ def main():
             **{f"resume {k}": v for k, v in resumed.items()},
             **{f"overlap {k}": v[0] for k, v in overlapped.items()},
             **{k: v[0] for k, v in observed.items() if v[0]},
-            **fsdp, **quant_b1}
+            **fsdp, **quant_b1, **lm_b1}
+        # B1's one launch over the LM gradient, timed in the profiled
+        # window of phase lm train
+        b1["lm_call"] = lm_call
         b3["launches_by_path"] = quant_b3
         b2["launches_by_path"] = {
             **{f"sched {k}": v[1] for k, v in sched.items()},
             **{f"dist nccl {k}": v for k, v in dist_b2.items()},
             **{f"overlap {k}": v[1] for k, v in overlapped.items()},
-            **{k: v[1] for k, v in observed.items() if v[1]}}
+            **{k: v[1] for k, v in observed.items() if v[1]}, **lm_b2}
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
 """Configs of the port (counterpart of `repro.configs`): the GAN of the
-paper and, of the LM zoo, gemma-2b and gemma-2b-swa (the serving slice).
-The other archs of the JAX package are refused with the ROADMAP slice
-that brings them."""
+paper and, of the LM zoo, the dense archs (gemma-2b, gemma-2b-swa,
+starcoder2-7b, yi-34b, chameleon-34b, command-r-plus-104b) and the MoE
+archs (qwen3-moe-30b-a3b, arctic-480b). The archs whose mixers or encoder
+are not ported yet are refused with the ROADMAP slice that brings them."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -18,6 +19,12 @@ from .base import (  # noqa: F401
 _ARCH_MODULES = {
     "gemma-2b": "gemma_2b",
     "gemma-2b-swa": "gemma_2b_swa",
+    "yi-34b": "yi_34b",
+    "chameleon-34b": "chameleon_34b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "arctic-480b": "arctic_480b",
+    "starcoder2-7b": "starcoder2_7b",
     "dcgan32": "dcgan32",
 }
 
@@ -25,14 +32,7 @@ _ARCH_MODULES = {
 UNPORTED = {
     "recurrentgemma-2b": "ROADMAP §A slice 6 (LM zoo: the RG-LRU mixer)",
     "mamba2-1.3b": "ROADMAP §A slice 6 (LM zoo: the SSD mixer)",
-    "qwen3-moe-30b-a3b": "ROADMAP §A slice 6 (LM zoo: MoE)",
-    "arctic-480b": "ROADMAP §A slice 6 (LM zoo: MoE)",
     "whisper-tiny": "ROADMAP §A slice 6 (LM zoo: encoder-decoder)",
-    "yi-34b": "ROADMAP §A slice 6 (LM zoo: the other dense archs)",
-    "chameleon-34b": "ROADMAP §A slice 6 (LM zoo: the other dense archs)",
-    "command-r-plus-104b": "ROADMAP §A slice 6 (LM zoo: the other dense "
-                           "archs)",
-    "starcoder2-7b": "ROADMAP §A slice 6 (LM zoo: the other dense archs)",
 }
 
 

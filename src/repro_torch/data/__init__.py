@@ -1,6 +1,9 @@
 """Synthetic data of the port (counterpart of `repro.data`)."""
 from .synthetic import (  # noqa: F401
     gaussian_mixture_sampler,
+    lm_batch_iterator,
+    lm_tokens,
     procedural_images,
     render_blobs,
+    synthetic_lm_batch,
 )

@@ -1,10 +1,11 @@
 """Synthetic data on a torch generator (counterpart of
-`repro.data.synthetic`; the LM token streams arrive with the LM slice).
+`repro.data.synthetic`): LM token streams, the 2-D Gaussian mixture and
+procedural images.
 
 The two frameworks' generators never give the same numbers, so each
 sampler keeps its arithmetic in a function of explicit draws
-(`render_blobs`, the `idx`/`noise` of a mixture sample): the tests feed
-both packages the same draws.
+(`lm_tokens`, `render_blobs`, the `idx`/`noise` of a mixture sample): the
+tests feed both packages the same draws.
 """
 from __future__ import annotations
 
@@ -12,6 +13,49 @@ import math
 
 import numpy as np
 import torch
+
+
+# --------------------------------------------------------------------------- #
+# LM tokens
+# --------------------------------------------------------------------------- #
+LM_OFFSETS = (1, 7, 13, 29)   # the preferred successor offsets
+
+
+def lm_tokens(start, chose, vocab):
+    """The token stream of `synthetic_lm_batch` on explicit draws: start
+    (B, 1) in [0, vocab), chose (B, S) in [0, len(LM_OFFSETS)). t_{i+1} =
+    (t_i + offset[chose_i]) mod vocab, the cumsum in int64. Returns
+    {"tokens", "targets"} (B, S) int64, targets the tokens shifted by
+    one."""
+    offsets = torch.tensor(LM_OFFSETS, dtype=torch.int64,
+                           device=chose.device)
+    start = start.long()
+    toks = (start + torch.cumsum(offsets[chose.long()], dim=1)) % vocab
+    return {"tokens": torch.cat([start, toks[:, :-1]], dim=1),
+            "targets": toks}
+
+
+def synthetic_lm_batch(batch, seq, vocab, *, generator=None, device=None):
+    """A correlated token batch: each next token a few preferred offsets
+    past the current one, learnable by a small LM."""
+    start = torch.randint(0, vocab, (batch, 1), generator=generator,
+                          device=device)
+    chose = torch.randint(0, len(LM_OFFSETS), (batch, seq),
+                          generator=generator, device=device)
+    return lm_tokens(start, chose, vocab)
+
+
+def lm_batch_iterator(batch, seq, vocab, *, generator=None, device=None,
+                      enc_shape=None):
+    """Endless `synthetic_lm_batch` batches drawn in turn from `generator`
+    (the JAX package folds a batch index into a seed's key instead)."""
+    if enc_shape is not None:
+        raise NotImplementedError(
+            "encoder inputs (enc_embeds) arrive with ROADMAP §A slice 6 "
+            "(LM zoo: encoder-decoder)")
+    while True:
+        yield synthetic_lm_batch(batch, seq, vocab, generator=generator,
+                                 device=device)
 
 
 # --------------------------------------------------------------------------- #

@@ -1,13 +1,22 @@
-"""Training launcher of the port: DQGAN over W workers on a GAN arch, on
-one CUDA device (or the CPU when asked), or across the processes of a
+"""Training launcher of the port: DQGAN over W workers on any arch of the
+port (the GAN of the paper, or an LM of the zoo through its loss), on one
+CUDA device (or the CPU when asked), or across the processes of a
 `torchrun` launch.
 
     python -m repro_torch.launch.train --arch dcgan32 --steps 20 \
         --optimizer omd --compressor qsgd8_block1024 --comm-plan uniform
+    python -m repro_torch.launch.train --arch starcoder2-7b --smoke \
+        --seq 64 --steps 5 --compressor qsgd8_block1024 --comm-plan uniform
     python -m repro_torch.launch.train --arch dcgan32 --workers 4 \
         --batch 256 --optimizer omd --lr 1e-4 --compressor qsgd8_block1024 \
         --comm-plan delta_budget --comm-budget-mb 0.75 --comm-adaptive \
         --participation 0.5 --exchange sim --steps 20
+
+The field is `models.build(cfg).field_fn`: the WGAN field on a GAN arch,
+fed procedural images; on an LM the gradient of its loss (cross-entropy
+plus the MoE router's aux losses), fed `data.lm_batch_iterator` batches
+of ``--batch`` rows of ``--seq`` tokens (default 64, as in JAX). Both
+draw from one data generator after the initial weights.
 
 ``--workers W`` (default 1) stands for the JAX launcher's device count:
 the W workers are a leading axis of every per-worker tensor on the one
@@ -110,9 +119,9 @@ from repro_torch import obs as obs_api
 from repro_torch import strategy as strategy_api
 from repro_torch.configs.base import DQConfig
 from repro_torch.core.dqgan import DQGAN
-from repro_torch.data import procedural_images
+from repro_torch.data import lm_batch_iterator, procedural_images
 from repro_torch.launch.mesh import ProcessMesh
-from repro_torch.models import gan
+from repro_torch.models import build, gan
 from repro_torch.sched import clock as sclock
 from repro_torch.sched import n_participants
 from repro_torch.sched import straggler as sstrag
@@ -129,6 +138,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a row of an LM batch")
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split over the workers")
     ap.add_argument("--workers", type=int, default=1,
@@ -213,15 +224,17 @@ def _train(args, ap, cfg, device, mesh):
     dq = DQConfig.from_strategy(
         strat, optimizer=args.optimizer, lr=args.lr,
         message="update" if args.optimizer == "omd" else "grad")
+    bundle = build(cfg)
     try:
-        trainer = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=dq, device=device,
+        trainer = DQGAN(field_fn=bundle.field_fn, dq=dq, device=device,
                         seed=args.seed + 1, workers=W, mesh=mesh)
     except ValueError as e:
         ap.error(str(e))
 
     # one stream for the initial weights and then the data batches
     data_gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = gan.init(cfg, generator=data_gen, device=device)
+    params = bundle.init(generator=data_gen, device=device,
+                         max_seq=args.seq)
     state = trainer.init(params)
 
     workers = trainer.worker_backend
@@ -310,7 +323,9 @@ def _train(args, ap, cfg, device, mesh):
                 args.batch, cfg.image_size, cfg.channels,
                 generator=data_gen, device=device)}
 
-    it = batches()
+    it = (batches() if isinstance(cfg, gan.GANConfig)
+          else lm_batch_iterator(args.batch, args.seq, cfg.vocab_size,
+                                 generator=data_gen, device=device))
     for _ in range(start):  # keep the data stream aligned across resumes
         next(it)
     history = []

@@ -199,9 +199,14 @@ def _split_heads(x, n, hd):
 
 
 def _repeat_kv(k, n_heads, n_kv):
+    """Each KV head repeated for its n_heads // n_kv query heads (as
+    repeat_interleave on the head axis), by a broadcast whose backward is
+    a sum, in a fixed order on CUDA."""
     if n_heads == n_kv:
         return k
-    return torch.repeat_interleave(k, n_heads // n_kv, dim=-2)
+    g = n_heads // n_kv
+    return k[..., None, :].expand(k.shape[:-1] + (g, k.shape[-1])).reshape(
+        k.shape[:-2] + (n_heads, k.shape[-1]))
 
 
 def _causal_band_mask(q_pos, k_pos, window: int):

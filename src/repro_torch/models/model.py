@@ -1,8 +1,11 @@
-"""The decoder LM (counterpart of `repro.models.model`), dense blocks only:
-each layer is attention plus an MLP, the serving slice's gemma-2b.
+"""The decoder LM (counterpart of `repro.models.model`): a cycled pattern
+of attention blocks, each with a dense MLP or an MoE FFN
+(`repro_torch.models.moe`), the chunked cross-entropy, and the prefill
+and decode of the serving engine.
 
     init(cfg, generator=, device=)               -> params
     forward(params, cfg, tokens, positions, ...) -> (hidden, caches, aux)
+    loss_fn(params, cfg, batch)                  -> (total, metrics)
     prefill(params, cfg, tokens, max_len=)       -> (logits_last, caches)
     decode_step(params, cfg, tokens, caches)     -> (logits, caches)
     decode_step_paged(params, cfg, tokens, caches, lengths)
@@ -12,7 +15,16 @@ Parameters keep the JAX package's tree: layers stacked along a leading
 axis under ``params["scan"]`` (one entry ``"b{i}"`` per position of the
 layer pattern), unscanned layers in the list ``params["tail"]``, so that
 weights cross over by copy (`repro_torch.convert`). `_stack_apply` loops
-over the stacked axis in Python where the JAX package scans.
+over the stacked axis in Python where the JAX package scans; in training
+each period runs under `torch.utils.checkpoint` when ``cfg.remat`` asks
+for it (the JAX package's `jax.checkpoint` of the scan body), and the
+MoE router's aux losses are summed over the layers. Gradients of the
+per-layer views land on the stacked leaves.
+
+`loss_fn` returns the cross-entropy plus the aux losses, and the metrics
+{"loss", **aux}; `chunked_xent` takes the logits ``xent_chunk`` tokens at
+a time, each chunk recomputed in the backward pass, so that one (B,
+chunk, V) block of logits is alive at a time.
 
 Caches keep the JAX tree too ({"scan": ..., "tail": [...]}); decode
 writes into their tensors in place and returns the same tree. A dense
@@ -20,9 +32,8 @@ cache's ``"pos"`` is a CPU int32 tensor (host state: reading it needs no
 device sync); the paged cache has none, its positions come in
 `decode_step_paged`'s `lengths`.
 
-Not ported yet, and refused by name: LM training (`loss_fn`,
-`chunked_xent`), the encoder (`encode`), RG-LRU and SSD mixers and MoE
-(ROADMAP §A slice 6).
+Not ported yet, and refused by name: the encoder (`encode`) and the
+RG-LRU and SSD mixers (ROADMAP §A slice 6).
 """
 from __future__ import annotations
 
@@ -30,9 +41,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 
+from . import moe as moe_lib
 from .layers import (
     apply_norm,
     attn_apply,
@@ -64,10 +77,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {'/'.join(missing)} blocks (the RG-LRU and SSD "
             f"mixers) arrive with ROADMAP §A slice 6 (LM zoo)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks arrive with ROADMAP §A slice 6 (LM zoo: "
-            f"MoE)")
     if cfg.is_encdec or cfg.embedding_inputs:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models arrive with ROADMAP §A "
@@ -87,15 +96,19 @@ def block_init(cfg, kind: str, *, generator=None, device=None):
     p = {"norm1": norm_init(cfg.norm, d, **kw),
          "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                            cfg.use_bias, generator=generator, **kw)}
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or cfg.moe is not None:
         p["norm2"] = norm_init(cfg.norm, d, **kw)
-        p["mlp"] = mlp_init(d, cfg.d_ff, cfg.activation, cfg.use_bias,
-                            generator=generator, **kw)
+        if cfg.moe is not None:
+            p["moe"] = moe_lib.moe_init(cfg, generator=generator, **kw)
+        else:
+            p["mlp"] = mlp_init(d, cfg.d_ff, cfg.activation, cfg.use_bias,
+                                generator=generator, **kw)
     return p
 
 
 def block_apply(p, cfg, kind, x, positions, cache=None, fill_cache=False):
-    """Returns (x, new_cache, aux_losses)."""
+    """Returns (x, new_cache, aux_losses): the MoE router's losses, or {}."""
+    aux = {}
     h = apply_norm(cfg.norm, p["norm1"], x)
     out, new_cache = attn_apply(p["attn"], h, cfg, positions, cache=cache,
                                 fill_cache=fill_cache)
@@ -103,7 +116,11 @@ def block_apply(p, cfg, kind, x, positions, cache=None, fill_cache=False):
     if "mlp" in p:
         x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x),
                     cfg.activation)
-    return x, new_cache, {}
+    elif "moe" in p:
+        y, aux = moe_lib.moe_apply(p["moe"], cfg,
+                                   apply_norm(cfg.norm, p["norm2"], x))
+        x = x + y
+    return x, new_cache, aux
 
 
 # ------------------------------------------------------------------------- #
@@ -117,6 +134,15 @@ def _stack(trees):
 def _layer(tree, i):
     """Layer i of a stacked tree: views, so in-place writes reach it."""
     return T.tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n):
+    """The n layers of a stacked tree, views made by one `unbind` a leaf:
+    its backward stacks the layers' gradients into the leaf's in one
+    copy."""
+    paths, leaves = T.flatten(tree)
+    cols = [a.unbind(0) for a in leaves]
+    return [T.unflatten(paths, [c[i] for c in cols]) for i in range(n)]
 
 
 def _n_scan(cfg):
@@ -156,43 +182,70 @@ def init(cfg, *, generator=None, device=None, max_seq: int = 0):
 # ------------------------------------------------------------------------- #
 def _stack_apply(params, cfg, x, positions, caches=None, fill_cache=False):
     """Run all layers. Three modes:
-      train   : caches=None, fill_cache=False
+      train   : caches=None, fill_cache=False  (remat'd periods, aux summed)
       prefill : caches=None, fill_cache=True   (caches stacked per layer)
       decode  : caches=tree                     (updated in place)
     Returns (x, new_caches, aux)."""
     period, n_scan = _n_scan(cfg)
+    train = caches is None and not fill_cache
+    aux_total = {}
+
+    def add_aux(aux):
+        for k, v in aux.items():
+            aux_total[k] = aux_total.get(k, 0.0) + v
+
+    def period_fn(x, layer_p, layer_c):
+        lc, aux_p = {}, {}
+        for i in range(period):
+            x, lc[f"b{i}"], aux = block_apply(
+                layer_p[f"b{i}"], cfg, cfg.layer_pattern[i], x, positions,
+                cache=None if layer_c is None else layer_c[f"b{i}"],
+                fill_cache=fill_cache)
+            for k, v in aux.items():
+                aux_p[k] = aux_p.get(k, 0.0) + v
+        return x, lc, aux_p
+
     new_caches = {"scan": None, "tail": []}
     if n_scan:
-        per_layer = []
-        for layer in range(n_scan):
-            layer_p = _layer(params["scan"], layer)
-            layer_c = (None if caches is None
-                       else _layer(caches["scan"], layer))
-            lc = {}
-            for i in range(period):
-                x, lc[f"b{i}"], _ = block_apply(
-                    layer_p[f"b{i}"], cfg, cfg.layer_pattern[i], x,
-                    positions, cache=None if layer_c is None
-                    else layer_c[f"b{i}"], fill_cache=fill_cache)
-            per_layer.append(lc)
-        if fill_cache:
-            new_caches["scan"] = _stack(per_layer)
-        elif caches is not None:
-            new_caches["scan"] = caches["scan"]
+        layers_p = _unstack(params["scan"], n_scan)
+        if train:
+            if cfg.moe is not None:   # the JAX scan carries both from zero
+                aux_total.update({k: torch.zeros((), device=x.device)
+                                  for k in ("moe_load_balance",
+                                            "moe_router_z")})
+            remat = cfg.remat != "none" and torch.is_grad_enabled()
+            for layer_p in layers_p:
+                x, _, aux = (checkpoint(period_fn, x, layer_p, None,
+                                        use_reentrant=False) if remat
+                             else period_fn(x, layer_p, None))
+                add_aux(aux)
+        else:
+            per_layer = []
+            for layer, layer_p in enumerate(layers_p):
+                layer_c = (None if caches is None
+                           else _layer(caches["scan"], layer))
+                x, lc, _ = period_fn(x, layer_p, layer_c)
+                per_layer.append(lc)
+            if fill_cache:
+                new_caches["scan"] = _stack(per_layer)
+            else:
+                new_caches["scan"] = caches["scan"]
     for i, bp in enumerate(params.get("tail", [])):
         kind = cfg.layer_pattern[(n_scan * period + i) % period]
         c = None if caches is None else caches["tail"][i]
-        x, nc, _ = block_apply(bp, cfg, kind, x, positions, cache=c,
-                               fill_cache=fill_cache)
+        x, nc, aux = block_apply(bp, cfg, kind, x, positions, cache=c,
+                                 fill_cache=fill_cache)
+        add_aux(aux)
         new_caches["tail"].append(nc)
-    if caches is None and not fill_cache:
+    if train:
         new_caches = None
-    return x, new_caches, {}
+    return x, new_caches, aux_total
 
 
 def _embed_tokens(params, cfg, tokens, positions):
     del positions  # learned absolute positions are not ported
-    x = params["embed"][tokens]
+    # F.embedding's backward sums a token's rows in a fixed order on CUDA
+    x = F.embedding(tokens, params["embed"])
     # the JAX package multiplies by a weakly typed Python float, which
     # takes the activation's dtype: round the factor the same way
     scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
@@ -214,13 +267,59 @@ def logits_fn(params, cfg, hidden):
     return linear(params["unembed"], hidden)
 
 
-def _lm_training(*_, **__):
-    raise NotImplementedError(
-        "LM training (loss_fn, chunked_xent) arrives with ROADMAP §A slice 6 "
-        "(LM zoo)")
+# ------------------------------------------------------------------------- #
+# losses
+# ------------------------------------------------------------------------- #
+def _xent(logits, targets):
+    """Per-token cross-entropy in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return lse - ll
 
 
-loss_fn = chunked_xent = _lm_training
+def chunked_xent(params, cfg, hidden, targets, chunk):
+    """Mean cross-entropy without materializing (B, S, V): the float32
+    total of each `chunk` tokens, divided once by B·S, as the JAX scan
+    does; under autograd each chunk's logits are recomputed in the
+    backward pass (`torch.utils.checkpoint`, the JAX package's
+    `jax.checkpoint` of the scan body)."""
+    B, S, _ = hidden.shape
+    if S % chunk:
+        raise ValueError(f"chunked_xent: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+
+    def body(h, t):
+        return _xent(logits_fn(params, cfg, h), t).sum()
+
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, S, chunk):
+        h = hidden[:, start:start + chunk]
+        t = targets[:, start:start + chunk]
+        tot = tot + (checkpoint(body, h, t, use_reentrant=False) if remat
+                     else body(h, t))
+    return tot / (B * S)
+
+
+def loss_fn(params, cfg, batch, generator=None):
+    """batch: {"tokens": (B, S), "targets": (B, S)} integer. Returns
+    (loss + Σ aux, {"loss": loss, **aux}). The chunked cross-entropy is
+    taken when ``cfg.xent_chunk`` divides S."""
+    del generator   # the LM's loss draws nothing
+    if cfg.is_encdec:
+        encode()
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    hidden, _, aux = forward(params, cfg, tokens, positions)
+    if cfg.xent_chunk and tokens.shape[1] % cfg.xent_chunk == 0:
+        loss = chunked_xent(params, cfg, hidden, batch["targets"],
+                            cfg.xent_chunk)
+    else:
+        loss = _xent(logits_fn(params, cfg, hidden), batch["targets"]).mean()
+    metrics = {"loss": loss, **aux}
+    total = loss + sum(aux.values()) if aux else loss
+    return total, metrics
 
 
 def encode(*_, **__):

@@ -840,3 +840,85 @@ def test_quantized_weights_on_the_card(dtype):
     for a, b in zip(T.leaves(got), T.leaves(ref)):
         assert a.dtype == getattr(torch, dtype)
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen3-moe-30b-a3b"])
+def test_lm_field_on_the_card_matches_the_cpu(arch):
+    """The LM field (loss, MoE aux losses, gradients) of a reduced arch in
+    float32 on the card, TF32 off, against the same field on the CPU:
+    each within 1e-4 of the CPU tree's largest |g| (the card's GEMMs sum
+    in another order)."""
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import build
+    dev = _device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(arch).reduced()
+    bundle = build(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = bundle.init(generator=gen)
+    batch = synthetic_lm_batch(4, 32, cfg.vocab_size, generator=gen)
+    g_cpu, m_cpu = bundle.field_fn(params, batch)
+    g_dev, m_dev = bundle.field_fn(
+        T.tree_map(lambda x: x.to(dev), params),
+        {k: v.to(dev) for k, v in batch.items()})
+    assert sorted(m_dev) == sorted(m_cpu)
+    for k in m_cpu:
+        torch.testing.assert_close(m_dev[k].cpu(), m_cpu[k], rtol=1e-5,
+                                   atol=1e-6)
+    gmax = max(x.abs().max().item() for x in T.leaves(g_cpu))
+    for a, b in zip(T.leaves(g_dev), T.leaves(g_cpu)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * gmax
+
+
+@pytest.mark.cuda
+def test_lm_dqgan_steps_run_b1_once_a_step_bit_equal_to_plain():
+    """Reduced starcoder2 in bfloat16 through the trainer on the card
+    (omd, qsgd8_block1024 over uniform buckets): B1 once a step, and the
+    same two steps with B1's plain version give bit-equal parameters (the
+    field is deterministic on the card: the GQA repeat's and the
+    embedding's backward sum in a fixed order)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.configs import DQConfig
+    from repro_torch.core import dqgan, error_feedback
+    from repro_torch.data import lm_batch_iterator
+    from repro_torch.models import build
+    from repro_torch.strategy import Compression, Strategy
+    dev = _device()
+    cfg = dataclasses.replace(configs.get("starcoder2-7b").reduced(),
+                              param_dtype="bfloat16", num_kv_heads=2)
+    bundle = build(cfg)
+    strat = Strategy(compression=Compression(compressor="qsgd8_block1024",
+                                             plan="uniform", bucket_mb=1.0))
+
+    def run():
+        tr = dqgan.DQGAN(field_fn=bundle.field_fn, dq=DQConfig.from_strategy(
+            strat, optimizer="omd", lr=1e-3, message="update"), device=dev,
+            seed=1)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st = tr.init(bundle.init(generator=gen, device=dev))
+        it = lm_batch_iterator(4, 64, cfg.vocab_size, generator=gen,
+                               device=dev)
+        for _ in range(2):
+            st = tr.step(st, next(it)).state
+        return T.leaves(st.params)
+
+    def plain(g, e, rand, *, levels=127):
+        c, s, en = quantize_ef_ref(g.reshape(-1, 1024), e.reshape(-1, 1024),
+                                   rand.reshape(-1, 1024), levels)
+        return c.reshape(-1), s.reshape(-1), en.reshape(-1)
+
+    before = Q.launches
+    kern = run()
+    assert Q.launches - before == 2
+    with mock.patch.object(error_feedback, "quantize_ef_flat", plain):
+        ref = run()
+    assert Q.launches - before == 2
+    for a, b in zip(kern, ref):
+        assert torch.equal(a, b)

@@ -58,13 +58,27 @@ def weights():
     return params, params_from_jax(jax.device_get(params))
 
 
+def _field(cfg, f):
+    """A config field; a sub-config (MoEConfig, ...) as a dict, since
+    each package has its own class."""
+    import dataclasses
+    v = getattr(cfg, f)
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
 def test_config_matches_the_jax_config():
-    full_j, full_t = jcfgs.get("gemma-2b"), tcfgs.get("gemma-2b")
-    for f in full_t.__dataclass_fields__:
-        assert getattr(full_t, f) == getattr(full_j, f), f
-        assert getattr(TCFG, f) == getattr(JCFG, f), f
-    assert full_t.param_count() == full_j.param_count() == 3_030_460_416
-    assert full_t.positional == full_j.positional == "rope"
+    """Every LM arch of the port, full and reduced(), field for field."""
+    for arch in ("gemma-2b", "gemma-2b-swa", "starcoder2-7b", "yi-34b",
+                 "chameleon-34b", "command-r-plus-104b", "qwen3-moe-30b-a3b",
+                 "arctic-480b"):
+        full_j, full_t = jcfgs.get(arch), tcfgs.get(arch)
+        for f in full_t.__dataclass_fields__:
+            assert _field(full_t, f) == _field(full_j, f), (arch, f)
+            assert (_field(full_t.reduced(), f)
+                    == _field(full_j.reduced(), f)), (arch, f)
+        assert full_t.param_count() == full_j.param_count(), arch
+        assert full_t.positional == full_j.positional == "rope"
+    assert tcfgs.get("gemma-2b").param_count() == 3_030_460_416
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
@@ -344,7 +358,7 @@ def test_trees_with_lists_cross_over():
            JM.prefill(params, cfg, jnp.asarray(prompt, jnp.int32))[0])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen3-moe-30b-a3b",
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
                                   "whisper-tiny"])
 def test_unported_archs_are_refused_by_slice(arch):
     with pytest.raises(KeyError, match="ROADMAP §A slice 6"):

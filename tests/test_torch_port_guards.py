@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_repro():
                 "obs.tracing", "obs.metrics", "obs.sink", "obs.cli",
                 "obs.report", "obs.calibrate", "obs.__main__", "obs.profile",
                 "obs.trace", "serve.quantized_weights",
-                "configs.gemma_2b_swa"):
+                "configs.gemma_2b_swa", "models.moe", "models.registry",
+                "configs.starcoder2_7b", "configs.arctic_480b"):
         assert f"repro_torch.{mod}" in walked, mod
 
 
