@@ -137,6 +137,24 @@ result line):
               starcoder2 reduced, --seq 64 (B1 5 in 5 steps); four stacked
               workers at yi-34b reduced, half reporting, adaptive
               delta_budget 1 MiB (B2 once a bucket a step)
+ 20. zoo      the SSD and RG-LRU mixers and the encoder-decoder (run after
+              phase lm train), at published widths: mamba2-1.3b at all
+              48 layers in bf16, batch 2 x 2048, 10 steps (B1 once a step
+              over ~1.41 M rows, finite losses and gradients, median step,
+              peak memory, a profiled window, B1 on a step's packed
+              operands bit-equal to its plain version, 3 steps kernel ==
+              plain bit for bit); recurrentgemma-2b at 2 of 26 layers,
+              batch 1 x 2048, and whisper-tiny whole, batch 16 x 448 with
+              1500 encoder frames (B1 once a step); mamba2 served at 48
+              layers through the launcher (bf16, the serve traffic;
+              decode kernels and busy share) and in f32 with churn
+              (engine == sequential); prefill + decode == one forward in
+              f32 at 4096-token prompts (mamba2 4 layers, recurrentgemma 5
+              layers) and for whisper (batch 4, 32 steps);
+              recurrentgemma-2b at 26 layers in bf16, a 4096-token prefill
+              and 32 decode steps (timed); the CLI on each of the three
+              archs (B1 5 in 5 steps) and four stacked workers on mamba2
+              reduced (B2 once a bucket a step)
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -2941,35 +2959,43 @@ def plain_quantize_ef_rows(g, e, rand, *, levels=127):
     return codes, scale, e_new
 
 
-class B1Check:
-    """Wraps `quantize_ef_flat` for one trainer step: B1's launch as the
-    step makes it, then B1's plain version on the same packed operands,
-    PLAIN_ROWS rows at a time, compared bit for bit (codes, scales,
-    e')."""
+class QuantCheck:
+    """Wraps `quantize_ef_flat`: each of the first `limit` calls goes to
+    the kernel as the caller makes it (B1 with an int level count, B2 with
+    a device one), then to its plain version on the same operands and
+    levels, PLAIN_ROWS rows at a time, compared bit for bit (codes,
+    scales, e'). Later calls go to the kernel alone; `n` counts all."""
 
-    def __init__(self, real):
-        self.real, self.calls = real, []
+    def __init__(self, real, limit=1):
+        self.real, self.limit, self.calls, self.n = real, limit, [], 0
 
     def __call__(self, g, e, rand, *, levels=127):
-        codes, scale, e_new = self.real(g, e, rand, levels=levels)
-        pc, ps, pe = plain_quantize_ef_rows(g, e, rand, levels=levels)
         import torch
+        codes, scale, e_new = self.real(g, e, rand, levels=levels)
+        self.n += 1
+        if len(self.calls) >= self.limit:
+            return codes, scale, e_new
+        pc, ps, pe = plain_quantize_ef_rows(g, e, rand, levels=levels)
+        dyn = isinstance(levels, torch.Tensor)
         self.calls.append({
-            "rows": scale.shape[0], "codes": torch.equal(codes, pc),
-            "scale": torch.equal(scale, ps), "e": torch.equal(e_new, pe),
+            "rows": scale.shape[0], "dyn": dyn, "levels": float(levels),
+            "codes": torch.equal(codes, pc), "scale": torch.equal(scale, ps),
+            "e": torch.equal(e_new, pe),
             "max_abs_err": (e_new - pe).abs().max().item()})
         del pc, ps, pe
         return codes, scale, e_new
 
 
-def lm_trainer(dev, arch, layers, seed, strat=None):
+def lm_trainer(dev, arch, layers, seed, strat=None, batch=LM_BATCH,
+               seq=LM_SEQ):
     """(trainer, state, batches, cfg, field metrics) of `arch` at its
     published widths cut to `layers` layers: one worker, omd/update,
     qsgd8_block1024 over uniform 4 MiB buckets (one packed B1 launch a
-    step), weights and batches (LM_BATCH x LM_SEQ tokens) from one seeded
-    generator, as the trainer's CLI draws them. The field's metrics (the
-    loss and the MoE aux losses that entered the gradient) are appended
-    to the list each step."""
+    step), weights and batches (`batch` x `seq` tokens, and an
+    encoder-decoder model's encoder frames) from one seeded generator, as
+    the trainer's CLI draws them. The field's metrics (the loss and the
+    MoE aux losses that entered the gradient) are appended to the list
+    each step."""
     import dataclasses
 
     import torch
@@ -2992,10 +3018,12 @@ def lm_trainer(dev, arch, layers, seed, strat=None):
                           seed=seed + 1)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = trainer.init(bundle.init(generator=gen, device=dev,
-                                     max_seq=LM_SEQ))
+                                     max_seq=seq))
+    enc_shape = ((cfg.encdec.enc_seq, cfg.d_model) if cfg.is_encdec
+                 else None)
     return trainer, state, lm_batch_iterator(
-        LM_BATCH, LM_SEQ, cfg.vocab_size, generator=gen, device=dev), cfg, \
-        seen
+        batch, seq, cfg.vocab_size, generator=gen, device=dev,
+        enc_shape=enc_shape), cfg, seen
 
 
 def free_cuda():
@@ -3009,7 +3037,9 @@ def free_cuda():
 def lm_steps(trainer, state, batches, steps, label, seen=()):
     """`steps` trainer steps, each synchronized and timed, with B1's
     launches counted a step. Returns (state, [step_s], [loss], [the MoE
-    aux losses of each step's field, from `seen`])."""
+    aux losses of each step's field, from `seen`]); a step with a
+    non-finite loss or gradient norm (the norm of the whole gradient, not
+    finite exactly when some element is not) fails."""
     import torch
     from repro_torch.kernels import quantize as Q
     times, losses, auxes = [], [], []
@@ -3026,6 +3056,8 @@ def lm_steps(trainer, state, batches, steps, label, seen=()):
               f"launched {Q.launches - before} times, expected 1")
         loss = out.metrics["loss"].item()
         check(math.isfinite(loss), f"{label} step {i}: loss {loss}")
+        gn = out.metrics["grad_norm"].item()
+        check(math.isfinite(gn), f"{label} step {i}: gradient norm {gn}")
         losses.append(loss)
         if seen:
             auxes.append({k: float(v) for k, v in seen[-1].items()
@@ -3066,6 +3098,116 @@ def host_breakdown(trainer, state, batch, top=8):
     return out.state
 
 
+def lm_profile_b1(tr, st, batches, label, rows, n_elem, gpu):
+    """A profiled window of LM_PROFILE_STEPS steps (busy share, kernels a
+    step) and B1's device time in it against its bound (bytes: 17 B an
+    element and a 4-byte scale a row). The profiler records device
+    activity alone, the only events `report_profile` reads (host activity
+    would add its cost to the window's wall, and a step of ~24,000 kernels
+    makes it slow to read back). Returns (state, B1 ms or None, bound
+    ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof_batches = [next(batches) for _ in range(LM_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in prof_batches:
+            st = tr.step(st, b).state
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del prof_batches
+    rep = report_profile(prof, f"{label}, 1 worker", LM_PROFILE_STEPS,
+                         wall_ms, "quantize_ef")
+    del prof
+    nbytes = n_elem * 17 + rows * 4
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    b1_ms = rep["ours_ms"] if rep else None
+    print(f"# {label} B1 one launch over {rows} rows ({n_elem} elements, "
+          f"{nbytes / 1e9:.2f} GB): device time "
+          + (f"{b1_ms:.4f} ms a step, bound {bound:.4f} ms (bytes), bound "
+             f"share {bound / b1_ms:.3f}" if b1_ms else "not measured")
+          + f"; gpu {gpu} (window and read-back "
+          f"{time.perf_counter() - t_prof:.1f} s)")
+    return st, b1_ms, bound
+
+
+def lm_check_b1_step(tr, st, batches, rows, label):
+    """One trainer step whose packed operands go through B1 and its plain
+    version, compared bit for bit (codes, scales, e'). Returns the
+    state."""
+    import torch
+    from repro_torch.core import error_feedback
+    spy = QuantCheck(error_feedback.quantize_ef_flat)
+    with mock.patch.object(error_feedback, "quantize_ef_flat", spy):
+        st = tr.step(st, next(batches)).state
+    torch.cuda.synchronize()
+    check(spy.n == 1 and spy.calls[0]["rows"] == rows
+          and not spy.calls[0]["dyn"],
+          f"{label}: the checked step made {spy.n} B1 calls")
+    c = spy.calls[0]
+    check(c["codes"] and c["scale"] and c["e"],
+          f"{label}: B1 on the step's packed operands ({rows} rows) differs "
+          f"from its plain version: {c}")
+    print(f"# {label} B1 on one step's packed operands ({rows} rows): "
+          f"codes, scales and e' bit-equal to its plain version "
+          f"(max|de'| {c['max_abs_err']:.3e})")
+    return st
+
+
+def cli_check_b2_step(args, n_buckets, label):
+    """The trainer's CLI with `args`, its first step's `n_buckets` B2
+    launches (one a bucket, at the adaptive family's level counts) each
+    held bit for bit against B2's plain version on that step's operands
+    and levels (codes, scales, e'). Later steps run the kernel alone.
+    Returns the CLI's history."""
+    from repro_torch.core import error_feedback
+    from repro_torch.launch import train
+    spy = QuantCheck(error_feedback.quantize_ef_flat, limit=n_buckets)
+    with mock.patch.object(error_feedback, "quantize_ef_flat", spy):
+        history = train.main(args)
+    check(len(spy.calls) == n_buckets and all(c["dyn"] for c in spy.calls),
+          f"{label}: step 0 made {len(spy.calls)} B2 calls ({spy.n} in all), "
+          f"expected {n_buckets}")
+    bad = [c for c in spy.calls if not (c["codes"] and c["scale"] and c["e"])]
+    check(not bad, f"{label}: B2 on step 0's operands differs from its plain "
+          f"version: {bad}")
+    print(f"# {label} B2 on step 0's {n_buckets} buckets "
+          f"({sum(c['rows'] for c in spy.calls)} rows, levels "
+          f"{[c['levels'] for c in spy.calls]}): codes, scales and e' "
+          f"bit-equal to its plain version (max|de'| "
+          f"{max(c['max_abs_err'] for c in spy.calls):.3e})")
+    return history
+
+
+def lm_plain_parity(dev, arch, layers, seed, kept, label):
+    """The first LM_PARITY_STEPS steps of `lm_trainer(dev, arch, layers,
+    seed)` again, with B1's plain version in the step: params
+    bit-equal on the host to `kept`, the kernel run's."""
+    import torch
+    from repro_torch.core import error_feedback
+    from repro_torch.kernels import quantize as Q
+    tr, st, batches, _, _ = lm_trainer(dev, arch, layers, seed)
+    before = Q.launches
+    with mock.patch.object(error_feedback, "quantize_ef_flat",
+                           plain_quantize_ef_rows):
+        for _ in range(LM_PARITY_STEPS):
+            st = tr.step(st, next(batches)).state
+    torch.cuda.synchronize()
+    check(Q.launches == before, f"{label}: the plain steps launched B1")
+    plain = host_params(st)
+    del tr, st, batches
+    free_cuda()
+    ndiff = sum(int((a != b).sum()) for a, b in zip(kept, plain))
+    check(ndiff == 0, f"{label}: params after {LM_PARITY_STEPS} steps of "
+          f"{arch} differ between B1 and its plain version in {ndiff} "
+          f"elements")
+    print(f"# {label} parity: {LM_PARITY_STEPS} steps of {arch} with B1 and "
+          f"with its plain version from one seed: params bit-equal "
+          f"({sum(x.numel() for x in kept)} elements, compared on the host)")
+
+
 def phase_lm_train(dev, gpu):
     """LM training through the trainer on the card (the JAX launcher's LM
     path, B1 once a step over the whole packed gradient):
@@ -3087,13 +3229,12 @@ def phase_lm_train(dev, gpu):
         steps: rows with finite step_s, B1 5 launches;
     (e) four stacked workers at yi-34b reduced through the CLI, half
         reporting, adaptive delta_budget at 1 MiB (a family of more than
-        one member): B2 once a bucket a step.
+        one member): B2 once a bucket a step, step 0's launches bit-equal
+        to B2's plain version.
     Returns ({path: B1 launches}, {path: B2 launches}, the timed B1
     record's fields for the LM call)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree as T
-    from repro_torch.core import error_feedback
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantize as Q
     from repro_torch.launch import train
@@ -3148,67 +3289,16 @@ def phase_lm_train(dev, gpu):
           f"gpu {gpu}")
     b1_paths[f"lm {LM_ARCH}"] = launches
 
-    # profiled window: busy share, kernels a step, B1's device time
-    prof_batches = [next(batches) for _ in range(LM_PROFILE_STEPS)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in prof_batches:
-            st = tr.step(st, b).state
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del prof_batches
-    rep = report_profile(prof, f"lm {LM_ARCH}, 1 worker", LM_PROFILE_STEPS,
-                         wall_ms, "quantize_ef")
-    del prof
-    nbytes = n_elem * 17 + rows * 4
-    bound = nbytes / PEAK_BYTES_S * 1e3
-    b1_ms = rep["ours_ms"] if rep else None
-    print(f"# lm B1 one launch over {rows} rows ({n_elem} elements, "
-          f"{nbytes / 1e9:.2f} GB): device time "
-          + (f"{b1_ms:.4f} ms a step, bound {bound:.4f} ms (bytes), bound "
-             f"share {bound / b1_ms:.3f}" if b1_ms else "not measured")
-          + f"; gpu {gpu}")
+    st, b1_ms, bound = lm_profile_b1(tr, st, batches, f"lm {LM_ARCH}",
+                                     rows, n_elem, gpu)
     st = host_breakdown(tr, st, next(batches))
-
-    # one step's packed operands: B1 against its plain version
-    spy = B1Check(error_feedback.quantize_ef_flat)
-    with mock.patch.object(error_feedback, "quantize_ef_flat", spy):
-        st = tr.step(st, next(batches)).state
-    torch.cuda.synchronize()
-    check(len(spy.calls) == 1 and spy.calls[0]["rows"] == rows,
-          f"lm: the checked step made {len(spy.calls)} B1 calls")
-    c = spy.calls[0]
-    check(c["codes"] and c["scale"] and c["e"],
-          f"lm: B1 on the step's packed operands ({rows} rows) differs "
-          f"from its plain version: {c}")
-    print(f"# lm B1 on one step's packed operands ({rows} rows): codes, "
-          f"scales and e' bit-equal to its plain version "
-          f"(max|de'| {c['max_abs_err']:.3e})")
-    del tr, st, batches, spy
+    st = lm_check_b1_step(tr, st, batches, rows, "lm")
+    del tr, st, batches
     free_cuda()
 
     # ---- (b) the same first steps with B1's plain version ------------- #
-    tr, st, batches, _, _ = lm_trainer(dev, LM_ARCH, LM_LAYERS, 7)
-    before = Q.launches
-    with mock.patch.object(error_feedback, "quantize_ef_flat",
-                           plain_quantize_ef_rows):
-        for _ in range(LM_PARITY_STEPS):
-            st = tr.step(st, next(batches)).state
-    torch.cuda.synchronize()
-    check(Q.launches == before, "lm: the plain steps launched B1")
-    plain = host_params(st)
-    del tr, st, batches
-    free_cuda()
-    same = all(torch.equal(a, b) for a, b in zip(kept, plain))
-    ndiff = sum(int((a != b).sum()) for a, b in zip(kept, plain))
-    check(same, f"lm: params after {LM_PARITY_STEPS} steps differ between "
-          f"B1 and its plain version in {ndiff} elements")
-    print(f"# lm parity: {LM_PARITY_STEPS} steps with B1 and with its plain "
-          f"version from one seed: params bit-equal ({n_params} elements, "
-          f"compared on the host)")
-    del kept, plain
+    lm_plain_parity(dev, LM_ARCH, LM_LAYERS, 7, kept, "lm")
+    del kept
 
     # ---- (c) qwen3-moe ---------------------------------------------------- #
     tr, st, batches, mcfg, seen = lm_trainer(dev, MOE_ARCH, MOE_LAYERS, 8)
@@ -3282,7 +3372,8 @@ def phase_lm_train(dev, gpu):
     del ytr, yparams
     Q.reset_launches()
     steps = 5
-    history = train.main(LM_W_ARGS + ["--steps", str(steps)])
+    history = cli_check_b2_step(LM_W_ARGS + ["--steps", str(steps)],
+                                n_buckets, "lm 4 workers")
     check_rows(history, steps)
     check(Q.launches_dyn == steps * n_buckets and Q.launches == 0,
           f"lm 4 workers: quantize_ef_dyn {Q.launches_dyn}, quantize_ef "
@@ -3300,6 +3391,473 @@ def phase_lm_train(dev, gpu):
     free_cuda()
     return b1_paths, b2_paths, {"lm_rows": rows, "lm_ms": b1_ms,
                                 "lm_bound_ms": bound}
+
+
+# --------------------------------------------------------------------------- #
+# the rest of the LM zoo: the SSD and RG-LRU mixers, the encoder-decoder
+# --------------------------------------------------------------------------- #
+# mamba2-1.3b trains at all 48 of its layers (1.447 B parameters: the
+# training state, 43 B a parameter at the step's peak, fits the card);
+# recurrentgemma-2b at 2 of its 26 (rglru, rglru: the full model's
+# unscanned tail). Its two untied 256,000 x 2560 embeddings alone are
+# 1.31 B parameters, and its step peaks at 52 B a parameter: at 3 layers
+# (one period, 1.57 B parameters) the exchange asked for 5.84 GiB with
+# 69.92 allocated and ran out of memory, at 2 it peaks at 72.27 GiB, which
+# fits only with the allocator's expandable segments (set for this phase;
+# without them 8.34 GiB stayed reserved but unallocated). whisper-tiny
+# trains whole, at Whisper's 448-token decoder context.
+ZOO_SSD, ZOO_SSD_LAYERS, ZOO_STEPS = "mamba2-1.3b", 48, 10
+ZOO_RG, ZOO_RG_LAYERS, ZOO_RG_STEPS, ZOO_RG_BATCH = (
+    "recurrentgemma-2b", 2, 5, 1)
+ZOO_WH, ZOO_WH_BATCH, ZOO_WH_SEQ, ZOO_WH_STEPS = "whisper-tiny", 16, 448, 10
+ZOO_LONG, ZOO_LONG_K = 4096, 8           # prefill + decode == forward
+ZOO_RG_DECODE = 32                       # recurrentgemma-2b, 26 layers
+ZOO_WH_PROMPT, ZOO_WH_DECODE = 64, 32    # whisper serving, batch 4
+ZOO_W_ARGS = ["--arch", ZOO_SSD, "--smoke", "--workers", str(WORKERS),
+              "--batch", "8", "--seq", "64", "--optimizer", "omd",
+              "--compressor", "qsgd8_block1024", "--comm-plan",
+              "delta_budget", "--comm-budget-mb", "0.5", "--comm-adaptive",
+              "--participation", "0.5", "--log-every", "1", "--device",
+              "cuda"]
+
+
+def zoo_train_ssd(dev, gpu, b1_paths):
+    """mamba2-1.3b at all 48 layers: ZOO_STEPS steps (B1 once a step,
+    finite losses and gradients), a profiled window, one step's packed
+    operands through B1 and its plain version bit for bit, then
+    LM_PARITY_STEPS steps again from the seed with the plain version:
+    params bit-equal on the host. Returns B1's record for the call."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+
+    tr, st, batches, cfg, _ = lm_trainer(dev, ZOO_SSD, ZOO_SSD_LAYERS, 23)
+    layout = tr._comm(st.params)[0]
+    n_params = sum(x.numel() for x in T.leaves(st.params))
+    n_elem = sum(b.size for b in layout.buckets)
+    rows = n_elem // 1024
+    s = cfg.ssm
+    print(f"# zoo {ZOO_SSD}: {ZOO_SSD_LAYERS} of 48 layers, d_model "
+          f"{cfg.d_model}, SSD state {s.state_dim}, head_dim {s.head_dim}, "
+          f"expand {s.expand}, conv {s.conv_width}, chunk {s.chunk_size}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_dtype}: {n_params} "
+          f"parameters (param_count {cfg.param_count()}); "
+          f"{len(layout.buckets)} buckets, {rows} rows of 1024 in B1's one "
+          f"launch")
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    FA.reset_launches()
+    kept, times, losses = None, [], []
+    for i in range(ZOO_STEPS):
+        st, t, l, _ = lm_steps(tr, st, batches, 1, ZOO_SSD)
+        times += t
+        losses += l
+        if i == LM_PARITY_STEPS - 1:
+            kept = host_params(st)       # outside the timed steps
+    launches = Q.launches
+    check(launches == ZOO_STEPS and Q.launches_dyn == 0
+          and FA.flash_launches == 0 and FA.launches == 0,
+          f"zoo {ZOO_SSD}: quantize_ef {launches}, quantize_ef_dyn "
+          f"{Q.launches_dyn}, flash_attention {FA.flash_launches}, "
+          f"paged_attention {FA.launches} launches in {ZOO_STEPS} steps, "
+          f"expected {ZOO_STEPS}, 0, 0, 0")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    print(f"# zoo {ZOO_SSD} train, 1 worker, batch {LM_BATCH} x {LM_SEQ}: "
+          f"{ZOO_STEPS} steps, quantize_ef launches {launches}, gradients "
+          f"finite every step, median step {step_s * 1e3:.3f} ms (first "
+          f"step {times[0] * 1e3:.1f} ms), losses "
+          f"{[round(x, 4) for x in losses]}, peak memory {gib(peak):.2f} "
+          f"GiB ({peak / n_params:.1f} B a parameter); gpu {gpu}")
+    b1_paths[f"zoo {ZOO_SSD}"] = launches
+
+    st, b1_ms, bound = lm_profile_b1(tr, st, batches, f"zoo {ZOO_SSD}",
+                                     rows, n_elem, gpu)
+    st = lm_check_b1_step(tr, st, batches, rows, "zoo")
+    del tr, st, batches
+    free_cuda()
+    lm_plain_parity(dev, ZOO_SSD, ZOO_SSD_LAYERS, 23, kept, "zoo")
+    return {"zoo_rows": rows, "zoo_ms": b1_ms, "zoo_bound_ms": bound}
+
+
+def zoo_train_other(dev, gpu, b1_paths):
+    """recurrentgemma-2b at ZOO_RG_LAYERS layers, batch ZOO_RG_BATCH x
+    LM_SEQ, and whisper-tiny whole, batch ZOO_WH_BATCH x ZOO_WH_SEQ with
+    1500 encoder frames a row: finite losses and gradients, B1 once a
+    step, median step, peak memory."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.models.model import pattern_kinds
+    for arch, layers, steps, batch, seq in (
+            (ZOO_RG, ZOO_RG_LAYERS, ZOO_RG_STEPS, ZOO_RG_BATCH, LM_SEQ),
+            (ZOO_WH, 4, ZOO_WH_STEPS, ZOO_WH_BATCH, ZOO_WH_SEQ)):
+        print(f"# zoo {arch}: {gib(torch.cuda.memory_allocated()):.2f} GiB "
+              f"allocated before the trainer")
+        tr, st, batches, cfg, _ = lm_trainer(dev, arch, layers, 29,
+                                             batch=batch, seq=seq)
+        n_params = sum(x.numel() for x in T.leaves(st.params))
+        rows = sum(b.size for b in tr._comm(st.params)[0].buckets) // 1024
+        torch.cuda.reset_peak_memory_stats()
+        Q.reset_launches()
+        st, times, losses, _ = lm_steps(tr, st, batches, steps, arch)
+        check(Q.launches == steps, f"zoo {arch}: quantize_ef launched "
+              f"{Q.launches} times in {steps} steps")
+        b1_paths[f"zoo {arch}"] = Q.launches
+        peak = torch.cuda.max_memory_allocated()
+        what = (f"{layers} of 26 layers "
+                f"({', '.join(pattern_kinds(cfg))})" if arch == ZOO_RG else
+                f"{cfg.encdec.enc_layers} + {layers} layers, "
+                f"{cfg.encdec.enc_seq} encoder frames")
+        print(f"# zoo {arch} train, {what}, batch {batch} x {seq}: "
+              f"{n_params} parameters, B1 over {rows} rows, {steps} steps, "
+              f"quantize_ef launches {Q.launches}, gradients finite every "
+              f"step, median step {statistics.median(times[1:]) * 1e3:.3f} "
+              f"ms (first {times[0] * 1e3:.1f} ms), losses "
+              f"{[round(x, 4) for x in losses]}, peak memory {gib(peak):.2f} "
+              f"GiB; gpu {gpu}")
+        del tr, st, batches
+        free_cuda()
+
+
+def zoo_serve_ssd(dev, gpu):
+    """mamba2-1.3b at 48 layers through the paged engine: in bf16 the
+    serving traffic (S_BATCH requests of S_PROMPT + S_GEN tokens; decode
+    step, tokens a second, kernels a step, busy share); in f32, 6 ragged
+    requests with churn (prefilled at a bucket, claimed below every
+    bucket, slots and their state lanes reused): engine == sequential."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import build_serve_config
+    from repro_torch.models import model as lm
+    from repro_torch.serve import (Engine, Request, SequentialGenerator,
+                                   ServeConfig)
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import serve
+    cfg = get(ZOO_SSD)
+    FA.reset_launches()
+    Q.reset_launches()
+    res = serve.main(["--arch", ZOO_SSD] + S_ARGS[2:])
+    row, steps = res["row"], res["stats"]["steps"]
+    check(row["generated"] == S_BATCH * S_GEN and steps == S_GEN - 1
+          and FA.launches == FA.flash_launches == Q.launches
+          == Q.launches_dyn == 0,
+          f"zoo serve {ZOO_SSD}: {row['generated']} tokens in {steps} "
+          f"engine steps; launches B1 {Q.launches}, B2 {Q.launches_dyn}, "
+          f"B3 {FA.launches}, B4 {FA.flash_launches}")
+    del res
+    free_cuda()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = lm.init(cfg, generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (S_BATCH, S_PROMPT),
+                            generator=gen, device=dev).tolist()
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=S_GEN)
+            for i in range(S_BATCH)]
+    eng = Engine(cfg, build_serve_config(S_PROMPT, S_GEN, S_BATCH), params)
+    _, _, prof, peak = run_engine(eng, reqs, profile_steps=10,
+                                  label=f"zoo serve {ZOO_SSD} bf16")
+    print(f"# zoo serve {ZOO_SSD} bf16, 48 layers, through the launcher: "
+          f"{S_BATCH} requests of {S_PROMPT} + {S_GEN}, {row['generated']} "
+          f"tokens in {steps} engine steps, {row['tokens_per_s']} tokens/s, "
+          f"median decode step {row['decode_step_s'] * 1e3:.3f} ms; "
+          + (f"{prof['kernels']:.0f} kernels a decode step, busy share "
+             f"{prof['busy_share']:.3f}" if prof else "profile not measured")
+          + f", decode peak {gib(peak):.2f} GiB ({time.perf_counter() - t0:.1f}"
+          f" s with the profiled engine); gpu {gpu}")
+    del eng, params
+    free_cuda()
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, param_dtype="float32")
+    params = lm.init(cfg, generator=torch.Generator(device=dev).manual_seed(
+        37), device=dev)
+    scfg = ServeConfig(max_batch=4, block_size=16, num_blocks=4 * 20 + 2,
+                       max_blocks_per_seq=20,
+                       prompt_buckets=(16, 32, 64, 128, 256))
+    rs = np.random.RandomState(7)
+    reqs = [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size, P).tolist(),
+                    max_new=G)
+            for i, (P, G) in enumerate([(20, 8), (300, 8), (12, 6),
+                                        (150, 8), (256, 5), (7, 8)])]
+    eng = Engine(cfg, scfg, params)
+    for r in reqs[:3]:
+        eng.submit(r)
+    for r in reqs[3:]:
+        eng.step()
+        eng.submit(r)
+    while not eng.idle:
+        eng.step()
+    seq = SequentialGenerator(cfg, scfg, params)
+    diff = [r.rid for r in reqs
+            if seq.generate(list(r.prompt), r.max_new, rid=r.rid)
+            != eng.outputs[r.rid]]
+    check(not diff, f"zoo serve f32: engine and sequential differ on "
+          f"requests {diff}")
+    print(f"# zoo serve {ZOO_SSD} f32, 48 layers, TF32 off: 6 requests "
+          f"(prompts {[len(r.prompt) for r in reqs]}), 4 slots, churn: "
+          f"engine == sequential, token for token "
+          f"({sum(len(v) for v in eng.outputs.values())} tokens, "
+          f"{eng.steps} engine steps, {time.perf_counter() - t0:.1f} s)")
+    del eng, seq, params
+    free_cuda()
+
+
+def zoo_match_forward(params, cfg, tokens, P, k, label, ref_cfg=None,
+                      enc=None, dense_ref=False):
+    """prefill(P) and k teacher-forced decode steps against one forward
+    over P + k tokens (its last k + 1 positions): float32, within 1e-4 of
+    the largest |logit|. `ref_cfg` runs the forward (another SSD chunk
+    size); with `dense_ref` the forward attends through attention_dense
+    at any length (attention_chunked needs a multiple of 1024). Returns
+    the largest difference and |logit|."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import model as lm
+    dev = tokens.device
+    with torch.no_grad():
+        lg, caches = lm.prefill(params, cfg, tokens[:, :P], enc,
+                                max_len=P + k)
+        got = [lg]
+        for t in range(P, P + k):
+            lg, caches = lm.decode_step(params, cfg, tokens[:, t:t + 1],
+                                        caches)
+            got.append(lg)
+        del caches
+        enc_out = lm.encode(params, cfg, enc) if enc is not None else None
+        rc = ref_cfg or cfg
+        with (mock.patch.object(layers, "_CHUNKED_PREFILL", 1 << 30)
+              if dense_ref else contextlib.nullcontext()):
+            hidden, _, _ = lm.forward(params, rc, tokens[:, :P + k],
+                                      torch.arange(P + k, device=dev),
+                                      enc_out=enc_out)
+        ref = lm.logits_fn(params, rc, hidden[:, P - 1:])
+    got = torch.stack(got, 1)
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= 1e-4 * scale, f"zoo {label}: prefill + decode logits off "
+          f"the forward by {err:.3e} (max |logit| {scale:.3e})")
+    return err, scale
+
+
+def zoo_long(dev, gpu):
+    """Long prompts, float32 at full width: mamba2 at 4 layers, prefill of
+    ZOO_LONG tokens (16 SSD chunks) + ZOO_LONG_K decode steps against a
+    forward at the largest chunk size dividing ZOO_LONG + ZOO_LONG_K (228:
+    the chunked SSD computes one function at every chunk size); recurrentgemma
+    at 5 layers (a period and the two-layer tail), the prefill through
+    attention_chunked and the rolling fill of its 2048-slot window,
+    against a forward through attention_dense over all positions; then
+    recurrentgemma-2b at its 26 layers in bf16: the same prompt and
+    ZOO_RG_DECODE decode steps, timed."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get
+    from repro_torch.models import model as lm
+    gen = torch.Generator(device=dev).manual_seed(41)
+    P, k = ZOO_LONG, ZOO_LONG_K
+
+    cfg = dataclasses.replace(get(ZOO_SSD), num_layers=4,
+                              param_dtype="float32")
+    params = lm.init(cfg, generator=gen, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (1, P + k), generator=gen,
+                         device=dev)
+    # the forward over P + k runs at the largest chunk size that divides it
+    chunk = max(c for c in range(1, cfg.ssm.chunk_size + 1)
+                if (P + k) % c == 0)
+    ref_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, chunk_size=chunk))
+    err, scale = zoo_match_forward(params, cfg, toks, P, k, "long mamba2",
+                                   ref_cfg=ref_cfg)
+    print(f"# zoo long {ZOO_SSD} f32, 4 layers: prefill {P} "
+          f"({P // cfg.ssm.chunk_size} SSD chunks) + {k} decode steps vs a "
+          f"forward over {P + k} at chunk {chunk}: max |dlogit| {err:.3e} "
+          f"(max |logit| {scale:.3e})")
+    del params
+    free_cuda()
+
+    cfg = dataclasses.replace(get(ZOO_RG), num_layers=5,
+                              param_dtype="float32")
+    params = lm.init(cfg, generator=gen, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (1, P + k), generator=gen,
+                         device=dev)
+    with ChunkSpy() as spy:
+        err, scale = zoo_match_forward(params, cfg, toks, P, k,
+                                       "long recurrentgemma", dense_ref=True)
+    # the prefill's one attention layer went through attention_chunked
+    check(spy.calls == [P], f"zoo long: attention_chunked calls "
+          f"{spy.calls}, expected [{P}]")
+    print(f"# zoo long {ZOO_RG} f32, 5 layers (a period + the 2-layer "
+          f"tail): prefill {P} (attention_chunked, {len(spy.chunks)} chunks "
+          f"of {spy.chunks[0][0]} x {spy.chunks[0][1]} keys; rolling fill of "
+          f"{cfg.attention_window} slots; the RG-LRU scan over {P} tokens) "
+          f"+ {k} decode steps vs a forward through attention_dense over "
+          f"{P + k}: max |dlogit| {err:.3e} (max |logit| {scale:.3e})")
+    del params
+    free_cuda()
+
+    cfg = get(ZOO_RG)
+    params = lm.init(cfg, generator=gen, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (1, P + ZOO_RG_DECODE),
+                         generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, caches = lm.prefill(params, cfg, toks[:, :P])
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for t in range(P, P + ZOO_RG_DECODE):
+            t0 = time.perf_counter()
+            lg, caches = lm.decode_step(params, cfg, toks[:, t:t + 1],
+                                        caches)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(lg).all()), "zoo long: recurrentgemma-2b "
+          "decode logits not finite")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    print(f"# zoo {ZOO_RG} bf16, all 26 layers ({n_params} parameters): "
+          f"prefill {P} tokens in {pre_ms:.1f} ms, {ZOO_RG_DECODE} decode "
+          f"steps: median {statistics.median(times):.3f} ms a step (batch "
+          f"1); gpu {gpu}")
+    del params, caches
+    free_cuda()
+
+
+def zoo_serve_whisper(dev, gpu):
+    """whisper-tiny at full size in float32: the encoder over 1500 frames,
+    prefill of ZOO_WH_PROMPT tokens (enc_embeds=) and ZOO_WH_DECODE decode
+    steps at batch 4 against one forward; then the decode step timed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import enc_embeds
+    from repro_torch.models import model as lm
+    cfg = dataclasses.replace(get(ZOO_WH), param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    params = lm.init(cfg, generator=gen, device=dev, max_seq=ZOO_WH_SEQ)
+    P, k = ZOO_WH_PROMPT, ZOO_WH_DECODE
+    toks = torch.randint(1, cfg.vocab_size, (4, P + k), generator=gen,
+                         device=dev)
+    enc = enc_embeds(torch.randn((4, cfg.encdec.enc_seq, cfg.d_model),
+                                 generator=gen, device=dev))
+    err, scale = zoo_match_forward(params, cfg, toks, P, k, "whisper",
+                                   enc=enc)
+    with torch.no_grad():
+        _, caches = lm.prefill(params, cfg, toks[:, :P], enc, max_len=P + k)
+        times = []
+        for t in range(P, P + k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.decode_step(params, cfg, toks[:, t:t + 1], caches)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"# zoo serve {ZOO_WH} f32 (4 + 4 layers, {cfg.encdec.enc_seq} "
+          f"frames), batch 4: prefill {P} + {k} decode steps vs one "
+          f"forward: max |dlogit| {err:.3e} (max |logit| {scale:.3e}); "
+          f"median decode step {statistics.median(times):.3f} ms; gpu {gpu}")
+    del params, caches
+    free_cuda()
+
+
+def zoo_cli(dev, b1_paths, b2_paths):
+    """The trainer's CLI on the card for each new arch (reduced, --seq 64,
+    5 steps: B1 5 launches), and four stacked workers on mamba2 reduced,
+    half reporting, adaptive delta_budget 0.5 MiB (a family of more than
+    one member): B2 once a bucket a step, step 0's launches bit-equal to
+    B2's plain version."""
+    from repro_torch.configs import DQConfig, get
+    from repro_torch.core import dqgan
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.strategy import (Compression, ExchangePlan,
+                                      Participation, Strategy)
+    for arch in (ZOO_SSD, ZOO_RG, ZOO_WH):
+        Q.reset_launches()
+        history = train.main(["--arch", arch, "--smoke", "--seq", "64",
+                              "--steps", "5", "--optimizer", "omd",
+                              "--compressor", "qsgd8_block1024",
+                              "--comm-plan", "uniform", "--log-every", "1",
+                              "--device", "cuda"])
+        check_rows(history, 5)
+        check(Q.launches == 5 and Q.launches_dyn == 0,
+              f"zoo cli {arch}: quantize_ef {Q.launches}, quantize_ef_dyn "
+              f"{Q.launches_dyn} launches in 5 steps, expected 5, 0")
+        b1_paths[f"zoo cli {arch} smoke"] = Q.launches
+        print(f"# zoo cli {arch} --smoke --seq 64: 5 rows, quantize_ef "
+              f"launches {Q.launches}, median step "
+              f"{statistics.median(r['step_s'] for r in history[1:]) * 1e3:.3f}"
+              f" ms")
+    cfg = get(ZOO_SSD).reduced()
+    strat = Strategy(compression=Compression(
+        compressor="qsgd8_block1024", plan="delta_budget", budget_mb=0.5,
+        adaptive=True), exchange=ExchangePlan(kind="sim",
+                                              worker_axes=("data",)),
+        participation=Participation(fraction=0.5))
+    tr = dqgan.DQGAN(field_fn=build(cfg).field_fn,
+                     dq=DQConfig.from_strategy(strat, optimizer="omd"),
+                     device=dev, workers=WORKERS)
+    params = build(cfg).init(device=dev, max_seq=64)
+    family = tr._family(params)
+    n_buckets = len(tr._comm(params)[0].buckets)
+    check(len({tuple(r) for r in family.levels_table()}) > 1,
+          f"zoo 4 workers: the family has one member ({family.describe()})")
+    del tr, params
+    Q.reset_launches()
+    steps = 5
+    history = cli_check_b2_step(ZOO_W_ARGS + ["--steps", str(steps)],
+                                n_buckets, "zoo 4 workers")
+    check_rows(history, steps)
+    check(Q.launches_dyn == steps * n_buckets and Q.launches == 0,
+          f"zoo 4 workers: quantize_ef_dyn {Q.launches_dyn}, quantize_ef "
+          f"{Q.launches} launches in {steps} steps, expected "
+          f"{steps * n_buckets} and 0")
+    check(all(r.get("participants") == N_PART for r in history),
+          "zoo 4 workers: participants")
+    b2_paths[f"zoo {ZOO_SSD} smoke 4 workers"] = Q.launches_dyn
+    print(f"# zoo {ZOO_SSD} reduced, {WORKERS} workers ({N_PART} reporting), "
+          f"adaptive delta_budget 0.5 MiB, {family.describe()}: {steps} "
+          f"steps, quantize_ef_dyn launches {Q.launches_dyn} ({n_buckets} "
+          f"buckets a step), median step "
+          f"{statistics.median(r['step_s'] for r in history[1:]) * 1e3:.3f} "
+          f"ms")
+
+
+def phase_zoo(dev, gpu):
+    """The rest of the LM zoo on the card: the SSD mixer (mamba2-1.3b), the
+    RG-LRU mixer with windowed attention (recurrentgemma-2b) and the
+    encoder-decoder (whisper-tiny), trained through B1 and served. Each
+    part prints its wall time. Returns ({path: B1 launches}, {path: B2
+    launches}, B1's record for its call over mamba2's gradient)."""
+    import torch
+    b1_paths, b2_paths = {}, {}
+    free_cuda()
+    # whole segments freed by empty_cache and mapped as they grow: the
+    # training steps' peaks leave no reserved-but-unallocated gaps
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        call = timed("zoo train mamba2", zoo_train_ssd, dev, gpu, b1_paths)
+        timed("zoo train recurrentgemma, whisper", zoo_train_other, dev,
+              gpu, b1_paths)
+    finally:
+        free_cuda()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    timed("zoo serve mamba2", zoo_serve_ssd, dev, gpu)
+    timed("zoo long", zoo_long, dev, gpu)
+    timed("zoo serve whisper", zoo_serve_whisper, dev, gpu)
+    timed("zoo cli", zoo_cli, dev, b1_paths, b2_paths)
+    return b1_paths, b2_paths, call
 
 
 def timed(label, fn, *args, **kw):
@@ -3358,6 +3916,7 @@ def main():
         b3 = timed("kernel B3", phase_paged_kernel, dev, scfg, lengths)
         b4 = timed("flash", phase_flash_kernel, dev)
         lm_b1, lm_b2, lm_call = timed("lm train", phase_lm_train, dev, gpu)
+        zoo_b1, zoo_b2, zoo_call = timed("zoo", phase_zoo, dev, gpu)
         b1["launches"] = timed("train 1 worker", phase_train)
         b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
         b3["launches"] = timed("serve", phase_serve)
@@ -3385,16 +3944,19 @@ def main():
             **{f"resume {k}": v for k, v in resumed.items()},
             **{f"overlap {k}": v[0] for k, v in overlapped.items()},
             **{k: v[0] for k, v in observed.items() if v[0]},
-            **fsdp, **quant_b1, **lm_b1}
+            **fsdp, **quant_b1, **lm_b1, **zoo_b1}
         # B1's one launch over the LM gradient, timed in the profiled
         # window of phase lm train
         b1["lm_call"] = lm_call
+        # and over mamba2-1.3b's, timed in phase zoo's profiled window
+        b1["zoo_call"] = zoo_call
         b3["launches_by_path"] = quant_b3
         b2["launches_by_path"] = {
             **{f"sched {k}": v[1] for k, v in sched.items()},
             **{f"dist nccl {k}": v for k, v in dist_b2.items()},
             **{f"overlap {k}": v[1] for k, v in overlapped.items()},
-            **{k: v[1] for k, v in observed.items() if v[1]}, **lm_b2}
+            **{k: v[1] for k, v in observed.items() if v[1]}, **lm_b2,
+            **zoo_b2}
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

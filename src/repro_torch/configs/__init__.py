@@ -1,8 +1,9 @@
 """Configs of the port (counterpart of `repro.configs`): the GAN of the
-paper and, of the LM zoo, the dense archs (gemma-2b, gemma-2b-swa,
-starcoder2-7b, yi-34b, chameleon-34b, command-r-plus-104b) and the MoE
-archs (qwen3-moe-30b-a3b, arctic-480b). The archs whose mixers or encoder
-are not ported yet are refused with the ROADMAP slice that brings them."""
+paper and every arch of the LM zoo: the dense archs (gemma-2b,
+gemma-2b-swa, starcoder2-7b, yi-34b, chameleon-34b, command-r-plus-104b),
+the MoE archs (qwen3-moe-30b-a3b, arctic-480b), the SSD and RG-LRU
+mixers (mamba2-1.3b, recurrentgemma-2b) and the encoder-decoder
+(whisper-tiny)."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -25,21 +26,14 @@ _ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "arctic-480b": "arctic_480b",
     "starcoder2-7b": "starcoder2_7b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-tiny": "whisper_tiny",
     "dcgan32": "dcgan32",
-}
-
-# archs of the JAX package the port does not build yet -> what brings them
-UNPORTED = {
-    "recurrentgemma-2b": "ROADMAP §A slice 6 (LM zoo: the RG-LRU mixer)",
-    "mamba2-1.3b": "ROADMAP §A slice 6 (LM zoo: the SSD mixer)",
-    "whisper-tiny": "ROADMAP §A slice 6 (LM zoo: encoder-decoder)",
 }
 
 
 def get(name: str):
-    if name in UNPORTED:
-        raise KeyError(f"arch {name!r} is not ported yet; it arrives with "
-                       f"{UNPORTED[name]}")
     try:
         mod = import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
     except KeyError:

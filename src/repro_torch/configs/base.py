@@ -4,8 +4,7 @@ knobs plus the flat strategy fields.
 
 The sub-configs (`MoEConfig`, `SSMConfig`, `RGLRUConfig`, `EncDecConfig`)
 are plain data with the JAX package's fields and defaults; the model code
-of the port builds MoE blocks and refuses the others until the slice
-that brings their mixer or encoder (ROADMAP §A slice 6).
+of the port builds every one of them.
 """
 from __future__ import annotations
 

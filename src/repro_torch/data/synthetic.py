@@ -45,17 +45,26 @@ def synthetic_lm_batch(batch, seq, vocab, *, generator=None, device=None):
     return lm_tokens(start, chose, vocab)
 
 
+def enc_embeds(normal):
+    """The encoder inputs of an encoder-decoder batch on explicit standard
+    normal draws (batch,) + enc_shape: 0.1 · N(0, 1), float32."""
+    return 0.1 * normal.float()
+
+
 def lm_batch_iterator(batch, seq, vocab, *, generator=None, device=None,
                       enc_shape=None):
     """Endless `synthetic_lm_batch` batches drawn in turn from `generator`
-    (the JAX package folds a batch index into a seed's key instead)."""
-    if enc_shape is not None:
-        raise NotImplementedError(
-            "encoder inputs (enc_embeds) arrive with ROADMAP §A slice 6 "
-            "(LM zoo: encoder-decoder)")
+    (the JAX package folds a batch index into a seed's key instead); with
+    `enc_shape` (enc_seq, d_model) each batch also holds "enc_embeds",
+    drawn after its tokens."""
     while True:
-        yield synthetic_lm_batch(batch, seq, vocab, generator=generator,
-                                 device=device)
+        b = synthetic_lm_batch(batch, seq, vocab, generator=generator,
+                               device=device)
+        if enc_shape is not None:
+            b["enc_embeds"] = enc_embeds(torch.randn(
+                (batch,) + tuple(enc_shape), generator=generator,
+                device=device))
+        yield b
 
 
 # --------------------------------------------------------------------------- #

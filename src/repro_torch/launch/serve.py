@@ -31,8 +31,11 @@ serves quantized weights, B1 once a bucket at load: ``--weight-plan``
 picks the per-bucket bits (none|uniform|size_tiered|delta_budget) and
 ``--weight-budget-mb`` the delta_budget payload; ``weights`` then
 describes the payload. Without ``--quantize-weights`` both are ignored,
-as in the JAX launcher. Sliding-window models (gemma-2b-swa) are refused:
-the paged cache does not take them, as in the JAX package.
+as in the JAX launcher. The engine serves global attention and the
+recurrent mixers (mamba2-1.3b: a state lane a slot). Sliding-window
+models (gemma-2b-swa, recurrentgemma-2b) and encoder-decoder models
+(whisper-tiny) are refused: the paged cache does not take them, as in the
+JAX package; they run through `model.prefill` / `model.decode_step`.
 """
 from __future__ import annotations
 
@@ -128,7 +131,7 @@ def main(argv=None):
             compression = Compression(compressor=args.quantize_weights,
                                       plan=args.weight_plan,
                                       budget_mb=args.weight_budget_mb)
-    except (NotImplementedError, ServeError, StrategyError) as e:
+    except (ServeError, StrategyError) as e:
         ap.error(str(e))
 
     gen = torch.Generator(device=device).manual_seed(args.seed)

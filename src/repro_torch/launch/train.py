@@ -15,8 +15,9 @@ CUDA device (or the CPU when asked), or across the processes of a
 The field is `models.build(cfg).field_fn`: the WGAN field on a GAN arch,
 fed procedural images; on an LM the gradient of its loss (cross-entropy
 plus the MoE router's aux losses), fed `data.lm_batch_iterator` batches
-of ``--batch`` rows of ``--seq`` tokens (default 64, as in JAX). Both
-draw from one data generator after the initial weights.
+of ``--batch`` rows of ``--seq`` tokens (default 64, as in JAX), and an
+encoder-decoder model's (whisper) encoder inputs of (enc_seq, d_model)
+a row. Both draw from one data generator after the initial weights.
 
 ``--workers W`` (default 1) stands for the JAX launcher's device count:
 the W workers are a leading axis of every per-worker tensor on the one
@@ -323,9 +324,13 @@ def _train(args, ap, cfg, device, mesh):
                 args.batch, cfg.image_size, cfg.channels,
                 generator=data_gen, device=device)}
 
+    # an encoder-decoder model's batches carry its encoder inputs
+    enc_shape = ((cfg.encdec.enc_seq, cfg.d_model)
+                 if getattr(cfg, "is_encdec", False) else None)
     it = (batches() if isinstance(cfg, gan.GANConfig)
           else lm_batch_iterator(args.batch, args.seq, cfg.vocab_size,
-                                 generator=data_gen, device=device))
+                                 generator=data_gen, device=device,
+                                 enc_shape=enc_shape))
     for _ in range(start):  # keep the data stream aligned across resumes
         next(it)
     history = []

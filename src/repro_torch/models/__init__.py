@@ -1,6 +1,6 @@
 """Models of the port (counterpart of `repro.models`): the GANs of the
-paper's experiments (`gan`), the decoder LM with dense and MoE blocks
-(`model`, `layers`, `moe`), and `build`, which binds a config to its
-bundle (`registry`); the RG-LRU and SSD mixers and the encoder arrive
-with ROADMAP §A slice 6."""
+paper's experiments (`gan`), the LM with attention, RG-LRU and SSD blocks,
+dense and MoE FFNs and the encoder of encoder-decoder models (`model`,
+`layers`, `mixers`, `moe`), and `build`, which binds a config to its
+bundle (`registry`)."""
 from .registry import ModelBundle, build  # noqa: F401

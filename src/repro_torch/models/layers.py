@@ -13,8 +13,8 @@ Prefill above 2048 tokens takes `attention_chunked` (a loop over query
 chunks, each against its KV band; an XLA scan in the JAX package, no
 Pallas kernel). A model with ``attention_window > 0`` keeps a rolling
 cache of ``window`` slots: slot i holds the position p with p ≡ i (mod
-window). Not ported yet, and refused by name: cross-attention (ROADMAP §A
-slice 6).
+window). Cross-attention (``cross_kv``, an encoder-decoder model's
+decoder) attends without a mask to K/V projected from the encoder output.
 """
 from __future__ import annotations
 
@@ -284,15 +284,18 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
                fill_cache=False):
     """Prefill or train (cache None; with fill_cache=True the K/V come back
     as a decode-ready cache), dense-cache decode (cache {"k", "v", "pos"}),
-    or paged decode (cache {"k": pool, "v": pool, "table"}).
-    Returns (out, new_cache)."""
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder models) arrives with ROADMAP "
-            "§A slice 6 (LM zoo: encoder-decoder)")
+    paged decode (cache {"k": pool, "v": pool, "table"}), or
+    cross-attention (cross_kv = (k, v), each (B, Se, K, hd), projected
+    from the encoder output; no mask, no cache). Returns (out, new_cache)."""
     B, S, d = x.shape
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(linear(p["q"], x), H, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = attention_dense(q, k, v, positions,
+                              torch.arange(k.shape[1], device=x.device),
+                              causal=False)
+        return linear(p["o"], out), None
     k = _split_heads(linear(p["k"], x), Kh, hd)
     v = _split_heads(linear(p["v"], x), Kh, hd)
     if cfg.use_rope:

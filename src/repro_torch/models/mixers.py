@@ -1,0 +1,302 @@
+"""Sequence mixers beyond attention (counterpart of `repro.models.mixers`):
+the Mamba2 SSD mixer and the RG-LRU recurrent block of RecurrentGemma /
+Griffin, each over a full sequence (train and prefill) and as an O(1)
+decode step against a state.
+
+The JAX package runs both as XLA programs and calls no Pallas kernel, so
+they stay plain torch here:
+  * the SSD is the chunked einsum form (state-space duality): intra-chunk
+    work as batched products over (L, L) blocks, and the inter-chunk
+    state a Python loop over the ``T / chunk_size`` chunks (the JAX
+    package's `lax.scan`);
+  * the RG-LRU's linear recurrence h_t = a_t h_{t-1} + b_t is
+    `associative_scan`, the odd/even recursion of
+    `jax.lax.associative_scan` (log-depth: about 2 log2 T levels of
+    batched ops, not T steps).
+
+A decode step writes its new state into the state tensors it was given
+(``copy_``) and returns that dict: the decode of `models.model` walks
+views of a layer-stacked cache, so a fresh tensor would be lost.
+
+Activations follow the reference in bfloat16: `layers._silu` for
+`jax.nn.silu` and `layers._gelu_tanh` for `jax.nn.gelu(approximate=True)`,
+op by op in the activation's dtype. ``A_log`` and the RG-LRU's ``lam``
+are float32 leaves in a bfloat16 tree, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import _gelu_tanh, _randn, _silu, apply_norm, linear, linear_init
+
+
+# ------------------------------------------------------------------------- #
+# causal depthwise conv1d (shared by SSD and RG-LRU)
+# ------------------------------------------------------------------------- #
+def conv1d_init(channels, width, *, generator=None, device=None,
+                dtype=torch.float32):
+    return {"w": (_randn((width, channels), generator, device)
+                  / math.sqrt(width)).to(dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=device)}
+
+
+def causal_conv1d(p, x):
+    """x: (B, T, C) -> (B, T, C), causal, depthwise; the taps summed in
+    the reference's order."""
+    width, T = p["w"].shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = pad[:, 0:T] * p["w"][0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + T] * p["w"][i]
+    return out + p["b"]
+
+
+def conv_step(p, buf, x_t):
+    """One decode step. buf: (B, width-1, C) past inputs; x_t: (B, 1, C).
+    Returns (out (B, 1, C), the new buffer (B, width-1, C))."""
+    window = torch.cat([buf, x_t], dim=1)                  # (B, width, C)
+    out = torch.einsum("bwc,wc->bc", window, p["w"]) + p["b"]
+    return out[:, None, :], window[:, 1:, :]
+
+
+# ------------------------------------------------------------------------- #
+# Mamba2 / SSD
+# ------------------------------------------------------------------------- #
+def _ssd_dims(cfg):
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return s, di, di // s.head_dim
+
+
+def ssd_init(cfg, *, generator=None, device=None, dtype=torch.float32):
+    s, di, n_h = _ssd_dims(cfg)
+    d = cfg.d_model
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "z": linear_init(d, di, **kw),
+        "x": linear_init(d, di, **kw),
+        "B": linear_init(d, s.state_dim, **kw),
+        "C": linear_init(d, s.state_dim, **kw),
+        "dt": linear_init(d, n_h, **kw),
+        "dt_bias": torch.zeros((n_h,), dtype=dtype, device=device),
+        "A_log": torch.zeros((n_h,), dtype=torch.float32, device=device),
+        "D": torch.ones((n_h,), dtype=dtype, device=device),
+        "conv": conv1d_init(di + 2 * s.state_dim, s.conv_width, **kw),
+        "norm": {"scale": torch.ones((di,), dtype=dtype, device=device)},
+        "out": linear_init(di, d, scale=1 / math.sqrt(di), **kw),
+    }
+
+
+def _ssd_inputs(p, u):
+    """The projections shared by prefill and decode: (z, xBC, dt), dt in
+    float32."""
+    z = linear(p["z"], u)
+    xBC = torch.cat([linear(p["x"], u), linear(p["B"], u),
+                     linear(p["C"], u)], dim=-1)
+    dt = F.softplus(linear(p["dt"], u).float() + p["dt_bias"].float())
+    return z, xBC, dt
+
+
+def _ssd_split(xBC, cfg):
+    s, di, _ = _ssd_dims(cfg)
+    return (xBC[..., :di], xBC[..., di:di + s.state_dim],
+            xBC[..., di + s.state_dim:])
+
+
+def _gated_norm(norm_p, y, z):
+    return apply_norm("rmsnorm", norm_p, y * _silu(z))
+
+
+def ssd_apply(p, cfg, u, state=None, return_state=False):
+    """u: (B, T, d). state None: the full sequence (chunked SSD), with
+    return_state=True the final recurrent state and conv buffer too
+    (prefill); state {"h", "conv"}: one decode token, the state updated in
+    place. Returns (y, state)."""
+    s, di, n_h = _ssd_dims(cfg)
+    P_, N = s.head_dim, s.state_dim
+    A = -torch.exp(p["A_log"])                  # (H,) negative decay rates
+    z, xBC, dt = _ssd_inputs(p, u)
+
+    if state is not None:
+        conv_out, conv_buf = conv_step(p["conv"], state["conv"], xBC)
+        x, Bm, Cm = _ssd_split(_silu(conv_out), cfg)
+        B_ = x.shape[0]
+        xh = x.reshape(B_, n_h, P_)
+        dt1 = dt[:, 0]                                     # (B, H)
+        da = torch.exp(A[None] * dt1)
+        h = state["h"] * da[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt1, xh.float(), Bm[:, 0].float())
+        y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0].float())
+        y = y.to(u.dtype) + p["D"].to(u.dtype)[None, :, None] * xh
+        y = _gated_norm(p["norm"], y.reshape(B_, 1, di), z)
+        state["h"].copy_(h)
+        state["conv"].copy_(conv_buf)
+        return linear(p["out"], y), state
+
+    # ---- chunked SSD over the full sequence ------------------------------ #
+    x, Bm, Cm = _ssd_split(_silu(causal_conv1d(p["conv"], xBC)), cfg)
+    B_, T, _ = x.shape
+    L = min(s.chunk_size, T)
+    if T % L:
+        raise ValueError(f"ssd_apply: T={T} is not a multiple of the chunk "
+                         f"size {L}")
+    nc = T // L
+    xh = x.reshape(B_, nc, L, n_h, P_)
+    xf = xh.float()
+    Bc = Bm.reshape(B_, nc, L, N).float()
+    Cc = Cm.reshape(B_, nc, L, N).float()
+    dtc = dt.reshape(B_, nc, L, n_h)                       # f32
+    Adt = A[None, None, None] * dtc                        # (B, nc, L, H)
+    cum = torch.cumsum(Adt, dim=2)                         # running log-decay
+    # intra-chunk (lower-triangular) kernel. The reference takes
+    # exp(cum_l - cum_m) before its tril mask (`repro/models/mixers.py`
+    # :139-141): above the diagonal the exponent sums up to L-1 positive
+    # |A dt| terms and overflows to inf at L = 256, which its `where`
+    # drops in the forward, but whose backward forms 0 * inf = NaN in the
+    # gradients of A_log, dt and dt_bias. Masking the exponent to -inf
+    # first gives the same forward values (exp(-inf) = 0) and finite
+    # gradients.
+    tri = torch.ones((L, L), dtype=torch.bool, device=u.device).tril()
+    diff = cum[:, :, :, None] - cum[:, :, None, :]         # (B, nc, L, L, H)
+    kern = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                 -math.inf))
+    G = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # (B, nc, L, L)
+    W = G[..., None] * kern * dtc[:, :, None]              # weight of l <- m
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", W, xf)
+    # chunk-final states
+    dec_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (B, nc, L, H)
+    S_c = torch.einsum("bclh,bclhp,bcln->bchpn", dtc * dec_to_end, xf, Bc)
+    chunk_decay = torch.exp(Adt.sum(dim=2))                # (B, nc, H)
+    # the inter-chunk recurrence: h_prevs[c] is the state before chunk c
+    h = torch.zeros((B_, n_h, P_, N), dtype=torch.float32, device=u.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cc,
+                           torch.stack(h_prevs, dim=1), torch.exp(cum))
+    y = (y_intra + y_inter).to(u.dtype)
+    y = y + p["D"].to(y.dtype)[None, None, None, :, None] * xh
+    y = _gated_norm(p["norm"], y.reshape(B_, T, di), z)
+    new_state = None
+    if return_state:
+        new_state = {"h": h,
+                     "conv": xBC[:, -(s.conv_width - 1):, :].clone()}
+    return linear(p["out"], y), new_state
+
+
+def ssd_state_init(cfg, batch, dtype, device=None):
+    s, di, n_h = _ssd_dims(cfg)
+    return {"h": torch.zeros((batch, n_h, s.head_dim, s.state_dim),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, s.conv_width - 1,
+                                 di + 2 * s.state_dim), dtype=dtype,
+                                device=device)}
+
+
+# ------------------------------------------------------------------------- #
+# RG-LRU (RecurrentGemma / Griffin recurrent block)
+# ------------------------------------------------------------------------- #
+def rglru_init(cfg, *, generator=None, device=None, dtype=torch.float32):
+    r = cfg.rglru
+    d = cfg.d_model
+    w = r.expand * d
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    # Λ set so that a = σ(Λ)^c lands in [0.9, 0.999] (the Griffin init),
+    # kept in float32
+    lam = 0.9 + 0.099 * torch.rand((w,), generator=generator, device=device,
+                                   dtype=torch.float32)
+    root = lam ** (1.0 / r.c_constant)
+    return {
+        "in_x": linear_init(d, w, **kw),
+        "in_gate": linear_init(d, w, **kw),
+        "conv": conv1d_init(w, r.conv_width, **kw),
+        "W_a": linear_init(w, w, True, **kw),
+        "W_i": linear_init(w, w, True, **kw),
+        "lam": torch.log(root / (1 - root)),
+        "out": linear_init(w, d, scale=1 / math.sqrt(w), **kw),
+    }
+
+
+def _rglru_gates(p, cfg, u):
+    """u: the conv'd x branch, (B, T, w). Returns the recurrence's
+    coefficients (a, b), float32."""
+    c = cfg.rglru.c_constant
+    r_gate = torch.sigmoid(linear(p["W_a"], u).float())
+    i_gate = torch.sigmoid(linear(p["W_i"], u).float())
+    log_a = -c * F.softplus(p["lam"]) * r_gate              # log a_t (B, T, w)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
+        i_gate * u.float())
+    return a, b
+
+
+def _interleave(even, odd):
+    """Along dim 1: even[0], odd[0], even[1], ... (len(odd) is len(even)
+    or one less)."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2)
+    pairs = pairs.reshape((even.shape[0], 2 * n) + tuple(even.shape[2:]))
+    return torch.cat([pairs, even[:, n:]], dim=1) if even.shape[1] > n \
+        else pairs
+
+
+def associative_scan(a, b):
+    """The prefix of (a_1, b_1) ∘ ... ∘ (a_t, b_t) along dim 1 under
+    (a1, b1) ∘ (a2, b2) = (a1 a2, a2 b1 + b2): returns (A_t, h_t) with
+    h_t = a_t h_{t-1} + b_t from h_0 = 0. `jax.lax.associative_scan`'s
+    recursion: combine neighbouring pairs, scan those, then fill in the
+    even positions."""
+    T = a.shape[1]
+    if T < 2:
+        return a, b
+
+    def combine(a1, b1, a2, b2):
+        return a1 * a2, a2 * b1 + b2
+
+    ra, rb = combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
+    oa, ob = associative_scan(ra, rb)                 # the odd positions
+    if T % 2 == 0:
+        ea, eb = combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def rglru_apply(p, cfg, x, state=None, return_state=False):
+    """x: (B, T, d). state None: the full sequence (with return_state=True
+    the final state too); state {"h": (B, w), "conv": buffer}: one decode
+    token, the state updated in place. Returns (y, state)."""
+    u0 = linear(p["in_x"], x)
+    gate = _gelu_tanh(linear(p["in_gate"], x))
+
+    if state is not None:
+        conv_out, conv_buf = conv_step(p["conv"], state["conv"], u0)
+        a, b = _rglru_gates(p, cfg, conv_out)
+        h = a[:, 0] * state["h"] + b[:, 0]                 # (B, w)
+        y = h[:, None, :].to(x.dtype) * gate
+        state["h"].copy_(h)
+        state["conv"].copy_(conv_buf)
+        return linear(p["out"], y), state
+
+    a, b = _rglru_gates(p, cfg, causal_conv1d(p["conv"], u0))
+    _, h = associative_scan(a, b)
+    y = h.to(x.dtype) * gate
+    new_state = None
+    if return_state:
+        width = cfg.rglru.conv_width
+        new_state = {"h": h[:, -1].clone(),
+                     "conv": u0[:, -(width - 1):, :].clone()}
+    return linear(p["out"], y), new_state
+
+
+def rglru_state_init(cfg, batch, dtype, device=None):
+    w = cfg.rglru.expand * cfg.d_model
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.rglru.conv_width - 1, w),
+                                dtype=dtype, device=device)}

@@ -1,24 +1,27 @@
-"""The decoder LM (counterpart of `repro.models.model`): a cycled pattern
-of attention blocks, each with a dense MLP or an MoE FFN
-(`repro_torch.models.moe`), the chunked cross-entropy, and the prefill
-and decode of the serving engine.
+"""The unified LM (counterpart of `repro.models.model`): a cycled pattern
+of blocks (attention, RG-LRU or SSD mixers; dense MLP or MoE FFN,
+`repro_torch.models.moe`), the encoder of encoder-decoder models, the
+chunked cross-entropy, and the prefill and decode of the serving engine.
 
-    init(cfg, generator=, device=)               -> params
-    forward(params, cfg, tokens, positions, ...) -> (hidden, caches, aux)
-    loss_fn(params, cfg, batch)                  -> (total, metrics)
-    prefill(params, cfg, tokens, max_len=)       -> (logits_last, caches)
-    decode_step(params, cfg, tokens, caches)     -> (logits, caches)
+    init(cfg, generator=, device=, max_seq=)      -> params
+    forward(params, cfg, tokens, positions, ...)  -> (hidden, caches, aux)
+    encode(params, cfg, enc_embeds)               -> encoder output
+    loss_fn(params, cfg, batch)                   -> (total, metrics)
+    prefill(params, cfg, tokens, enc_embeds=, max_len=) -> (logits, caches)
+    decode_step(params, cfg, tokens, caches)      -> (logits, caches)
     decode_step_paged(params, cfg, tokens, caches, lengths)
-    init_cache(cfg, batch, seq, dtype, device)   -> cache tree
+    init_cache(cfg, batch, seq, dtype, device)    -> cache tree
 
 Parameters keep the JAX package's tree: layers stacked along a leading
 axis under ``params["scan"]`` (one entry ``"b{i}"`` per position of the
-layer pattern), unscanned layers in the list ``params["tail"]``, so that
-weights cross over by copy (`repro_torch.convert`). `_stack_apply` loops
-over the stacked axis in Python where the JAX package scans; in training
-each period runs under `torch.utils.checkpoint` when ``cfg.remat`` asks
-for it (the JAX package's `jax.checkpoint` of the scan body), and the
-MoE router's aux losses are summed over the layers. Gradients of the
+layer pattern), unscanned layers in the list ``params["tail"]``, the
+encoder under ``params["enc"]`` and the learned positions of an
+absolute-position model under ``params["pos"]``, so that weights cross
+over by copy (`repro_torch.convert`). `_stack_apply` loops over the
+stacked axis in Python where the JAX package scans; in training each
+period runs under `torch.utils.checkpoint` when ``cfg.remat`` asks for it
+(the JAX package's `jax.checkpoint` of the scan body), and the MoE
+router's aux losses are summed over the layers. Gradients of the
 per-layer views land on the stacked leaves.
 
 `loss_fn` returns the cross-entropy plus the aux losses, and the metrics
@@ -26,14 +29,12 @@ per-layer views land on the stacked leaves.
 a time, each chunk recomputed in the backward pass, so that one (B,
 chunk, V) block of logits is alive at a time.
 
-Caches keep the JAX tree too ({"scan": ..., "tail": [...]}); decode
-writes into their tensors in place and returns the same tree. A dense
-cache's ``"pos"`` is a CPU int32 tensor (host state: reading it needs no
-device sync); the paged cache has none, its positions come in
-`decode_step_paged`'s `lengths`.
-
-Not ported yet, and refused by name: the encoder (`encode`) and the
-RG-LRU and SSD mixers (ROADMAP §A slice 6).
+Caches keep the JAX tree too ({"scan": ..., "tail": [...]}, and
+``"enc_out"`` for an encoder-decoder model); decode writes into their
+tensors in place (attention K/V, and a mixer's recurrent state and conv
+buffer) and returns the same tree. A dense cache's ``"pos"`` is a CPU
+int32 tensor (host state: reading it needs no device sync); the paged
+cache has none, its positions come in `decode_step_paged`'s `lengths`.
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 
 from . import moe as moe_lib
+from . import mixers
 from .layers import (
+    _randn,
     apply_norm,
     attn_apply,
     attn_cache_init,
@@ -70,49 +73,76 @@ def pattern_kinds(cfg) -> list:
             for i in range(cfg.num_layers)]
 
 
-def check_supported(cfg) -> None:
-    """Refuse what the port's LM does not build yet, naming its slice."""
-    missing = sorted(set(pattern_kinds(cfg)) - {"attn"})
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {'/'.join(missing)} blocks (the RG-LRU and SSD "
-            f"mixers) arrive with ROADMAP §A slice 6 (LM zoo)")
-    if cfg.is_encdec or cfg.embedding_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models arrive with ROADMAP §A "
-            f"slice 6 (LM zoo: encoder-decoder)")
-
-
 # ------------------------------------------------------------------------- #
 # single block
 # ------------------------------------------------------------------------- #
-def block_init(cfg, kind: str, *, generator=None, device=None):
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{kind} blocks (the RG-LRU and SSD mixers) arrive with ROADMAP "
-            f"§A slice 6 (LM zoo)")
+def block_init(cfg, kind: str, cross: bool = False, *, generator=None,
+               device=None):
     kw = dict(device=device, dtype=_dtype(cfg))
     d = cfg.d_model
-    p = {"norm1": norm_init(cfg.norm, d, **kw),
-         "attn": attn_init(d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                           cfg.use_bias, generator=generator, **kw)}
+    gkw = dict(generator=generator, **kw)
+    p = {"norm1": norm_init(cfg.norm, d, **kw)}
+    if kind == "attn":
+        p["attn"] = attn_init(d, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, cfg.use_bias, **gkw)
+    elif kind == "rglru":
+        p["rglru"] = mixers.rglru_init(cfg, **gkw)
+    elif kind == "ssd":
+        p["ssd"] = mixers.ssd_init(cfg, **gkw)
+    else:
+        raise ValueError(kind)
+    if cross:
+        p["cross_norm"] = norm_init(cfg.norm, d, **kw)
+        p["cross"] = attn_init(d, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim, cfg.use_bias, **gkw)
     if cfg.d_ff > 0 or cfg.moe is not None:
         p["norm2"] = norm_init(cfg.norm, d, **kw)
         if cfg.moe is not None:
-            p["moe"] = moe_lib.moe_init(cfg, generator=generator, **kw)
+            p["moe"] = moe_lib.moe_init(cfg, **gkw)
         else:
             p["mlp"] = mlp_init(d, cfg.d_ff, cfg.activation, cfg.use_bias,
-                                generator=generator, **kw)
+                                **gkw)
     return p
 
 
-def block_apply(p, cfg, kind, x, positions, cache=None, fill_cache=False):
-    """Returns (x, new_cache, aux_losses): the MoE router's losses, or {}."""
+def _cross_kv(attn_p, cfg, enc):
+    """A block's cross-attention K/V, projected from the raw encoder
+    output enc (B, Se, d): (B, Se, K, hd) each."""
+    B, Se = enc.shape[:2]
+    ck = (enc @ attn_p["k"]["w"]).reshape(B, Se, cfg.num_kv_heads,
+                                          cfg.head_dim)
+    cv = (enc @ attn_p["v"]["w"]).reshape(B, Se, cfg.num_kv_heads,
+                                          cfg.head_dim)
+    if "b" in attn_p["k"]:
+        ck = ck + attn_p["k"]["b"].reshape(cfg.num_kv_heads, cfg.head_dim)
+        cv = cv + attn_p["v"]["b"].reshape(cfg.num_kv_heads, cfg.head_dim)
+    return ck, cv
+
+
+def block_apply(p, cfg, kind, x, positions, cache=None, cross_kv=None,
+                causal=True, fill_cache=False):
+    """Returns (x, new_cache, aux_losses): the MoE router's losses, or {}.
+    cross_kv is the raw encoder output; each block projects its own K/V
+    from it."""
     aux = {}
     h = apply_norm(cfg.norm, p["norm1"], x)
-    out, new_cache = attn_apply(p["attn"], h, cfg, positions, cache=cache,
-                                fill_cache=fill_cache)
+    if kind == "attn":
+        out, new_cache = attn_apply(p["attn"], h, cfg, positions, cache=cache,
+                                    causal=causal, fill_cache=fill_cache)
+    elif kind == "rglru":
+        out, new_cache = mixers.rglru_apply(p["rglru"], cfg, h, state=cache,
+                                            return_state=fill_cache)
+    elif kind == "ssd":
+        out, new_cache = mixers.ssd_apply(p["ssd"], cfg, h, state=cache,
+                                          return_state=fill_cache)
+    else:
+        raise ValueError(kind)
     x = x + out
+    if "cross" in p and cross_kv is not None:
+        h = apply_norm(cfg.norm, p["cross_norm"], x)
+        out, _ = attn_apply(p["cross"], h, cfg, positions,
+                            cross_kv=_cross_kv(p["cross"], cfg, cross_kv))
+        x = x + out
     if "mlp" in p:
         x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x),
                     cfg.activation)
@@ -121,6 +151,16 @@ def block_apply(p, cfg, kind, x, positions, cache=None, fill_cache=False):
                                    apply_norm(cfg.norm, p["norm2"], x))
         x = x + y
     return x, new_cache, aux
+
+
+def block_cache_init(cfg, kind, batch, seq, dtype, device=None):
+    if kind == "attn":
+        return attn_cache_init(cfg, batch, seq, dtype, device)
+    if kind == "rglru":
+        return mixers.rglru_state_init(cfg, batch, dtype, device)
+    if kind == "ssd":
+        return mixers.ssd_state_init(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 # ------------------------------------------------------------------------- #
@@ -152,13 +192,14 @@ def _n_scan(cfg):
 
 def init(cfg, *, generator=None, device=None, max_seq: int = 0):
     """Full parameter tree; the scanned layers are stacked:
-    params['scan']['b{i}'] has shape (n_periods, ...)."""
-    del max_seq  # only absolute-position models need it (not ported)
-    check_supported(cfg)
+    params['scan']['b{i}'] has shape (n_periods, ...). An absolute-position
+    model (whisper) needs `max_seq`, the length of its position table."""
     dt = _dtype(cfg)
     kinds = pattern_kinds(cfg)
     period, n_scan = _n_scan(cfg)
+    cross = cfg.is_encdec
     kw = dict(generator=generator, device=device, dtype=dt)
+    bkw = dict(generator=generator, device=device)
     p: dict = {"embed": embed_init(cfg.vocab_size, cfg.d_model, **kw)}
     if not cfg.tie_embeddings:
         p["unembed"] = {"w": embed_init(cfg.d_model, cfg.vocab_size, **kw)}
@@ -166,21 +207,37 @@ def init(cfg, *, generator=None, device=None, max_seq: int = 0):
                                 dtype=dt)
     if n_scan:
         p["scan"] = {
-            f"b{i}": _stack([block_init(cfg, cfg.layer_pattern[i],
-                                        generator=generator, device=device)
+            f"b{i}": _stack([block_init(cfg, cfg.layer_pattern[i], cross,
+                                        **bkw)
                              for _ in range(n_scan)])
             for i in range(period)}
     tail_kinds = kinds[n_scan * period:]
     if tail_kinds:
-        p["tail"] = [block_init(cfg, kind, generator=generator,
-                                device=device) for kind in tail_kinds]
+        p["tail"] = [block_init(cfg, kind, cross, **bkw)
+                     for kind in tail_kinds]
+    if cfg.is_encdec:
+        e = cfg.encdec
+        p["enc"] = {
+            "blocks": [block_init(cfg, "attn", **bkw)
+                       for _ in range(e.enc_layers)],
+            "final_norm": norm_init(cfg.norm, cfg.d_model, device=device,
+                                    dtype=dt),
+            "pos": (_randn((e.enc_seq, cfg.d_model), generator, device)
+                    * 0.02).to(dt)}
+    if cfg.positional == "learned":
+        if max_seq <= 0:
+            raise ValueError(f"{cfg.name}: an absolute-position model needs "
+                             f"max_seq > 0")
+        p["pos"] = (_randn((max_seq, cfg.d_model), generator, device)
+                    * 0.02).to(dt)
     return p
 
 
 # ------------------------------------------------------------------------- #
 # forward over the block stack
 # ------------------------------------------------------------------------- #
-def _stack_apply(params, cfg, x, positions, caches=None, fill_cache=False):
+def _stack_apply(params, cfg, x, positions, caches=None, cross_kv=None,
+                 fill_cache=False):
     """Run all layers. Three modes:
       train   : caches=None, fill_cache=False  (remat'd periods, aux summed)
       prefill : caches=None, fill_cache=True   (caches stacked per layer)
@@ -200,7 +257,7 @@ def _stack_apply(params, cfg, x, positions, caches=None, fill_cache=False):
             x, lc[f"b{i}"], aux = block_apply(
                 layer_p[f"b{i}"], cfg, cfg.layer_pattern[i], x, positions,
                 cache=None if layer_c is None else layer_c[f"b{i}"],
-                fill_cache=fill_cache)
+                cross_kv=cross_kv, fill_cache=fill_cache)
             for k, v in aux.items():
                 aux_p[k] = aux_p.get(k, 0.0) + v
         return x, lc, aux_p
@@ -234,7 +291,7 @@ def _stack_apply(params, cfg, x, positions, caches=None, fill_cache=False):
         kind = cfg.layer_pattern[(n_scan * period + i) % period]
         c = None if caches is None else caches["tail"][i]
         x, nc, aux = block_apply(bp, cfg, kind, x, positions, cache=c,
-                                 fill_cache=fill_cache)
+                                 cross_kv=cross_kv, fill_cache=fill_cache)
         add_aux(aux)
         new_caches["tail"].append(nc)
     if train:
@@ -242,20 +299,37 @@ def _stack_apply(params, cfg, x, positions, caches=None, fill_cache=False):
     return x, new_caches, aux_total
 
 
+def encode(params, cfg, enc_embeds):
+    """The encoder of an encoder-decoder model over precomputed frame
+    embeddings (B, Se, d) (whisper's audio frontend is a stub, as in the
+    JAX package): learned positions, non-causal attention blocks, the
+    final norm."""
+    e = params["enc"]
+    x = enc_embeds.to(_dtype(cfg)) + e["pos"][None, :enc_embeds.shape[1]]
+    pos = torch.arange(x.shape[1], device=x.device)
+    for bp in e["blocks"]:
+        x, _, _ = block_apply(bp, cfg, "attn", x, pos, causal=False)
+    return apply_norm(cfg.norm, e["final_norm"], x)
+
+
 def _embed_tokens(params, cfg, tokens, positions):
-    del positions  # learned absolute positions are not ported
     # F.embedding's backward sums a token's rows in a fixed order on CUDA
     x = F.embedding(tokens, params["embed"])
     # the JAX package multiplies by a weakly typed Python float, which
     # takes the activation's dtype: round the factor the same way
     scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
-    return (x * scale).to(_dtype(cfg))
+    x = x * scale
+    if cfg.positional == "learned" and "pos" in params:
+        x = x + F.embedding(positions.expand(tokens.shape), params["pos"])
+    return x.to(_dtype(cfg))
 
 
-def forward(params, cfg, tokens, positions, caches=None, fill_cache=False):
+def forward(params, cfg, tokens, positions, caches=None, enc_out=None,
+            fill_cache=False):
     """tokens: (B, S) integer. Returns (hidden, new_caches, aux)."""
     x = _embed_tokens(params, cfg, tokens, positions)
     x, new_caches, aux = _stack_apply(params, cfg, x, positions, caches,
+                                      cross_kv=enc_out,
                                       fill_cache=fill_cache)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return x, new_caches, aux
@@ -303,15 +377,16 @@ def chunked_xent(params, cfg, hidden, targets, chunk):
 
 
 def loss_fn(params, cfg, batch, generator=None):
-    """batch: {"tokens": (B, S), "targets": (B, S)} integer. Returns
+    """batch: {"tokens": (B, S), "targets": (B, S)} integer, and
+    "enc_embeds" (B, Se, d) for an encoder-decoder model. Returns
     (loss + Σ aux, {"loss": loss, **aux}). The chunked cross-entropy is
     taken when ``cfg.xent_chunk`` divides S."""
     del generator   # the LM's loss draws nothing
-    if cfg.is_encdec:
-        encode()
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    hidden, _, aux = forward(params, cfg, tokens, positions)
+    enc_out = (encode(params, cfg, batch["enc_embeds"]) if cfg.is_encdec
+               else None)
+    hidden, _, aux = forward(params, cfg, tokens, positions, enc_out=enc_out)
     if cfg.xent_chunk and tokens.shape[1] % cfg.xent_chunk == 0:
         loss = chunked_xent(params, cfg, hidden, batch["targets"],
                             cfg.xent_chunk)
@@ -322,36 +397,51 @@ def loss_fn(params, cfg, batch, generator=None):
     return total, metrics
 
 
-def encode(*_, **__):
-    raise NotImplementedError(
-        "the encoder of encoder-decoder models arrives with ROADMAP §A slice "
-        "6 (LM zoo: encoder-decoder)")
-
-
 # ------------------------------------------------------------------------- #
 # serving
 # ------------------------------------------------------------------------- #
 def init_cache(cfg, batch, seq, dtype=None, device=None):
-    check_supported(cfg)
+    """Decode caches: a dense (or rolling) K/V cache per attention layer,
+    a zero recurrent state per mixer layer, and a zero ``"enc_out"`` for
+    an encoder-decoder model."""
     dtype = dtype or _dtype(cfg)
     period, n_scan = _n_scan(cfg)
+
+    def one(kind):
+        return block_cache_init(cfg, kind, batch, seq, dtype, device)
+
     caches = {"scan": None, "tail": []}
     if n_scan:
         caches["scan"] = {
-            f"b{i}": _stack([attn_cache_init(cfg, batch, seq, dtype, device)
+            f"b{i}": _stack([one(cfg.layer_pattern[i])
                              for _ in range(n_scan)])
             for i in range(period)}
-    for _ in pattern_kinds(cfg)[n_scan * period:]:
-        caches["tail"].append(attn_cache_init(cfg, batch, seq, dtype, device))
+    for kind in pattern_kinds(cfg)[n_scan * period:]:
+        caches["tail"].append(one(kind))
+    if cfg.is_encdec:
+        caches["enc_out"] = torch.zeros(
+            (batch, cfg.encdec.enc_seq, cfg.d_model), dtype=dtype,
+            device=device)
     return caches
 
 
 def decode_step(params, cfg, tokens, caches):
     """tokens: (B, 1). Writes into caches; returns (logits (B, V), caches)."""
     t = _cache_pos(caches, cfg)
+    if cfg.positional == "learned" and "pos" in params:
+        # checked here, on the host: on CUDA an index past the table is a
+        # device-side assert that leaves the context unusable
+        n_pos = params["pos"].shape[0]
+        if t >= n_pos:
+            raise ValueError(f"decode_step: position {t} is past the learned "
+                             f"position table ({n_pos} positions, init's "
+                             f"max_seq)")
     positions = torch.full((1,), t, dtype=torch.int32, device=tokens.device)
+    enc_out = caches.get("enc_out")
     hidden, new_caches, _ = forward(params, cfg, tokens, positions,
-                                    caches=caches)
+                                    caches=caches, enc_out=enc_out)
+    if enc_out is not None:
+        new_caches["enc_out"] = enc_out
     return logits_fn(params, cfg, hidden[:, -1]), new_caches
 
 
@@ -369,15 +459,18 @@ def decode_step_paged(params, cfg, tokens, caches, lengths):
 
 def prefill(params, cfg, tokens, enc_embeds=None, max_len: int = 0):
     """Run the whole prompt in one pass; return (last_logits, decode-ready
-    caches). max_len > prompt length reserves decode positions in
-    global-attention caches (rolling-window caches are fixed-size)."""
-    if enc_embeds is not None:
-        encode()
+    caches): attention K/V in cache layout, each mixer's final state, and
+    the encoder output of an encoder-decoder model (from `enc_embeds`).
+    max_len > prompt length reserves decode positions in global-attention
+    caches (rolling-window caches are fixed-size)."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    enc_out = encode(params, cfg, enc_embeds) if cfg.is_encdec else None
     hidden, caches, _ = forward(params, cfg, tokens, positions,
-                                fill_cache=True)
+                                enc_out=enc_out, fill_cache=True)
     if max_len > tokens.shape[1] and cfg.attention_window == 0:
         caches = _pad_attn_caches(caches, max_len)
+    if cfg.is_encdec:
+        caches["enc_out"] = enc_out
     return logits_fn(params, cfg, hidden[:, -1]), caches
 
 
@@ -400,6 +493,8 @@ def _pad_attn_caches(caches, max_len):
 
 
 def _cache_pos(caches, cfg) -> int:
+    """The decode position of a dense cache: its first attention layer's
+    "pos", or 0 for a purely recurrent model (which tracks none)."""
     del cfg
     if caches.get("scan") is not None:
         for v in caches["scan"].values():

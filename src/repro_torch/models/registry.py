@@ -72,7 +72,6 @@ def build(cfg) -> ModelBundle:
             decode_step=None,
             init_cache=None,
         )
-    lm.check_supported(cfg)
     return ModelBundle(
         cfg=cfg,
         init=lambda generator=None, device=None, max_seq=0: lm.init(

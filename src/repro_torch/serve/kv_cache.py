@@ -192,9 +192,9 @@ class BlockAllocator:
 # paged cache construction
 # --------------------------------------------------------------------------- #
 def check_model_servable(cfg) -> None:
-    """The paged engine serves decoder LMs with global attention. Fail fast
-    with the reason otherwise (the JAX package's messages), and refuse
-    what the port's LM does not build yet."""
+    """The paged engine serves decoder LMs with global attention and
+    recurrent mixers. Fail fast with the reason otherwise (the JAX
+    package's messages)."""
     if getattr(cfg, "is_encdec", False):
         raise ServeError(
             f"{cfg.name}: encoder-decoder models are not supported by the "
@@ -205,7 +205,6 @@ def check_model_servable(cfg) -> None:
             f"{cfg.name}: sliding-window attention (attention_window="
             f"{cfg.attention_window}) is not supported by the paged KV "
             f"cache; the rolling dense cache already bounds its memory")
-    lm.check_supported(cfg)
 
 
 def _paged_attn_leaf(cfg, scfg: ServeConfig, dtype, device):
@@ -221,19 +220,27 @@ def _paged_attn_leaf(cfg, scfg: ServeConfig, dtype, device):
 def init_paged_cache(cfg, scfg: ServeConfig, dtype=None, device=None):
     """Cache tree with the structure of `model.init_cache`
     ({"scan": {...}, "tail": [...]}), but attention leaves are paged
-    {"k": pool, "v": pool, "table": (max_batch, max_blocks_per_seq)},
+    {"k": pool, "v": pool, "table": (max_batch, max_blocks_per_seq)} and
+    recurrent leaves are (max_batch, ...) state lanes, one a slot,
     stacked along the layer axis under "scan"."""
     check_model_servable(cfg)
     dtype = dtype or lm._dtype(cfg)
     period, n_scan = lm._n_scan(cfg)
+
+    def one(kind):
+        if kind == "attn":
+            return _paged_attn_leaf(cfg, scfg, dtype, device)
+        return lm.block_cache_init(cfg, kind, scfg.max_batch, 0, dtype,
+                                   device)
+
     caches = {"scan": None, "tail": []}
     if n_scan:
         caches["scan"] = {
-            f"b{i}": lm._stack([_paged_attn_leaf(cfg, scfg, dtype, device)
+            f"b{i}": lm._stack([one(cfg.layer_pattern[i])
                                 for _ in range(n_scan)])
             for i in range(period)}
-    for _ in lm.pattern_kinds(cfg)[n_scan * period:]:
-        caches["tail"].append(_paged_attn_leaf(cfg, scfg, dtype, device))
+    for kind in lm.pattern_kinds(cfg)[n_scan * period:]:
+        caches["tail"].append(one(kind))
     return caches
 
 

@@ -70,15 +70,19 @@ def test_config_matches_the_jax_config():
     """Every LM arch of the port, full and reduced(), field for field."""
     for arch in ("gemma-2b", "gemma-2b-swa", "starcoder2-7b", "yi-34b",
                  "chameleon-34b", "command-r-plus-104b", "qwen3-moe-30b-a3b",
-                 "arctic-480b"):
+                 "arctic-480b", "mamba2-1.3b", "recurrentgemma-2b",
+                 "whisper-tiny"):
         full_j, full_t = jcfgs.get(arch), tcfgs.get(arch)
         for f in full_t.__dataclass_fields__:
             assert _field(full_t, f) == _field(full_j, f), (arch, f)
             assert (_field(full_t.reduced(), f)
                     == _field(full_j.reduced(), f)), (arch, f)
         assert full_t.param_count() == full_j.param_count(), arch
-        assert full_t.positional == full_j.positional == "rope"
+        assert full_t.positional == full_j.positional, arch
+        assert full_t.is_encdec == full_j.is_encdec, arch
     assert tcfgs.get("gemma-2b").param_count() == 3_030_460_416
+    assert tcfgs.get("mamba2-1.3b").param_count() == 1_446_812_672
+    assert tcfgs.get("whisper-tiny").positional == "learned"
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
@@ -358,8 +362,22 @@ def test_trees_with_lists_cross_over():
            JM.prefill(params, cfg, jnp.asarray(prompt, jnp.int32))[0])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
-                                  "whisper-tiny"])
-def test_unported_archs_are_refused_by_slice(arch):
-    with pytest.raises(KeyError, match="ROADMAP §A slice 6"):
-        tcfgs.get(arch)
+@pytest.mark.parametrize("arch", list(jcfgs.registry()))
+def test_every_jax_arch_builds_in_the_port(arch):
+    """Each of the JAX package's 12 archs is a config of the port, whose
+    bundle builds and whose init (reduced for an LM) gives the tree of
+    the reference's init: paths and shapes."""
+    from repro.models import registry as JR
+    from repro_torch.models import build
+    jc, tc = jcfgs.get(arch), tcfgs.get(arch)
+    assert tc.name == jc.name
+    if arch != "dcgan32":
+        jc, tc = jc.reduced(), tc.reduced()
+    want = jax.eval_shape(lambda k: JR.build(jc).init(k, max_seq=16),
+                          jax.random.key(0))
+    got = build(tc).init(generator=torch.Generator().manual_seed(0),
+                         max_seq=16)
+    jp, jl = T.flatten(want)
+    tp, tl = T.flatten(got)
+    assert [T.keystr(p) for p in tp] == [T.keystr(p) for p in jp]
+    assert [tuple(x.shape) for x in tl] == [tuple(x.shape) for x in jl]

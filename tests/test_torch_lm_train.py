@@ -52,7 +52,8 @@ from repro_torch.models import registry as TR
 from repro_torch.strategy import Strategy as TStrategy
 
 ARCHS = ["gemma-2b", "starcoder2-7b", "yi-34b", "chameleon-34b",
-         "command-r-plus-104b", "qwen3-moe-30b-a3b", "arctic-480b"]
+         "command-r-plus-104b", "qwen3-moe-30b-a3b", "arctic-480b",
+         "mamba2-1.3b", "recurrentgemma-2b", "whisper-tiny"]
 B, S = 2, 16
 
 
@@ -69,17 +70,23 @@ def _params(jc, seed=0):
     params = jax.tree.map(
         lambda w: (w.astype(jnp.float32) + 0.02 * rs.randn(*w.shape)
                    .astype(np.float32)).astype(jnp.bfloat16).astype(w.dtype),
-        JM.init(jax.random.key(seed), jc, 0))
+        JM.init(jax.random.key(seed), jc, S))
     return params, params_from_jax(jax.device_get(params))
 
 
-def _batch(vocab, seed=1, b=B, s=S):
+def _batch(vocab, seed=1, b=B, s=S, enc_shape=None):
+    """Numpy tokens and targets, and an encoder-decoder model's encoder
+    inputs (b,) + enc_shape, for both packages."""
     rs = np.random.RandomState(seed)
     toks, tgts = (rs.randint(0, vocab, (b, s)) for _ in range(2))
-    return ({"tokens": jnp.asarray(toks, jnp.int32),
-             "targets": jnp.asarray(tgts, jnp.int32)},
-            {"tokens": torch.from_numpy(toks).long(),
-             "targets": torch.from_numpy(tgts).long()})
+    jb = {"tokens": jnp.asarray(toks, jnp.int32),
+          "targets": jnp.asarray(tgts, jnp.int32)}
+    tb = {"tokens": torch.from_numpy(toks).long(),
+          "targets": torch.from_numpy(tgts).long()}
+    if enc_shape is not None:
+        e = (0.1 * rs.randn(b, *enc_shape)).astype(np.float32)
+        jb["enc_embeds"], tb["enc_embeds"] = jnp.asarray(e), torch.tensor(e)
+    return jb, tb
 
 
 def _jax_loss_and_grads(params, jc, jbatch):
@@ -95,7 +102,8 @@ def _case(arch, dtype="float32", changes=()):
     case compares against the float32 case's gradients)."""
     jc, tc = _cfgs(arch, param_dtype=dtype, **dict(changes))
     params, tparams = _params(jc)
-    jbatch, tbatch = _batch(jc.vocab_size)
+    jbatch, tbatch = _batch(jc.vocab_size, enc_shape=(
+        (jc.encdec.enc_seq, jc.d_model) if jc.is_encdec else None))
     return (tc, tparams, tbatch) + _jax_loss_and_grads(params, jc, jbatch)
 
 
@@ -141,8 +149,11 @@ def test_lm_batch_iterator_draws_from_its_generator():
     again = TD.lm_batch_iterator(4, 16, 512,
                                  generator=torch.Generator().manual_seed(3))
     assert torch.equal(next(again)["tokens"], a["tokens"])
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        next(TD.lm_batch_iterator(4, 16, 512, enc_shape=(8, 16)))
+    # with encoder inputs: drawn after the tokens, which stay the same
+    enc = next(TD.lm_batch_iterator(4, 16, 512, enc_shape=(8, 16),
+                                    generator=torch.Generator().manual_seed(3)))
+    assert enc["enc_embeds"].shape == (4, 8, 16)
+    assert torch.equal(enc["tokens"], a["tokens"])
 
 
 # --------------------------------------------------------------------------- #

@@ -58,7 +58,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "obs.report", "obs.calibrate", "obs.__main__", "obs.profile",
                 "obs.trace", "serve.quantized_weights",
                 "configs.gemma_2b_swa", "models.moe", "models.registry",
-                "configs.starcoder2_7b", "configs.arctic_480b"):
+                "configs.starcoder2_7b", "configs.arctic_480b",
+                "models.mixers", "configs.mamba2_1_3b",
+                "configs.recurrentgemma_2b", "configs.whisper_tiny"):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -316,7 +318,7 @@ def test_serve_cli_serves_gemma_on_the_cpu_when_asked():
      "needs a linf StochasticQuant"),
     (["--arch", "gemma-2b", "--quantize-weights", "qsgd8_linf",
       "--weight-plan", "delta_budget"], "positive per-step byte budget"),
-    (["--arch", "mamba2-1.3b"], "ROADMAP §A slice 6 (LM zoo: the SSD mixer)"),
+    (["--arch", "whisper-tiny"], "encoder-decoder models are not supported"),
     (["--arch", "gemma-2b-swa"], "sliding-window attention"),
 ])
 def test_serve_cli_refuses_unported_features(flags, slice_):

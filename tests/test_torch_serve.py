@@ -317,6 +317,13 @@ def test_sliding_window_and_unported_blocks_are_refused(weights):
     _, tparams = weights
     with pytest.raises(ServeError, match="sliding-window"):
         Engine(dataclasses.replace(TCFG, attention_window=32), SCFG, tparams)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Engine(dataclasses.replace(TCFG, layer_pattern=("ssd",)), SCFG,
-               tparams)
+    # an ssd pattern builds an engine: a state lane a slot, no paged K/V
+    from repro_torch.configs import SSMConfig
+    eng = Engine(dataclasses.replace(TCFG, layer_pattern=("ssd",),
+                                     ssm=SSMConfig(state_dim=16, head_dim=16,
+                                                   chunk_size=32)),
+                 SCFG, tparams)
+    lanes = eng.cache["scan"]["b0"]
+    assert sorted(lanes) == ["conv", "h"]
+    assert all(x.shape[:2] == (TCFG.num_layers, SCFG.max_batch)
+               for x in lanes.values())
