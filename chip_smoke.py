@@ -155,6 +155,16 @@ result line):
               and 32 decode steps (timed); the CLI on each of the three
               archs (B1 5 in 5 steps) and four stacked workers on mamba2
               reduced (B2 once a bucket a step)
+ 21. dryrun   the launch tooling on the meta device (run after phases lm
+              train and zoo): all 44 single-mesh (arch x shape) combos of
+              `python -m repro_torch.launch.dryrun` at published widths
+              over 8 processes (no error, skip exactly at long_500k of the
+              8 pure full-attention archs, no device memory used); the
+              two LM steps of phases lm train and zoo traced on the meta
+              device: the forecast peak within 0.85-1.15 of the peak they
+              measured, traced FLOPs at least the model FLOPs, B1 once a
+              step; the steps' model-FLOPs share of the bf16 peak
+              (reported); the phase under 120 s
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -3232,7 +3242,8 @@ def phase_lm_train(dev, gpu):
         one member): B2 once a bucket a step, step 0's launches bit-equal
         to B2's plain version.
     Returns ({path: B1 launches}, {path: B2 launches}, the timed B1
-    record's fields for the LM call)."""
+    record's fields for the LM call, (a)'s peak memory, median step and
+    B1 launches a step for phase dryrun's calibration)."""
     import torch
     from repro_torch import tree as T
     from repro_torch.kernels import flash_attention as FA
@@ -3288,6 +3299,8 @@ def phase_lm_train(dev, gpu):
           f"{flops / step_s / PEAK_BF16_FLOP_S:.3f} of the dense bf16 peak; "
           f"gpu {gpu}")
     b1_paths[f"lm {LM_ARCH}"] = launches
+    measured = {"peak_bytes": peak, "step_s": step_s,
+                "b1_a_step": launches / LM_STEPS}
 
     st, b1_ms, bound = lm_profile_b1(tr, st, batches, f"lm {LM_ARCH}",
                                      rows, n_elem, gpu)
@@ -3390,7 +3403,7 @@ def phase_lm_train(dev, gpu):
           f"ms")
     free_cuda()
     return b1_paths, b2_paths, {"lm_rows": rows, "lm_ms": b1_ms,
-                                "lm_bound_ms": bound}
+                                "lm_bound_ms": bound}, measured
 
 
 # --------------------------------------------------------------------------- #
@@ -3426,7 +3439,9 @@ def zoo_train_ssd(dev, gpu, b1_paths):
     finite losses and gradients), a profiled window, one step's packed
     operands through B1 and its plain version bit for bit, then
     LM_PARITY_STEPS steps again from the seed with the plain version:
-    params bit-equal on the host. Returns B1's record for the call."""
+    params bit-equal on the host. Returns (B1's record for the call, the
+    peak memory, median step and B1 launches a step of the timed
+    steps)."""
     import torch
     from repro_torch import tree as T
     from repro_torch.kernels import flash_attention as FA
@@ -3471,6 +3486,8 @@ def zoo_train_ssd(dev, gpu, b1_paths):
           f"{[round(x, 4) for x in losses]}, peak memory {gib(peak):.2f} "
           f"GiB ({peak / n_params:.1f} B a parameter); gpu {gpu}")
     b1_paths[f"zoo {ZOO_SSD}"] = launches
+    measured = {"peak_bytes": peak, "step_s": step_s,
+                "b1_a_step": launches / ZOO_STEPS}
 
     st, b1_ms, bound = lm_profile_b1(tr, st, batches, f"zoo {ZOO_SSD}",
                                      rows, n_elem, gpu)
@@ -3478,7 +3495,8 @@ def zoo_train_ssd(dev, gpu, b1_paths):
     del tr, st, batches
     free_cuda()
     lm_plain_parity(dev, ZOO_SSD, ZOO_SSD_LAYERS, 23, kept, "zoo")
-    return {"zoo_rows": rows, "zoo_ms": b1_ms, "zoo_bound_ms": bound}
+    return ({"zoo_rows": rows, "zoo_ms": b1_ms, "zoo_bound_ms": bound},
+            measured)
 
 
 def zoo_train_other(dev, gpu, b1_paths):
@@ -3838,7 +3856,8 @@ def phase_zoo(dev, gpu):
     RG-LRU mixer with windowed attention (recurrentgemma-2b) and the
     encoder-decoder (whisper-tiny), trained through B1 and served. Each
     part prints its wall time. Returns ({path: B1 launches}, {path: B2
-    launches}, B1's record for its call over mamba2's gradient)."""
+    launches}, B1's record for its call over mamba2's gradient, mamba2's
+    peak memory, median step and B1 launches a step)."""
     import torch
     b1_paths, b2_paths = {}, {}
     free_cuda()
@@ -3846,7 +3865,8 @@ def phase_zoo(dev, gpu):
     # training steps' peaks leave no reserved-but-unallocated gaps
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     try:
-        call = timed("zoo train mamba2", zoo_train_ssd, dev, gpu, b1_paths)
+        call, measured = timed("zoo train mamba2", zoo_train_ssd, dev, gpu,
+                               b1_paths)
         timed("zoo train recurrentgemma, whisper", zoo_train_other, dev,
               gpu, b1_paths)
     finally:
@@ -3857,7 +3877,120 @@ def phase_zoo(dev, gpu):
     timed("zoo long", zoo_long, dev, gpu)
     timed("zoo serve whisper", zoo_serve_whisper, dev, gpu)
     timed("zoo cli", zoo_cli, dev, b1_paths, b2_paths)
-    return b1_paths, b2_paths, call
+    return b1_paths, b2_paths, call, measured
+
+
+# --------------------------------------------------------------------------- #
+# the dry-run: launch tooling on the meta device
+# --------------------------------------------------------------------------- #
+DRYRUN_JOBS = 8            # pool processes for the sweep (the machine's cores)
+DRYRUN_LIMIT_S = 120.0
+# the pure full-attention archs: the JAX package's `applicable` skips
+# exactly these at long_500k
+DRYRUN_SKIPS = {"gemma-2b", "starcoder2-7b", "yi-34b", "chameleon-34b",
+                "command-r-plus-104b", "qwen3-moe-30b-a3b", "arctic-480b",
+                "whisper-tiny"}
+
+
+def dryrun_combo(job):
+    """One single-mesh combo of the dry-run, in a pool process: (its
+    record, whether the process initialized CUDA)."""
+    import torch
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_combo(*job, False, quiet=True)
+    return rec, torch.cuda.is_initialized()
+
+
+def phase_dryrun(gpu, lm_meas, zoo_meas):
+    """The launch tooling (`repro_torch.launch.dryrun`) on the meta device:
+    (a) the sweep: all 44 single-mesh (arch x shape) combos at published
+        widths, over DRYRUN_JOBS processes, the training steps first;
+        every record ok or skip, skip exactly at long_500k of the pure
+        full-attention archs, and no device memory used (the parent's
+        allocated bytes unchanged, no pool process initialized CUDA);
+    (b) the calibration: the two LM steps phases lm train and zoo measured
+        (starcoder2-7b at LM_LAYERS layers, mamba2-1.3b at
+        ZOO_SSD_LAYERS, batch LM_BATCH x LM_SEQ, omd, qsgd8_block1024
+        over uniform 4 MiB buckets, one worker) traced on the meta device:
+        the forecast peak within 0.85-1.15 of the measured one, the traced
+        FLOPs at least the model FLOPs, B1 once a step as the card
+        launched it; the step's model-FLOPs share of the dense bf16 peak
+        (reported).
+    The phase must take less than DRYRUN_LIMIT_S."""
+    import dataclasses
+    import multiprocessing
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    jobs = [(a, s) for a, s, _ in dryrun.all_combos("single")]
+    jobs.sort(key=lambda j: j[1] != "train_4k")
+    with multiprocessing.get_context("spawn").Pool(DRYRUN_JOBS) as pool:
+        out = pool.map(dryrun_combo, jobs, chunksize=1)
+    after = torch.cuda.memory_allocated()
+    recs = [r for r, _ in out]
+    for rec in recs:
+        print(f"# dryrun {json.dumps(dryrun.summary_line(rec))}")
+    errors = [(r["arch"], r["shape"], r.get("error")) for r in recs
+              if r["status"] not in ("ok", "skip")]
+    check(len(recs) == 44 and not errors,
+          f"dryrun: {len(recs)} records, errors {errors}")
+    skips = {(r["arch"], r["shape"]) for r in recs if r["status"] == "skip"}
+    check(skips == {(a, "long_500k") for a in DRYRUN_SKIPS},
+          f"dryrun: skipped {sorted(skips)}")
+    for a in DRYRUN_SKIPS | {r["arch"] for r in recs}:
+        cfg = configs.get(a)
+        check(dryrun.applicable(cfg, configs.SHAPES["long_500k"])[0]
+              == (a not in DRYRUN_SKIPS), f"dryrun: applicable({a})")
+    check(before == after and not any(cu for _, cu in out),
+          f"dryrun: device memory {before} -> {after} bytes, CUDA "
+          f"initialized in {sum(cu for _, cu in out)} pool processes")
+    fits = sorted(f"{r['arch']}/{r['shape']}" for r in recs if r.get("fits"))
+    print(f"# dryrun sweep: {len(recs)} combos over {DRYRUN_JOBS} processes "
+          f"in {time.perf_counter() - t0:.1f} s, {len(recs) - len(skips)} "
+          f"ok, {len(skips)} skip, device memory {before} -> {after} bytes; "
+          f"fit one 80 GB card: {fits}")
+
+    # ---- (b) the calibration against this run's two LM steps ---------- #
+    for label, arch, layers, meas in (
+            ("lm train", LM_ARCH, LM_LAYERS, lm_meas),
+            ("zoo", ZOO_SSD, ZOO_SSD_LAYERS, zoo_meas)):
+        cfg = dataclasses.replace(configs.get(arch), num_layers=layers)
+        shape = configs.InputShape(f"{arch}-{layers}", LM_SEQ, LM_BATCH,
+                                   "train")
+        t1 = time.perf_counter()
+        res = dryrun.trace_train(cfg, shape, single_strategy(), ranks=1,
+                                 optimizer="omd", lr=1e-4, message="update")
+        ratio = res["peak_bytes"] / meas["peak_bytes"]
+        mf = dryrun.model_flops(cfg, shape)
+        share = mf / meas["step_s"] / PEAK_BF16_FLOP_S
+        print(f"# dryrun calibration {arch}, {layers} layers, batch "
+              f"{LM_BATCH} x {LM_SEQ} ({label}): forecast peak "
+              f"{gib(res['peak_bytes']):.2f} GiB against "
+              f"{gib(meas['peak_bytes']):.2f} measured (ratio {ratio:.3f}); "
+              f"traced FLOPs {res['flops'] / 1e12:.3f} T, model FLOPs "
+              f"{mf / 1e12:.3f} T; median step {meas['step_s'] * 1e3:.3f} "
+              f"ms: model FLOPs share {share:.4f} of "
+              f"{PEAK_BF16_FLOP_S / 1e12:.0f} TFLOP/s; meta launches "
+              f"{res['kernels_meta']}, B1 on the card "
+              f"{meas['b1_a_step']:.0f} a step; trace "
+              f"{time.perf_counter() - t1:.1f} s; gpu {gpu}")
+        check(0.85 <= ratio <= 1.15, f"dryrun {arch}: forecast peak "
+              f"{res['peak_bytes']} against {meas['peak_bytes']} measured, "
+              f"ratio {ratio:.3f}")
+        check(res["flops"] >= mf, f"dryrun {arch}: traced FLOPs "
+              f"{res['flops']} below the model FLOPs {mf}")
+        km = res["kernels_meta"]
+        check(km["quantize_ef"] == meas["b1_a_step"] == 1
+              and not km["quantize_ef_dyn"] and not km["paged_attention"]
+              and not km["flash_attention"],
+              f"dryrun {arch}: meta launches {km}, B1 on the card "
+              f"{meas['b1_a_step']} a step")
+    took = time.perf_counter() - t0
+    check(took < DRYRUN_LIMIT_S, f"dryrun: the phase took {took:.1f} s, "
+          f"the limit is {DRYRUN_LIMIT_S:.0f}")
 
 
 def timed(label, fn, *args, **kw):
@@ -3915,8 +4048,11 @@ def main():
                    for i in range(S_BATCH)]
         b3 = timed("kernel B3", phase_paged_kernel, dev, scfg, lengths)
         b4 = timed("flash", phase_flash_kernel, dev)
-        lm_b1, lm_b2, lm_call = timed("lm train", phase_lm_train, dev, gpu)
-        zoo_b1, zoo_b2, zoo_call = timed("zoo", phase_zoo, dev, gpu)
+        lm_b1, lm_b2, lm_call, lm_meas = timed("lm train", phase_lm_train,
+                                               dev, gpu)
+        zoo_b1, zoo_b2, zoo_call, zoo_meas = timed("zoo", phase_zoo, dev,
+                                                   gpu)
+        timed("dryrun", phase_dryrun, gpu, lm_meas, zoo_meas)
         b1["launches"] = timed("train 1 worker", phase_train)
         b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
         b3["launches"] = timed("serve", phase_serve)

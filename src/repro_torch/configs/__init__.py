@@ -9,8 +9,14 @@ from __future__ import annotations
 from importlib import import_module
 
 from .base import (  # noqa: F401
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
     DQConfig,
     EncDecConfig,
+    InputShape,
     ModelConfig,
     MoEConfig,
     RGLRUConfig,
@@ -31,6 +37,12 @@ _ARCH_MODULES = {
     "whisper-tiny": "whisper_tiny",
     "dcgan32": "dcgan32",
 }
+
+# the assigned LM archs, in the JAX package's order (the dry-run sweeps
+# these and gemma-2b-swa)
+ASSIGNED = ("recurrentgemma-2b", "gemma-2b", "yi-34b", "mamba2-1.3b",
+            "chameleon-34b", "command-r-plus-104b", "whisper-tiny",
+            "qwen3-moe-30b-a3b", "arctic-480b", "starcoder2-7b")
 
 
 def get(name: str):

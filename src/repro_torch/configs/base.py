@@ -99,6 +99,13 @@ class ModelConfig:
                              f"{self.num_kv_heads}")
 
     @property
+    def supports_long_context(self) -> bool:
+        """True if decoding at 500k tokens is sub-quadratic or of bounded
+        state: no global attention layer."""
+        return (all(p != "attn" for p in self.layer_pattern)
+                or self.attention_window > 0)
+
+    @property
     def is_encdec(self) -> bool:
         return self.encdec is not None
 
@@ -154,6 +161,15 @@ class ModelConfig:
             total += enc + cross
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters a token uses (MoE: only its top_k experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        expert_p = 3 * self.d_model * self.moe.d_ff_expert
+        inactive = ((self.moe.num_experts - self.moe.top_k) * expert_p
+                    * self.num_layers)
+        return int(self.param_count() - inactive)
+
     def reduced(self) -> "ModelConfig":
         """Small same-family variant for CPU tests: 2 layers, d_model <=
         256, <= 4 experts (the JAX package's cuts)."""
@@ -191,6 +207,24 @@ class ModelConfig:
         if self.attention_window:
             changes["attention_window"] = min(self.attention_window, 32)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry-run: `global_batch` sequences of
+    `seq_len` tokens, a training step, a prefill or one decode step."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclass(frozen=True)

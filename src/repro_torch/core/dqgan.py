@@ -200,10 +200,12 @@ class DQGAN:
     alone, like the JAX package). `workers`
     (W) > 1 stands for the JAX package's device count and needs
     `strategy.exchange.worker_axes`. `mesh` (a `launch.mesh.ProcessMesh`)
-    spreads the W workers over its ranks; None stacks them on `device`.
+    spreads the W workers over its ranks (a `launch.mesh.meta_mesh`: one
+    rank traced on the meta device); None stacks them on `device`.
     `device` is where the generators draw: the parameters' device (the
-    mesh's, given one). On CUDA, constructing the trainer turns TF32 off
-    for matmuls and convolutions (process-wide PyTorch flags)."""
+    mesh's, given one; the CPU for the meta device). On CUDA, constructing
+    the trainer turns TF32 off for matmuls and convolutions (process-wide
+    PyTorch flags)."""
 
     field_fn: Callable
     dq: Optional[DQConfig] = None
@@ -247,14 +249,16 @@ class DQGAN:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self._workers = (X.StackedWorkers(self.workers) if self.mesh is None
-                         else X.ProcessGroupWorkers(self.mesh, self.workers))
+                         else X.workers_for(self.mesh, self.workers))
         # the shared stream (worker 0's seed) and one generator a local
         # worker; the rank holding worker 0 draws its draws from the shared
-        # one, after the mask
-        self.generator = torch.Generator(device=self.device)
+        # one, after the mask. The meta device has no generator
+        # (launch.dryrun's traced step draws from CPU ones)
+        gen_dev = "cpu" if self.device.type == "meta" else self.device
+        self.generator = torch.Generator(device=gen_dev)
         self.generator.manual_seed(self.seed)
         self._gens = [self.generator if self.offset + i == 0
-                      else torch.Generator(device=self.device)
+                      else torch.Generator(device=gen_dev)
                       for i in range(self.n_local)]
         self._side = None
 

@@ -11,7 +11,9 @@ The JAX package runs one worker per device inside `shard_map`. Here the
 workers are a leading axis of every per-worker tensor — message, EF
 residuals, payloads, draws: all W of them on one device
 (`StackedWorkers`), or a contiguous block of L = W / world of them on
-each rank of a `torch.distributed` process group (`ProcessGroupWorkers`).
+each rank of a `torch.distributed` process group (`ProcessGroupWorkers`;
+on the meta device `MetaWorkers` traces one such rank, communicating
+nothing).
 A strategy calls only the backend's `mean`, `all_gather`, `all_to_all`
 and `reduce_scatter`, each with a start form that returns a handle; it
 tells the global worker count W (the chunks of two_phase) from the rows
@@ -263,7 +265,7 @@ class ProcessGroupWorkers(_Workers):
                     chunk of L·d/W elements is its workers' L chunks
 
     A start form issues its collective asynchronously; the handle's
-    `wait` finishes it."""
+    `wait` finishes it. Every collective goes through `_collective`."""
 
     def __init__(self, mesh, n: int):
         self.mesh = mesh
@@ -271,9 +273,17 @@ class ProcessGroupWorkers(_Workers):
         self.offset, self.n_local = mesh.rows(n)
         self._divisor = {}
 
+    def _collective(self, kind: str, result, fn, *args, **kwargs):
+        """`fn(*args, **kwargs)`, the `torch.distributed` call of
+        collective `kind` that writes `result`: its work handle (None for
+        a blocking call)."""
+        del kind, result
+        return fn(*args, **kwargs)
+
     def start_mean(self, x):
         s = x.sum(dim=0)
-        work = dist.all_reduce(s, op=dist.ReduceOp.SUM, async_op=True)
+        work = self._collective("all_reduce", s, dist.all_reduce, s,
+                                op=dist.ReduceOp.SUM, async_op=True)
         return _Pending(work, s, self._over_n)
 
     def start_all_gather(self, x):
@@ -281,7 +291,8 @@ class ProcessGroupWorkers(_Workers):
         out = x.new_empty((self.n,) + tuple(x.shape[1:]))
         gather = (getattr(dist, "all_gather_single", None)
                   or dist.all_gather_into_tensor)
-        work = gather(out, x, async_op=True)
+        work = self._collective("all_gather", out, gather, out, x,
+                                async_op=True)
         return _Pending(work, out)
 
     def start_reduce_scatter(self, x):
@@ -290,7 +301,8 @@ class ProcessGroupWorkers(_Workers):
         out = s.new_empty((s.shape[0] // self.mesh.world,))
         scatter = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
-        work = scatter(out, s, op=dist.ReduceOp.SUM, async_op=True)
+        work = self._collective("reduce_scatter", out, scatter, out, s,
+                                op=dist.ReduceOp.SUM, async_op=True)
         return _Pending(work, out, lambda o: self._over_n(o.reshape(L, -1)))
 
     def start_all_to_all(self, x):
@@ -301,7 +313,8 @@ class ProcessGroupWorkers(_Workers):
         inp = x.reshape((L, world, L) + rest).transpose(0, 1)
         inp = inp.transpose(1, 2).contiguous()
         out = torch.empty_like(inp)
-        work = dist.all_to_all_single(out, inp, async_op=True)
+        work = self._collective("all_to_all", out, dist.all_to_all_single,
+                                out, inp, async_op=True)
 
         def post(o):    # (world_src, L_dst, L_src, ...) -> (L_dst, W_src, ...)
             return o.transpose(0, 1).reshape((L, self.n) + rest)
@@ -310,12 +323,14 @@ class ProcessGroupWorkers(_Workers):
     def mean_each(self, vectors):
         """The mean over all W workers of each (L,) vector: one all_reduce."""
         s = torch.stack([v.float().sum() for v in vectors])
-        dist.all_reduce(s, op=dist.ReduceOp.SUM)
+        self._collective("all_reduce", s, dist.all_reduce, s,
+                         op=dist.ReduceOp.SUM)
         return list(self._over_n(s).unbind())
 
     def max(self, x):
         m = x.max()
-        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        self._collective("all_reduce", m, dist.all_reduce, m,
+                         op=dist.ReduceOp.MAX)
         return m
 
     def sum_dict(self, sums):
@@ -323,13 +338,50 @@ class ProcessGroupWorkers(_Workers):
         all_reduce of the values packed back to back."""
         keys = list(sums)
         flat = torch.cat([sums[k].reshape(-1) for k in keys])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        self._collective("all_reduce", flat, dist.all_reduce, flat,
+                         op=dist.ReduceOp.SUM)
         out, i = {}, 0
         for k in keys:
             n = sums[k].numel()
             out[k] = flat[i:i + n].reshape(sums[k].shape)
             i += n
         return out
+
+
+class MetaWorkers(ProcessGroupWorkers):
+    """One rank of a `launch.mesh.meta_mesh`: `ProcessGroupWorkers`' own
+    operations on meta tensors, each collective's result buffer made and
+    its communication left out (abstract evaluation, for
+    `launch.dryrun`'s traced step). `collectives` counts the collectives
+    the rank issues, by kind, with the bytes of their results (and of
+    those the int8 ones), as the JAX package's dry-run counts its HLO's.
+    A non-meta buffer raises."""
+
+    def __init__(self, mesh, n: int):
+        super().__init__(mesh, n)
+        self.collectives = {}
+
+    def _collective(self, kind: str, result, fn, *args, **kwargs):
+        if result.device.type != "meta":
+            raise ValueError(f"MetaWorkers: a {kind} buffer is on "
+                             f"{result.device}; a meta mesh traces meta "
+                             f"tensors only")
+        rec = self.collectives.setdefault(
+            kind, {"count": 0, "bytes": 0, "int8_bytes": 0})
+        nbytes = result.numel() * result.element_size()
+        rec["count"] += 1
+        rec["bytes"] += nbytes
+        if result.element_size() == 1:
+            rec["int8_bytes"] += nbytes
+        return None
+
+
+def workers_for(mesh, n: int) -> _Workers:
+    """The backend of W = `n` workers over `mesh`: `MetaWorkers` on a
+    meta mesh, else `ProcessGroupWorkers`."""
+    if mesh.device.type == "meta":
+        return MetaWorkers(mesh, n)
+    return ProcessGroupWorkers(mesh, n)
 
 
 def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,

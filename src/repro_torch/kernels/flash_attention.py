@@ -33,9 +33,13 @@ share.
 Dispatch is by device: CPU tensors go to the plain versions
 (`kernels.ref.paged_attention_ref`, `kernels.ref.flash_attention_ref`),
 CUDA tensors to the kernels, which raise on anything they do not take.
-There is no fallback from one to the other. `launches` counts B3's
-launches and `flash_launches` B4's (CPU calls do not count);
-`reset_launches()` zeroes both.
+There is no fallback from one to the other. Meta tensors go to the
+kernels' abstract forms (`kernels.meta`): an empty meta output of q's
+shape and dtype from one `repro_torch.paged_attention` (or
+`flash_attention`) op, for a traced call; nothing runs. `launches` counts
+B3's launches and `flash_launches` B4's (CPU calls do not count),
+`meta_launches` and `flash_meta_launches` their meta calls;
+`reset_launches()` zeroes all four.
 """
 from __future__ import annotations
 
@@ -45,10 +49,13 @@ import math
 import torch
 
 from . import _build
+from . import meta as M
 from .ref import flash_attention_ref, paged_attention_ref
 
 launches = 0
 flash_launches = 0
+meta_launches = 0        # B3 on meta operands (nothing runs)
+flash_meta_launches = 0  # B4 on meta operands
 _fns = {}
 _flash_fns = {}
 _paged_plans = {}
@@ -62,9 +69,12 @@ PAGED_STAGE_BYTES = 96 * 1024     # keys and values a B3 CTA stages at once
 
 
 def reset_launches() -> None:
-    global launches, flash_launches
-    launches = 0
-    flash_launches = 0
+    global launches, flash_launches, meta_launches, flash_meta_launches
+    launches = flash_launches = meta_launches = flash_meta_launches = 0
+
+
+def _like_q(q, *rest):
+    return torch.empty_like(q)
 
 
 def sm_count(device) -> int:
@@ -272,7 +282,22 @@ def paged_flash_attention(q, pool_k, pool_v, table, lengths):
                 raise ValueError(f"paged_flash_attention: q is on the CPU, "
                                  f"an operand on {t.device}")
         return paged_attention_ref(q, pool_k, pool_v, table, lengths)
+    if q.device.type == "meta":
+        return _paged_meta(q, pool_k, pool_v, table, lengths)
     return _launch(q, pool_k, pool_v, table, lengths)
+
+
+def _paged_meta(q, pool_k, pool_v, table, lengths):
+    """B3's abstract form: its output as a meta tensor, from one op."""
+    global meta_launches
+    M.check_meta("paged_flash_attention", (
+        ("pool_k", pool_k), ("pool_v", pool_v), ("table", table),
+        ("lengths", lengths)))
+    out = M.op("paged_attention", "(Tensor q, Tensor pool_k, Tensor pool_v, "
+               "Tensor table, Tensor lengths) -> Tensor", _like_q)(
+        q, pool_k, pool_v, table, lengths)
+    meta_launches += 1
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -386,4 +411,17 @@ def flash_attention(q, k, v, *, causal=True, bq=128, bk=128):
                                  f"on {t.device}")
         return flash_attention_ref(q[:, :, None], k[:, :, None],
                                    v[:, :, None], causal=causal)[:, :, 0]
+    if q.device.type == "meta":
+        return _flash_meta(q, k, v, causal)
     return _flash_launch(q, k, v, causal)
+
+
+def _flash_meta(q, k, v, causal):
+    """B4's abstract form: its output as a meta tensor, from one op."""
+    global flash_meta_launches
+    M.check_meta("flash_attention", (("k", k), ("v", v)))
+    out = M.op("flash_attention",
+               "(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+               _like_q)(q, k, v, bool(causal))
+    flash_meta_launches += 1
+    return out

@@ -19,9 +19,12 @@ stays an operand, so the kernel and its plain version
 
 Dispatch is by device: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel, which raises on anything it does not take. There
-is no fallback from one to the other. `launches` counts B1's launches and
-`launches_dyn` B2's (CPU calls do not count); `reset_launches()` zeroes
-both.
+is no fallback from one to the other. A meta tensor goes to the kernel's
+abstract form (`kernels.meta`): empty meta outputs of the kernel's shapes
+and dtypes from one `repro_torch.quantize_ef` (or `quantize_ef_dyn`) op,
+for a traced step; nothing runs. `launches` counts B1's launches and
+`launches_dyn` B2's (CPU calls do not count), `meta_launches` and
+`meta_launches_dyn` their meta calls; `reset_launches()` zeroes all four.
 """
 from __future__ import annotations
 
@@ -30,16 +33,19 @@ import ctypes
 import torch
 
 from . import _build
+from . import meta as M
 from .ref import quantize_ef_ref
 
 launches = 0       # B1: quantize_ef_f32
 launches_dyn = 0   # B2: quantize_ef_dyn_f32
+meta_launches = 0      # B1 on meta operands (nothing runs)
+meta_launches_dyn = 0  # B2 on meta operands
 _fns = {}
 
 
 def reset_launches() -> None:
-    global launches, launches_dyn
-    launches = launches_dyn = 0
+    global launches, launches_dyn, meta_launches, meta_launches_dyn
+    launches = launches_dyn = meta_launches = meta_launches_dyn = 0
 
 
 def _kernel(dyn: bool):
@@ -75,22 +81,56 @@ def check_levels(levels, device):
                          f"operands on {device}")
 
 
-def _launch(g, e, rand, levels):
-    global launches, launches_dyn
+def _check_operands(g, e, rand, device_type: str):
+    """The kernel's operand contract, on `device_type` ("cuda" for the
+    kernel, "meta" for its abstract form)."""
+    where = "CUDA" if device_type == "cuda" else device_type
     for name, t in (("g", g), ("e", e), ("rand", rand)):
-        if t.device != g.device or t.device.type != "cuda":
+        if t.device != g.device or t.device.type != device_type:
             raise ValueError(
                 f"quantize_ef: {name} is on {t.device}, the kernel needs "
-                f"every operand on the same CUDA device as g ({g.device})")
+                f"every operand on the same {where} device as g "
+                f"({g.device})")
         if t.dtype != torch.float32:
-            raise TypeError(f"quantize_ef: {name} must be float32 on CUDA, "
-                            f"got {t.dtype}")
+            raise TypeError(f"quantize_ef: {name} must be float32 on "
+                            f"{where}, got {t.dtype}")
         if t.shape != g.shape:
             raise ValueError(f"quantize_ef: {name} has shape "
                              f"{tuple(t.shape)}, g has {tuple(g.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"quantize_ef: {name} must be contiguous and "
                              f"16-byte aligned")
+
+
+def _meta_outputs(g, e, rand, levels):
+    R, C = g.shape
+    return (torch.empty((R, C), dtype=torch.int8, device="meta"),
+            torch.empty((R, 1), dtype=torch.float32, device="meta"),
+            torch.empty_like(e))
+
+
+_SCHEMA = "(Tensor g, Tensor e, Tensor rand, {}) -> (Tensor, Tensor, Tensor)"
+
+
+def _meta_call(g, e, rand, levels):
+    """B1's (B2's) abstract form: the kernel's outputs as meta tensors,
+    from one op; counted in `meta_launches` (`meta_launches_dyn`)."""
+    global meta_launches, meta_launches_dyn
+    _check_operands(g, e, rand, "meta")
+    if isinstance(levels, torch.Tensor):
+        out = M.op("quantize_ef_dyn", _SCHEMA.format("Tensor levels"),
+                   _meta_outputs)(g, e, rand, levels)
+        meta_launches_dyn += 1
+    else:
+        out = M.op("quantize_ef", _SCHEMA.format("float levels"),
+                   _meta_outputs)(g, e, rand, float(levels))
+        meta_launches += 1
+    return out
+
+
+def _launch(g, e, rand, levels):
+    global launches, launches_dyn
+    _check_operands(g, e, rand, "cuda")
     dyn = isinstance(levels, torch.Tensor)
     R, C = g.shape
     codes = torch.empty((R, C), dtype=torch.int8, device=g.device)
@@ -128,6 +168,8 @@ def quantize_ef_blocked(g, e, rand, *, levels=127, block_rows: int = 256):
     if g.device.type == "cpu":
         codes, scale, e_new = quantize_ef_ref(g, e, rand, levels)
         return codes, scale, e_new.to(e.dtype)
+    if g.device.type == "meta":
+        return _meta_call(g, e, rand, levels)
     return _launch(g, e, rand, levels)
 
 

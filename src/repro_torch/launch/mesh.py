@@ -13,6 +13,10 @@ Backends: `nccl` with one CUDA device a rank (`cuda:LOCAL_RANK`), `gloo`
 for the CPU. There is no fallback from one to the other, and none from the
 card to the CPU: a CUDA mesh without a CUDA device raises.
 
+`production_mesh_shape` and `worker_axes_for` describe the JAX package's
+production meshes for `launch.dryrun`; `meta_mesh` is one rank of a
+world of them on the meta device, for a traced step.
+
 The JAX module's XLA overlap flags (`OVERLAP_XLA_FLAGS`,
 `enable_overlap_flags`) have no torch counterpart: the port overlaps the
 delayed schedule's exchange with the field by issuing it on a second CUDA
@@ -22,8 +26,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -109,3 +114,49 @@ class ProcessMesh:
     def close(self) -> None:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def meta_mesh(world: int, rank: int = 0) -> ProcessMesh:
+    """Rank `rank` of `world` on the meta device, with no process group:
+    a trainer over it runs one rank's step on meta tensors, its
+    collectives' results made and their communication left out
+    (`core.exchange.MetaWorkers`). What `launch.dryrun` traces."""
+    if not 0 <= rank < world:
+        raise ValueError(f"meta_mesh: rank {rank} is not one of {world}")
+    return ProcessMesh(rank=rank, world=world, device=torch.device("meta"),
+                       backend="meta")
+
+
+# --------------------------------------------------------------------------- #
+# the JAX package's production meshes, as {axis: size}
+# --------------------------------------------------------------------------- #
+def production_mesh_shape(multi_pod: bool = False,
+                          override: str = "") -> Dict[str, int]:
+    """The JAX package's production mesh as an ordered {axis: size} dict:
+    one pod (16, 16) ('data', 'model') = 256 devices; two pods (2, 16,
+    16) ('pod', 'data', 'model') = 512. `override` ("64,4" / "2,32,8")
+    re-splits the same devices across the axes. The port spreads its
+    workers over ranks and has no 'model' axis: `launch.dryrun` uses the
+    mesh for its device count, batch split and the reference layout's
+    per-device parameter bytes."""
+    if override:
+        shape = tuple(int(x) for x in override.split(","))
+        assert len(shape) in (2, 3)
+        axes = (("pod",) if len(shape) == 3 else ()) + ("data", "model")
+        expected = 512 if multi_pod else 256
+        assert (len(shape) == 3) == multi_pod
+        assert math.prod(shape) == expected, (shape, expected)
+    else:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return dict(zip(axes, shape))
+
+
+def worker_axes_for(layout: str, multi_pod: bool) -> Tuple[str, ...]:
+    """The JAX package's DQGAN worker axes by parameter layout:
+    dp -> every data-parallel rank is a worker; fsdp -> each pod is."""
+    if layout == "dp":
+        return ("pod", "data") if multi_pod else ("data",)
+    if layout == "fsdp":
+        return ("pod",) if multi_pod else ()
+    raise ValueError(layout)

@@ -60,7 +60,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "configs.gemma_2b_swa", "models.moe", "models.registry",
                 "configs.starcoder2_7b", "configs.arctic_480b",
                 "models.mixers", "configs.mamba2_1_3b",
-                "configs.recurrentgemma_2b", "configs.whisper_tiny"):
+                "configs.recurrentgemma_2b", "configs.whisper_tiny",
+                "launch.dryrun", "launch.specs", "launch.op_analysis",
+                "parallel.sharding", "kernels.meta"):
         assert f"repro_torch.{mod}" in walked, mod
 
 
@@ -101,6 +103,94 @@ def test_no_port_source_names_jax_or_repro():
                     hits += [(path, m.group(0)) for m in
                              JAX_OR_REPRO.finditer(fh.read())]
     assert not hits, hits
+
+
+# the modules of the JAX package whose counterpart in the port has another
+# name, or that have none, with the reason
+COUNTERPARTS = {
+    "obs/hlo.py": ("obs/trace.py", "the port reads a step's collectives "
+                   "off a profiler trace: there is no HLO"),
+    "launch/hlo_analysis.py": ("launch/op_analysis.py", "the port runs "
+                               "eagerly: its costs come from a dispatch "
+                               "mode over the traced ops, not an HLO walk"),
+    "parallel/compat.py": (None, "JAX API shims across JAX versions; the "
+                           "port calls no such API"),
+}
+
+
+def _modules(root):
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".py") and "__pycache__" not in d}
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """Every `.py` under src/repro has one under src/repro_torch at the
+    same relative path, or an entry in COUNTERPARTS that names it (and
+    its reason)."""
+    ref, port = _modules(os.path.join(SRC, "repro")), _modules(PORT)
+    missing = sorted(ref - port - set(COUNTERPARTS))
+    assert not missing, f"modules of the JAX package with no counterpart: " \
+        f"{missing}"
+    for mod, (other, why) in COUNTERPARTS.items():
+        assert mod in ref and mod not in port and why, mod
+        assert other is None or other in port, (mod, other)
+
+
+def _spy(monkeypatch, mod, names, hits):
+    for name in names:
+        real = getattr(mod, name)
+
+        def spy(*a, _name=name, _real=real, **k):
+            hits.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+
+
+def _kernel_calls():
+    """{tag: (module, plain version, meta form, CUDA launch, call(device))}
+    for the four kernels' wrappers."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+
+    def b1(dev):
+        g = torch.zeros((4, 1024), device=dev)
+        Q.quantize_ef_blocked(g, g, g, levels=127)
+
+    def b2(dev):
+        g = torch.zeros((4, 1024), device=dev)
+        Q.quantize_ef_blocked(g, g, g, levels=torch.full((1,), 7.0,
+                                                         device=dev))
+
+    def b3(dev):
+        q = torch.zeros((2, 1, 4, 64), device=dev)
+        pool = torch.zeros((6, 16, 1, 64), device=dev)
+        FA.paged_flash_attention(
+            q, pool, pool, torch.zeros((2, 3), dtype=torch.int32, device=dev),
+            torch.ones((2,), dtype=torch.int32, device=dev))
+
+    def b4(dev):
+        x = torch.zeros((2, 128, 64), device=dev)
+        FA.flash_attention(x, x, x)
+
+    return {"B1": (Q, "quantize_ef_ref", "_meta_call", "_launch", b1),
+            "B2": (Q, "quantize_ef_ref", "_meta_call", "_launch", b2),
+            "B3": (FA, "paged_attention_ref", "_paged_meta", "_launch", b3),
+            "B4": (FA, "flash_attention_ref", "_flash_meta", "_flash_launch",
+                   b4)}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("tag", ["B1", "B2", "B3", "B4"])
+def test_kernel_wrappers_dispatch_by_device(tag, device, monkeypatch):
+    """No fallback: a CPU operand goes to the plain version alone, a meta
+    operand to the kernel's meta form alone; neither reaches the CUDA
+    launch (which a CUDA operand takes, or raises)."""
+    mod, plain, meta_form, launch, call = _kernel_calls()[tag]
+    hits = []
+    _spy(monkeypatch, mod, (plain, meta_form, launch), hits)
+    call(torch.device(device))
+    assert hits == [plain if device == "cpu" else meta_form]
 
 
 def test_chip_smoke_names_neither_jax_nor_repro():

@@ -5,6 +5,8 @@ On the CPU the port's wrappers run the kernel's plain version, so these
 tests pin the arithmetic the CUDA kernel must reproduce; the kernel itself
 is compared with the plain version on the card by `chip_smoke.py` and by
 `tests/test_torch_cuda.py`."""
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,11 +109,21 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 def test_non_cpu_tensors_go_to_the_kernel_never_the_plain_version():
-    """A tensor that is not on the CPU is the kernel's: a device it cannot
-    run on raises instead of falling back to the plain version."""
+    """A tensor that is not on the CPU is the kernel's: meta operands take
+    its abstract form (one meta launch, never the plain version), and the
+    kernel's entry raises on a device it cannot run on instead of falling
+    back to the plain version."""
     g = torch.empty((8, 128), device="meta")
+    before = (Q.meta_launches, Q.launches)
+    with mock.patch.object(Q, "quantize_ef_ref",
+                           side_effect=AssertionError("plain version")):
+        codes, _, _ = Q.quantize_ef_blocked(g, g, g)
+    assert codes.device.type == "meta"
+    assert (Q.meta_launches, Q.launches) == (before[0] + 1, before[1])
     with pytest.raises(ValueError, match="CUDA"):
-        Q.quantize_ef_blocked(g, g, g)
+        Q._launch(g, g, g, 127)
+    with pytest.raises(ValueError, match="meta"):
+        Q.quantize_ef_blocked(g, torch.zeros((8, 128)), g)
 
 
 def test_shape_contract_is_checked():
@@ -182,5 +194,8 @@ def test_quantize_ef_flat_on_packed_buckets_dispatches_by_device():
     assert Q.launches == before
     assert codes.shape == (2048,) and scales.shape == (2,)
     m = torch.empty((2048,), device="meta")
+    codes, scales, _ = Q.quantize_ef_flat(m, m, m)   # the meta form
+    assert codes.shape == (2048,) and scales.device.type == "meta"
     with pytest.raises(ValueError, match="CUDA"):
-        Q.quantize_ef_flat(m, m, m)
+        Q._launch(m.reshape(2, 1024), m.reshape(2, 1024),
+                  m.reshape(2, 1024), 127)

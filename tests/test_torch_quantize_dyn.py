@@ -201,6 +201,11 @@ def test_cpu_b2_calls_do_not_count_and_other_devices_go_to_the_kernel():
     Q.quantize_ef_blocked(g, e, r, levels=_lv(7))
     assert (Q.launches, Q.launches_dyn) == before
     m = torch.empty((8, 128), device="meta")
+    lv = torch.empty((1,), device="meta")
+    before = (Q.launches, Q.launches_dyn, Q.meta_launches_dyn)
+    codes, _, _ = Q.quantize_ef_blocked(m, m, m, levels=lv)   # the meta form
+    assert codes.device.type == "meta"
+    assert (Q.launches, Q.launches_dyn, Q.meta_launches_dyn) == \
+        (before[0], before[1], before[2] + 1)
     with pytest.raises(ValueError, match="CUDA"):
-        Q.quantize_ef_blocked(m, m, m,
-                              levels=torch.empty((1,), device="meta"))
+        Q._launch(m, m, m, lv)
