@@ -165,6 +165,18 @@ result line):
               measured, traced FLOPs at least the model FLOPs, B1 once a
               step; the steps' model-FLOPs share of the bf16 peak
               (reported); the phase under 120 s
+ 22. tp       the trainer's tensor-parallel 'model' axis (run after phase
+              dryrun): NCCL with two ranks on the one card (expected
+              refused; the ranks then take gloo over CUDA tensors);
+              gemma-2b at its published widths, 4 of 18 layers, batch 2 x
+              2048, one process (peak memory), then two spawned ranks of a
+              data 1 x model 2 mesh on the card, 5 steps: each rank holds
+              its shards, B1 once a step over the replicated leaves'
+              bucket, bit-equal to its plain version on a step's
+              operands, the replicated parameters bit-identical on both
+              ranks, each rank's peak against the one process's; the
+              dry-run's forecast of a rank's peak within 0.85-1.15 of the
+              measured
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -3993,6 +4005,273 @@ def phase_dryrun(gpu, lm_meas, zoo_meas):
           f"the limit is {DRYRUN_LIMIT_S:.0f}")
 
 
+# --------------------------------------------------------------------------- #
+# the trainer's tensor-parallel 'model' axis
+# --------------------------------------------------------------------------- #
+# gemma-2b at its published widths (d_model 2048, 8 heads over one KV head
+# of 256, d_ff 16384, vocab 256,000, bf16) cut to TP_LAYERS of its 18
+# layers (1.49 B parameters): two ranks of a data 1 x model 2 mesh share
+# the one card, each holding its half of the training state, so the
+# one-process step at the same depth must fit the card too
+TP_ARCH, TP_LAYERS, TP_STEPS = "gemma-2b", 4, 5
+TP_WAIT_S = 420.0          # the ranks' deadline
+PROBE_WAIT_S = 90.0
+
+
+def _spawn_ranks(fn, world, args, wait_s):
+    """[fn(rank, init, *args)] over `world` spawned processes sharing the
+    card, joined through a file:// store in a fresh directory; every rank
+    answers within `wait_s` or the phase fails (and the rest are
+    killed)."""
+    import multiprocessing
+    import queue
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'group')}"
+        procs = [ctx.Process(target=_rank_entry, args=(fn, r, init, args, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        out, deadline = {}, time.monotonic() + wait_s
+        try:
+            while len(out) < world:
+                try:
+                    rank, ok, res = q.get(timeout=max(
+                        deadline - time.monotonic(), 0.1))
+                except queue.Empty:
+                    raise SmokeFailure(f"{world - len(out)} of {world} ranks "
+                                       f"did not answer in {wait_s:.0f} s")
+                out[rank] = (ok, res)
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    return [out[r] for r in range(world)]
+
+
+def _rank_entry(fn, rank, init, args, q):
+    import traceback
+    try:
+        q.put((rank, True, fn(rank, init, *args)))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()[-4000:]))
+
+
+def tp_nccl_probe(rank, init):
+    """One NCCL all_reduce between two ranks of cuda:0: the error it
+    raised (None if it ran)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=init, rank=rank, world_size=2,
+            device_id=torch.device("cuda", 0),
+            timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return None
+    except Exception as e:  # the refusal is the measurement
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_rank(rank, init, backend):
+    """Rank `rank` of the data 1 x model 2 mesh on cuda:0: gemma-2b at
+    TP_LAYERS layers over the rank's shards, TP_STEPS steps (B1 once a
+    step over the replicated leaves' bucket, finite losses), the rank's
+    peak memory past its initial state, one more step with B1's operands
+    held bit for bit to its plain version, and a digest of each
+    replicated parameter. What the rank prints comes back as "log", for
+    the parent to print in rank order."""
+    import io
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = _tp_rank(rank, init, backend)
+    out["log"] = buf.getvalue()
+    return out
+
+
+def _tp_rank(rank, init, backend):
+    import dataclasses
+    import hashlib
+
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch import tree as T
+    from repro_torch.configs import DQConfig, get
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.data import lm_batch_iterator
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models import build, param_specs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = ProcessMesh.init(rank, 2, device_type="cuda", local_rank=0,
+                            init_method=init, model=2, backend=backend,
+                            timeout_s=TP_WAIT_S)
+    try:
+        dev = mesh.device
+        cfg = dataclasses.replace(get(TP_ARCH), num_layers=TP_LAYERS)
+        bundle = build(cfg, mesh)
+        dq = DQConfig.from_strategy(single_strategy(), optimizer="omd",
+                                    lr=1e-4, message="update")
+        tr = DQGAN(field_fn=bundle.field_fn, dq=dq, mesh=mesh, seed=8,
+                   param_specs=param_specs(cfg, mesh, LM_SEQ))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        st = tr.init(bundle.init(generator=gen, device=dev, max_seq=LM_SEQ))
+        batches = lm_batch_iterator(LM_BATCH, LM_SEQ, cfg.vocab_size,
+                                    generator=gen, device=dev)
+        layout = tr._comm(st.params)[0]
+        rows = sum(b.size for b in layout.buckets) // 1024
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        Q.reset_launches()
+        # one step a call, as phase lm train takes them: a caller holding
+        # the state it passed in would keep the first state alive beside
+        # every later step's
+        times, losses = [], []
+        for _ in range(TP_STEPS):
+            st, t, l, _ = lm_steps(tr, st, batches, 1, f"tp rank {rank}")
+            times += t
+            losses += l
+        launches = Q.launches
+        peak = torch.cuda.max_memory_allocated()
+        st = lm_check_b1_step(tr, st, batches, rows, f"tp rank {rank}")
+        shards = tr.state_shards(st)
+        digests = {n: hashlib.sha256(x.detach().cpu().view(torch.uint8)
+                                     .numpy().tobytes()).hexdigest()
+                   for n, x in CK._paths(st.params)
+                   if f"params/{n}" not in shards.leaves}
+        return {"launches": launches, "peak": peak, "times": times,
+                "losses": losses, "rows": rows, "skipped": len(layout.skipped),
+                "digests": digests, "backend": backend,
+                "param_bytes": sum(x.numel() * x.element_size()
+                                   for x in T.leaves(st.params))}
+    finally:
+        mesh.close()
+
+
+def phase_tp(dev, gpu):
+    """The trainer's 'model' axis on the card: gemma-2b at its published
+    widths, TP_LAYERS of 18 layers, batch LM_BATCH x LM_SEQ, omd,
+    qsgd8_block1024 over uniform 4 MiB buckets:
+    (a) NCCL with two ranks on the one card (expected refused: NCCL takes
+        one rank a device); when it refuses, the ranks' groups are gloo
+        over the CUDA tensors, which stay on the card;
+    (b) the one-process step at the same depth, TP_STEPS steps: its peak
+        memory past the initial state;
+    (c) the same arch on a data 1 x model 2 mesh, two spawned ranks: each
+        holds its shards only (the sharded leaves off the buckets, on the
+        per-tensor path), B1 once a step over the replicated leaves'
+        bucket, finite losses, the rank's peak against (b)'s (expected
+        0.50-0.60, PERF.md), one step's B1 operands bit-equal to its plain
+        version, the replicated parameters bit-identical on the two ranks;
+        the median step on the named backend is not a tensor-parallel
+        speed (two ranks share the card, and gloo stages through the
+        host);
+    (d) the dry-run's forecast of one rank's peak (`launch.dryrun`'s
+        trace at the same mesh, on the meta device) within 0.85-1.15 of
+        the measured, and its parameter bytes equal to the rank's.
+    Returns B1's launches on the path (each rank's)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch import tree as T
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import dryrun
+
+    # ---- (a) NCCL with two ranks on one device ---------------------------- #
+    probe = _spawn_ranks(tp_nccl_probe, 2, (), PROBE_WAIT_S)
+    errs = [res for ok, res in probe]
+    check(all(ok for ok, _ in probe), f"tp: the NCCL probe failed: {errs}")
+    backend = "gloo" if any(errs) else "nccl"
+    said = ("refused: " + "; ".join(e for e in errs if e) if any(errs)
+            else "ran")
+    print(f"# tp (a): NCCL with two ranks on cuda:0: {said}; the phase's "
+          f"groups: {backend}")
+
+    # ---- (b) one process, the same depth --------------------------------- #
+    free_cuda()
+    tr, st, batches, cfg, _ = lm_trainer(dev, TP_ARCH, TP_LAYERS, 7)
+    n_params = sum(x.numel() for x in T.leaves(st.params))
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    times1 = []
+    for _ in range(TP_STEPS):     # one step a call (see tp_rank)
+        st, t, _, _ = lm_steps(tr, st, batches, 1, "tp one process")
+        times1 += t
+    peak1 = torch.cuda.max_memory_allocated()
+    print(f"# tp (b): {TP_ARCH} {TP_LAYERS} of 18 layers ({n_params} "
+          f"parameters, {cfg.param_dtype}), one process, batch {LM_BATCH} x "
+          f"{LM_SEQ}: peak {gib(peak1):.2f} GiB, median step "
+          f"{statistics.median(times1[1:]) * 1e3:.3f} ms; gpu {gpu}")
+    del tr, st, batches
+    free_cuda()
+
+    # ---- (c) two ranks, data 1 x model 2 --------------------------------- #
+    t0 = time.perf_counter()
+    res = _spawn_ranks(tp_rank, 2, (backend,), TP_WAIT_S)
+    bad = [r for ok, r in res if not ok]
+    check(not bad, "tp: a rank failed:\n" + "\n".join(bad))
+    ranks = [r for _, r in res]
+    for r in ranks:
+        print(r["log"], end="")
+    for i, r in enumerate(ranks):
+        check(r["launches"] == TP_STEPS, f"tp rank {i}: B1 launched "
+              f"{r['launches']} times in {TP_STEPS} steps")
+        print(f"# tp (c) rank {i}: {r['param_bytes']} parameter bytes, "
+              f"{r['skipped']} sharded leaves on the per-tensor path, B1 "
+              f"{r['launches']} in {TP_STEPS} steps over {r['rows']} rows, "
+              f"losses {[round(x, 4) for x in r['losses']]}, peak "
+              f"{gib(r['peak']):.2f} GiB ({r['peak'] / peak1:.3f} of the "
+              f"one-process peak), median step "
+              f"{statistics.median(r['times'][1:]) * 1e3:.3f} ms over "
+              f"{r['backend']} (two ranks share the card: not a "
+              f"tensor-parallel speed); gpu {gpu}")
+    check(ranks[0]["digests"] == ranks[1]["digests"]
+          and ranks[0]["digests"],
+          "tp: the replicated parameters differ across the model ranks")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          f"tp: the ranks' losses differ: {ranks[0]['losses']} "
+          f"{ranks[1]['losses']}")
+    print(f"# tp (c): {len(ranks[0]['digests'])} replicated parameters "
+          f"bit-identical on both ranks after {TP_STEPS + 1} steps; the "
+          f"ranks took {time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) the dry-run's forecast of a rank ---------------------------- #
+    cfg = dataclasses.replace(configs.get(TP_ARCH), num_layers=TP_LAYERS)
+    shape = configs.InputShape(f"{TP_ARCH}-{TP_LAYERS}", LM_SEQ, LM_BATCH,
+                               "train")
+    fc = dryrun.trace_train(cfg, shape, single_strategy(), ranks=2, model=2,
+                            optimizer="omd", lr=1e-4, message="update")
+    for i, r in enumerate(ranks):
+        ratio = fc["peak_bytes"] / r["peak"]
+        print(f"# tp (d) rank {i}: forecast peak {gib(fc['peak_bytes']):.2f} "
+              f"GiB against {gib(r['peak']):.2f} measured (ratio "
+              f"{ratio:.3f}); forecast parameter bytes "
+              f"{fc['param_bytes_per_rank']}; model-group collectives "
+              f"{fc['collectives_model']}")
+        check(0.85 <= ratio <= 1.15, f"tp rank {i}: forecast peak "
+              f"{fc['peak_bytes']} against {r['peak']} measured")
+        check(fc["param_bytes_per_rank"] == r["param_bytes"],
+              f"tp rank {i}: forecast parameter bytes "
+              f"{fc['param_bytes_per_rank']} against {r['param_bytes']}")
+    return {f"tp {TP_ARCH} model 2 rank {i}": r["launches"]
+            for i, r in enumerate(ranks)}
+
+
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
     t0 = time.perf_counter()
@@ -4053,6 +4332,7 @@ def main():
         zoo_b1, zoo_b2, zoo_call, zoo_meas = timed("zoo", phase_zoo, dev,
                                                    gpu)
         timed("dryrun", phase_dryrun, gpu, lm_meas, zoo_meas)
+        tp_b1 = timed("tp", phase_tp, dev, gpu)
         b1["launches"] = timed("train 1 worker", phase_train)
         b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
         b3["launches"] = timed("serve", phase_serve)
@@ -4080,7 +4360,7 @@ def main():
             **{f"resume {k}": v for k, v in resumed.items()},
             **{f"overlap {k}": v[0] for k, v in overlapped.items()},
             **{k: v[0] for k, v in observed.items() if v[0]},
-            **fsdp, **quant_b1, **lm_b1, **zoo_b1}
+            **fsdp, **quant_b1, **lm_b1, **zoo_b1, **tp_b1}
         # B1's one launch over the LM gradient, timed in the profiled
         # window of phase lm train
         b1["lm_call"] = lm_call

@@ -23,12 +23,22 @@ per-worker fields prev_grad, ef, sched and fsdp): pass the backend as
 what a one-process save of the same global state writes (a sharded save
 then defaults to one shard a rank, as the JAX package defaults to one a
 process); a restore reads the file and each rank keeps its own rows.
+
+Across a model axis (a `DQState` whose model-sharded leaves each rank
+holds a slice of): pass `shards`, a `ModelShards` (`DQGAN.state_shards`)
+saying how each sharded leaf is cut. A save gathers the slices over the
+model group first (`parallel.sharding.gather_to_full`), so the file holds
+the JAX package's full leaves; a restore slices each rank's part. The
+file does not depend on the mesh it was saved from, so a checkpoint
+crosses mesh shapes (a (2, 2) save resumes on one process and the other
+way round) and packages.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +88,67 @@ def _rebuild(like, leaves):
 PER_WORKER_FIELDS = ("prev_grad", "ef", "sched", "fsdp")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedLeaf:
+    """How one model-sharded leaf is stored: its trailing shape on a rank
+    (`local`) and in the file (`full`), the shape `view` (on a rank) that
+    its elements are a reshape of, and the dimension `axis` of the view
+    the model ranks split. For a parameter's shard (or its residual e1)
+    the view is its own shape; two_phase's owner residual e2 is stored,
+    as the JAX package stores it, as its moved chunk reshaped to the
+    leaf's axis order, and the view is that chunk."""
+    local: Tuple[int, ...]
+    full: Tuple[int, ...]
+    view: Tuple[int, ...]
+    axis: int
+
+
+@dataclasses.dataclass
+class ModelShards:
+    """The model-sharded leaves of a tree, {leaf name: ShardedLeaf}, and
+    the model group (a `parallel.tensor.ModelGroup`) whose ranks hold
+    them. Leading axes beyond the trailing shapes (the worker axis, the
+    delayed ring) pass through."""
+    leaves: Dict[str, ShardedLeaf]
+    group: Any
+
+    def _full_view(self, sl):
+        v = list(sl.view)
+        v[sl.axis] *= self.group.size
+        return tuple(v)
+
+    def gather(self, tree):
+        """`tree` with each sharded leaf gathered to the full leaf (a
+        collective: every model rank calls it)."""
+        def full(sl, x):
+            lead = tuple(x.shape[:x.dim() - len(sl.local)])
+            y = self.group.all_gather(x.reshape(lead + sl.view),
+                                      len(lead) + sl.axis)
+            return y.reshape(lead + sl.full)
+        return _rebuild(tree, iter(
+            full(self.leaves[n], x) if n in self.leaves else x
+            for n, x in _paths(tree)))
+
+    def take(self, arr, name):
+        """This rank's part of a saved full array."""
+        sl = self.leaves.get(name)
+        if sl is None:
+            return arr
+        lead = tuple(arr.shape[:arr.ndim - len(sl.full)])
+        v = arr.reshape(lead + self._full_view(sl))
+        c = sl.view[sl.axis]
+        out = np.take(v, range(self.group.index * c,
+                               (self.group.index + 1) * c),
+                      axis=len(lead) + sl.axis)
+        return np.ascontiguousarray(out).reshape(lead + sl.local)
+
+    def full_shape(self, name, shape):
+        sl = self.leaves.get(name)
+        if sl is None:
+            return tuple(shape)
+        return tuple(shape[:len(shape) - len(sl.local)]) + sl.full
+
+
 def _spread(workers) -> bool:
     """True when `workers` holds only some of the W workers' rows."""
     return workers is not None and workers.n_local != workers.n
@@ -109,12 +180,19 @@ def _take_rows(arr, name, workers):
     return arr[workers.offset:workers.offset + workers.n_local]
 
 
+def _mesh(workers):
+    """The process mesh of a worker backend spread over processes, or
+    None (one process)."""
+    mesh = getattr(workers, "mesh", None)
+    return mesh if mesh is not None and mesh.world > 1 else None
+
+
 def _is_writer(workers) -> bool:
-    return not _spread(workers) or workers.mesh.rank == 0
+    return _mesh(workers) is None or workers.mesh.rank == 0
 
 
 def _done(workers):
-    if _spread(workers):
+    if _mesh(workers) is not None:
         workers.mesh.barrier()
 
 
@@ -156,16 +234,20 @@ def _mismatch(path, kind, missing, extra, advice):
 
 
 def save(path: str, tree: Any, step: Optional[int] = None,
-         meta: Optional[dict] = None, workers=None) -> None:
+         meta: Optional[dict] = None, workers=None,
+         shards: Optional[ModelShards] = None) -> None:
     """Save a tree; `meta` entries (e.g. the run's serialized strategy
     under "strategy") go into the archive's __meta__ record and are read
     back with `read_meta`. With `workers` spread over ranks, every rank
-    calls it and rank 0 writes the gathered state."""
+    calls it and rank 0 writes the gathered state (`shards`: the
+    model-sharded leaves gathered first)."""
     reserved = {"step", "names"} & set(meta or {})
     if reserved:
         raise ValueError(
             f"checkpoint meta keys {sorted(reserved)} are reserved for the "
             f"internal __meta__ record")
+    if shards is not None:
+        tree = shards.gather(tree)
     tree = gather_workers(tree, workers)
     if _is_writer(workers):
         _write_npz(path, tree, step, meta)
@@ -184,10 +266,12 @@ def _write_npz(path, tree, step, meta):
         np.savez(f, __meta__=json.dumps(record), **arrays)
 
 
-def restore(path: str, like: Any, device=None, workers=None) -> Any:
+def restore(path: str, like: Any, device=None, workers=None,
+            shards: Optional[ModelShards] = None) -> Any:
     """Restore into the structure of `like` (whose leaves may be tensors on
     any device, `meta` tensors included, or ints). With `workers` spread
-    over ranks, `like` holds this rank's rows and gets them."""
+    over ranks, `like` holds this rank's rows and gets them; with
+    `shards`, its slices of the model-sharded leaves."""
     with np.load(path, allow_pickle=False) as z:
         data = {}
         for k in z.files:
@@ -206,8 +290,12 @@ def restore(path: str, like: Any, device=None, workers=None) -> Any:
                         "comm_plan/optimizer/...) the checkpoint was saved "
                         "under")
     return _rebuild(like, iter(
-        _to_leaf(_take_rows(data[n][0], n, workers), data[n][1], leaf,
-                 device) for n, leaf in named))
+        _to_leaf(_take_shard(_take_rows(data[n][0], n, workers), n, shards),
+                 data[n][1], leaf, device) for n, leaf in named))
+
+
+def _take_shard(arr, name, shards):
+    return arr if shards is None else shards.take(arr, name)
 
 
 def read_meta(path: str) -> dict:
@@ -250,20 +338,24 @@ def is_sharded(path: str) -> bool:
 
 def save_sharded(path: str, tree: Any, step: Optional[int] = None,
                  meta: Optional[dict] = None, n_shards: Optional[int] = None,
-                 mesh: Optional[dict] = None, workers=None) -> None:
+                 mesh: Optional[dict] = None, workers=None,
+                 shards: Optional[ModelShards] = None) -> None:
     """Save a tree as a sharded-checkpoint directory of `n_shards` files
     (default one a process: 1, or the world size of `workers` spread over
-    ranks, whose rank 0 writes the gathered state). `mesh`
-    ({"axis_names", "shape"}, or None for one device) is recorded in the
-    manifest for provenance."""
+    ranks, whose rank 0 writes the gathered state; `shards`: the
+    model-sharded leaves gathered first). `mesh` ({"axis_names",
+    "shape"}, or None for one device) is recorded in the manifest for
+    provenance."""
     reserved = {"step", "names", "format", "n_shards", "leaves",
                 "mesh"} & set(meta or {})
     if reserved:
         raise ValueError(
             f"checkpoint meta keys {sorted(reserved)} are reserved for "
             f"the manifest")
+    if shards is not None:
+        tree = shards.gather(tree)
     tree = gather_workers(tree, workers)
-    if n_shards is None and _spread(workers):
+    if n_shards is None and _mesh(workers) is not None:
         n_shards = workers.mesh.world
     if _is_writer(workers):
         _write_sharded(path, tree, step, meta, n_shards, mesh)
@@ -327,11 +419,12 @@ def read_manifest(path: str) -> dict:
     return manifest
 
 
-def restore_sharded(path: str, like: Any, device=None, workers=None) -> Any:
+def restore_sharded(path: str, like: Any, device=None, workers=None,
+                    shards: Optional[ModelShards] = None) -> Any:
     """Restore a sharded-checkpoint directory into the structure of
     `like`; the shard count it was saved with does not matter. With
     `workers` spread over ranks, `like` holds this rank's rows and gets
-    them."""
+    them; with `shards`, its slices of the model-sharded leaves."""
     manifest = read_manifest(path)
     H = manifest["n_shards"]
     missing_files = [f for f in (_shard_file(i, H) for i in range(H))
@@ -352,6 +445,8 @@ def restore_sharded(path: str, like: Any, device=None, workers=None) -> Any:
                         "saved under")
     def expected(name, leaf):
         shape = tuple(leaf.shape)
+        if shards is not None:
+            shape = shards.full_shape(name, shape)
         if _spread(workers) and _per_worker(name):
             return (workers.n,) + shape[1:]
         return shape
@@ -387,7 +482,8 @@ def restore_sharded(path: str, like: Any, device=None, workers=None) -> Any:
                      for fi, start, _ in sorted(rec["chunks"],
                                                 key=lambda c: c[1])]
             arr = np.concatenate(parts, axis=0) if rec["split"] else parts[0]
-            arr = _take_rows(arr.reshape(rec["shape"]), name, workers)
+            arr = _take_shard(_take_rows(arr.reshape(rec["shape"]), name,
+                                         workers), name, shards)
             out.append(_to_leaf(arr, rec["dtype"] == "bfloat16", leaf,
                                 device))
     finally:

@@ -9,17 +9,31 @@
 The JAX package maps the M workers onto its devices (a `data` mesh axis
 under `shard_map`). Here they are a leading axis of every per-worker
 tensor: all W on one device (`core.exchange.StackedWorkers`), or, given a
-`launch.mesh.ProcessMesh`, a contiguous block of L = W / world of them on
-each rank of a `torch.distributed` group (`core.exchange.
+`launch.mesh.ProcessMesh`, a contiguous block of L = W / data of them on
+each data rank of a `torch.distributed` mesh (`core.exchange.
 ProcessGroupWorkers`), the rows a sharding of the worker axis over the
-ranks gives. Per-worker state (prev_grad, ef, sched) holds this process's
-L rows, the global batch splits W ways in order and each rank takes its
-L slices, each worker evaluates its own field at its own w_{t-1/2}, the
-exchange runs the backend's collectives, and the server update runs on
-the replicated state on every rank. The metrics reduce over all W
-workers (mean; the staleness also by max). There is no model axis, so no
-leaf is sharded and the bucket layout skips none. With one worker the
-exchange is (EF-)compression, per leaf or over flat comm buckets.
+data axis gives. Per-worker state (prev_grad, ef, sched) holds this
+process's L rows, the global batch splits W ways in order and each data
+rank takes its L slices (every model rank of a data index the same
+ones), each worker evaluates its own field at its own w_{t-1/2}, the
+exchange runs the backend's collectives over the data group, and the
+server update runs on the replicated state on every rank. The metrics
+reduce over all W workers (mean; the staleness also by max). With one
+worker the exchange is (EF-)compression, per leaf or over flat comm
+buckets.
+
+The mesh's 'model' axis (the JAX package's tensor parallelism, which
+GSPMD handles there): the field is built over the rank's shards
+(`models.build(cfg, mesh=...)`) and `param_specs` gives the spec of each
+full leaf. Each rank holds only its shards of the parameters, their
+optimizer state and their residuals. The comm layout is built from the
+full shapes and specs, as the JAX package's is: the sharded leaves leave
+the buckets (`layout.skipped`) and take the per-tensor exchange over the
+data group, compressed as their global tensors are
+(`error_feedback.LeafShard`: a scale reduced over the model group, draws
+made at the global shape, each rank taking its slice); the replicated
+leaves bucket as before, computed alike on every model rank. The norms
+in the metrics sum the sharded leaves over the model group.
 
 Partial participation masks the sitting workers' messages and residuals
 to zero, rescales q̂ by W/n and folds their messages into their EF. An
@@ -102,13 +116,15 @@ from repro_torch import tree as T
 from repro_torch.comm import CommLedger
 from repro_torch.comm import buckets as B
 from repro_torch.configs.base import DQConfig
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor as TP
 from repro_torch.sched.participation import round_count
 from repro_torch.strategy import Strategy
 
 from . import compressors as C
 from . import exchange as X
-from .error_feedback import (compress_with_ef_stacked, fused_quantize_ef,
-                             packed_levels)
+from .error_feedback import (LeafShard, compress_with_ef_stacked,
+                             fused_quantize_ef, packed_levels)
 
 
 class DQState(NamedTuple):
@@ -138,13 +154,26 @@ class StepOutput(NamedTuple):
     mask: Optional[torch.Tensor] = None
 
 
-def _worker_norms(tensors, L):
-    """(L,) per-worker global L2 norm over a list of (L, ...) tensors."""
+def _worker_sq(tensors, L):
+    """(L,) per-worker sum of squares over a list of (L, ...) tensors, or
+    None for none."""
     tensors = [t for t in tensors if t is not None]
     if not tensors:
-        return torch.zeros((L,))
-    return torch.sqrt(sum(torch.square(t.float()).reshape(L, -1).sum(dim=1)
-                          for t in tensors))
+        return None
+    return sum(torch.square(t.float()).reshape(L, -1).sum(dim=1)
+               for t in tensors)
+
+
+def _worker_norms(tensors, L, sharded=(), group=None):
+    """(L,) per-worker global L2 norm over a list of (L, ...) tensors and
+    the rank's slices of model-sharded ones (`sharded`, summed over the
+    model `group`)."""
+    sq = _worker_sq(tensors, L)
+    sh = _worker_sq(sharded, L) if group is not None else None
+    if sh is not None:
+        group.all_reduce(sh)
+        sq = sh if sq is None else sq + sh.to(sq.device)
+    return torch.zeros((L,)) if sq is None else torch.sqrt(sq)
 
 
 def _record_stream(tree, stream):
@@ -162,7 +191,10 @@ def _record_stream(tree, stream):
 
 
 def _ef_tensors(ef):
-    """Every residual tensor of an EF tree (leaf dicts and bucket dicts)."""
+    """Every residual tensor of an EF tree (leaf dicts and bucket dicts,
+    or a list of such trees)."""
+    if isinstance(ef, list):
+        return [t for sub in ef for t in _ef_tensors(sub)]
     out = []
     for leaf in T.leaves(ef) if isinstance(ef, dict) else []:
         if isinstance(leaf, torch.Tensor):
@@ -200,8 +232,12 @@ class DQGAN:
     alone, like the JAX package). `workers`
     (W) > 1 stands for the JAX package's device count and needs
     `strategy.exchange.worker_axes`. `mesh` (a `launch.mesh.ProcessMesh`)
-    spreads the W workers over its ranks (a `launch.mesh.meta_mesh`: one
-    rank traced on the meta device); None stacks them on `device`.
+    spreads the W workers over its data ranks (a `launch.mesh.meta_mesh`:
+    one rank traced on the meta device); None stacks them on `device`.
+    A mesh with a model axis above 1 needs `param_specs`, the spec tree
+    of the full parameters (`parallel.sharding.param_specs` over the
+    mesh, what `models.param_specs(cfg, mesh)` gives); the parameters
+    handed to `init` are then the rank's shards.
     `device` is where the generators draw: the parameters' device (the
     mesh's, given one; the CPU for the meta device). On CUDA, constructing
     the trainer turns TF32 off for matmuls and convolutions (process-wide
@@ -214,6 +250,7 @@ class DQGAN:
     seed: int = 0
     workers: int = 1
     mesh: Any = None
+    param_specs: Any = None
     generator: torch.Generator = dataclasses.field(init=False, repr=False)
     _comm_cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                           compare=False)
@@ -240,6 +277,18 @@ class DQGAN:
             raise ValueError(
                 "DQGAN: workers > 1 needs strategy.exchange.worker_axes "
                 "(the JAX package runs one worker without them)")
+        self.model = self.mesh.model if self.mesh is not None else 1
+        if self.model > 1 and self.param_specs is None:
+            raise ValueError(
+                "DQGAN: a mesh with a model axis of "
+                f"{self.model} needs param_specs (the spec tree of the full "
+                "parameters, parallel.sharding.param_specs)")
+        if self.model > 1 and self.fsdp:
+            raise ValueError(
+                "DQGAN: exchange.parallelism='fsdp' keeps a pure data mesh "
+                "(its flat shard buckets need every leaf replicated), as "
+                "the JAX launcher does; use a model axis of 1")
+        self._mg = TP.model_group_for(self.mesh)
         if self.mesh is not None:
             self.device = self.mesh.device
         self.device = torch.device(self.device)
@@ -319,14 +368,14 @@ class DQGAN:
         """(BucketLayout, CommPlan, PlanFamily | None, device levels table
         | None), derived from leaf shapes, memoized. An adaptive
         strategy's CommPlan is its family's full-participation member."""
-        shapes = T.tree_map(lambda x: tuple(x.shape), params)
+        shapes = self._shapes(params)
         key = tuple(zip(*T.flatten(shapes)))
         hit = self._comm_cache.get(key)
         if hit is None:
             comp = self.strategy.compression
             table = None
             if self.adaptive:
-                layout, family = comp.build_family(shapes, None,
+                layout, family = comp.build_family(shapes, self.param_specs,
                                                    self.n_workers)
                 plan = family.full
                 if family.n_distinct > 1:
@@ -335,7 +384,10 @@ class DQGAN:
                                          dtype=torch.float32,
                                          device=self.device)
             else:
-                layout, plan = comp.build(shapes, None, self.n_workers)
+                layout, plan = comp.build(
+                    shapes, self.param_specs, self.n_workers,
+                    axis_sizes=(None if self.mesh is None
+                                else self.mesh.shape))
                 family = None
             hit = (layout, plan, family, table)
             self._comm_cache[key] = hit
@@ -367,14 +419,20 @@ class DQGAN:
         n_buckets = len(self._comm(tree)[0].buckets) if self.bucketed else 0
         return OBS.Collector(spec, n_buckets, self.device)
 
-    def _obs_finalize(self, col, new_ef, st_now):
+    def _obs_finalize(self, col, new_ef, st_now, params_tree):
         """`metrics["obs"]`: the collector's sums, the post-exchange EF
-        norms and the staleness histogram, summed over the ranks."""
+        norms (model-sharded residuals summed over the model group) and
+        the staleness histogram, summed over the data ranks."""
         spec = self.obs_spec
         sums = col.sums()
         if spec.ef_norms:
-            sums["e1_sq"], sums["e2_sq"] = OBS.ef_norms_sq(new_ef,
-                                                           self.device)
+            ef_rep, ef_sh = self._ef_split(params_tree, new_ef)
+            e1, e2 = OBS.ef_norms_sq(ef_rep, self.device)
+            if ef_sh:
+                s1, s2 = OBS.ef_norms_sq(ef_sh, self.device)
+                e1 = e1 + self._mg.all_reduce(s1)
+                e2 = e2 + self._mg.all_reduce(s2)
+            sums["e1_sq"], sums["e2_sq"] = e1, e2
         if spec.staleness:
             # staleness-free schedules: every worker at staleness 0
             st = st_now if st_now.dim() else st_now.expand(self.n_local)
@@ -382,6 +440,75 @@ class DQGAN:
         sums = self._workers.sum_dict(sums)
         return OBS.finalize(spec, sums, col.counts(), self.n_workers,
                             col.n_buckets)
+
+    def _shapes(self, params):
+        """The shape tree of the full parameters (each leaf's rank-local
+        shape, its sharded dimension times the model axis)."""
+        if self.param_specs is None:
+            return T.tree_map(lambda x: tuple(x.shape), params)
+        paths, leaves = T.flatten(params)
+        specs = T.flatten_up_to(paths, self.param_specs)
+        return T.unflatten(paths, [
+            shd.global_shape(tuple(x.shape), sp, self.model)
+            for x, sp in zip(leaves, specs)])
+
+    def _leaf_shards(self, params):
+        """Per leaf (flatten order): the `LeafShard` of a leaf sharded
+        over the model axis, else None."""
+        paths, leaves = T.flatten(params)
+        if self._mg is None:
+            return [None] * len(paths)
+        key = ("shards",) + tuple(tuple(x.shape) for x in leaves)
+        hit = self._comm_cache.get(key)
+        if hit is None:
+            shapes = T.flatten_up_to(paths, self._shapes(params))
+            specs = T.flatten_up_to(paths, self.param_specs)
+            hit = self._comm_cache[key] = [
+                None if shd.model_axis(sp) is None else LeafShard(
+                    sh, shd.model_axis(sp), self._mg.index, self._mg.size,
+                    self._mg)
+                for sh, sp in zip(shapes, specs)]
+        return hit
+
+    def state_shards(self, state):
+        """The model-sharded leaves of `state` for `checkpoint` (a
+        `checkpoint.ModelShards`: how each is cut; the parameters' shards
+        and everything laid out like them, and the per-tensor two_phase
+        residuals e2, stored as reshapes of their chunks), or None
+        without a model axis."""
+        if self._mg is None:
+            return None
+        from repro_torch import checkpoint as CK
+        paths, leaves = T.flatten(state.params)
+        plans = self._plans(state.params)
+        sharded = {"/".join(map(str, p)): (sh, pl)
+                   for p, sh, pl in zip(paths, self._leaf_shards(
+                       state.params), plans) if sh is not None}
+        out = {}
+        for name, leaf in CK._paths(state):
+            rest = name.partition("/")[2]
+            for pre in ("leaf/", "accum/", "pending/"):
+                if rest.startswith(pre):
+                    rest = rest[len(pre):]
+            e2 = rest.endswith("/e2")
+            for suf in ("/e1", "/e2"):
+                if rest.endswith(suf):
+                    rest = rest[:-len(suf)]
+            if rest not in sharded or not hasattr(leaf, "dim"):
+                continue
+            sh, plan = sharded[rest]
+            local, full = sh.local_shape, sh.shape
+            view, axis = local, sh.axis
+            if e2:      # the chunk of chunk_axis ax, (c_ax, *rest)
+                ax, W = plan["chunk_axis"], self.n_workers
+                c = sh.chunked(ax, W)
+                local = tuple(d // W if i == ax else d
+                              for i, d in enumerate(local))
+                full = tuple(d // W if i == ax else d
+                             for i, d in enumerate(full))
+                view, axis = c.local_shape, c.axis
+            out[name] = CK.ShardedLeaf(local, full, view, axis)
+        return CK.ModelShards(out, self._mg)
 
     def _comm(self, params):
         """(BucketLayout, CommPlan): the static (full-participation) view."""
@@ -394,27 +521,30 @@ class DQGAN:
     def comm_ledger(self, params) -> CommLedger:
         """Per-step wire cost of this trainer (launch.train's log fields)."""
         strat = self.strategy
-        shapes = T.tree_map(lambda x: tuple(x.shape), params)
+        shapes = self._shapes(params)
         if self.bucketed:
             layout, cplan, family, _ = self._comm_full(params)
             budget = (int(strat.compression.budget_mb * (1 << 20))
                       if strat.compression.plan == "delta_budget" else 0)
+            plans = self._plans(params)
             return CommLedger.from_plan(
                 layout, cplan, strat.exchange.kind, self.n_workers,
-                strat.compression.compressor, family=family,
-                budget_bytes=budget,
+                strat.compression.compressor,
+                leaf_plans=[plans[s.index] for s in layout.skipped],
+                family=family, budget_bytes=budget,
                 moment_compressor=(strat.moments.compressor
                                    if self.fsdp else None))
         return CommLedger.from_tree(strat.exchange.kind,
                                     strat.compression.compressor, shapes,
-                                    None, self.n_workers)
+                                    self.param_specs, self.n_workers)
 
     def _plans(self, params):
         """Flat list of per-leaf exchange plans (flatten order)."""
-        shapes = T.tree_map(lambda x: tuple(x.shape), params)
+        shapes = self._shapes(params)
         plans = T.flatten_up_to(T.flatten(shapes)[0],
                                 self.strategy.exchange.leaf_plans(
-                                    shapes, None, self.n_workers))
+                                    shapes, self.param_specs,
+                                    self.n_workers))
         if not self.bucketed:
             return plans
         layout, _ = self._comm(params)
@@ -618,7 +748,9 @@ class DQGAN:
           "z":    (W, B/W, latent) or (B, latent), the latent draws;
           "rand": {stream: draw}, a stream being the leaf index on the
                   per-leaf path and the bucket id on the bucketed path,
-                  as the JAX package folds them into its key; for
+                  as the JAX package folds them into its key (a leaf the
+                  bucketed path skips: "leaf/<index>"; a model-sharded
+                  leaf's draws are its global tensor's); for
                   two_phase with W > 1 {"phase1": (W, W, ...), "phase2":
                   (W, ...)} (see core.exchange); under fsdp
                   {"reduce_scatter": (W, W, ...) (one worker: (1, ...)),
@@ -794,7 +926,7 @@ class DQGAN:
                 losses, grads, new_ef, state.step, new_sched)
         else:
             loss, gn, en, st_max, st_mean, st_now = self._metrics(
-                losses, grads, new_ef, state.step, new_sched)
+                losses, grads, new_ef, state.step, new_sched, state.params)
         new_state = DQState(step=state.step + 1, params=new_params,
                             prev_grad=new_prev_grad,
                             prev_update=new_prev_update, ef=new_ef,
@@ -803,18 +935,39 @@ class DQGAN:
                        "error_norm": en, "staleness_max": st_max,
                        "staleness_mean": st_mean}
         if col.enabled:
-            out_metrics["obs"] = self._obs_finalize(col, new_ef, st_now)
+            out_metrics["obs"] = self._obs_finalize(col, new_ef, st_now,
+                                                    state.params)
         return StepOutput(state=new_state, metrics=out_metrics,
                           mask=None if part is None else part[0])
 
-    def _metrics(self, losses, grads, new_ef, step, new_sched):
+    def _ef_split(self, params_tree, new_ef):
+        """(EF dicts of the replicated leaves and the buckets, EF dicts of
+        the model-sharded leaves)."""
+        shards = self._leaf_shards(params_tree)
+        if new_ef is None or not any(s is not None for s in shards):
+            return [new_ef], []
+        paths, _ = T.flatten(params_tree)
+        leaf_tree = new_ef["leaf"] if self.bucketed else new_ef
+        dicts = T.flatten_up_to(paths, leaf_tree)
+        rep = [d for d, s in zip(dicts, shards) if s is None]
+        if self.bucketed:
+            rep.append(new_ef["bucket"])
+        return rep, [d for d, s in zip(dicts, shards) if s is not None]
+
+    def _metrics(self, losses, grads, new_ef, step, new_sched, params_tree):
         """(loss, grad_norm, error_norm, staleness max, mean, the (L,)
         staleness or 0): the mean over all W workers of each worker's
         value (the JAX package's pmean), the staleness also by max
-        (pmax)."""
+        (pmax). The norms are the global tensors' (model-sharded leaves
+        summed over the model group)."""
         L, wk = self.n_local, self._workers
-        gn_w = _worker_norms(grads, L)
-        en_w = _worker_norms(_ef_tensors(new_ef), L).to(gn_w.device)
+        shards = self._leaf_shards(params_tree)
+        gn_w = _worker_norms(
+            [g for g, s in zip(grads, shards) if s is None], L,
+            [g for g, s in zip(grads, shards) if s is not None], self._mg)
+        ef_rep, ef_sh = self._ef_split(params_tree, new_ef)
+        en_w = _worker_norms(_ef_tensors(ef_rep), L, _ef_tensors(ef_sh),
+                             self._mg).to(gn_w.device)
         st_now = self.strategy.schedule.staleness_now(step, new_sched,
                                                       gn_w.device)
         per_worker = [torch.stack(losses), gn_w, en_w]
@@ -879,11 +1032,12 @@ class DQGAN:
         return self._start_plain(params_tree, paths, message, ef, ef_leaves,
                                  plans, rand, col)
 
-    def _start_one(self, comp, plan, p, e, rand):
+    def _start_one(self, comp, plan, p, e, rand, shard=None):
         """The finish of the exchange of one stacked (L, ...) tensor or
         bucket. One worker: (EF-)compression, whatever the strategy. The
         vmap step: each worker's registry compression, then the mean over
-        the worker axis."""
+        the worker axis. `shard` (a `LeafShard`): p holds the rank's
+        slices of a model-sharded tensor."""
         if self.vmap:
             e1 = e.get("e1", torch.zeros_like(p))
             with OBS.device_span("compress", self._obs_spans):
@@ -899,7 +1053,8 @@ class DQGAN:
             exch = self.strategy.exchange
             handle = exch.start(comp, plan, p, e, self._local_rand(rand),
                                 self._workers, self.dq.error_feedback,
-                                self._gens, spans=self._obs_spans)
+                                self._gens, spans=self._obs_spans,
+                                shard=shard)
             return lambda: exch.finish(handle)
         if plan["strategy"] == "exact" or comp.name == "identity":
             out = (p[0], dict(e))
@@ -908,7 +1063,7 @@ class DQGAN:
         with OBS.device_span("compress", self._obs_spans):
             _, p_hat, e_new = compress_with_ef_stacked(
                 comp, p, e1, rand, self.generator,
-                use_ef=self.dq.error_feedback)
+                use_ef=self.dq.error_feedback, shard=shard)
         ne = dict(e)
         if self.dq.error_feedback:
             ne["e1"] = e_new
@@ -920,16 +1075,17 @@ class DQGAN:
             return self._start_bucketed(params_tree, paths, message, ef,
                                         ef_leaves, rand, col, plan_sel)
         comp = self.compressor
-        fins = [self._start_one(comp, plan, p, e, rand.get(i))
-                for i, (p, plan, e) in enumerate(zip(message, plans,
-                                                     ef_leaves))]
+        shards = self._leaf_shards(params_tree)
+        fins = [self._start_one(comp, plan, p, e, rand.get(i), sh)
+                for i, (p, plan, e, sh) in enumerate(zip(message, plans,
+                                                         ef_leaves, shards))]
 
         def finish():
             qhat, new_ef = [], []
-            for f, p, e in zip(fins, message, ef_leaves):
+            for f, p, e, sh in zip(fins, message, ef_leaves, shards):
                 q, ne = f()
                 if col.enabled:
-                    col.leaf(p, *_obs_op_err(p, e, ne))
+                    self._record_leaf(col, p, e, ne, sh)
                 qhat.append(q)
                 new_ef.append(ne or None)
             return qhat, T.unflatten(paths, new_ef)
@@ -991,9 +1147,6 @@ class DQGAN:
         W = self.n_workers
         exch = self.strategy.exchange
         layout, cplan, family, table = self._comm_full(params_tree)
-        if layout.skipped:
-            raise ValueError(f"{len(layout.skipped)} leaves bypass the "
-                             f"buckets; the port shards no leaf")
         levels = None
         if plan_sel is not None and table is not None:
             levels = table.index_select(0, plan_sel.reshape(1))[0]
@@ -1010,7 +1163,10 @@ class DQGAN:
                 out = self._exchange_packed(paths, layout, message,
                                             e1_leaves, bucket_ef, rand, L,
                                             col)
-                return lambda: out
+                skipped = self._start_skipped(params_tree, layout, message,
+                                              ef_leaves, rand)
+                return lambda: self._finish_skipped(paths, skipped, *out,
+                                                    col)
         flats = B.pack(layout, message)
         e1_flats = B.pack(layout, e1_leaves) if dq.error_feedback else None
 
@@ -1030,6 +1186,10 @@ class DQGAN:
             fins.append((b, plan_b, est,
                          self._start_one(comp, plan_b, flats[b.bid], est,
                                          rand.get(b.bid))))
+        # the skipped (model-sharded) leaves after the buckets, as the JAX
+        # package orders them
+        skipped = self._start_skipped(params_tree, layout, message,
+                                      ef_leaves, rand)
 
         def finish():
             out_flats, new_e1_flats, new_bucket_ef = [], [], {}
@@ -1048,9 +1208,49 @@ class DQGAN:
             if dq.error_feedback:
                 new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
                 new_leaf_ef = [{"e1": x} for x in new_e1]
-            return qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
-                          "bucket": new_bucket_ef}
+            return self._finish_skipped(
+                paths, skipped, qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
+                                       "bucket": new_bucket_ef}, col)
         return finish
+
+    def _record_leaf(self, col, p, e, ne, sharded):
+        """`col` records a leaf outside the buckets; a model-sharded one's
+        sums are taken over the model group."""
+        if sharded is None or self._mg is None:
+            col.leaf(p, *_obs_op_err(p, e, ne))
+        else:
+            col.leaf(p, *_obs_op_err(p, e, ne), group=self._mg)
+
+    def _start_skipped(self, params_tree, layout, message, ef_leaves, rand):
+        """Start the per-tensor exchange of each leaf the layout skipped
+        (a model-sharded leaf, `rand` keyed by its leaf index, as the JAX
+        package folds it): [(index, message, EF, finish)]."""
+        if not layout.skipped:
+            return []
+        plans = self._plans(params_tree)
+        shards = self._leaf_shards(params_tree)
+        comp = self.compressor
+        return [(s.index, message[s.index], ef_leaves[s.index],
+                 self._start_one(comp, plans[s.index], message[s.index],
+                                 ef_leaves[s.index],
+                                 rand.get(f"leaf/{s.index}"),
+                                 shards[s.index]))
+                for s in layout.skipped]
+
+    def _finish_skipped(self, paths, skipped, qhat, new_ef, col):
+        """The bucketed exchange's (q̂, new EF) with the skipped leaves'
+        results put in their places (their EF dicts whole, e2 included)."""
+        if not skipped:
+            return qhat, new_ef
+        leaf_ef = T.flatten_up_to(paths, new_ef["leaf"])
+        for i, p, e, fin in skipped:
+            q, ne = fin()
+            if col.enabled:
+                self._record_leaf(col, p, e, ne, self._mg)
+            qhat[i] = q
+            leaf_ef[i] = ne or None
+        return qhat, {"leaf": T.unflatten(paths, leaf_ef),
+                      "bucket": new_ef["bucket"]}
 
     def _packed_levels(self, layout, cplan):
         """The level count at which `_exchange_packed` realizes this

@@ -11,11 +11,22 @@ over all of their rows, or one `compress` call where the quantizer's
 blocks tile each row; `row_draws` gives each worker its own generator's
 draws; `packed_levels` says when one launch over a step's comm buckets
 packed back to back is exact.
+
+A leaf sharded over the model axis (`LeafShard`: each rank holds a slice
+of it along one dimension) is compressed as the JAX package compresses
+the global tensor: a per-tensor scale is the model group's max (linf) or
+root sum of squares (l2) over the rank's slices; a blocked quantizer's
+blocks are the global ravel's, local where every block lies inside the
+rank's slice, else taken on the leaf gathered over the model group; the
+draws are made at the global shape and each rank takes its slice. The
+bucket path is unchanged.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+from typing import Any, Tuple
 
 import torch
 
@@ -122,9 +133,14 @@ def compress_rows(compressor, x, rand=None, generator=None):
             for k, v in pl.items()}
 
 
-def decompress_rows(compressor, payload, row_shape, dtype):
+def decompress_rows(compressor, payload, row_shape, dtype, shard=None):
     """(R, *row_shape): `compressor.decompress` of each row of a stacked
-    payload (as `compress_rows` makes it); one call where `rows_blocked`."""
+    payload (as `compress_rows` makes it); one call where `rows_blocked`.
+    With a `shard` whose mode is "gather" the payload is the global rows'
+    and the result their slices (row_shape is the local shape)."""
+    if shard is not None and shard.mode(compressor) == "gather":
+        return shard.slice(decompress_rows(compressor, payload, shard.shape,
+                                           dtype))
     R = next(iter(payload.values())).shape[0]
     n = math.prod(row_shape)
     if rows_blocked(compressor, n):
@@ -138,9 +154,133 @@ def decompress_rows(compressor, payload, row_shape, dtype):
                         for i in range(R)])
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """Where a stack of rows sits in its global tensors: each row's global
+    shape is `shape`, of which this rank (model index `index` of `size`)
+    holds the slice of dimension `axis`; `group` is the model group (a
+    `parallel.tensor.ModelGroup`)."""
+    shape: Tuple[int, ...]
+    axis: int
+    index: int
+    size: int
+    group: Any = dataclasses.field(compare=False, default=None)
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        s = list(self.shape)
+        s[self.axis] //= self.size
+        return tuple(s)
+
+    def chunked(self, ax: int, n: int) -> "LeafShard":
+        """The shard of two_phase's chunks: a row of `shape` moved to lead
+        with unsharded axis `ax` and cut n ways along it."""
+        rest = [d for i, d in enumerate(self.shape) if i != ax]
+        axis = self.axis + 1 if self.axis < ax else self.axis
+        return dataclasses.replace(
+            self, shape=(self.shape[ax] // n, *rest), axis=axis)
+
+    def _pre_post(self):
+        return (math.prod(self.shape[:self.axis]), self.shape[self.axis],
+                math.prod(self.shape[self.axis + 1:]))
+
+    def mode(self, compressor) -> str:
+        """"local": the compressor acts on the slice as on the global
+        tensor (elementwise, or every scale block inside the slice);
+        "scale": a per-tensor quantizer, its scale reduced over the
+        group; "gather": the rest, compressed on the gathered leaf."""
+        if compressor.name == "identity":
+            return "local"
+        if not isinstance(compressor, (C.StochasticQuant, C.TracedQuant)):
+            return "gather"
+        b = compressor.per_block
+        if b <= 0:
+            return "scale"
+        _, D, post = self._pre_post()
+        c = D // self.size
+        if (c * post) % b == 0 and (D * post) % b == 0:
+            return "local"
+        return "gather"
+
+    def take(self, flat):
+        """(R, ≥ global numel) rows of the global ravel (draws) -> this
+        rank's slices, (R, local numel)."""
+        R = flat.shape[0]
+        pre, D, post = self._pre_post()
+        c = D // self.size
+        g = flat[:, :pre * D * post].reshape(R, pre, D, post)
+        return g[:, :, self.index * c:(self.index + 1) * c].reshape(R, -1)
+
+    def gather(self, x):
+        """(R, *local) -> (R, *shape): the rows gathered over the group."""
+        return self.group.all_gather(x, self.axis + 1)
+
+    def slice(self, x):
+        """(R, *shape) -> (R, *local): this rank's slices."""
+        c = self.shape[self.axis] // self.size
+        return x.narrow(self.axis + 1, self.index * c, c)
+
+
+def _draw_count(compressor, d: int) -> int:
+    """The uniform draws a stochastic quantizer takes for d elements (its
+    blocked, padded shape), 0 for the others."""
+    if not isinstance(compressor, (C.StochasticQuant, C.TracedQuant)):
+        return 0
+    b = compressor.per_block
+    return d if b <= 0 else -(-d // b) * b
+
+
+def _sharded_draws(compressor, R, shard, rand, generator, device):
+    """(R, global draws) for the rows: `rand` (already global), or made at
+    the global shape from the generator(s), one a worker."""
+    n = _draw_count(compressor, math.prod(shard.shape))
+    if rand is not None or n == 0:
+        return None if rand is None else rand.reshape(R, -1)
+    if isinstance(generator, (list, tuple)):
+        return row_draws(generator, R, n, device)
+    return torch.rand((R, n), generator=generator, device=device,
+                      dtype=torch.float32)
+
+
+def _compress_sharded(compressor, m, rand, generator, shard):
+    """(payload, m_hat) of the rows of m (R, *local), each compressed as
+    its global tensor is (see `LeafShard.mode`); `rand` the global draws."""
+    R = m.shape[0]
+    mode = shard.mode(compressor)
+    rand = _sharded_draws(compressor, R, shard, rand, generator, m.device)
+    if mode == "gather":
+        full = shard.gather(m)
+        outs = [compressor.compress(full[i], None if rand is None
+                                    else rand[i],
+                                    _row_generator(generator, R, i))
+                for i in range(R)]
+        payload = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        m_hat = decompress_rows(compressor, payload, m.shape[1:], m.dtype,
+                                shard)
+        return payload, m_hat
+    local = None if rand is None else shard.take(rand)
+    if mode == "scale":
+        f = m.reshape(R, -1).float()
+        if compressor.norm == "l2":
+            s = torch.sqrt(shard.group.all_reduce(
+                f.square().sum(-1, keepdim=True)))
+        else:
+            s = shard.group.all_reduce(f.abs().amax(-1, keepdim=True),
+                                       torch.distributed.ReduceOp.MAX)
+        s = s + C._EPS
+        codes = C._stochastic_round_codes(f, s, compressor.levels, local)
+        payload = {"codes": codes[:, None, :], "scale": s[:, None, :]}
+    elif compressor.name == "identity":
+        payload = {"values": m}
+    else:
+        payload = compress_rows(compressor, m, local, generator)
+    return payload, decompress_rows(compressor, payload, m.shape[1:],
+                                    m.dtype, shard)
+
+
 def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
                              generator=None, *, use_ef: bool = True,
-                             allow_fused: bool = True):
+                             allow_fused: bool = True, shard=None):
     """`compress_with_ef` for each row of an (R, ...) stack (R workers'
     messages, or their chunks), as JAX's per-worker body computes it;
     returns the stacked (payload, m_hat, e_new), each payload entry with a
@@ -153,10 +293,28 @@ def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
     `rand` holds the rows' draws in order (row i of an (R, ...) stack);
     without it they come from `generator`, one or one per worker (see
     `row_draws`). `allow_fused=False` keeps the registry compressor's own
-    rounding (the kernel rounds m, the compressor |m| with its sign)."""
+    rounding (the kernel rounds m, the compressor |m| with its sign).
+    `shard` (a `LeafShard`): the rows are slices of model-sharded
+    tensors, compressed as the global tensors are (a flat one the fused
+    kernel realizes through it, on the slices); `rand` then holds the
+    global draws."""
     R = message.shape[0]
     n = message[0].numel()
+    if shard is not None and not (
+            use_ef and allow_fused and len(shard.shape) == 1
+            and fused_compatible(compressor, message[0])
+            and shard.shape[0] % FUSED_BLOCK == 0):
+        m = message + e_prev.to(message.dtype) if use_ef else message
+        payload, m_hat = _compress_sharded(compressor, m, rand, generator,
+                                           shard)
+        e_new = (m - m_hat).to(e_prev.dtype) if use_ef else e_prev
+        return payload, m_hat, e_new
     per_worker = isinstance(generator, (list, tuple))
+    if shard is not None:
+        # a flat sharded leaf the fused kernel takes (as the JAX package
+        # takes the global one): its scale rows lie inside each slice
+        rand = shard.take(_sharded_draws(compressor, R, shard, rand,
+                                         generator, message.device))
     if use_ef and allow_fused and fused_compatible(compressor, message[0]):
         if rand is None and per_worker:
             rand = row_draws(generator, R, n, message.device)

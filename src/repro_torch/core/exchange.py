@@ -10,10 +10,15 @@ the parameter server's average of Algorithm 2 over W workers.
 The JAX package runs one worker per device inside `shard_map`. Here the
 workers are a leading axis of every per-worker tensor — message, EF
 residuals, payloads, draws: all W of them on one device
-(`StackedWorkers`), or a contiguous block of L = W / world of them on
-each rank of a `torch.distributed` process group (`ProcessGroupWorkers`;
-on the meta device `MetaWorkers` traces one such rank, communicating
-nothing).
+(`StackedWorkers`), or a contiguous block of L = W / data of them on
+each data rank of a `torch.distributed` process mesh, the collectives
+running over its data group (`ProcessGroupWorkers`; on the meta device
+`MetaWorkers` traces one such rank, communicating nothing).
+
+A leaf sharded over the mesh's model axis rides the per-tensor path with
+a `error_feedback.LeafShard`: each rank exchanges its shard over its data
+group, and every compression acts as on the global tensor (a scale
+reduced over the model group, the draws made at the global shape).
 A strategy calls only the backend's `mean`, `all_gather`, `all_to_all`
 and `reduce_scatter`, each with a start form that returns a handle; it
 tells the global worker count W (the chunks of two_phase) from the rows
@@ -250,9 +255,10 @@ class StackedWorkers(_Workers):
 
 
 class ProcessGroupWorkers(_Workers):
-    """W workers spread over the ranks of a `launch.mesh.ProcessMesh`, a
-    contiguous block of L = W / world rows on each rank. The collectives
-    run over the process group (nccl on CUDA, gloo on the CPU):
+    """W workers spread over the data ranks of a `launch.mesh.ProcessMesh`,
+    a contiguous block of L = W / data rows on each (every model rank of
+    a data index holds the same rows). The collectives run over the data
+    group (nccl on CUDA, gloo on the CPU; the whole world with model 1):
 
         mean        local sum of the L rows, all_reduce(SUM), / W
                     (the JAX pmean; divided by a device tensor, IEEE
@@ -274,11 +280,11 @@ class ProcessGroupWorkers(_Workers):
         self._divisor = {}
 
     def _collective(self, kind: str, result, fn, *args, **kwargs):
-        """`fn(*args, **kwargs)`, the `torch.distributed` call of
-        collective `kind` that writes `result`: its work handle (None for
-        a blocking call)."""
+        """`fn(*args, **kwargs)` over the data group, the
+        `torch.distributed` call of collective `kind` that writes
+        `result`: its work handle (None for a blocking call)."""
         del kind, result
-        return fn(*args, **kwargs)
+        return fn(*args, group=self.mesh.data_group, **kwargs)
 
     def start_mean(self, x):
         s = x.sum(dim=0)
@@ -298,7 +304,7 @@ class ProcessGroupWorkers(_Workers):
     def start_reduce_scatter(self, x):
         L = self.n_local
         s = x.sum(dim=0)
-        out = s.new_empty((s.shape[0] // self.mesh.world,))
+        out = s.new_empty((s.shape[0] // self.mesh.data,))
         scatter = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
         work = self._collective("reduce_scatter", out, scatter, out, s,
@@ -306,7 +312,7 @@ class ProcessGroupWorkers(_Workers):
         return _Pending(work, out, lambda o: self._over_n(o.reshape(L, -1)))
 
     def start_all_to_all(self, x):
-        L, world = self.n_local, self.mesh.world
+        L, world = self.n_local, self.mesh.data
         rest = tuple(x.shape[2:])
         # (L_src, W_chunk, ...) -> (world_dst, L_dst, L_src, ...): rank d's
         # piece is the chunks it owns, from every local source row
@@ -386,7 +392,7 @@ def workers_for(mesh, n: int) -> _Workers:
 
 def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
                    workers: _Workers, use_ef: bool, generator=None,
-                   spans: bool = False) -> ExchangeHandle:
+                   spans: bool = False, shard=None) -> ExchangeHandle:
     """Start the exchange of one tensor or bucket across the workers.
 
     p: (L, *shape), the messages of this process's L workers (all W on
@@ -404,7 +410,10 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
       two_phase : phases 1+2 through all_gather    | decompress+unchunk
 
     A start launches its collective; the finish waits for it. `spans` puts
-    each compression in a ``repro.obs/compress`` profiler range."""
+    each compression in a ``repro.obs/compress`` profiler range. `shard`
+    (an `error_feedback.LeafShard`): p holds this rank's slices of a
+    model-sharded tensor, compressed as the global one is, `rand` the
+    global draws."""
     strategy = plan["strategy"]
     new_state = dict(ef_state)
     if strategy == "exact":
@@ -412,13 +421,14 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
         return ExchangeHandle(strategy, lambda: (pend.wait(), new_state))
     if strategy == "two_phase":
         return _start_two_phase(compressor, plan, p, ef_state, new_state,
-                                rand, workers, use_ef, generator, spans)
+                                rand, workers, use_ef, generator, spans,
+                                shard)
     if strategy not in ("sim", "allgather"):
         raise ValueError(f"unknown strategy {strategy!r}")
     e1 = ef_state.get("e1", torch.zeros_like(p))
     with device_span("compress", spans):
         payload, p_hat, e_new = compress_with_ef_stacked(
-            compressor, p, e1, rand, generator, use_ef=use_ef)
+            compressor, p, e1, rand, generator, use_ef=use_ef, shard=shard)
     if use_ef:
         new_state["e1"] = e_new
     if strategy == "sim":
@@ -429,7 +439,7 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
     def _finish_allgather():
         gathered = {k: h.wait() for k, h in pends.items()}
         deq = decompress_rows(compressor, gathered, p.shape[1:],
-                              torch.float32)
+                              torch.float32, shard)
         return deq.mean(dim=0).to(p.dtype), new_state
 
     return ExchangeHandle(strategy, _finish_allgather)
@@ -447,12 +457,15 @@ def _rest(shape, ax):
 
 
 def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
-                     workers, use_ef, generator, spans) -> ExchangeHandle:
+                     workers, use_ef, generator, spans,
+                     shard=None) -> ExchangeHandle:
     W = workers.n                      # chunks: one per worker, globally
     L = p.shape[0]                     # this process's rows
     ax = plan["chunk_axis"]            # axis of one worker's tensor
     shape = tuple(p.shape[1:])
     rest = _rest(shape, ax)
+    # a sharded tensor's chunks (along an unsharded axis) are sharded too
+    cshard = None if shard is None else shard.chunked(ax, W)
     r1 = r2 = None
     if rand is not None:
         r1, r2 = rand["phase1"], rand["phase2"]
@@ -469,7 +482,7 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
         payload, _, e_new = compress_with_ef_stacked(
             compressor, chunks(p), chunks(e1.to(p.dtype)),
             None if r1 is None else r1.reshape(L * W, -1), generator,
-            use_ef=use_ef, allow_fused=False)
+            use_ef=use_ef, allow_fused=False, shard=cshard)
     if use_ef:
         e_new = e_new.reshape((L, shape[ax]) + rest)
         new_state["e1"] = torch.movedim(e_new, 1, ax + 1).to(e1.dtype)
@@ -478,14 +491,15 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
     chunk_shape = (shape[ax] // W,) + rest
     contrib = decompress_rows(                  # (L_dst, W_src, chunk)
         compressor, {k: v.reshape((L * W,) + v.shape[2:])
-                     for k, v in moved.items()}, chunk_shape, torch.float32
-    ).reshape((L, W) + chunk_shape)
+                     for k, v in moved.items()}, chunk_shape, torch.float32,
+        cshard).reshape((L, W) + chunk_shape)
     chunk_mean = contrib.mean(dim=1)   # owner d's chunk of q̂
     # ---- phase 2: owner compress (+ owner EF e2), all-gather ------------- #
     e2 = ef_state["e2"].reshape(chunk_mean.shape)
     with device_span("compress", spans):
         payload2, _, e2_new = compress_with_ef_stacked(
-            compressor, chunk_mean, e2, r2, generator, use_ef=True)
+            compressor, chunk_mean, e2, r2, generator, use_ef=True,
+            shard=cshard)
     new_state["e2"] = e2_new.reshape(ef_state["e2"].shape).to(
         ef_state["e2"].dtype)
     pends = {k: workers.start_all_gather(v) for k, v in payload2.items()}
@@ -493,7 +507,7 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
     def _finish_two_phase():
         gathered = {k: h.wait() for k, h in pends.items()}
         chunks_q = decompress_rows(compressor, gathered, chunk_shape,
-                                   torch.float32)
+                                   torch.float32, cshard)
         q = torch.movedim(chunks_q.reshape((shape[ax],) + rest), 0, ax)
         return q.to(p.dtype), new_state
 

@@ -12,15 +12,22 @@ every op's FLOPs and result bytes and the peak of live bytes.
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
-How a combo runs. The port's ranks are its workers, one card each, with no
-'model' axis: a production fleet of 256 (one pod, `--mesh single`) or 512
-(`multi`) cards is that many ranks.
+How a combo runs. A production fleet of 256 (one pod, `--mesh single`)
+or 512 (`multi`) cards is that many ranks, one card each.
 - train: the port's `DQGAN` over meta params, one rank of a `meta_mesh`
-  of that many ranks (`core.exchange.MetaWorkers`: the rank's own ops and
-  each collective's result buffer, no communication). Under layout `dp`
-  each rank is a worker with the whole replica (the flags' per-leaf
-  exchange); under `fsdp` the port's ZeRO-3 runs over the ranks (uniform
-  4 MiB buckets). One `step` on one rank's rows of the global batch.
+  of that many ranks (`core.exchange.MetaWorkers` and
+  `parallel.tensor.MetaModelGroup`: the rank's own ops and each
+  collective's result buffer, no communication). Under layout `dp` the
+  ranks form the JAX package's (data, model) grid, (16, 16) or (2·16,
+  16): each rank holds its shards of the parameters under the rules
+  (`parallel.sharding`), the workers run over 'pod' × 'data' (16, or 32
+  sharing the global batch of 256 in the multi-pod fleet), the flags'
+  per-leaf exchange. The SSD and RG-LRU mixers and the encoder-decoder
+  are traced at model 1 (every rank a worker with the replica; ROADMAP
+  slice 9b), labelled so in `model_axis`. Under `fsdp` the port's ZeRO-3
+  runs over all the ranks with model 1 (uniform 4 MiB buckets), as the
+  port keeps fsdp on a pure data mesh. One `step` on one rank's rows of
+  the global batch.
 - prefill: `prefill` at the shape's batch split per `batch_spec`.
 - decode: `decode_step` against dense caches of `seq_len`, batch split
   per `batch_spec`.
@@ -32,11 +39,14 @@ shape, mesh, status, params, active_params, mf, analytic_flops,
 bottleneck, flops, traffic_result_bytes, collectives) and adds:
 `peak_bytes` (the rank's own step: what the card must hold), `fits`
 (`peak_bytes` within HBM_BYTES), `param_bytes_per_device` (under the JAX
-package's layout, its 'model' axis included, labelled as such; the port
-holds its replica whole), `ledger` (the `comm.CommLedger` per-step wire
-bytes of the strategy at that rank count) and `roofline` {compute_s,
-memory_s, collective_s} at the H100 SXM data-sheet constants below. The
-JAX package's TPU constants are not used.
+package's layout, its 'model' axis included, labelled as such),
+`param_bytes_per_rank` (what the traced rank holds: equal to the former
+under `dp` with a model axis), `model_axis`, `collectives_model` (the
+model group's, apart from the exchange's `collectives`), `ledger` (the
+`comm.CommLedger` per-step wire bytes of the strategy at that worker
+count) and `roofline` {compute_s, memory_s, collective_s} at the H100
+SXM data-sheet constants below. The JAX package's TPU constants are not
+used.
 """
 from __future__ import annotations
 
@@ -154,37 +164,62 @@ def _traced(fn, *args) -> dict:
     return out
 
 
-def _meta_params(cfg, shape):
+def _max_seq(cfg, shape):
+    return shape.seq_len if not cfg.use_rope else 8
+
+
+def _meta_params(cfg, shape, mesh=None):
     from repro_torch.launch import specs as S
     from repro_torch.models import build
-    return build(cfg).init(device=S.META, max_seq=(
-        shape.seq_len if not cfg.use_rope else 8))
+    return build(cfg, mesh).init(device=S.META, max_seq=_max_seq(cfg, shape))
 
 
-def trace_train(cfg, shape, strategy, *, ranks: int = 1,
+def model_axis_for(cfg, layout: str, mesh_shape) -> int:
+    """The model axis a train combo traces: the production mesh's under
+    `dp`, 1 under `fsdp` (a pure data mesh) and for the archs the axis
+    does not cover yet (ROADMAP slice 9b)."""
+    from repro_torch.models.model import covers_model_axis
+    if layout != "dp" or not covers_model_axis(cfg):
+        return 1
+    return mesh_shape.get("model", 1)
+
+
+def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
                 optimizer: str = "omd", extrapolation: str = "local",
                 lr: float = 1e-4, message: str = "update") -> dict:
-    """One rank's `DQGAN.step` of `cfg` under `strategy` with `ranks`
-    workers, one a rank (one worker on its own device when `ranks` is 1),
-    on the meta device, over the global batch of `shape`: the op
-    analysis, the kernels' meta launches, the collectives the rank issues
-    and the strategy's `CommLedger`."""
+    """One rank's `DQGAN.step` of `cfg` under `strategy` on `ranks` ranks
+    with a model axis of `model` (ranks / model workers, one a data rank;
+    one worker on its own device when `ranks` is 1), on the meta device,
+    over the global batch of `shape`: the op analysis, the kernels' meta
+    launches, the collectives the rank issues (the exchange's, and the
+    model group's apart) and the strategy's `CommLedger`."""
+    from repro_torch import tree as T
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.launch import specs as S
     from repro_torch.launch.mesh import meta_mesh
-    from repro_torch.models import build
+    from repro_torch.models import build, param_specs
+    from repro_torch.parallel import tensor as TP
 
     dq = cfgs.DQConfig.from_strategy(strategy, optimizer=optimizer, lr=lr,
                                      message=message,
                                      extrapolation=extrapolation)
-    trainer = DQGAN(field_fn=build(cfg).field_fn, dq=dq, device=S.META,
-                    workers=ranks,
-                    mesh=meta_mesh(ranks) if ranks > 1 else None)
-    state = trainer.init(_meta_params(cfg, shape))
-    batch, _ = S.train_batch_specs(cfg, shape, {"data": ranks})
+    workers = ranks // model
+    mesh = meta_mesh(ranks, model=model) if ranks > 1 else None
+    bundle = build(cfg, mesh)
+    trainer = DQGAN(field_fn=bundle.field_fn, dq=dq, device=S.META,
+                    workers=workers, mesh=mesh,
+                    param_specs=param_specs(cfg, mesh,
+                                            _max_seq(cfg, shape)))
+    state = trainer.init(_meta_params(cfg, shape, mesh))
+    batch, _ = S.train_batch_specs(cfg, shape, {"data": workers})
     out = _traced(trainer.step, state, batch)
     out["collectives"] = dict(getattr(trainer.worker_backend,
                                       "collectives", {}))
+    group = TP.model_group_for(mesh)
+    out["collectives_model"] = dict(getattr(group, "collectives", {}))
+    out["model_axis"] = model
+    out["param_bytes_per_rank"] = int(sum(
+        x.numel() * x.element_size() for x in T.leaves(state.params)))
     led = trainer.comm_ledger(state.params).summary()
     out["ledger"] = {k: led[k] for k in (
         "wire_bytes_per_step", "carried_bytes_per_step",
@@ -232,8 +267,7 @@ def param_bytes_per_device(cfg, layout: str, mesh) -> dict:
                 * w.element_size()
                 for w, sp in zip(leaves, T.flatten_up_to(paths, specs)))
     return {"bytes": int(total), "layout": layout, "mesh": dict(mesh),
-            "of": "the JAX package's layout, its 'model' axis included; "
-                  "the port's ranks hold the replica whole"}
+            "of": "the JAX package's layout, its 'model' axis included"}
 
 
 # --------------------------------------------------------------------------- #
@@ -285,9 +319,14 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, *,
         if shape.kind == "train":
             strat = train_strategy(layout, exchange=exchange,
                                    compressor=compressor, ef_dtype=ef_dtype)
+            model = model_axis_for(cfg, layout, mesh)
             rec.update(trace_train(cfg, shape, strat, ranks=n_chips,
-                                   optimizer=optimizer,
+                                   model=model, optimizer=optimizer,
                                    extrapolation=extrapolation))
+            if model == 1 and layout == "dp":
+                rec["model_axis_note"] = ("traced at model 1: the mixers "
+                                          "and the encoder-decoder are "
+                                          "ROADMAP slice 9b")
         elif shape.kind == "prefill":
             rec["batch_per_rank"] = local
             rec.update(trace_prefill(cfg, shape, local))

@@ -22,20 +22,29 @@ a row. Both draw from one data generator after the initial weights.
 ``--workers W`` (default 1) stands for the JAX launcher's device count:
 the W workers are a leading axis of every per-worker tensor on the one
 device (`core.exchange.StackedWorkers`), and ``--batch`` is the global
-batch, split W ways in order. There is no model axis, so no leaf is
-sharded and every leaf is bucketed.
+batch, split W ways in order. One process has no model axis, so every
+leaf is bucketed.
 
 Under ``torchrun`` (RANK and WORLD_SIZE set) the launcher joins the
 process group (`launch.mesh.ProcessMesh`: nccl on ``cuda:LOCAL_RANK``,
-gloo with ``--device cpu``) and spreads the W workers over the ranks, W /
-world each (`core.exchange.ProcessGroupWorkers`); ``--workers`` stays the
-global W. Every rank draws the same global batch and takes its rows; rank
-0 prints. Checkpoints gather to rank 0 and hold what a one-process run
-saves (a sharded directory defaults to one file a rank); a resume hands
-each rank its rows.
+gloo with ``--device cpu``) as a (data, model) mesh by the JAX
+launcher's rule: a 'model' axis of 2 when the world size is even and
+above 2, outside fsdp, else 1. The parameters are laid out over 'model'
+by `parallel.sharding`'s rules (`models.build(cfg, mesh)`: each rank
+holds its shards), and the W workers spread over the data ranks, W / data
+each (`core.exchange.ProcessGroupWorkers`); ``--workers`` stays the
+global W. The model-sharded leaves bypass the buckets (a ``# comm:
+WARNING`` line says how many) and take the per-tensor path. Under a
+model axis the SSD and RG-LRU mixers and the encoder-decoder are refused
+(ROADMAP slice 9b). Every rank draws the same global batch and takes its
+data rows; rank 0 prints. Checkpoints gather the model shards and the
+worker rows to rank 0 and hold what a one-process run saves, with the
+mesh in a sharded directory's manifest (one file a rank by default); a
+resume slices each rank's part, and says ``# resume: resharding ...``
+when the saved mesh differs.
 
-    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
-        --arch dcgan32 --smoke --device cpu --workers 4 --optimizer omd \
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch dcgan32 --smoke --device cpu --workers 2 --optimizer omd \
         --compressor qsgd8_block1024 --comm-plan uniform --steps 3
 
 The strategy flags are the JAX launcher's, generated from the same
@@ -122,7 +131,8 @@ from repro_torch.configs.base import DQConfig
 from repro_torch.core.dqgan import DQGAN
 from repro_torch.data import lm_batch_iterator, procedural_images
 from repro_torch.launch.mesh import ProcessMesh
-from repro_torch.models import build, gan
+from repro_torch.models import build, gan, param_specs
+from repro_torch.models.model import check_model_axis
 from repro_torch.sched import clock as sclock
 from repro_torch.sched import n_participants
 from repro_torch.sched import straggler as sstrag
@@ -133,7 +143,8 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The launcher's argument parser."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -183,6 +194,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' (default) needs a GPU, "
                          "'cpu' runs the kernels' plain versions")
+    return ap
+
+
+def main(argv=None):
+    ap = parser()
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -198,37 +214,58 @@ def main(argv=None):
     W = args.workers
     if W < 1 or args.batch % W:
         ap.error(f"--batch {args.batch} must split over --workers {W}")
-    mesh = None
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        world = int(os.environ["WORLD_SIZE"])
-        if W % world:
-            ap.error(f"--workers {W} must split over {world} ranks")
-        mesh = ProcessMesh.from_env(device.type)
-        device = mesh.device
-    try:
-        return _train(args, ap, cfg, device, mesh)
-    finally:
-        if mesh is not None:
-            mesh.close()
-
-
-def _train(args, ap, cfg, device, mesh):
-    W = args.workers
-    rank0 = mesh is None or mesh.rank == 0
-    say = print if rank0 else (lambda *a, **k: None)
     try:
         strat = strategy_api.strategy_from_args(
             args, worker_axes=("data",) if W > 1 else ())
     except strategy_api.StrategyError as e:
         ap.error(str(e))
+    mesh = None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        model = model_axis_size(world, strat.exchange.fsdp)
+        if W % (world // model):
+            ap.error(f"--workers {W} must split over {world // model} "
+                     f"data ranks")
+        if model > 1 and not isinstance(cfg, gan.GANConfig):
+            try:
+                check_model_axis(cfg, model)
+            except ValueError as e:
+                ap.error(str(e))
+        mesh = ProcessMesh.from_env(device.type, model=model)
+        device = mesh.device
+    try:
+        return _train(args, ap, cfg, device, mesh, strat)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def model_axis_size(world: int, fsdp: bool) -> int:
+    """The JAX launcher's rule for the 'model' axis: 2 when the world size
+    is even and above 2, outside fsdp (whose flat shard buckets need
+    every leaf replicated), else 1."""
+    return 2 if world % 2 == 0 and world > 2 and not fsdp else 1
+
+
+def _train(args, ap, cfg, device, mesh, strat=None):
+    W = args.workers
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if strat is None:
+        try:
+            strat = strategy_api.strategy_from_args(
+                args, worker_axes=("data",) if W > 1 else ())
+        except strategy_api.StrategyError as e:
+            ap.error(str(e))
     sched = strat.schedule.runtime()
     dq = DQConfig.from_strategy(
         strat, optimizer=args.optimizer, lr=args.lr,
         message="update" if args.optimizer == "omd" else "grad")
-    bundle = build(cfg)
+    bundle = build(cfg, mesh)
     try:
         trainer = DQGAN(field_fn=bundle.field_fn, dq=dq, device=device,
-                        seed=args.seed + 1, workers=W, mesh=mesh)
+                        seed=args.seed + 1, workers=W, mesh=mesh,
+                        param_specs=param_specs(cfg, mesh, args.seq))
     except ValueError as e:
         ap.error(str(e))
 
@@ -239,33 +276,48 @@ def _train(args, ap, cfg, device, mesh):
     state = trainer.init(params)
 
     workers = trainer.worker_backend
+    shards = trainer.state_shards(state)
+    mesh_rec = None if mesh is None else mesh.describe()
 
     def save_ckpt(path, st):
         meta = {"strategy": strat.to_json()}
         if path.endswith(".npz"):
             checkpoint.save(path, st, step=st.step, meta=meta,
-                            workers=workers)
+                            workers=workers, shards=shards)
         else:
             checkpoint.save_sharded(path, st, step=st.step, meta=meta,
                                     n_shards=args.checkpoint_shards or None,
-                                    workers=workers)
+                                    mesh=mesh_rec, workers=workers,
+                                    shards=shards)
 
     start = 0
     if args.resume:
         try:
             checkpoint.verify_strategy(args.resume, strat)
             if checkpoint.is_sharded(args.resume):
+                saved_mesh = checkpoint.read_manifest(
+                    args.resume).get("mesh")
+                if saved_mesh != mesh_rec:
+                    say(f"# resume: resharding {saved_mesh} -> {mesh_rec}",
+                        flush=True)
                 state = checkpoint.restore_sharded(args.resume, state,
-                                                   workers=workers)
+                                                   workers=workers,
+                                                   shards=shards)
             else:
                 state = checkpoint.restore(args.resume, state,
-                                           workers=workers)
+                                           workers=workers, shards=shards)
         except (ValueError, OSError, zipfile.BadZipFile) as e:
             # strategy or shape mismatch, missing file, corrupt archive
             raise SystemExit(f"--resume refused:\n{e}") from None
         start = state.step
         say(f"# resumed from {args.resume} at step {start}", flush=True)
     ledger = trainer.comm_ledger(params)
+    sk_n, sk_bytes = ledger.skipped_leaves()
+    if sk_n:
+        # the model-sharded leaves ride the per-tensor path: said once
+        say(f"# comm: WARNING {sk_n} sharded leaf(s) bypass bucketing "
+            f"({sk_bytes / 1e6:.2f} MB/step on the per-tensor path)",
+            flush=True)
     if strat.compression.bucketing:
         layout, cplan = trainer._comm(params)
         say(f"# comm: {layout.describe()}", flush=True)

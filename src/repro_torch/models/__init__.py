@@ -3,4 +3,4 @@ paper's experiments (`gan`), the LM with attention, RG-LRU and SSD blocks,
 dense and MoE FFNs and the encoder of encoder-decoder models (`model`,
 `layers`, `mixers`, `moe`), and `build`, which binds a config to its
 bundle (`registry`)."""
-from .registry import ModelBundle, build  # noqa: F401
+from .registry import ModelBundle, build, param_specs  # noqa: F401

@@ -10,6 +10,11 @@ Parameters keep the JAX layout (conv ``w`` HWIO, linear ``w`` (d_in,
 d_out)), because the bucket layout flattens them as stored. Convolutions
 run in PyTorch's NCHW/OIHW and permute the weights at call time; images
 enter and leave the public functions as NHWC, like the JAX package's.
+
+Under a model group (`parallel.tensor`, the trainer's 'model' axis) the
+DCGAN's `gen.fc` is column-parallel and its output is gathered before
+the reshape; `disc.fc`'s single output column does not shard, and the
+convolutions stay replicated, as the rules lay them out.
 """
 from __future__ import annotations
 
@@ -19,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
+from repro_torch.parallel import tensor as TP
 
-from .layers import linear, linear_init
+from .layers import col_linear, linear, linear_init
 
 
 @dataclass(frozen=True)
@@ -111,8 +117,12 @@ def dcgan_init(cfg: GANConfig, *, generator=None, device=None):
 def _dcgan_generate_nchw(gen, cfg: GANConfig, z):
     bw = cfg.base_width
     s0 = cfg.image_size // 8
+    n = s0 * s0 * bw * 4
+    h = col_linear(gen["fc"], z, n)
+    if TP.shards(n):     # column-parallel: gathered before the reshape
+        h = TP.gather_from(h)
     # the JAX package reshapes to NHWC here; NCHW is a permute of that
-    x = F.relu(linear(gen["fc"], z)).reshape(-1, s0, s0, bw * 4)
+    x = F.relu(h).reshape(-1, s0, s0, bw * 4)
     x = x.permute(0, 3, 1, 2)
     x = F.relu(conv_t(gen["c1"], x))
     x = F.relu(conv_t(gen["c2"], x))

@@ -15,6 +15,17 @@ Pallas kernel). A model with ``attention_window > 0`` keeps a rolling
 cache of ``window`` slots: slot i holds the position p with p ≡ i (mod
 window). Cross-attention (``cross_kv``, an encoder-decoder model's
 decoder) attends without a mask to K/V projected from the encoder output.
+
+Tensor parallelism (`parallel.tensor`, the JAX package's 'model' axis):
+under a current model group a linear runs by the spec of its weight,
+column-parallel (`col_linear`: the rank's block of the outputs),
+row-parallel (`row_linear`: the partial products all-reduced, then the
+replicated bias) or replicated. The MLP is column (`gate`, `up`) then row
+(`down`). Training attention runs head-local where the q and kv shards
+fall on head boundaries; otherwise (a split KV head, as gemma-2b's one
+MQA head over two ranks) it gathers the sharded projections over the
+model group, computes attention replicated, and hands the row-parallel
+`o` the rank's slice of its input.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import paged_flash_attention
+from repro_torch.parallel import tensor as TP
 
 _CHUNKED_PREFILL = 2048   # the JAX package switches to attention_chunked above
 
@@ -47,6 +59,26 @@ def linear_init(d_in, d_out, use_bias=False, *, generator=None, device=None,
 
 def linear(p, x):
     y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def col_linear(p, x, n_out):
+    """`linear` with w (d_in, n_out) column-parallel over the current model
+    group where it shards n_out: the rank's block of the outputs."""
+    if not TP.shards(n_out):
+        return linear(p, x)
+    return linear(p, TP.copy_to(x))
+
+
+def row_linear(p, x, n_in):
+    """`linear` with w (n_in, d_out) row-parallel over the current model
+    group where it shards n_in: x is the rank's block of the inputs, the
+    partial products are all-reduced, then the (replicated) bias added."""
+    if not TP.shards(n_in):
+        return linear(p, x)
+    y = TP.reduce_from(x @ p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -147,13 +179,18 @@ def _silu(v):
     return v * (1.0 / (1.0 + torch.exp(-v)))
 
 
-def mlp(p, x, activation: str):
+def mlp(p, x, activation: str, ff: int = 0):
+    """The FFN; `ff` (its hidden width) > 0 lets a current model group
+    run it column (`gate`, `up`) then row (`down`) parallel."""
+    tp = ff > 0 and TP.shards(ff)
+    if tp:
+        x = TP.copy_to(x)
     if activation in ("silu", "geglu"):
         act = _silu if activation == "silu" else _gelu_tanh
         h = act(linear(p["gate"], x)) * linear(p["up"], x)
     else:
         h = _gelu_tanh(linear(p["up"], x))
-    return linear(p["down"], h)
+    return row_linear(p["down"], h, ff) if tp else linear(p["down"], h)
 
 
 # ------------------------------------------------------------------------- #
@@ -289,6 +326,8 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
     from the encoder output; no mask, no cache). Returns (out, new_cache)."""
     B, S, d = x.shape
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if TP.current() is not None and cache is None and cross_kv is None:
+        return _attn_train_tp(p, x, cfg, positions, causal, fill_cache)
     q = _split_heads(linear(p["q"], x), H, hd)
     if cross_kv is not None:
         k, v = cross_kv
@@ -346,6 +385,49 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
     out = _grouped_decode(q, ck, cv, valid, cfg)
     cache["pos"] += S
     return linear(p["o"], out), cache
+
+
+def _attn_train_tp(p, x, cfg, positions, causal, fill_cache):
+    """Training self-attention under a model group. The column-parallel
+    q/k/v take x through `copy_to`, replicated ones take it as it is.
+    Head-local when q, k and v all shard on head boundaries (each rank's
+    query heads then attend to its own KV heads); otherwise the sharded
+    projections are gathered and attention runs replicated, and the
+    row-parallel `o` takes the rank's slice of its output."""
+    if fill_cache:
+        raise ValueError("attn_apply: a tensor-parallel prefill is not "
+                         "supported; the model axis is the trainer's")
+    B, S, _ = x.shape
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = TP.current().size
+    q_sh, kv_sh = TP.shards(H * hd), TP.shards(Kh * hd)
+    xs = TP.copy_to(x) if q_sh or kv_sh else x
+    q = linear(p["q"], xs if q_sh else x)
+    k = linear(p["k"], xs if kv_sh else x)
+    v = linear(p["v"], xs if kv_sh else x)
+    local = q_sh and kv_sh and H % g == 0 and Kh % g == 0
+    if local:
+        Hl, Kl = H // g, Kh // g
+    else:
+        if q_sh:
+            q = TP.gather_from(q)
+        if kv_sh:
+            k, v = TP.gather_from(k), TP.gather_from(v)
+        Hl, Kl = H, Kh
+    q, k, v = (_split_heads(q, Hl, hd), _split_heads(k, Kl, hd),
+               _split_heads(v, Kl, hd))
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    pos = torch.arange(S, device=x.device)
+    win = cfg.attention_window
+    if S > _CHUNKED_PREFILL:
+        out = attention_chunked(q, k, v, window=win, causal=causal)
+    else:
+        out = attention_dense(q, k, v, pos, pos, window=win, causal=causal)
+    if not local and q_sh:
+        out = TP.scatter_to(out)
+    return row_linear(p["o"], out, H * hd), None
 
 
 def _paged_attn_decode(p, cfg, q, k, v, cache, positions):

@@ -29,6 +29,14 @@ per-layer views land on the stacked leaves.
 a time, each chunk recomputed in the backward pass, so that one (B,
 chunk, V) block of logits is alive at a time.
 
+Under a model group (`parallel.tensor`, the trainer's 'model' axis) the
+embedding is vocab-parallel (a masked lookup of the rank's rows, then an
+all-reduce), the unembedding column-parallel, so each rank holds a (...,
+V / model) block of logits, and `_xent` takes the log-sum-exp as a
+model-group max and sum and picks the target logit by a mask and a sum:
+no rank holds a full (B, chunk, V) block. The mixers and the encoder are
+not tensor-parallel (ROADMAP slice 9b); `check_model_axis` refuses them.
+
 Caches keep the JAX tree too ({"scan": ..., "tail": [...]}, and
 ``"enc_out"`` for an encoder-decoder model); decode writes into their
 tensors in place (attention K/V, and a mixer's recurrent state and conv
@@ -45,6 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
+from repro_torch.parallel import tensor as TP
 
 from . import moe as moe_lib
 from . import mixers
@@ -145,7 +154,7 @@ def block_apply(p, cfg, kind, x, positions, cache=None, cross_kv=None,
         x = x + out
     if "mlp" in p:
         x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x),
-                    cfg.activation)
+                    cfg.activation, cfg.d_ff)
     elif "moe" in p:
         y, aux = moe_lib.moe_apply(p["moe"], cfg,
                                    apply_norm(cfg.norm, p["norm2"], x))
@@ -312,9 +321,38 @@ def encode(params, cfg, enc_embeds):
     return apply_norm(cfg.norm, e["final_norm"], x)
 
 
+def covers_model_axis(cfg) -> bool:
+    """True when the 'model' axis covers the arch: attention blocks only,
+    no encoder. The SSD and RG-LRU mixers and the encoder-decoder split
+    contractions inside their scans under the rules, which the port does
+    not shard yet (ROADMAP slice 9b)."""
+    return not cfg.is_encdec and all(k == "attn" for k in cfg.layer_pattern)
+
+
+def check_model_axis(cfg, model: int) -> None:
+    """Refuse an arch the 'model' axis does not cover yet
+    (`covers_model_axis`); nothing is replicated in its place."""
+    if model > 1 and not covers_model_axis(cfg):
+        mixers_in = sorted({k for k in cfg.layer_pattern if k != "attn"})
+        what = (f"the {'/'.join(mixers_in)} mixer" if mixers_in
+                else "the encoder-decoder")
+        raise ValueError(
+            f"{cfg.name}: a model axis of {model} does not cover {what} "
+            f"yet (ROADMAP slice 9b); run it with model 1")
+
+
 def _embed_tokens(params, cfg, tokens, positions):
     # F.embedding's backward sums a token's rows in a fixed order on CUDA
-    x = F.embedding(tokens, params["embed"])
+    V = cfg.vocab_size
+    if TP.shards(V):   # vocab-parallel: this rank's rows, then the sum
+        g = TP.current()
+        n = V // g.size
+        local = tokens - g.index * n
+        hit = (local >= 0) & (local < n)
+        x = F.embedding(torch.where(hit, local, 0), params["embed"])
+        x = TP.reduce_from(x * hit[..., None].to(x.dtype))
+    else:
+        x = F.embedding(tokens, params["embed"])
     # the JAX package multiplies by a weakly typed Python float, which
     # takes the activation's dtype: round the factor the same way
     scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
@@ -336,6 +374,10 @@ def forward(params, cfg, tokens, positions, caches=None, enc_out=None,
 
 
 def logits_fn(params, cfg, hidden):
+    """The logits; under a model group that shards the vocabulary, the
+    rank's (..., V / model) block of them."""
+    if TP.shards(cfg.vocab_size):
+        hidden = TP.copy_to(hidden)
     if cfg.tie_embeddings:
         return hidden @ params["embed"].T
     return linear(params["unembed"], hidden)
@@ -344,8 +386,22 @@ def logits_fn(params, cfg, hidden):
 # ------------------------------------------------------------------------- #
 # losses
 # ------------------------------------------------------------------------- #
-def _xent(logits, targets):
-    """Per-token cross-entropy in float32."""
+def _xent(logits, targets, vocab: int = 0):
+    """Per-token cross-entropy in float32. Under a model group that shards
+    `vocab`, `logits` is the rank's block of the vocabulary: the
+    log-sum-exp is a model-group max and sum, the target's logit a masked
+    pick and a sum."""
+    if vocab and TP.shards(vocab):
+        g = TP.current()
+        lf = logits.float()
+        top = TP.all_max(lf.amax(-1))
+        lse = torch.log(TP.reduce_from(
+            torch.exp(lf - top[..., None]).sum(-1))) + top
+        n = vocab // g.size
+        local = targets.long() - g.index * n
+        hit = (local >= 0) & (local < n)
+        ll = lf.gather(-1, torch.where(hit, local, 0)[..., None])[..., 0]
+        return lse - TP.reduce_from(torch.where(hit, ll, 0.0))
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, targets.long()[..., None])[..., 0]
@@ -364,7 +420,7 @@ def chunked_xent(params, cfg, hidden, targets, chunk):
                          f"chunk={chunk}")
 
     def body(h, t):
-        return _xent(logits_fn(params, cfg, h), t).sum()
+        return _xent(logits_fn(params, cfg, h), t, cfg.vocab_size).sum()
 
     remat = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -391,7 +447,8 @@ def loss_fn(params, cfg, batch, generator=None):
         loss = chunked_xent(params, cfg, hidden, batch["targets"],
                             cfg.xent_chunk)
     else:
-        loss = _xent(logits_fn(params, cfg, hidden), batch["targets"]).mean()
+        loss = _xent(logits_fn(params, cfg, hidden), batch["targets"],
+                     cfg.vocab_size).mean()
     metrics = {"loss": loss, **aux}
     total = loss + sum(aux.values()) if aux else loss
     return total, metrics

@@ -12,6 +12,14 @@ against one capacity pool; ``"per_row"`` gives each batch row its own pool
 (a loop over the rows where the JAX package vmaps). The expert FFN is one
 batched einsum over the (experts, capacity, d) buffer; its activation is
 the port's `_silu` or `_gelu_tanh`, which round where `jax.nn` rounds.
+
+Expert-parallel under a model group (`parallel.tensor`, the trainer's
+'model' axis): each rank keeps its E / model experts and its slice of
+the one-hot dispatch along E, runs the three einsums on its experts, and
+the combine is all-reduced. The router, the capacity ranks and the aux
+losses stay replicated, the same on every rank; the tokens and gates
+enter the expert region through `copy_to`. Arctic's dense residual
+follows the MLP's rules.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import tensor as TP
 
 from .layers import _gelu_tanh, _silu, linear, linear_init, mlp, mlp_init
 
@@ -83,7 +93,8 @@ def moe_apply(p, cfg, x):
                               _capacity(m, S) * B).reshape(B, S, d)
 
     if "dense" in p:   # Arctic: a dense FFN in parallel with the experts
-        y = y + mlp(p["dense"], xt, cfg.activation).reshape(B, S, d)
+        y = y + mlp(p["dense"], xt, cfg.activation,
+                    m.dense_residual_d_ff).reshape(B, S, d)
     return y, aux
 
 
@@ -100,12 +111,20 @@ def _dispatch_combine(p, cfg, xt, expert_idx, gate_vals, cap):
     rank = ranks.gather(1, flat_e[:, None])[:, 0]
     keep = rank < cap
     rank_c = torch.where(keep, rank, 0)
+    El = p["gate_proj"].shape[0]          # this rank's experts
+    tp = TP.shards(E)
+    if tp:   # the rank's experts, [start, start + El), of the dispatch
+        start = TP.current().index * El
+        mine = (flat_e >= start) & (flat_e < start + El)
+        flat_e = torch.where(mine, flat_e - start, 0)
+        keep = keep & mine
+        xt, gate_vals = TP.copy_to(xt), TP.copy_to(gate_vals)
 
     # a dropped token adds an exact zero into slot 0 of its expert (the
     # JAX package's .at[].add(mode="drop") of a masked row), so however
     # the device orders the accumulation no kept sum changes
     x_rep = torch.repeat_interleave(xt, k, dim=0)                # (T·k, d)
-    buf = torch.zeros((E, cap, d), dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros((El, cap, d), dtype=xt.dtype, device=xt.device)
     buf = buf.index_put((flat_e, rank_c),
                         torch.where(keep[:, None], x_rep, 0),
                         accumulate=True)
@@ -117,4 +136,5 @@ def _dispatch_combine(p, cfg, xt, expert_idx, gate_vals, cap):
 
     tok_out = torch.where(keep[:, None], out_buf[flat_e, rank_c], 0)
     w = gate_vals.reshape(T * k)[:, None].to(tok_out.dtype)
-    return (tok_out * w).reshape(T, k, d).sum(1)
+    y = (tok_out * w).reshape(T, k, d).sum(1)
+    return TP.reduce_from(y) if tp else y

@@ -11,6 +11,16 @@ what `core.dqgan.DQGAN` takes: for a GAN the WGAN field of
 `model.loss_fn`'s total (cross-entropy plus the MoE aux losses), in the
 parameters' dtypes, with the metrics {"loss", **aux}. An LM field draws
 nothing, so it has no `draw_z`.
+
+`build(cfg, mesh=...)` with a `launch.mesh.ProcessMesh` whose model axis
+is above 1 gives the field over a rank's shards: `init` makes the full
+tree and keeps the rank's shard of each leaf under the JAX package's
+rules (`parallel.sharding`, "dp" layout), `param_specs(cfg, mesh,
+max_seq)` gives those rules sanitised for the mesh (`DQGAN`'s
+`param_specs`), and `field_fn` runs the model under the mesh's
+model group (`parallel.tensor`), returning the gradients of the rank's
+shards. The mixers and the encoder-decoder are refused there (ROADMAP
+slice 9b).
 """
 from __future__ import annotations
 
@@ -20,6 +30,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tree as T
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor as TP
 
 from . import gan as gan_lib
 from . import model as lm
@@ -60,7 +72,53 @@ def lm_field_fn(cfg):
     return field_fn
 
 
-def build(cfg) -> ModelBundle:
+def param_specs(cfg, mesh, max_seq: int = 0):
+    """The spec tree of `cfg`'s full parameters on `mesh` (the JAX
+    package's "dp" rules, sanitised; traced on meta), or None when the
+    mesh has no model axis above 1."""
+    if mesh is None or mesh.model == 1:
+        return None
+    full = _build(cfg).init(generator=None, device="meta", max_seq=max_seq)
+    return shd.param_specs(full, cfg, "dp", mesh.shape)
+
+
+def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
+    """`bundle` over the rank's shards of `mesh`'s model axis."""
+    group = TP.model_group_for(mesh)
+    cfg = bundle.cfg
+    if not isinstance(cfg, gan_lib.GANConfig):
+        lm.check_model_axis(cfg, mesh.model)
+
+    def init(generator=None, device=None, max_seq=0):
+        full = bundle.init(generator=generator, device=device,
+                           max_seq=max_seq)
+        return shd.shard_tree(
+            full, shd.param_specs(full, cfg, "dp", mesh.shape),
+            mesh.model_index, mesh.model)
+
+    field = bundle.field_fn
+
+    def field_fn(params, batch, z=None, generator=None):
+        with TP.model_parallel(group):
+            return field(params, batch, z=z, generator=generator)
+
+    if hasattr(field, "draw_z"):
+        field_fn.draw_z = field.draw_z
+    return ModelBundle(cfg=cfg, init=init, field_fn=field_fn,
+                       loss_fn=None, prefill=None, decode_step=None,
+                       init_cache=None)
+
+
+def build(cfg, mesh=None) -> ModelBundle:
+    """The bundle of `cfg`; over the shards of `mesh`'s model axis when it
+    has one above 1 (training only: no serving entry points)."""
+    bundle = _build(cfg)
+    if mesh is not None and mesh.model > 1:
+        return _sharded(bundle, mesh)
+    return bundle
+
+
+def _build(cfg) -> ModelBundle:
     if isinstance(cfg, gan_lib.GANConfig):
         return ModelBundle(
             cfg=cfg,

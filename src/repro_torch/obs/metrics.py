@@ -96,7 +96,7 @@ class NullCollector:
     def bucket(self, bid, raw, op, err):
         pass
 
-    def leaf(self, raw, op, err):
+    def leaf(self, raw, op, err, group=None):
         pass
 
     def sums(self) -> dict:
@@ -150,8 +150,16 @@ class Collector:
             self._bkt[k][bid] = v
         self._n_bkt[bid] = raw[0].numel()
 
-    def leaf(self, raw, op, err):
-        self._record(raw, op, err)
+    def leaf(self, raw, op, err, group=None):
+        """A tensor outside the buckets; `group` (a model group): the
+        tensors are this rank's slices of model-sharded ones, whose sums
+        are taken over the group and whose count is the global one."""
+        out = self._record(raw, op, err)
+        if group is not None:
+            for v in out.values():
+                group.all_reduce(v)
+            if out:
+                self._n_agg += raw[0].numel() * (group.size - 1)
 
     # ---- export ------------------------------------------------------ #
     def sums(self) -> dict:

@@ -19,12 +19,19 @@ off a `torch.profiler` capture of the step instead (``record_shapes=True``;
   this rank (the output tensor the call records, or for all_reduce, whose
   output is its input, the backend's record of the input): the quantity
   `repro.obs.hlo` reads as an HLO collective's result bytes.
+* a collective of the model group (the tensor-parallel 'model' axis:
+  the field's all-reduces and gathers, a sharded leaf's scale) is called
+  inside a `parallel.tensor.MODEL_GROUP_RANGE` range and counts under
+  group "model", apart from the exchange's ("data"): the summaries and
+  checks below read the data group's unless told otherwise, so the byte
+  check against the ledger compares the exchange alone.
 
 Functions:
 
 * `collectives(prof)` — the step's collective calls, in call order.
-* `collective_summary(prof, phase=None)` — per-kind counts, bytes and
-  int8 bytes (``all-reduce`` / ``all-gather`` / ``all-to-all`` / ...).
+* `collective_summary(prof, phase=None, group="data")` — per-kind
+  counts, bytes and int8 bytes (``all-reduce`` / ``all-gather`` /
+  ``all-to-all`` / ...).
 * `byte_gap(prof, ledger, participants)` — the exchange phase's bytes
   against the `CommLedger`'s bill for one round. The ledger bills a ring
   all-reduce at 2·(W−1)/W × payload (send+receive); a collective's result
@@ -56,6 +63,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from repro_torch.core.exchange import transport_factor
+from repro_torch.parallel.tensor import MODEL_GROUP_RANGE
 
 from .profile import phase_of
 from .tracing import PREFIX
@@ -84,6 +92,47 @@ class Collective(NamedTuple):
     start_us: float        # call time (the c10d:: operator's start)
     bytes: int             # the result's bytes on this rank
     dtype: str             # the result's element type
+    group: str = "data"    # "model": a model-group collective
+
+
+def _model_range(event):
+    """The MODEL_GROUP_RANGE range around a call, or None."""
+    e = event
+    while e is not None:
+        if e.name.startswith(MODEL_GROUP_RANGE):
+            return e
+        e = e.cpu_parent
+    return None
+
+
+def _group_of(event) -> str:
+    return "data" if _model_range(event) is None else "model"
+
+
+def _pair(calls, records):
+    """(call, record) pairs of one kind. Each process group's backend
+    records its calls in order on its own threads, so the groups' records
+    interleave apart from the calls: a model-group call takes the first
+    later record of the shape its range names, and the data group's
+    calls the rest, in order."""
+    records = list(records)
+    pairs, data_calls = [], []
+    for c in calls:
+        rng = _model_range(c)
+        if rng is None:
+            data_calls.append(c)
+            continue
+        shape = [int(d) for d in rng.name[len(MODEL_GROUP_RANGE) + 1:]
+                 .split(",") if d]
+        i = next((i for i, r in enumerate(records)
+                  if r.time_range.start >= c.time_range.start
+                  and r.input_shapes and list(r.input_shapes[0]) == shape),
+                 None)
+        if i is None:
+            raise ValueError(f"obs.trace: no backend record of the model "
+                             f"group's {c.name} over {shape}")
+        pairs.append((c, records.pop(i)))
+    return pairs + list(zip(data_calls, records))
 
 
 def capture(fn, *args, **kwargs):
@@ -132,7 +181,7 @@ def collectives(prof) -> List[Collective]:
             raise ValueError(
                 f"obs.trace: {len(cs)} c10d {kind} call(s) but {len(rs)} "
                 f"backend record(s); is the capture's record_shapes on?")
-        for c, r in zip(cs, rs):
+        for c, r in _pair(cs, rs):
             # the call's output tensor (its first input) where it records
             # one; all_reduce takes a tensor list: its record's input
             src, i = (c, 0) if c.input_shapes and c.input_shapes[0] \
@@ -147,7 +196,8 @@ def collectives(prof) -> List[Collective]:
             for d in shape:
                 n *= int(d)
             out.append(Collective(kind, phase_of(c), c.time_range.start,
-                                  n * _DTYPE_BYTES[dtype], dtype))
+                                  n * _DTYPE_BYTES[dtype], dtype,
+                                  _group_of(c)))
     return sorted(out, key=lambda c: c.start_us)
 
 
@@ -191,11 +241,14 @@ def _summary(colls: List[Collective]) -> dict:
     return out
 
 
-def collective_summary(prof, phase: Optional[str] = None) -> dict:
-    """{kind: {count, bytes, int8_bytes}} of a capture's collectives (of
-    those `phase` called, given one)."""
+def collective_summary(prof, phase: Optional[str] = None,
+                       group: Optional[str] = "data") -> dict:
+    """{kind: {count, bytes, int8_bytes}} of a capture's collectives of
+    `group` ("data", the exchange's; "model"; None: both), of those
+    `phase` called, given one."""
     return _summary([c for c in collectives(prof)
-                     if phase is None or c.phase == phase])
+                     if (phase is None or c.phase == phase)
+                     and (group is None or c.group == group)])
 
 
 def _class_totals(colls: dict) -> dict:

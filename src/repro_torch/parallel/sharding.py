@@ -23,9 +23,12 @@ entry per dim (None, an axis name, or a tuple of names), and a mesh is an
 ordered {axis: size} dict (`launch.mesh.production_mesh_shape`). Trees
 are the port's nested dicts (`repro_torch.tree`), whose keys are the JAX
 package's; a list index in a path reads "[i]", as JAX's sequence keys
-do. The port's trainer has no 'model' axis yet: `launch.dryrun` uses
-these rules for the per-device parameter bytes of the JAX package's
-layout and for batch splitting.
+do. The port's trainer lays its parameters out by these rules over the
+'model' axis of its process mesh: `shard_of` cuts a rank's shard of a
+leaf under its sanitised spec and `gather_to_full` (a collective over the
+model group) puts the leaf back together, both exact; `shard_tree` and
+`gather_tree` do so leaf by leaf. `launch.dryrun` uses the same rules for
+a rank's parameter bytes and for batch splitting.
 """
 from __future__ import annotations
 
@@ -146,6 +149,65 @@ def local_shape(shape, spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
             raise ValueError(f"local_shape: {n} shards do not divide dim "
                              f"{dim} of {tuple(shape)} under {spec}")
         out.append(dim // n)
+    return tuple(out)
+
+
+def model_axis(spec: Optional[Spec]) -> Optional[int]:
+    """The dimension a spec shards over 'model', or None."""
+    for i, ent in enumerate(spec or ()):
+        if ent is not None and "model" in _axes(ent):
+            return i
+    return None
+
+
+def shard_of(leaf, spec: Optional[Spec], index: int, size: int):
+    """Model rank `index` of `size`'s shard of the full `leaf` under its
+    (sanitised) spec: a view of its slice, or the leaf itself when the
+    spec shards nothing over 'model'."""
+    ax = model_axis(spec)
+    if ax is None or size == 1:
+        return leaf
+    n = leaf.shape[ax] // size
+    return leaf.narrow(ax, index * n, n)
+
+
+def gather_to_full(shard, spec: Optional[Spec], group):
+    """The full leaf from the model ranks' shards (`shard_of`'s inverse):
+    an all-gather over `group` (a `parallel.tensor.ModelGroup`) along the
+    spec's 'model' dimension; the shard itself when nothing is sharded.
+    The one place a rank holds a whole sharded leaf."""
+    ax = model_axis(spec)
+    if ax is None or group is None or group.size == 1:
+        return shard
+    return group.all_gather(shard, ax)
+
+
+def shard_tree(tree, specs, index: int, size: int, copy: bool = True):
+    """Every leaf of `tree` cut to rank `index`'s shard (copies, so the
+    full leaves can be freed, unless `copy` is False)."""
+    paths, leaves = T.flatten(tree)
+    sp = T.flatten_up_to(paths, specs)
+    out = []
+    for x, s in zip(leaves, sp):
+        y = shard_of(x, s, index, size)
+        out.append(y.clone() if copy and y is not x else y)
+    return T.unflatten(paths, out)
+
+
+def gather_tree(tree, specs, group):
+    """Every leaf of `tree` (a rank's shards) gathered to the full leaf."""
+    paths, leaves = T.flatten(tree)
+    sp = T.flatten_up_to(paths, specs)
+    return T.unflatten(paths, [gather_to_full(x, s, group)
+                               for x, s in zip(leaves, sp)])
+
+
+def global_shape(local, spec: Optional[Spec], size: int):
+    """The full shape of a leaf whose rank-local shape is `local`."""
+    ax = model_axis(spec)
+    out = list(local)
+    if ax is not None:
+        out[ax] *= size
     return tuple(out)
 
 

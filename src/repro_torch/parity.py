@@ -61,12 +61,27 @@ def _flipped(ref, got, thresholds) -> float:
     return bad / sum(a.numel() for a in ref)
 
 
+def _unchunk(e2, shape):
+    """A per-tensor two_phase residual laid back onto the leaf's `shape`:
+    owner w's row of e2 (W, *stored) is its chunk w along the chunk axis
+    ax (the one the stored shape cuts), held as the exchange holds it,
+    the chunk moved to lead, (c, *rest), reshaped to the stored shape."""
+    ax = next(i for i, (c, d) in enumerate(zip(e2.shape[1:], shape))
+              if c != d)
+    rest = tuple(d for i, d in enumerate(shape) if i != ax)
+    return torch.cat([torch.movedim(e.reshape((e2.shape[1 + ax],) + rest),
+                                    0, ax) for e in e2], dim=ax)
+
+
 def agreement(params, e1, W: int, n: int, *, e2=None, layout=None,
-              versions=None) -> Agreement:
+              versions=None, leaf_e2=None) -> Agreement:
     """`params`, `e1` and `e2` are (ref, got) pairs of lists of arrays
     (numpy or torch): the parameter leaves, each leaf's (W, ...) residual
     e1, and each bucket's e2 in `layout`'s order (two_phase, else None).
-    `versions` is a (ref, got) pair of arrays or None."""
+    `versions` is a (ref, got) pair of arrays or None. `leaf_e2` holds
+    the per-tensor two_phase residuals as (ref, got) pairs of {leaf
+    index: (W, *chunk)} (the leaves the buckets skip, or every leaf
+    without buckets), held like the buckets' e2."""
     rp, gp = [_t(x) for x in params[0]], [_t(x) for x in params[1]]
     re1, ge1 = [_t(x) for x in e1[0]], [_t(x) for x in e1[1]]
     problems = []
@@ -83,12 +98,26 @@ def agreement(params, e1, W: int, n: int, *, e2=None, layout=None,
         flips2 = _flipped(re2, ge2, [1e-3 * a.abs().max() for a in re2])
         if not flips2 <= MAX_FLIPPED:
             problems.append(f"{flips2:.2e} of the e2 residuals flipped")
-        # (W/n)·e2, unchunked onto the leaves
-        ur, ug = B.unpack_into(layout, re2, rp), B.unpack_into(layout, ge2,
-                                                              gp)
+        # (W/n)·e2, unchunked onto the leaves (zero on the leaves the
+        # buckets skip)
+        zeros = [torch.zeros_like(p) for p in rp]
+        ur, ug = (B.unpack_into(layout, re2, zeros),
+                  B.unpack_into(layout, ge2, zeros))
         inv_r = [a - W / n * u for a, u in zip(inv_r, ur)]
         inv_g = [a - W / n * u for a, u in zip(inv_g, ug)]
         emax = max(emax, W / n * max(a.abs().max().item() for a in re2))
+    if leaf_e2:
+        ref2 = {i: _t(x) for i, x in leaf_e2[0].items()}
+        got2 = {i: _t(x) for i, x in leaf_e2[1].items()}
+        keys = sorted(ref2)
+        flips2 = _flipped([ref2[i] for i in keys], [got2[i] for i in keys],
+                          [1e-3 * ref2[i].abs().max() for i in keys])
+        if not flips2 <= MAX_FLIPPED:
+            problems.append(f"{flips2:.2e} of the leaves' e2 flipped")
+        for i in keys:
+            inv_r[i] = inv_r[i] - W / n * _unchunk(ref2[i], rp[i].shape)
+            inv_g[i] = inv_g[i] - W / n * _unchunk(got2[i], gp[i].shape)
+            emax = max(emax, W / n * ref2[i].abs().max().item())
     flips = _flipped(re1, ge1, [1e-3 * emax] * len(re1))
     if not flips <= MAX_FLIPPED:
         problems.append(f"{flips:.2e} of the e1 residuals flipped")
@@ -121,11 +150,19 @@ def named_agreement(ref: dict, got: dict, W: int, n: int,
     e1 = [k for k in ref if k.startswith("ef/") and k.endswith("/e1")]
     e2 = sorted((k for k in ref if k.startswith("ef/bucket/")),
                 key=lambda k: int(k.split("/")[2]))
+    # per-tensor two_phase residuals, by the index of their leaf
+    leaf = {k[len("ef/"):-len("/e2")].removeprefix("leaf/"): k
+            for k in ref if k.startswith("ef/") and k.endswith("/e2")
+            and not k.startswith("ef/bucket/")}
+    names = [k[len("params/"):] for k in params]
+    leaf_e2 = ({names.index(p): ref[k] for p, k in leaf.items()},
+               {names.index(p): got[k] for p, k in leaf.items()})
     pair = lambda keys: ([ref[k] for k in keys], [got[k] for k in keys])
     return agreement(pair(params), pair(e1), W, n,
                      e2=pair(e2) if e2 else None, layout=layout,
                      versions=(ref["sched/versions"], got["sched/versions"])
-                     if "sched/versions" in ref else None)
+                     if "sched/versions" in ref else None,
+                     leaf_e2=leaf_e2 if leaf else None)
 
 
 def fsdp_agreement(ref: dict, got: dict, W: int, layout) -> Agreement:

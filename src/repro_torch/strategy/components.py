@@ -299,16 +299,18 @@ class ExchangePlan:
 
     # ------------------------------------------------------------------ #
     def start(self, compressor, plan: dict, p, ef_state: dict, rand,
-              workers, use_ef: bool, generator=None, spans: bool = False):
+              workers, use_ef: bool, generator=None, spans: bool = False,
+              shard=None):
         """Start the exchange of one stacked (L, ...) tensor across
         `workers` (`core.exchange.StackedWorkers`, all W rows on one
         device, or `ProcessGroupWorkers`, a rank's L rows): issues the
         collectives and returns a `core.exchange.ExchangeHandle`, whose
         `finish` waits for them. `spans` marks each compression with a
-        ``repro.obs/compress`` profiler range."""
+        ``repro.obs/compress`` profiler range; `shard` (an
+        `error_feedback.LeafShard`) marks a model-sharded tensor."""
         from repro_torch.core import exchange as X
         return X.start_exchange(compressor, plan, p, ef_state, rand,
-                                workers, use_ef, generator, spans)
+                                workers, use_ef, generator, spans, shard)
 
     def finish(self, handle):
         """(q̂, new_ef_state) from a handle returned by `start`."""

@@ -288,7 +288,14 @@ def test_run_combo_at_a_reduced_config(arch, shape, layout, exchange,
     assert rec["param_bytes_per_device"]["bytes"] > 0
     if shape == "train_4k":
         assert rec["flops"] >= rec["mf"] / 256   # one rank's share
-        assert rec["n_workers"] == 256
+        # dp: the (16, 16) data x model grid, 16 workers; fsdp: a pure
+        # data mesh of 256
+        assert rec["n_workers"] == (16 if layout == "dp" else 256)
+        assert rec["model_axis"] == (16 if layout == "dp" else 1)
+        if layout == "dp":
+            assert (rec["param_bytes_per_rank"]
+                    == rec["param_bytes_per_device"]["bytes"])
+            assert rec["collectives_model"]
         assert rec["ledger"]["wire_bytes_per_step"] > 0
         kinds = set(rec["collectives"])
         assert kinds >= ({"reduce_scatter", "all_gather"} if layout == "fsdp"

@@ -2,9 +2,9 @@
 of a gloo process group of CPU processes, and train DQGAN cases the same
 way in one process (stacked workers) or across the ranks.
 
-`run_ranks(fn, world, *args)` spawns `world` processes, each joining the
-group through a `file://` store in a temporary directory (no port), with
-one thread each; `fn(mesh, *args)` runs on every rank and its results
+`run_ranks(fn, world, *args, model=1)` spawns `world` processes, each
+joining the group through a `file://` store in a temporary directory (no
+port), with one thread each, as a (world / model, model) mesh; `fn(mesh, *args)` runs on every rank and its results
 come back in rank order. Every wait has a deadline: a rank that fails or
 hangs fails the test instead of stalling the run. This module imports no
 JAX, so the ranks start quickly.
@@ -21,14 +21,14 @@ import traceback
 import numpy as np
 
 
-def _entry(rank, world, init_file, fn, args, q):
+def _entry(rank, world, init_file, fn, args, q, model=1):
     try:
         import torch
         torch.set_num_threads(1)
         from repro_torch.launch.mesh import ProcessMesh
         mesh = ProcessMesh.init(rank, world, device_type="cpu",
                                 init_method=f"file://{init_file}",
-                                timeout_s=120)
+                                timeout_s=120, model=model)
         try:
             out = fn(mesh, *args)
         finally:
@@ -38,15 +38,17 @@ def _entry(rank, world, init_file, fn, args, q):
         q.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, world, *args, timeout=150.0):
-    """[fn(mesh_r, *args) for r in range(world)], each on its own rank."""
+def run_ranks(fn, world, *args, timeout=150.0, model=1):
+    """[fn(mesh_r, *args) for r in range(world)], each on its own rank of
+    a (world / model, model) mesh."""
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "group")
         procs = [ctx.Process(target=_entry,
-                             args=(r, world, init_file, fn, args, q))
+                             args=(r, world, init_file, fn, args, q,
+                                   model))
                  for r in range(world)]
         for p in procs:
             p.start()
