@@ -170,13 +170,18 @@ result line):
               refused; the ranks then take gloo over CUDA tensors);
               gemma-2b at its published widths, 4 of 18 layers, batch 2 x
               2048, one process (peak memory), then two spawned ranks of a
-              data 1 x model 2 mesh on the card, 5 steps: each rank holds
-              its shards, B1 once a step over the replicated leaves'
-              bucket, bit-equal to its plain version on a step's
+              data 1 x model 2 mesh on the card, 5 steps, and on the same
+              ranks mamba2-1.3b (48 layers, batch 2 x 2048),
+              recurrentgemma-2b (2 layers, batch 1 x 2048) and
+              whisper-tiny (whole, batch 16 x 448), 3 steps each: each
+              rank holds its shards, B1 once a step over the replicated
+              leaves' bucket, bit-equal to its plain version on a step's
               operands, the replicated parameters bit-identical on both
-              ranks, each rank's peak against the one process's; the
-              dry-run's forecast of a rank's peak within 0.85-1.15 of the
-              measured
+              ranks, each rank's peak against the one process's (phase
+              zoo's for the three); the dry-run's forecast of a rank's
+              peak within 0.85-1.15 of the measured for gemma-2b and
+              mamba2-1.3b (reported for the other two), its parameter
+              bytes equal to the rank's
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -3515,11 +3520,12 @@ def zoo_train_other(dev, gpu, b1_paths):
     """recurrentgemma-2b at ZOO_RG_LAYERS layers, batch ZOO_RG_BATCH x
     LM_SEQ, and whisper-tiny whole, batch ZOO_WH_BATCH x ZOO_WH_SEQ with
     1500 encoder frames a row: finite losses and gradients, B1 once a
-    step, median step, peak memory."""
+    step, median step, peak memory. Returns {arch: peak memory}."""
     import torch
     from repro_torch import tree as T
     from repro_torch.kernels import quantize as Q
     from repro_torch.models.model import pattern_kinds
+    peaks = {}
     for arch, layers, steps, batch, seq in (
             (ZOO_RG, ZOO_RG_LAYERS, ZOO_RG_STEPS, ZOO_RG_BATCH, LM_SEQ),
             (ZOO_WH, 4, ZOO_WH_STEPS, ZOO_WH_BATCH, ZOO_WH_SEQ)):
@@ -3547,8 +3553,10 @@ def zoo_train_other(dev, gpu, b1_paths):
               f"ms (first {times[0] * 1e3:.1f} ms), losses "
               f"{[round(x, 4) for x in losses]}, peak memory {gib(peak):.2f} "
               f"GiB; gpu {gpu}")
+        peaks[arch] = peak
         del tr, st, batches
         free_cuda()
+    return peaks
 
 
 def zoo_serve_ssd(dev, gpu):
@@ -3868,8 +3876,9 @@ def phase_zoo(dev, gpu):
     RG-LRU mixer with windowed attention (recurrentgemma-2b) and the
     encoder-decoder (whisper-tiny), trained through B1 and served. Each
     part prints its wall time. Returns ({path: B1 launches}, {path: B2
-    launches}, B1's record for its call over mamba2's gradient, mamba2's
-    peak memory, median step and B1 launches a step)."""
+    launches}, B1's record for its call over mamba2's gradient, and
+    mamba2's peak memory, median step and B1 launches a step with the
+    three archs' peaks by arch)."""
     import torch
     b1_paths, b2_paths = {}, {}
     free_cuda()
@@ -3879,8 +3888,9 @@ def phase_zoo(dev, gpu):
     try:
         call, measured = timed("zoo train mamba2", zoo_train_ssd, dev, gpu,
                                b1_paths)
-        timed("zoo train recurrentgemma, whisper", zoo_train_other, dev,
-              gpu, b1_paths)
+        measured["peaks"] = {ZOO_SSD: measured["peak_bytes"], **timed(
+            "zoo train recurrentgemma, whisper", zoo_train_other, dev, gpu,
+            b1_paths)}
     finally:
         free_cuda()
         torch.cuda.memory._set_allocator_settings(
@@ -4014,7 +4024,12 @@ def phase_dryrun(gpu, lm_meas, zoo_meas):
 # the one card, each holding its half of the training state, so the
 # one-process step at the same depth must fit the card too
 TP_ARCH, TP_LAYERS, TP_STEPS = "gemma-2b", 4, 5
-TP_WAIT_S = 420.0          # the ranks' deadline
+# the mixers and the encoder-decoder on the same two ranks, at phase
+# zoo's depths and batches: (arch, layers, batch, seq, steps, seed)
+TP_ZOO = ((ZOO_SSD, ZOO_SSD_LAYERS, LM_BATCH, LM_SEQ, 3, 23),
+          (ZOO_RG, ZOO_RG_LAYERS, ZOO_RG_BATCH, LM_SEQ, 3, 29),
+          (ZOO_WH, 4, ZOO_WH_BATCH, ZOO_WH_SEQ, 3, 29))
+TP_WAIT_S = 600.0          # the ranks' deadline
 PROBE_WAIT_S = 90.0
 
 
@@ -4085,23 +4100,39 @@ def tp_nccl_probe(rank, init):
             dist.destroy_process_group()
 
 
-def tp_rank(rank, init, backend):
-    """Rank `rank` of the data 1 x model 2 mesh on cuda:0: gemma-2b at
-    TP_LAYERS layers over the rank's shards, TP_STEPS steps (B1 once a
-    step over the replicated leaves' bucket, finite losses), the rank's
-    peak memory past its initial state, one more step with B1's operands
-    held bit for bit to its plain version, and a digest of each
-    replicated parameter. What the rank prints comes back as "log", for
+def tp_rank(rank, init, backend, runs):
+    """Rank `rank` of the data 1 x model 2 mesh on cuda:0, each of `runs`
+    in turn (`_tp_train`). What the rank prints comes back as "log", for
     the parent to print in rank order."""
     import io
     buf = io.StringIO()
     with redirect_stdout(buf):
-        out = _tp_rank(rank, init, backend)
-    out["log"] = buf.getvalue()
-    return out
+        out = _tp_rank(rank, init, backend, runs)
+    return {"runs": out, "log": buf.getvalue()}
 
 
-def _tp_rank(rank, init, backend):
+def _tp_rank(rank, init, backend, runs):
+    import torch
+    from repro_torch.launch.mesh import ProcessMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # as in phase zoo: recurrentgemma-2b's step needs whole segments
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    mesh = ProcessMesh.init(rank, 2, device_type="cuda", local_rank=0,
+                            init_method=init, model=2, backend=backend,
+                            timeout_s=TP_WAIT_S)
+    try:
+        return [_tp_train(mesh, rank, *run) for run in runs]
+    finally:
+        mesh.close()
+
+
+def _tp_train(mesh, rank, arch, layers, batch, seq, steps, seed):
+    """`arch` at `layers` layers over the rank's shards, batch `batch` x
+    `seq`: `steps` steps (B1 once a step over the replicated leaves'
+    bucket, finite losses), the rank's peak memory, one more step with
+    B1's operands held bit for bit to its plain version, and a digest of
+    each replicated parameter; the trainer is freed before it returns."""
     import dataclasses
     import hashlib
 
@@ -4112,77 +4143,110 @@ def _tp_rank(rank, init, backend):
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.data import lm_batch_iterator
     from repro_torch.kernels import quantize as Q
-    from repro_torch.launch.mesh import ProcessMesh
     from repro_torch.models import build, param_specs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mesh = ProcessMesh.init(rank, 2, device_type="cuda", local_rank=0,
-                            init_method=init, model=2, backend=backend,
-                            timeout_s=TP_WAIT_S)
-    try:
-        dev = mesh.device
-        cfg = dataclasses.replace(get(TP_ARCH), num_layers=TP_LAYERS)
-        bundle = build(cfg, mesh)
-        dq = DQConfig.from_strategy(single_strategy(), optimizer="omd",
-                                    lr=1e-4, message="update")
-        tr = DQGAN(field_fn=bundle.field_fn, dq=dq, mesh=mesh, seed=8,
-                   param_specs=param_specs(cfg, mesh, LM_SEQ))
-        gen = torch.Generator(device=dev).manual_seed(7)
-        st = tr.init(bundle.init(generator=gen, device=dev, max_seq=LM_SEQ))
-        batches = lm_batch_iterator(LM_BATCH, LM_SEQ, cfg.vocab_size,
-                                    generator=gen, device=dev)
-        layout = tr._comm(st.params)[0]
-        rows = sum(b.size for b in layout.buckets) // 1024
-        free_cuda()
-        torch.cuda.reset_peak_memory_stats()
-        Q.reset_launches()
-        # one step a call, as phase lm train takes them: a caller holding
-        # the state it passed in would keep the first state alive beside
-        # every later step's
-        times, losses = [], []
-        for _ in range(TP_STEPS):
-            st, t, l, _ = lm_steps(tr, st, batches, 1, f"tp rank {rank}")
-            times += t
-            losses += l
-        launches = Q.launches
-        peak = torch.cuda.max_memory_allocated()
-        st = lm_check_b1_step(tr, st, batches, rows, f"tp rank {rank}")
-        shards = tr.state_shards(st)
-        digests = {n: hashlib.sha256(x.detach().cpu().view(torch.uint8)
-                                     .numpy().tobytes()).hexdigest()
-                   for n, x in CK._paths(st.params)
-                   if f"params/{n}" not in shards.leaves}
-        return {"launches": launches, "peak": peak, "times": times,
-                "losses": losses, "rows": rows, "skipped": len(layout.skipped),
-                "digests": digests, "backend": backend,
-                "param_bytes": sum(x.numel() * x.element_size()
-                                   for x in T.leaves(st.params))}
-    finally:
-        mesh.close()
+    dev = mesh.device
+    cfg = dataclasses.replace(get(arch), num_layers=layers)
+    bundle = build(cfg, mesh)
+    dq = DQConfig.from_strategy(single_strategy(), optimizer="omd",
+                                lr=1e-4, message="update")
+    tr = DQGAN(field_fn=bundle.field_fn, dq=dq, mesh=mesh, seed=seed + 1,
+               param_specs=param_specs(cfg, mesh, seq))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = tr.init(bundle.init(generator=gen, device=dev, max_seq=seq))
+    batches = lm_batch_iterator(
+        batch, seq, cfg.vocab_size, generator=gen, device=dev,
+        enc_shape=((cfg.encdec.enc_seq, cfg.d_model) if cfg.is_encdec
+                   else None))
+    layout = tr._comm(st.params)[0]
+    rows = sum(b.size for b in layout.buckets) // 1024
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    # one step a call, as phase lm train takes them: a caller holding
+    # the state it passed in would keep the first state alive beside
+    # every later step's
+    times, losses = [], []
+    for _ in range(steps):
+        st, t, l, _ = lm_steps(tr, st, batches, 1, f"tp {arch} rank {rank}")
+        times += t
+        losses += l
+    launches = Q.launches
+    peak = torch.cuda.max_memory_allocated()
+    st = lm_check_b1_step(tr, st, batches, rows, f"tp {arch} rank {rank}")
+    shards = tr.state_shards(st)
+    digests = {n: hashlib.sha256(x.detach().cpu().view(torch.uint8)
+                                 .numpy().tobytes()).hexdigest()
+               for n, x in CK._paths(st.params)
+               if f"params/{n}" not in shards.leaves}
+    out = {"arch": arch, "launches": launches, "peak": peak,
+           "times": times, "losses": losses, "rows": rows,
+           "skipped": len(layout.skipped), "digests": digests,
+           "backend": mesh.backend,
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in T.leaves(st.params))}
+    del tr, st, batches, bundle
+    free_cuda()
+    return out
 
 
-def phase_tp(dev, gpu):
-    """The trainer's 'model' axis on the card: gemma-2b at its published
-    widths, TP_LAYERS of 18 layers, batch LM_BATCH x LM_SEQ, omd,
-    qsgd8_block1024 over uniform 4 MiB buckets:
+def _tp_report(i, r, steps, one_peak, gpu):
+    """Rank i's record of one arch: its checks and its line."""
+    check(r["launches"] == steps, f"tp {r['arch']} rank {i}: B1 launched "
+          f"{r['launches']} times in {steps} steps")
+    print(f"# tp (c) {r['arch']} rank {i}: {r['param_bytes']} parameter "
+          f"bytes, {r['skipped']} sharded leaves on the per-tensor path, B1 "
+          f"{r['launches']} in {steps} steps over {r['rows']} rows, losses "
+          f"{[round(x, 4) for x in r['losses']]}, peak {gib(r['peak']):.2f} "
+          f"GiB ({r['peak'] / one_peak:.3f} of the one-process peak "
+          f"{gib(one_peak):.2f} GiB), median step "
+          f"{statistics.median(r['times'][1:]) * 1e3:.3f} ms over "
+          f"{r['backend']} (two ranks share the card: not a tensor-parallel "
+          f"speed); gpu {gpu}")
+
+
+def _tp_forecast(i, r, fc, strict):
+    """The dry-run's forecast of rank i's peak and parameter bytes: the
+    bytes always equal, the peak within 0.85-1.15 where `strict`."""
+    ratio = fc["peak_bytes"] / r["peak"]
+    print(f"# tp (d) {r['arch']} rank {i}: forecast peak "
+          f"{gib(fc['peak_bytes']):.2f} GiB against {gib(r['peak']):.2f} "
+          f"measured (ratio {ratio:.3f}{'' if strict else ', reported'}); "
+          f"forecast parameter bytes {fc['param_bytes_per_rank']}; "
+          f"model-group collectives {fc['collectives_model']}")
+    if strict:
+        check(0.85 <= ratio <= 1.15, f"tp {r['arch']} rank {i}: forecast "
+              f"peak {fc['peak_bytes']} against {r['peak']} measured")
+    check(fc["param_bytes_per_rank"] == r["param_bytes"],
+          f"tp {r['arch']} rank {i}: forecast parameter bytes "
+          f"{fc['param_bytes_per_rank']} against {r['param_bytes']}")
+
+
+def phase_tp(dev, gpu, zoo_peaks):
+    """The trainer's 'model' axis on the card, omd, qsgd8_block1024 over
+    uniform 4 MiB buckets:
     (a) NCCL with two ranks on the one card (expected refused: NCCL takes
         one rank a device); when it refuses, the ranks' groups are gloo
         over the CUDA tensors, which stay on the card;
-    (b) the one-process step at the same depth, TP_STEPS steps: its peak
-        memory past the initial state;
-    (c) the same arch on a data 1 x model 2 mesh, two spawned ranks: each
-        holds its shards only (the sharded leaves off the buckets, on the
-        per-tensor path), B1 once a step over the replicated leaves'
-        bucket, finite losses, the rank's peak against (b)'s (expected
-        0.50-0.60, PERF.md), one step's B1 operands bit-equal to its plain
-        version, the replicated parameters bit-identical on the two ranks;
-        the median step on the named backend is not a tensor-parallel
-        speed (two ranks share the card, and gloo stages through the
-        host);
-    (d) the dry-run's forecast of one rank's peak (`launch.dryrun`'s
-        trace at the same mesh, on the meta device) within 0.85-1.15 of
-        the measured, and its parameter bytes equal to the rank's.
-    Returns B1's launches on the path (each rank's)."""
+    (b) gemma-2b at its published widths, TP_LAYERS of 18 layers, batch
+        LM_BATCH x LM_SEQ, the one-process step at the same depth,
+        TP_STEPS steps: its peak memory past the initial state;
+    (c) two spawned ranks of a data 1 x model 2 mesh, that gemma-2b then
+        the mixers and the encoder-decoder (TP_ZOO: mamba2-1.3b,
+        recurrentgemma-2b and whisper-tiny at phase zoo's depths and
+        batches, whose one-process peaks are phase zoo's `zoo_peaks`):
+        each rank holds its shards only (the sharded leaves off the
+        buckets, on the per-tensor path), B1 once a step over the
+        replicated leaves' bucket, finite losses, the rank's peak
+        against the one process's (expected ratios in PERF.md), one
+        step's B1 operands bit-equal to its plain version, the
+        replicated parameters bit-identical on the two ranks; the median
+        step on the named backend is not a tensor-parallel speed (two
+        ranks share the card, and gloo stages through the host);
+    (d) the dry-run's forecast of one rank (`launch.dryrun`'s trace at the
+        same mesh, on the meta device): its parameter bytes equal to the
+        rank's, its peak within 0.85-1.15 of the measured for gemma-2b
+        and mamba2-1.3b (reported for the other two).
+    Returns B1's launches on the path (each rank's, by arch)."""
     import dataclasses
 
     import torch
@@ -4209,7 +4273,7 @@ def phase_tp(dev, gpu):
     torch.cuda.reset_peak_memory_stats()
     Q.reset_launches()
     times1 = []
-    for _ in range(TP_STEPS):     # one step a call (see tp_rank)
+    for _ in range(TP_STEPS):     # one step a call (see _tp_train)
         st, t, _, _ = lm_steps(tr, st, batches, 1, "tp one process")
         times1 += t
     peak1 = torch.cuda.max_memory_allocated()
@@ -4222,54 +4286,40 @@ def phase_tp(dev, gpu):
 
     # ---- (c) two ranks, data 1 x model 2 --------------------------------- #
     t0 = time.perf_counter()
-    res = _spawn_ranks(tp_rank, 2, (backend,), TP_WAIT_S)
+    runs = ((TP_ARCH, TP_LAYERS, LM_BATCH, LM_SEQ, TP_STEPS, 7),) + TP_ZOO
+    res = _spawn_ranks(tp_rank, 2, (backend, runs), TP_WAIT_S)
     bad = [r for ok, r in res if not ok]
     check(not bad, "tp: a rank failed:\n" + "\n".join(bad))
-    ranks = [r for _, r in res]
-    for r in ranks:
+    for _, r in res:
         print(r["log"], end="")
-    for i, r in enumerate(ranks):
-        check(r["launches"] == TP_STEPS, f"tp rank {i}: B1 launched "
-              f"{r['launches']} times in {TP_STEPS} steps")
-        print(f"# tp (c) rank {i}: {r['param_bytes']} parameter bytes, "
-              f"{r['skipped']} sharded leaves on the per-tensor path, B1 "
-              f"{r['launches']} in {TP_STEPS} steps over {r['rows']} rows, "
-              f"losses {[round(x, 4) for x in r['losses']]}, peak "
-              f"{gib(r['peak']):.2f} GiB ({r['peak'] / peak1:.3f} of the "
-              f"one-process peak), median step "
-              f"{statistics.median(r['times'][1:]) * 1e3:.3f} ms over "
-              f"{r['backend']} (two ranks share the card: not a "
-              f"tensor-parallel speed); gpu {gpu}")
-    check(ranks[0]["digests"] == ranks[1]["digests"]
-          and ranks[0]["digests"],
-          "tp: the replicated parameters differ across the model ranks")
-    check(ranks[0]["losses"] == ranks[1]["losses"],
-          f"tp: the ranks' losses differ: {ranks[0]['losses']} "
-          f"{ranks[1]['losses']}")
-    print(f"# tp (c): {len(ranks[0]['digests'])} replicated parameters "
-          f"bit-identical on both ranks after {TP_STEPS + 1} steps; the "
-          f"ranks took {time.perf_counter() - t0:.1f} s")
+    peaks = {TP_ARCH: peak1, **zoo_peaks}
+    launches = {}
+    for (arch, layers, batch, seq, steps, _), *ranks in zip(
+            runs, *[r["runs"] for _, r in res]):
+        for i, r in enumerate(ranks):
+            _tp_report(i, r, steps, peaks[arch], gpu)
+            launches[f"tp {arch} model 2 rank {i}"] = r["launches"]
+        check(ranks[0]["digests"] == ranks[1]["digests"]
+              and ranks[0]["digests"], f"tp {arch}: the replicated "
+              f"parameters differ across the model ranks")
+        check(ranks[0]["losses"] == ranks[1]["losses"],
+              f"tp {arch}: the ranks' losses differ: {ranks[0]['losses']} "
+              f"{ranks[1]['losses']}")
+        print(f"# tp (c) {arch}: {len(ranks[0]['digests'])} replicated "
+              f"parameters bit-identical on both ranks after {steps + 1} "
+              f"steps")
 
-    # ---- (d) the dry-run's forecast of a rank ---------------------------- #
-    cfg = dataclasses.replace(configs.get(TP_ARCH), num_layers=TP_LAYERS)
-    shape = configs.InputShape(f"{TP_ARCH}-{TP_LAYERS}", LM_SEQ, LM_BATCH,
-                               "train")
-    fc = dryrun.trace_train(cfg, shape, single_strategy(), ranks=2, model=2,
-                            optimizer="omd", lr=1e-4, message="update")
-    for i, r in enumerate(ranks):
-        ratio = fc["peak_bytes"] / r["peak"]
-        print(f"# tp (d) rank {i}: forecast peak {gib(fc['peak_bytes']):.2f} "
-              f"GiB against {gib(r['peak']):.2f} measured (ratio "
-              f"{ratio:.3f}); forecast parameter bytes "
-              f"{fc['param_bytes_per_rank']}; model-group collectives "
-              f"{fc['collectives_model']}")
-        check(0.85 <= ratio <= 1.15, f"tp rank {i}: forecast peak "
-              f"{fc['peak_bytes']} against {r['peak']} measured")
-        check(fc["param_bytes_per_rank"] == r["param_bytes"],
-              f"tp rank {i}: forecast parameter bytes "
-              f"{fc['param_bytes_per_rank']} against {r['param_bytes']}")
-    return {f"tp {TP_ARCH} model 2 rank {i}": r["launches"]
-            for i, r in enumerate(ranks)}
+        # ---- (d) the dry-run's forecast of a rank ------------------------ #
+        cfg = dataclasses.replace(configs.get(arch), num_layers=layers)
+        shape = configs.InputShape(f"{arch}-{layers}", seq, batch, "train")
+        fc = dryrun.trace_train(cfg, shape, single_strategy(), ranks=2,
+                                model=2, optimizer="omd", lr=1e-4,
+                                message="update")
+        for i, r in enumerate(ranks):
+            _tp_forecast(i, r, fc, arch in (TP_ARCH, ZOO_SSD))
+    print(f"# tp (c): the ranks took {time.perf_counter() - t0:.1f} s; gpu "
+          f"{gpu}")
+    return launches
 
 
 def timed(label, fn, *args, **kw):
@@ -4332,7 +4382,7 @@ def main():
         zoo_b1, zoo_b2, zoo_call, zoo_meas = timed("zoo", phase_zoo, dev,
                                                    gpu)
         timed("dryrun", phase_dryrun, gpu, lm_meas, zoo_meas)
-        tp_b1 = timed("tp", phase_tp, dev, gpu)
+        tp_b1 = timed("tp", phase_tp, dev, gpu, zoo_meas["peaks"])
         b1["launches"] = timed("train 1 worker", phase_train)
         b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
         b3["launches"] = timed("serve", phase_serve)

@@ -14,8 +14,11 @@ Shard-aware mode (the JAX package's, DESIGN.md §15.1): given
 those axes, evenly, buckets at its *local* (per-owner) shape, in a slot
 marked ``local=True``; pack and unpack then take and give the local
 shard. A leaf sharded over any other axis still skips. The port's
-trainer shards no leaf (it has no model axis), so its layouts use
-neither; the mode is here for layouts built from specs.
+trainer builds its layouts from its specs and its mesh's axis sizes
+without ``shard_axes``: a leaf sharded over 'model' skips the buckets
+and takes the per-tensor path (`core.dqgan.DQGAN._start_skipped`),
+and the rest bucket. The shard-aware mode is here for layouts built
+from specs with ``shard_axes``.
 """
 from __future__ import annotations
 

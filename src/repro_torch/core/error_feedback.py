@@ -296,19 +296,27 @@ def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
     rounding (the kernel rounds m, the compressor |m| with its sign).
     `shard` (a `LeafShard`): the rows are slices of model-sharded
     tensors, compressed as the global tensors are (a flat one the fused
-    kernel realizes through it, on the slices); `rand` then holds the
-    global draws."""
+    kernel realizes through it: on the slices where each holds whole
+    scale rows, else on the gathered rows); `rand` then holds the global
+    draws."""
     R = message.shape[0]
     n = message[0].numel()
     if shard is not None and not (
             use_ef and allow_fused and len(shard.shape) == 1
-            and fused_compatible(compressor, message[0])
-            and shard.shape[0] % FUSED_BLOCK == 0):
+            and fused_compatible(compressor, message.new_empty(
+                shard.shape, device="meta"))):
         m = message + e_prev.to(message.dtype) if use_ef else message
         payload, m_hat = _compress_sharded(compressor, m, rand, generator,
                                            shard)
         e_new = (m - m_hat).to(e_prev.dtype) if use_ef else e_prev
         return payload, m_hat, e_new
+    if shard is not None and not fused_compatible(compressor, message[0]):
+        # the slices cut the flat leaf's scale rows: the fused kernel runs
+        # on the gathered leaf, as the JAX package runs it on the global one
+        payload, m_hat, e_new = compress_with_ef_stacked(
+            compressor, shard.gather(message), shard.gather(e_prev), rand,
+            generator)
+        return payload, shard.slice(m_hat), shard.slice(e_new)
     per_worker = isinstance(generator, (list, tuple))
     if shard is not None:
         # a flat sharded leaf the fused kernel takes (as the JAX package

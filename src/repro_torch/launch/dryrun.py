@@ -22,11 +22,9 @@ or 512 (`multi`) cards is that many ranks, one card each.
   16): each rank holds its shards of the parameters under the rules
   (`parallel.sharding`), the workers run over 'pod' × 'data' (16, or 32
   sharing the global batch of 256 in the multi-pod fleet), the flags'
-  per-leaf exchange. The SSD and RG-LRU mixers and the encoder-decoder
-  are traced at model 1 (every rank a worker with the replica; ROADMAP
-  slice 9b), labelled so in `model_axis`. Under `fsdp` the port's ZeRO-3
-  runs over all the ranks with model 1 (uniform 4 MiB buckets), as the
-  port keeps fsdp on a pure data mesh. One `step` on one rank's rows of
+  per-leaf exchange; every arch, the mixers and the encoder-decoder
+  too. Under `fsdp` the port's ZeRO-3 runs over all the ranks with model
+  1 (uniform 4 MiB buckets), as the port keeps fsdp on a pure data mesh. One `step` on one rank's rows of
   the global batch.
 - prefill: `prefill` at the shape's batch split per `batch_spec`.
 - decode: `decode_step` against dense caches of `seq_len`, batch split
@@ -174,16 +172,6 @@ def _meta_params(cfg, shape, mesh=None):
     return build(cfg, mesh).init(device=S.META, max_seq=_max_seq(cfg, shape))
 
 
-def model_axis_for(cfg, layout: str, mesh_shape) -> int:
-    """The model axis a train combo traces: the production mesh's under
-    `dp`, 1 under `fsdp` (a pure data mesh) and for the archs the axis
-    does not cover yet (ROADMAP slice 9b)."""
-    from repro_torch.models.model import covers_model_axis
-    if layout != "dp" or not covers_model_axis(cfg):
-        return 1
-    return mesh_shape.get("model", 1)
-
-
 def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
                 optimizer: str = "omd", extrapolation: str = "local",
                 lr: float = 1e-4, message: str = "update") -> dict:
@@ -255,13 +243,14 @@ def trace_decode(cfg, shape, batch: int, mesh=None,
                        tokens, caches)
 
 
-def param_bytes_per_device(cfg, layout: str, mesh) -> dict:
+def param_bytes_per_device(cfg, layout: str, mesh, max_seq: int) -> dict:
     """Bytes of one device's parameter shards under the JAX package's
-    `layout` on `mesh` (its 'model' axis included)."""
+    `layout` on `mesh` (its 'model' axis included); `max_seq` is the
+    length of a learned position table, as the traced params take it."""
     from repro_torch import tree as T
     from repro_torch.launch import specs as S
     from repro_torch.parallel import sharding as shd
-    params, specs = S.abstract_params(cfg, mesh, layout, 8)
+    params, specs = S.abstract_params(cfg, mesh, layout, max_seq)
     paths, leaves = T.flatten(params)
     total = sum(math.prod(shd.local_shape(tuple(w.shape), sp, mesh))
                 * w.element_size()
@@ -312,21 +301,19 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, *,
         rec["chips"] = rec["ranks"] = n_chips
         rec["worker_axes_reference"] = list(worker_axes_for(layout,
                                                             multi_pod))
-        rec["param_bytes_per_device"] = param_bytes_per_device(cfg, layout,
-                                                               mesh)
+        rec["param_bytes_per_device"] = param_bytes_per_device(
+            cfg, layout, mesh, _max_seq(cfg, shape))
         B = shape.global_batch
         local = shd.local_shape((B,), shd.batch_spec(mesh, B), mesh)[0]
         if shape.kind == "train":
             strat = train_strategy(layout, exchange=exchange,
                                    compressor=compressor, ef_dtype=ef_dtype)
-            model = model_axis_for(cfg, layout, mesh)
+            # the production mesh's model axis under dp; fsdp keeps a
+            # pure data mesh
+            model = mesh.get("model", 1) if layout == "dp" else 1
             rec.update(trace_train(cfg, shape, strat, ranks=n_chips,
                                    model=model, optimizer=optimizer,
                                    extrapolation=extrapolation))
-            if model == 1 and layout == "dp":
-                rec["model_axis_note"] = ("traced at model 1: the mixers "
-                                          "and the encoder-decoder are "
-                                          "ROADMAP slice 9b")
         elif shape.kind == "prefill":
             rec["batch_per_rank"] = local
             rec.update(trace_prefill(cfg, shape, local))

@@ -34,9 +34,8 @@ by `parallel.sharding`'s rules (`models.build(cfg, mesh)`: each rank
 holds its shards), and the W workers spread over the data ranks, W / data
 each (`core.exchange.ProcessGroupWorkers`); ``--workers`` stays the
 global W. The model-sharded leaves bypass the buckets (a ``# comm:
-WARNING`` line says how many) and take the per-tensor path. Under a
-model axis the SSD and RG-LRU mixers and the encoder-decoder are refused
-(ROADMAP slice 9b). Every rank draws the same global batch and takes its
+WARNING`` line says how many) and take the per-tensor path. The axis
+covers every arch. Every rank draws the same global batch and takes its
 data rows; rank 0 prints. Checkpoints gather the model shards and the
 worker rows to rank 0 and hold what a one-process run saves, with the
 mesh in a sharded directory's manifest (one file a rank by default); a
@@ -132,7 +131,6 @@ from repro_torch.core.dqgan import DQGAN
 from repro_torch.data import lm_batch_iterator, procedural_images
 from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import build, gan, param_specs
-from repro_torch.models.model import check_model_axis
 from repro_torch.sched import clock as sclock
 from repro_torch.sched import n_participants
 from repro_torch.sched import straggler as sstrag
@@ -226,11 +224,6 @@ def main(argv=None):
         if W % (world // model):
             ap.error(f"--workers {W} must split over {world // model} "
                      f"data ranks")
-        if model > 1 and not isinstance(cfg, gan.GANConfig):
-            try:
-                check_model_axis(cfg, model)
-            except ValueError as e:
-                ap.error(str(e))
         mesh = ProcessMesh.from_env(device.type, model=model)
         device = mesh.device
     try:

@@ -25,7 +25,8 @@ replicated bias) or replicated. The MLP is column (`gate`, `up`) then row
 fall on head boundaries; otherwise (a split KV head, as gemma-2b's one
 MQA head over two ranks) it gathers the sharded projections over the
 model group, computes attention replicated, and hands the row-parallel
-`o` the rank's slice of its input.
+`o` the rank's slice of its input. Cross-attention follows the same
+rule, its k and v projecting the encoder output.
 """
 from __future__ import annotations
 
@@ -322,15 +323,18 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
     """Prefill or train (cache None; with fill_cache=True the K/V come back
     as a decode-ready cache), dense-cache decode (cache {"k", "v", "pos"}),
     paged decode (cache {"k": pool, "v": pool, "table"}), or
-    cross-attention (cross_kv = (k, v), each (B, Se, K, hd), projected
-    from the encoder output; no mask, no cache). Returns (out, new_cache)."""
+    cross-attention (cross_kv: the encoder output (B, Se, d), which the
+    block's k and v project; no mask, no cache). Returns (out,
+    new_cache)."""
     B, S, d = x.shape
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if TP.current() is not None and cache is None and cross_kv is None:
-        return _attn_train_tp(p, x, cfg, positions, causal, fill_cache)
+    if TP.current() is not None and cache is None:
+        return _attn_train_tp(p, x, cfg, positions, causal, fill_cache,
+                              enc=cross_kv)
     q = _split_heads(linear(p["q"], x), H, hd)
     if cross_kv is not None:
-        k, v = cross_kv
+        k = _split_heads(linear(p["k"], cross_kv), Kh, hd)
+        v = _split_heads(linear(p["v"], cross_kv), Kh, hd)
         out = attention_dense(q, k, v, positions,
                               torch.arange(k.shape[1], device=x.device),
                               causal=False)
@@ -387,13 +391,15 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
     return linear(p["o"], out), cache
 
 
-def _attn_train_tp(p, x, cfg, positions, causal, fill_cache):
-    """Training self-attention under a model group. The column-parallel
-    q/k/v take x through `copy_to`, replicated ones take it as it is.
-    Head-local when q, k and v all shard on head boundaries (each rank's
-    query heads then attend to its own KV heads); otherwise the sharded
-    projections are gathered and attention runs replicated, and the
-    row-parallel `o` takes the rank's slice of its output."""
+def _attn_train_tp(p, x, cfg, positions, causal, fill_cache, enc=None):
+    """Training attention under a model group: self-attention, or with
+    `enc` (the encoder output) cross-attention, whose k and v project
+    `enc`. The column-parallel q/k/v take their input through `copy_to`,
+    replicated ones take it as it is. Head-local when q, k and v all
+    shard on head boundaries (each rank's query heads then attend to its
+    own KV heads); otherwise the sharded projections are gathered and
+    attention runs replicated, and the row-parallel `o` takes the rank's
+    slice of its output."""
     if fill_cache:
         raise ValueError("attn_apply: a tensor-parallel prefill is not "
                          "supported; the model axis is the trainer's")
@@ -401,10 +407,12 @@ def _attn_train_tp(p, x, cfg, positions, causal, fill_cache):
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = TP.current().size
     q_sh, kv_sh = TP.shards(H * hd), TP.shards(Kh * hd)
-    xs = TP.copy_to(x) if q_sh or kv_sh else x
+    xs = TP.copy_to(x) if q_sh or (kv_sh and enc is None) else x
+    src = x if enc is None else enc
+    srcs = (xs if enc is None else TP.copy_to(enc)) if kv_sh else src
     q = linear(p["q"], xs if q_sh else x)
-    k = linear(p["k"], xs if kv_sh else x)
-    v = linear(p["v"], xs if kv_sh else x)
+    k = linear(p["k"], srcs)
+    v = linear(p["v"], srcs)
     local = q_sh and kv_sh and H % g == 0 and Kh % g == 0
     if local:
         Hl, Kl = H // g, Kh // g
@@ -416,15 +424,21 @@ def _attn_train_tp(p, x, cfg, positions, causal, fill_cache):
         Hl, Kl = H, Kh
     q, k, v = (_split_heads(q, Hl, hd), _split_heads(k, Kl, hd),
                _split_heads(v, Kl, hd))
-    if cfg.use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    pos = torch.arange(S, device=x.device)
     win = cfg.attention_window
-    if S > _CHUNKED_PREFILL:
-        out = attention_chunked(q, k, v, window=win, causal=causal)
+    if enc is not None:     # no positions, no mask
+        out = attention_dense(q, k, v, positions,
+                              torch.arange(k.shape[1], device=x.device),
+                              causal=False)
     else:
-        out = attention_dense(q, k, v, pos, pos, window=win, causal=causal)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        pos = torch.arange(S, device=x.device)
+        if S > _CHUNKED_PREFILL:
+            out = attention_chunked(q, k, v, window=win, causal=causal)
+        else:
+            out = attention_dense(q, k, v, pos, pos, window=win,
+                                  causal=causal)
     if not local and q_sh:
         out = TP.scatter_to(out)
     return row_linear(p["o"], out, H * hd), None

@@ -18,6 +18,14 @@ A decode step writes its new state into the state tensors it was given
 (``copy_``) and returns that dict: the decode of `models.model` walks
 views of a layer-stacked cache, so a fresh tensor would be lost.
 
+Under a model group (`parallel.tensor`, the trainer's 'model' axis, by
+`parallel.sharding`'s rules: z, x, B, C, dt, in_x, in_gate, W_a and W_i
+column-parallel, `out` row-parallel, the rest replicated) the
+full-sequence mixers run on the rank's shards: the SSD on its heads with B
+and C gathered whole (`_ssd_train_tp`), the RG-LRU on its channels with
+the gates' input gathered (`_rglru_train_tp`). The math is the one-device
+math; only its layout and the order of a few sums change.
+
 Activations follow the reference in bfloat16: `layers._silu` for
 `jax.nn.silu` and `layers._gelu_tanh` for `jax.nn.gelu(approximate=True)`,
 op by op in the activation's dtype. ``A_log`` and the RG-LRU's ``lam``
@@ -30,7 +38,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import _gelu_tanh, _randn, _silu, apply_norm, linear, linear_init
+from repro_torch.parallel import tensor as TP
+
+from .layers import (_gelu_tanh, _randn, _silu, apply_norm, linear,
+                     linear_init, row_linear)
 
 
 # ------------------------------------------------------------------------- #
@@ -115,6 +126,9 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
     return_state=True the final recurrent state and conv buffer too
     (prefill); state {"h", "conv"}: one decode token, the state updated in
     place. Returns (y, state)."""
+    if TP.current() is not None:
+        _train_only("ssd_apply", state, return_state)
+        return _ssd_train_tp(p, cfg, u)
     s, di, n_h = _ssd_dims(cfg)
     P_, N = s.head_dim, s.state_dim
     A = -torch.exp(p["A_log"])                  # (H,) negative decay rates
@@ -138,8 +152,24 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
 
     # ---- chunked SSD over the full sequence ------------------------------ #
     x, Bm, Cm = _ssd_split(_silu(causal_conv1d(p["conv"], xBC)), cfg)
-    B_, T, _ = x.shape
-    L = min(s.chunk_size, T)
+    y, h = _ssd_chunked(x, Bm, Cm, dt, A, p["D"], s.head_dim, s.chunk_size)
+    y = _gated_norm(p["norm"], y, z)
+    new_state = None
+    if return_state:
+        new_state = {"h": h,
+                     "conv": xBC[:, -(s.conv_width - 1):, :].clone()}
+    return linear(p["out"], y), new_state
+
+
+def _ssd_chunked(x, Bm, Cm, dt, A, D, P_, chunk_size):
+    """The chunked SSD over a full sequence: x (B, T, H·P) (its dtype is
+    the output's), Bm and Cm (B, T, N), dt (B, T, H) float32, A and D
+    (H,). Returns y (B, T, H·P) with the skip D·x, before the gated norm,
+    and the final state (B, H, P, N) float32. The heads are independent:
+    a model rank runs this on its own heads with B and C whole."""
+    B_, T, di = x.shape
+    n_h, N = dt.shape[-1], Bm.shape[-1]
+    L = min(chunk_size, T)
     if T % L:
         raise ValueError(f"ssd_apply: T={T} is not a multiple of the chunk "
                          f"size {L}")
@@ -159,7 +189,7 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
     # gradients of A_log, dt and dt_bias. Masking the exponent to -inf
     # first gives the same forward values (exp(-inf) = 0) and finite
     # gradients.
-    tri = torch.ones((L, L), dtype=torch.bool, device=u.device).tril()
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     diff = cum[:, :, :, None] - cum[:, :, None, :]         # (B, nc, L, L, H)
     kern = torch.exp(torch.where(tri[None, None, :, :, None], diff,
                                  -math.inf))
@@ -171,21 +201,70 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
     S_c = torch.einsum("bclh,bclhp,bcln->bchpn", dtc * dec_to_end, xf, Bc)
     chunk_decay = torch.exp(Adt.sum(dim=2))                # (B, nc, H)
     # the inter-chunk recurrence: h_prevs[c] is the state before chunk c
-    h = torch.zeros((B_, n_h, P_, N), dtype=torch.float32, device=u.device)
+    h = torch.zeros((B_, n_h, P_, N), dtype=torch.float32, device=x.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
         h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
     y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cc,
                            torch.stack(h_prevs, dim=1), torch.exp(cum))
-    y = (y_intra + y_inter).to(u.dtype)
-    y = y + p["D"].to(y.dtype)[None, None, None, :, None] * xh
-    y = _gated_norm(p["norm"], y.reshape(B_, T, di), z)
-    new_state = None
-    if return_state:
-        new_state = {"h": h,
-                     "conv": xBC[:, -(s.conv_width - 1):, :].clone()}
-    return linear(p["out"], y), new_state
+    y = (y_intra + y_inter).to(x.dtype)
+    y = y + D.to(y.dtype)[None, None, None, :, None] * xh
+    return y.reshape(B_, T, di), h
+
+
+def _ssd_train_tp(p, cfg, u):
+    """The full-sequence SSD under a model group (training).
+
+    The heads and the state dimension N shard (the group's size divides
+    n_h and N: z, x and dt are column-parallel on head boundaries, B and
+    C over N), and each rank runs its own heads: its channels of x, B and
+    C through its slice of the depthwise conv, B and C gathered whole
+    after it (the SSD contracts over N in C·Bᵀ, in the chunk states and
+    in y_inter; their backward sums the ranks' heads, then takes the
+    rank's slice), the gated RMSNorm's mean of squares summed over the
+    group, and the row-parallel `out`. The replicated leaves a rank uses
+    a slice of (conv, norm.scale, dt_bias, A_log, D) go through
+    `scatter_to`, whose backward gathers the slices' gradients, so the
+    whole leaf's gradient is the same on every rank. A group whose size
+    does not divide the heads or N is refused (every arch's are multiples
+    of the model axes the launcher and the dry-run take)."""
+    s, di, n_h = _ssd_dims(cfg)
+    N = s.state_dim
+    for n, what in ((n_h, "heads"), (N, "state channels")):
+        if not TP.shards(n):
+            raise ValueError(f"ssd_apply: {n} {what} do not split over a "
+                             f"model group of {TP.current().size}")
+    xs = TP.copy_to(u)
+    conv = p["conv"]
+
+    def conv_silu(v, lo, n):
+        """silu of the conv over the rank's 1/size of channels
+        [lo, lo + n) of the conv's input."""
+        cp = {k: TP.scatter_to(conv[k][..., lo:lo + n]) for k in ("w", "b")}
+        return _silu(causal_conv1d(cp, v))
+
+    def whole(name, lo):
+        """B or C after the conv, whole on every rank; the gradient that
+        leaves it is the sum over the ranks' heads."""
+        return TP.copy_to(TP.gather_from(
+            conv_silu(linear(p[name], xs), lo, N)))
+
+    z = linear(p["z"], xs)
+    x = conv_silu(linear(p["x"], xs), 0, di)
+    Bm, Cm = whole("B", di), whole("C", di + N)
+    dt = F.softplus(linear(p["dt"], xs).float()
+                    + TP.scatter_to(p["dt_bias"]).float())
+    A = -torch.exp(TP.scatter_to(p["A_log"]))
+    y, _ = _ssd_chunked(x, Bm, Cm, dt, A, TP.scatter_to(p["D"]),
+                        s.head_dim, s.chunk_size)
+    # the gated RMSNorm over the sharded di: the mean of squares is a
+    # group sum (whose gradient, partial on each rank, is summed too)
+    v = (y * _silu(z)).float()
+    ms = TP.copy_to(TP.reduce_from(v.square().sum(-1, keepdim=True))) / di
+    v = v * torch.rsqrt(ms + 1e-6)
+    y = (v * TP.scatter_to(p["norm"]["scale"]).float()).to(y.dtype)
+    return row_linear(p["out"], y, di), None
 
 
 def ssd_state_init(cfg, batch, dtype, device=None):
@@ -221,13 +300,17 @@ def rglru_init(cfg, *, generator=None, device=None, dtype=torch.float32):
     }
 
 
-def _rglru_gates(p, cfg, u):
+def _rglru_gates(p, cfg, u, u_whole=None, lam=None):
     """u: the conv'd x branch, (B, T, w). Returns the recurrence's
-    coefficients (a, b), float32."""
+    coefficients (a, b), float32. Under a model group u and `lam` are the
+    rank's channels and `u_whole` the whole u, which the column-parallel
+    W_a and W_i take."""
     c = cfg.rglru.c_constant
-    r_gate = torch.sigmoid(linear(p["W_a"], u).float())
-    i_gate = torch.sigmoid(linear(p["W_i"], u).float())
-    log_a = -c * F.softplus(p["lam"]) * r_gate              # log a_t (B, T, w)
+    u_whole = u if u_whole is None else u_whole
+    lam = p["lam"] if lam is None else lam
+    r_gate = torch.sigmoid(linear(p["W_a"], u_whole).float())
+    i_gate = torch.sigmoid(linear(p["W_i"], u_whole).float())
+    log_a = -c * F.softplus(lam) * r_gate                   # log a_t (B, T, w)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
         i_gate * u.float())
@@ -272,6 +355,9 @@ def rglru_apply(p, cfg, x, state=None, return_state=False):
     """x: (B, T, d). state None: the full sequence (with return_state=True
     the final state too); state {"h": (B, w), "conv": buffer}: one decode
     token, the state updated in place. Returns (y, state)."""
+    if TP.shards(cfg.rglru.expand * cfg.d_model):
+        _train_only("rglru_apply", state, return_state)
+        return _rglru_train_tp(p, cfg, x)
     u0 = linear(p["in_x"], x)
     gate = _gelu_tanh(linear(p["in_gate"], x))
 
@@ -293,6 +379,34 @@ def rglru_apply(p, cfg, x, state=None, return_state=False):
         new_state = {"h": h[:, -1].clone(),
                      "conv": u0[:, -(width - 1):, :].clone()}
     return linear(p["out"], y), new_state
+
+
+def _rglru_train_tp(p, cfg, x):
+    """The full-sequence RG-LRU under a model group that shards its width
+    w (training): in_x and in_gate column-parallel, so the conv (its
+    replicated weights sliced by `scatter_to`) and the recurrence run on
+    the rank's w / size channels; W_a and W_i, column-parallel too, take
+    the whole conv output (gathered; their backward sums the ranks'
+    partial input gradients, then takes the rank's slice); `out`
+    row-parallel."""
+    xs = TP.copy_to(x)
+    u0 = linear(p["in_x"], xs)
+    gate = _gelu_tanh(linear(p["in_gate"], xs))
+    u = causal_conv1d({k: TP.scatter_to(t) for k, t in p["conv"].items()},
+                      u0)
+    a, b = _rglru_gates(p, cfg, u, TP.copy_to(TP.gather_from(u)),
+                        TP.scatter_to(p["lam"]))
+    _, h = associative_scan(a, b)
+    return row_linear(p["out"], h.to(x.dtype) * gate,
+                      cfg.rglru.expand * cfg.d_model), None
+
+
+def _train_only(fn, state, return_state):
+    """A mixer under a model group runs the trainer's full sequence
+    only: the model axis has no prefill or decode."""
+    if state is not None or return_state:
+        raise ValueError(f"{fn}: a tensor-parallel prefill or decode is "
+                         f"not supported; the model axis is the trainer's")
 
 
 def rglru_state_init(cfg, batch, dtype, device=None):

@@ -34,8 +34,10 @@ embedding is vocab-parallel (a masked lookup of the rank's rows, then an
 all-reduce), the unembedding column-parallel, so each rank holds a (...,
 V / model) block of logits, and `_xent` takes the log-sum-exp as a
 model-group max and sum and picks the target logit by a mask and a sum:
-no rank holds a full (B, chunk, V) block. The mixers and the encoder are
-not tensor-parallel (ROADMAP slice 9b); `check_model_axis` refuses them.
+no rank holds a full (B, chunk, V) block. The SSD and RG-LRU mixers
+(`mixers`), the encoder's self-attention and the decoder's
+cross-attention (`layers.attn_apply`) run on the rank's shards too, so
+the axis covers every arch; the learned positions stay replicated.
 
 Caches keep the JAX tree too ({"scan": ..., "tail": [...]}, and
 ``"enc_out"`` for an encoder-decoder model); decode writes into their
@@ -114,20 +116,6 @@ def block_init(cfg, kind: str, cross: bool = False, *, generator=None,
     return p
 
 
-def _cross_kv(attn_p, cfg, enc):
-    """A block's cross-attention K/V, projected from the raw encoder
-    output enc (B, Se, d): (B, Se, K, hd) each."""
-    B, Se = enc.shape[:2]
-    ck = (enc @ attn_p["k"]["w"]).reshape(B, Se, cfg.num_kv_heads,
-                                          cfg.head_dim)
-    cv = (enc @ attn_p["v"]["w"]).reshape(B, Se, cfg.num_kv_heads,
-                                          cfg.head_dim)
-    if "b" in attn_p["k"]:
-        ck = ck + attn_p["k"]["b"].reshape(cfg.num_kv_heads, cfg.head_dim)
-        cv = cv + attn_p["v"]["b"].reshape(cfg.num_kv_heads, cfg.head_dim)
-    return ck, cv
-
-
 def block_apply(p, cfg, kind, x, positions, cache=None, cross_kv=None,
                 causal=True, fill_cache=False):
     """Returns (x, new_cache, aux_losses): the MoE router's losses, or {}.
@@ -150,7 +138,7 @@ def block_apply(p, cfg, kind, x, positions, cache=None, cross_kv=None,
     if "cross" in p and cross_kv is not None:
         h = apply_norm(cfg.norm, p["cross_norm"], x)
         out, _ = attn_apply(p["cross"], h, cfg, positions,
-                            cross_kv=_cross_kv(p["cross"], cfg, cross_kv))
+                            cross_kv=cross_kv)
         x = x + out
     if "mlp" in p:
         x = x + mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x),
@@ -319,26 +307,6 @@ def encode(params, cfg, enc_embeds):
     for bp in e["blocks"]:
         x, _, _ = block_apply(bp, cfg, "attn", x, pos, causal=False)
     return apply_norm(cfg.norm, e["final_norm"], x)
-
-
-def covers_model_axis(cfg) -> bool:
-    """True when the 'model' axis covers the arch: attention blocks only,
-    no encoder. The SSD and RG-LRU mixers and the encoder-decoder split
-    contractions inside their scans under the rules, which the port does
-    not shard yet (ROADMAP slice 9b)."""
-    return not cfg.is_encdec and all(k == "attn" for k in cfg.layer_pattern)
-
-
-def check_model_axis(cfg, model: int) -> None:
-    """Refuse an arch the 'model' axis does not cover yet
-    (`covers_model_axis`); nothing is replicated in its place."""
-    if model > 1 and not covers_model_axis(cfg):
-        mixers_in = sorted({k for k in cfg.layer_pattern if k != "attn"})
-        what = (f"the {'/'.join(mixers_in)} mixer" if mixers_in
-                else "the encoder-decoder")
-        raise ValueError(
-            f"{cfg.name}: a model axis of {model} does not cover {what} "
-            f"yet (ROADMAP slice 9b); run it with model 1")
 
 
 def _embed_tokens(params, cfg, tokens, positions):

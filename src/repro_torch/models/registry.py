@@ -19,8 +19,7 @@ rules (`parallel.sharding`, "dp" layout), `param_specs(cfg, mesh,
 max_seq)` gives those rules sanitised for the mesh (`DQGAN`'s
 `param_specs`), and `field_fn` runs the model under the mesh's
 model group (`parallel.tensor`), returning the gradients of the rank's
-shards. The mixers and the encoder-decoder are refused there (ROADMAP
-slice 9b).
+shards. Every arch of the zoo trains so.
 """
 from __future__ import annotations
 
@@ -86,8 +85,6 @@ def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
     """`bundle` over the rank's shards of `mesh`'s model axis."""
     group = TP.model_group_for(mesh)
     cfg = bundle.cfg
-    if not isinstance(cfg, gan_lib.GANConfig):
-        lm.check_model_axis(cfg, mesh.model)
 
     def init(generator=None, device=None, max_seq=0):
         full = bundle.init(generator=generator, device=device,

@@ -22,6 +22,7 @@ from repro.kernels.flash_attention import paged_flash_attention as j_paged
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 H100_SMS = 132
 MASK = -1e30

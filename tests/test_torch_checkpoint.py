@@ -35,6 +35,7 @@ from repro_torch.models import gan as TG
 from repro_torch.strategy import Strategy as TStrategy
 from test_torch_sched import (B, COMPRESSION, TCFG, assert_ef_invariant,
                               replay_draws, trainers)
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 SCHEDULES = {"every_step": JSched.every_step(), "local_k4": JSched.local_k(4),
              "delayed1": JSched.delayed(1), "delayed2": JSched.delayed(2)}

@@ -18,6 +18,7 @@ from repro.models import gan as jgan
 from repro_torch import comm as TComm
 from repro_torch import tree as T
 from repro_torch.core import exchange as TX
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 FULL = jget("dcgan32")
 SMALL = FULL.reduced()

@@ -20,6 +20,7 @@ from repro.core import error_feedback as JEF
 from repro_torch.comm import ledger as TL
 from repro_torch.core import compressors as TC
 from repro_torch.core import error_feedback as TEF
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 NAMES = sorted(JC.REGISTRY)
 SHAPES = [(300,), (17, 40), (4096,), (2, 1024)]

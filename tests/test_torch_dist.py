@@ -52,6 +52,7 @@ from repro_torch.strategy import Compression, ExchangePlan, Strategy
 from torch_ranks import (MIXTURE_CONFIGS, assert_states_agree, fsdp_strategy,
                          make_trainer, mixture_case, mixture_params, run_case,
                          run_cases, run_ranks, strategy_case)
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = 4

@@ -33,6 +33,7 @@ from repro_torch.models import build
 from repro_torch.models import layers as L
 from repro_torch.strategy import (Compression, ExchangePlan, Observability,
                                   Strategy)
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 ARCHS = list(jcfgs.ASSIGNED) + ["gemma-2b-swa"]
 SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -274,7 +275,11 @@ def reduced_configs(monkeypatch):
     ("gemma-2b", "train_4k", "dp", "sim"),
     ("qwen3-moe-30b-a3b", "train_4k", "fsdp", "exact"),
     ("mamba2-1.3b", "prefill_32k", "auto", "two_phase"),
-    ("recurrentgemma-2b", "long_500k", "auto", "two_phase")])
+    ("recurrentgemma-2b", "long_500k", "auto", "two_phase"),
+    # the mixers and the encoder-decoder at model 16
+    ("mamba2-1.3b", "train_4k", "dp", "sim"),
+    ("recurrentgemma-2b", "train_4k", "dp", "two_phase"),
+    ("whisper-tiny", "train_4k", "dp", "sim")])
 def test_run_combo_at_a_reduced_config(arch, shape, layout, exchange,
                                        reduced_configs):
     rec = dryrun.run_combo(arch, shape, False, exchange=exchange,
@@ -300,6 +305,22 @@ def test_run_combo_at_a_reduced_config(arch, shape, layout, exchange,
         kinds = set(rec["collectives"])
         assert kinds >= ({"reduce_scatter", "all_gather"} if layout == "fsdp"
                          else {"all_reduce"})
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
+                                  "whisper-tiny"])
+def test_multi_pod_train_splits_its_batch_at_model_16(arch, reduced_configs):
+    """The (2·16, 16) fleet of 512 ranks is 32 data ranks, a worker each:
+    the global batch of 256 splits 8 rows a rank, and each rank holds the
+    JAX layout's bytes of the parameters."""
+    rec = dryrun.run_combo(arch, "train_4k", True, exchange="sim",
+                           layout="dp", quiet=True)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["ranks"] == 512 and rec["model_axis"] == 16
+    assert rec["n_workers"] == 32
+    assert (rec["param_bytes_per_rank"]
+            == rec["param_bytes_per_device"]["bytes"])
+    assert rec["collectives_model"] and "model_axis_note" not in rec
 
 
 def test_cli_writes_its_record(tmp_path, capsys):

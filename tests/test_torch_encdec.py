@@ -33,6 +33,7 @@ from repro_torch.data import synthetic as TD
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serve import Engine, ServeConfig, ServeError
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 JCFG = jcfgs.get("whisper-tiny").reduced()
 TCFG = tcfgs.get("whisper-tiny").reduced()
@@ -112,13 +113,16 @@ def test_cross_attention_matches_jax(weights):
     x = rs.randn(2, 5, JCFG.d_model).astype(np.float32)
     enc = rs.randn(2, 64, JCFG.d_model).astype(np.float32)
     jp, tp = params["tail"][0]["cross"], tparams["tail"][0]["cross"]
-    ck, cv = TM._cross_kv(tp, TCFG, torch.from_numpy(enc))
+    te = torch.from_numpy(enc)
+    Kh, hd = TCFG.num_kv_heads, TCFG.head_dim
+    ck = TL._split_heads(TL.linear(tp["k"], te), Kh, hd)
+    cv = TL._split_heads(TL.linear(tp["v"], te), Kh, hd)
     jk, jv = JM._cross_kvs(params, JCFG, jnp.asarray(enc))(jp)
     _close(ck, jk, what="k")
     _close(cv, jv, what="v")
     pos = np.arange(5)
     got, cache = TL.attn_apply(tp, torch.from_numpy(x), TCFG,
-                               torch.from_numpy(pos), cross_kv=(ck, cv))
+                               torch.from_numpy(pos), cross_kv=te)
     want, _ = JL.attn_apply(jp, jnp.asarray(x), JCFG, jnp.asarray(pos),
                             cross_kv=(jk, jv))
     assert cache is None

@@ -22,6 +22,7 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.ref import flash_attention_ref as j_flash_ref
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels.ref import flash_attention_ref
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

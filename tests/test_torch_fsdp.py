@@ -63,6 +63,7 @@ from repro_torch.models import gan as TG
 from repro_torch.parity import named_agreement, obs_agreement
 from repro_torch.strategy import Strategy as TStrategy
 from torch_ranks import fsdp_strategy, mixture_params
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 A = np.random.RandomState(0).randn(8, 8).astype(np.float32)
 

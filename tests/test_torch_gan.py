@@ -19,6 +19,7 @@ from repro_torch import tree as T
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.data import synthetic as TD
 from repro_torch.models import gan as TG
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 FULL = jget("dcgan32")
 CFGS = {"reduced": FULL.reduced(), "dcgan32": FULL,

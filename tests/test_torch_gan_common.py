@@ -18,6 +18,7 @@ from repro_torch import gan_common as TGC
 from repro_torch import tree as T
 from repro_torch.convert import params_from_jax
 from repro_torch.data import gaussian_mixture_sampler as t_sampler
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 
 def test_frechet_distance_same_on_the_same_features():

@@ -23,6 +23,7 @@ from repro_torch import tree as T
 from repro_torch.convert import params_from_jax, params_to_jax
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 JCFG = jcfgs.get("gemma-2b").reduced()
 TCFG = tcfgs.get("gemma-2b").reduced()

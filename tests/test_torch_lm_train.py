@@ -50,6 +50,7 @@ from repro_torch.models import build
 from repro_torch.models import model as TM
 from repro_torch.models import registry as TR
 from repro_torch.strategy import Strategy as TStrategy
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gemma-2b", "starcoder2-7b", "yi-34b", "chameleon-34b",
          "command-r-plus-104b", "qwen3-moe-30b-a3b", "arctic-480b",

@@ -24,6 +24,7 @@ from repro_torch import tree as T
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 WIN = 8

@@ -56,6 +56,7 @@ from repro_torch.serve import (Engine, Request, SequentialGenerator,
                                ServeConfig, init_paged_cache)
 from repro_torch.strategy import Strategy as TStrategy
 from test_torch_lm_train import _draws
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 MIXERS = {"ssd": ("mamba2-1.3b", JX.ssd_init, JX.ssd_apply, TX.ssd_apply),
           "rglru": ("recurrentgemma-2b", JX.rglru_init, JX.rglru_apply,

@@ -15,9 +15,21 @@ The cases:
     buckets under `two_phase`: the replicated leaves bucket, the sharded
     ones take the per-tensor two_phase with the block quantizer (blocks
     inside a rank's slice, or gathered where one crosses the slices);
+  * mamba2-1.3b reduced (the SSD on each rank's heads, B and C gathered
+    whole), `qsgd8_linf` per tensor, `sim`;
+  * recurrentgemma-2b reduced (the RG-LRU on each rank's channels, and
+    MQA local attention), `qsgd8_block1024` buckets under `sim` (B1's
+    plain version over the replicated leaves' buckets);
+  * whisper-tiny reduced (the encoder's self-attention and the decoder's
+    cross-attention head-local, learned positions replicated, the tied
+    embedding vocab-parallel), `qsgd8_block1024` buckets under `sim`: its
+    MLP up biases (1024 over two ranks) are flat sharded leaves whose
+    slices cut B1's scale row, which B1 takes gathered;
   * dcgan32 `--smoke` through both launchers (`gen.fc` column-parallel,
     `disc.fc`'s single column replicated): the `# comm:` lines and the
     wire columns of the rows.
+The JAX step's output state is held to its input's shardings, so the
+three steps share one compilation.
 The draws are the JAX step's own (worker key `fold_in(key, w)`, then
 `split(fold_in(·, step))`; a bucket's from `fold_in(kq, 100_000 + bid)`,
 a leaf's from `fold_in(kq, leaf index)`, two_phase's `split(·, W + 1)`),
@@ -31,11 +43,14 @@ elements flipped; loss and grad_norm rtol 1e-5; the ledger's
 wire_mb_step exactly. The replicated leaves are bit-identical on the two
 model ranks of each data index after the three steps. The port at model
 2 against itself at model 1 (the two workers stacked in this process) by
-the same rule, on the same draws. A (2, 2) checkpoint restores at one
-process and in the JAX package, and a checkpoint of the JAX run and of
-the one-process run restore on the (2, 2) mesh, leaf for leaf exactly.
-The dry-run's per-rank parameter bytes equal the JAX layout's per-device
-bytes; the mixers and the encoder-decoder are refused at model 2.
+the same rule, on the same draws, for gemma and mamba2. A (2, 2)
+checkpoint restores at one process (gemma, mamba2) and in the JAX
+package, and a checkpoint of the JAX run and of the one-process run
+restore on the (2, 2) mesh, leaf for leaf exactly. In the same spawn
+each model group runs the sharded SSD and RG-LRU against the unsharded
+functions, forward and gradients, and B1 on a flat leaf's slices
+against the global leaf. The dry-run's per-rank parameter bytes equal
+the JAX layout's per-device bytes for every arch.
 """
 import io
 import json
@@ -59,13 +74,21 @@ from repro_torch.parallel import tensor as TP
 from repro_torch.parity import named_agreement
 from repro_torch.strategy import Strategy as TStrategy
 from torch_ranks import run_ranks
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 W, STEPS, B, S = 2, 3, 4, 16
+LINF = dict(compressor="qsgd8_linf", plan="none")
+BUCKETS = dict(compressor="qsgd8_block1024", plan="uniform")
 CASES = {
-    "gemma": ("gemma-2b", dict(compressor="qsgd8_linf", plan="none"), "sim"),
-    "moe": ("qwen3-moe-30b-a3b", dict(compressor="qsgd8_block1024",
-                                      plan="uniform"), "two_phase"),
+    "gemma": ("gemma-2b", LINF, "sim"),
+    "moe": ("qwen3-moe-30b-a3b", BUCKETS, "two_phase"),
+    "mamba2": ("mamba2-1.3b", LINF, "sim"),
+    "rg": ("recurrentgemma-2b", BUCKETS, "sim"),
+    # its sharded MLP biases are flat leaves of 1024 that B1 takes whole
+    "whisper": ("whisper-tiny", BUCKETS, "sim"),
 }
+# the cases also run at model 1 in this process, and checkpointed
+STACKED = ("gemma", "mamba2")
 CLI = ["--arch", "dcgan32", "--smoke", "--batch", "8", "--optimizer", "omd",
        "--compressor", "qsgd8_block1024", "--comm-plan", "uniform",
        "--steps", "2"]
@@ -169,11 +192,27 @@ with warnings.catch_warnings():
         put(f"{name}/wire", tr.comm_ledger(params).wire_bytes_per_step)
         with set_mesh(mesh):
             st = tr.init(params)
-            step = jax.jit(tr.step)
+            # the output state keeps the input's shardings: one compile
+            # serves every step
+            shardings = jax.tree.map(
+                lambda x: x.sharding if isinstance(x.sharding, NamedSharding)
+                else NamedSharding(mesh, P()), st)
+            st = jax.device_put(st, shardings)
+
+            def pinned(st, batch, key):
+                res = tr.step(st, batch, key)
+                return res._replace(state=jax.lax.with_sharding_constraint(
+                    res.state, shardings))
+
+            step = jax.jit(pinned)
             for t in range(STEPS):
                 batch = synthetic_lm_batch(
                     jax.random.fold_in(jax.random.key(1), t), B, S,
                     cfg.vocab_size)
+                if cfg.is_encdec:
+                    batch["enc_embeds"] = 0.1 * jax.random.normal(
+                        jax.random.fold_in(jax.random.key(2), t),
+                        (B, cfg.encdec.enc_seq, cfg.d_model))
                 for k, v in batch.items():
                     put(f"{name}/batch/{t}/{k}", v)
                 record_draws(tr, params, f"{name}/draws/{t}", t)
@@ -223,7 +262,9 @@ def _case(data, name, t):
             rand.setdefault(sid, {})[parts[0]] = v
         else:
             rand[sid] = v
-    batch = {k: data[f"{name}/batch/{t}/{k}"] for k in ("tokens", "targets")}
+    batch = {k: data[f"{name}/batch/{t}/{k}"]
+             for k in ("tokens", "targets", "enc_embeds")
+             if f"{name}/batch/{t}/{k}" in data}
     return batch, rand
 
 
@@ -288,12 +329,12 @@ def _rank_runs(mesh, data, tmp, stacked_ckpt):
         out["replicated"][name] = {
             n: x.numpy().copy() for n, x in CK._paths(st.params)
             if f"params/{n}" not in shards.leaves}
-        if name == "gemma":
-            strat = tr.strategy.to_json()
-            CK.save_sharded(f"{tmp}/gemma_port_ckpt", st, step=st.step,
-                            meta={"strategy": strat},
+        if name in STACKED:
+            CK.save_sharded(f"{tmp}/{name}_port_ckpt", st, step=st.step,
+                            meta={"strategy": tr.strategy.to_json()},
                             mesh=mesh.describe(), workers=tr.worker_backend,
                             shards=shards)
+        if name == "gemma":
             for src in ("gemma_jax_ckpt", stacked_ckpt):
                 path = f"{tmp}/{src}"
                 got = (CK.restore_sharded(path, st, workers=tr.worker_backend,
@@ -303,6 +344,8 @@ def _rank_runs(mesh, data, tmp, stacked_ckpt):
                                   shards=shards))
                 out[name][src] = _global(tr, got)
     out["trace"] = _obs_step(mesh, capture=True)
+    out["mixers"] = {k: _mixer_tp(mesh, k) for k in MIXERS}
+    out["flat"] = _flat_leaf(mesh)
     ap = ttrain.parser()
     args = ap.parse_args(CLI + ["--workers", str(W), "--device", "cpu"])
     buf = io.StringIO()
@@ -312,8 +355,76 @@ def _rank_runs(mesh, data, tmp, stacked_ckpt):
                              mesh.device, mesh)
     out["cli"] = (buf.getvalue(), rows)
     if mesh.rank != 0:
-        return {"replicated": out["replicated"]}
+        return {k: out[k] for k in ("replicated", "mixers", "flat")}
     return out
+
+
+def _flat_leaf(mesh):
+    """B1's compression of a flat leaf of 3072 on the rank's slice of
+    1536 (the slices cut a scale row), and the slice of the global leaf's:
+    (q̂, e') each."""
+    from repro_torch.core import compressors as C
+    from repro_torch.core.error_feedback import (LeafShard,
+                                                 compress_with_ef_stacked)
+    comp = C.get("qsgd8_block1024")
+    g = torch.Generator().manual_seed(5)
+    m, e = torch.randn((W, 3072), generator=g), torch.randn(
+        (W, 3072), generator=g) * 0.01
+    r = torch.rand((W, 3072), generator=g)
+    group = TP.model_group_for(mesh)
+    shard = LeafShard((3072,), 0, group.index, group.size, group)
+    got = compress_with_ef_stacked(comp, shard.slice(m), shard.slice(e), r,
+                                   shard=shard)[1:]
+    want = compress_with_ef_stacked(comp, m, e, r)[1:]
+    return {"got": [x.numpy() for x in got],
+            "want": [shard.slice(x).numpy() for x in want]}
+
+
+# the sharded mixers against the unsharded, at the archs' reduced configs
+MIXERS = {"ssd": "mamba2-1.3b", "rglru": "recurrentgemma-2b"}
+
+
+def _mixer_tp(mesh, kind):
+    """The mixer `kind` on the rank's shards under its model group, and
+    unsharded in this process, on the same inputs: its output and the
+    gradients of sum(y·r) with respect to the input and every parameter
+    (the sharded ones gathered whole)."""
+    from repro_torch.models import mixers as M
+    cfg = configs.get(MIXERS[kind]).reduced()
+    g = torch.Generator().manual_seed(3)
+    init, apply = ((M.rglru_init, M.rglru_apply) if kind == "rglru"
+                   else (M.ssd_init, M.ssd_apply))
+    full = init(cfg, generator=g)
+    if kind != "rglru":     # non-trivial A_log, dt_bias and D
+        full["A_log"] = torch.randn(full["A_log"].shape, generator=g) * 0.5
+        full["dt_bias"] = torch.randn(full["dt_bias"].shape, generator=g)
+        full["D"] = torch.randn(full["D"].shape, generator=g)
+    u = torch.randn((2, 64, cfg.d_model), generator=g)
+    r = torch.randn((2, 64, cfg.d_model), generator=g)
+    specs = tshd.param_specs(full, cfg, "dp", mesh.shape)
+    group = TP.model_group_for(mesh)
+
+    def run(params, tp):
+        paths, leaves = T.flatten(params)
+        leaves = [x.detach().requires_grad_() for x in leaves]
+        x = u.clone().requires_grad_()
+        with TP.model_parallel(group if tp else None):
+            y, _ = apply(T.unflatten(paths, leaves), cfg, x)
+            grads = torch.autograd.grad((y * r).sum(), [x] + leaves)
+        return y.detach(), grads[0], T.unflatten(paths, list(grads[1:]))
+
+    paths, _ = T.flatten(full)
+    y0, gx0, gp0 = run(full, False)
+    y1, gx1, gp1 = run(tshd.shard_tree(full, specs, mesh.model_index,
+                                       mesh.model), True)
+    gp1 = tshd.gather_tree(gp1, specs, group)
+    return {"y": (y0.numpy(), y1.numpy()), "x": (gx0.numpy(), gx1.numpy()),
+            "params": {n: (a.numpy(), b.numpy()) for (n, a), (_, b) in zip(
+                CK._paths(gp0), CK._paths(gp1))},
+            "sharded": sorted("/".join(map(str, path))
+                              for path, sp in zip(paths, T.flatten_up_to(
+                                  paths, specs))
+                              if tshd.model_axis(sp) is not None)}
 
 
 def _obs_step(mesh, capture=False):
@@ -354,8 +465,8 @@ def _obs_step(mesh, capture=False):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX runs, the port's one-process (model 1) gemma run with its
-    checkpoint, and the (2, 2) runs of the port."""
+    """The JAX runs, the port's one-process (model 1) gemma and mamba2
+    runs with gemma's checkpoint, and the (2, 2) runs of the port."""
     from conftest import SRC, run_multidevice
     tmp = str(tmp_path_factory.mktemp("tp"))
     # the JAX launcher's run on its own 4 forced devices, beside the API
@@ -369,18 +480,19 @@ def runs(tmp_path_factory):
              for n, (arch, comp, kind) in CASES.items()}
     res = run_multidevice(SCRIPT % dict(
         W=W, STEPS=STEPS, B=B, S=S, cases=json.dumps(cases), out=tmp),
-        n_devices=4)
+        n_devices=4, timeout=900)
     assert "OK" in res
     data = dict(np.load(f"{tmp}/runs.npz"))
-    tr, st, metrics = _train(None, "gemma", data)
+    stacked = {name: _train(None, name, data) for name in STACKED}
+    tr, st, _ = stacked["gemma"]
     CK.save(f"{tmp}/gemma_stacked.npz", st, step=st.step,
             meta={"strategy": tr.strategy.to_json()})
     port = run_ranks(_rank_runs, 4, data, tmp, "gemma_stacked.npz",
-                     model=2, timeout=240)
+                     model=2, timeout=300)
     jax_cli, err = cli.communicate(timeout=300)
     assert cli.returncode == 0, err[-2000:]
     return dict(tmp=tmp, data=data, port=port, jax_cli=jax_cli,
-                stacked=(tr, st, metrics))
+                stacked=stacked)
 
 
 def _jax_strategy(comp, kind):
@@ -437,17 +549,99 @@ def test_replicated_leaves_bit_identical_across_model_ranks(runs, name):
             assert np.array_equal(reps[a][n], reps[b][n]), (name, n, a, b)
 
 
-@pytest.mark.multidevice
-def test_model_two_equals_model_one(runs):
-    tr, st, metrics = runs["stacked"]
-    port = runs["port"][0]["gemma"]
+def _model_two_equals_model_one(runs, name):
+    tr, st, metrics = runs["stacked"][name]
+    port = runs["port"][0][name]
     for a, b in zip(metrics, port["metrics"]):
         for k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-7)
     one = _named(st)
     problems = named_agreement(one, {k: port["state"][k] for k in one},
-                               W, W).problems
+                               W, W, _layout(name)).problems
     assert not problems, problems
+
+
+@pytest.mark.multidevice
+def test_model_two_equals_model_one(runs):
+    _model_two_equals_model_one(runs, "gemma")
+
+
+@pytest.mark.multidevice
+def test_model_two_equals_model_one_on_the_ssd(runs):
+    _model_two_equals_model_one(runs, "mamba2")
+
+
+@pytest.mark.multidevice
+def test_ssd_checkpoint_restores_at_one_process(runs):
+    """mamba2's (2, 2) checkpoint restored at one process (W = 2
+    stacked), leaf for leaf what the ranks gathered."""
+    tr, st, _ = runs["stacked"]["mamba2"]
+    port = runs["port"][0]["mamba2"]
+    path = f"{runs['tmp']}/mamba2_port_ckpt"
+    CK.verify_strategy(path, tr.strategy)
+    back = _named(CK.restore_sharded(path, st))
+    assert sorted(back) == sorted(port["state"])
+    for k, v in back.items():
+        assert np.array_equal(v, port["state"][k]), k
+
+
+@pytest.mark.multidevice
+@pytest.mark.parametrize("kind", list(MIXERS))
+def test_sharded_mixer_matches_unsharded(runs, kind):
+    """Each model group's sharded mixer against the unsharded function on
+    the same rank: the output, the input's gradient, and every
+    parameter's (B and C's, whose backward sums the ranks' heads, and the
+    replicated leaves a rank uses a slice of, whose gradient comes out
+    whole), to float32 rounding of the reordered sums; the gathered
+    gradients are the same on both ranks of a group."""
+    outs = [r["mixers"][kind] for r in runs["port"]]
+    got = outs[0]
+    if kind == "ssd":
+        assert {"B/w", "C/w", "x/w", "dt/w", "out/w"} <= set(got["sharded"])
+    if kind == "rglru":
+        assert {"W_a/w", "W_a/b", "in_x/w", "out/w"} <= set(got["sharded"])
+    pairs = dict(y=got["y"], x=got["x"], **{
+        f"grad/{n}": v for n, v in got["params"].items()})
+    for n, (want, have) in pairs.items():
+        scale = float(np.abs(want).max())
+        assert scale > 0, n
+        np.testing.assert_allclose(have, want, rtol=1e-5,
+                                   atol=1e-6 * scale, err_msg=f"{kind} {n}")
+    for a, b in ((0, 1), (2, 3)):
+        for n in got["params"]:
+            assert np.array_equal(outs[a]["params"][n][1],
+                                  outs[b]["params"][n][1]), (kind, n)
+
+
+@pytest.mark.multidevice
+def test_sharded_flat_leaf_takes_b1_as_the_global_leaf(runs):
+    """A flat leaf whose model slices cut B1's scale rows is compressed on
+    the gathered leaf, as the JAX package compresses the global one: each
+    rank's q̂ and residual are the global leaf's slices, bit for bit."""
+    for r in runs["port"]:
+        for got, want in zip(r["flat"]["got"], r["flat"]["want"]):
+            assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("split", ["heads", "state"])
+def test_ssd_refuses_a_group_that_splits_a_head(split):
+    """A model group whose size does not divide the SSD's heads (3 over
+    2 ranks) or its state dimension (N = 3) is refused, not run on a split
+    head or a replicated B and C (on meta)."""
+    import dataclasses
+    from repro_torch.models import mixers as M
+    cfg = configs.get("mamba2-1.3b").reduced()
+    if split == "heads":
+        cfg, want = dataclasses.replace(cfg, d_model=24), "3 heads"
+    else:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, state_dim=3))
+        want = "3 state channels"
+    p = M.ssd_init(cfg, device="meta")
+    with TP.model_parallel(TP.MetaModelGroup(2, 0)):
+        with pytest.raises(ValueError, match=f"{want} do not split"):
+            M.ssd_apply(p, cfg, torch.zeros((1, 32, cfg.d_model),
+                                            device="meta"))
 
 
 @pytest.mark.multidevice
@@ -462,7 +656,7 @@ def test_checkpoints_cross_mesh_shapes_and_packages(runs):
         for k in want:
             assert np.array_equal(want[k], got[k]), (src, k)
     # the port's (2, 2) checkpoint at one process, W = 2 stacked
-    tr, st, _ = runs["stacked"]
+    tr, st, _ = runs["stacked"]["gemma"]
     path = f"{tmp}/gemma_port_ckpt"
     CK.verify_strategy(path, tr.strategy)
     back = _named(CK.restore_sharded(path, st))
@@ -539,7 +733,8 @@ def test_telemetry_on_the_model_axis_equals_model_one(runs):
 # --------------------------------------------------------------------------- #
 IN_SCOPE = ("dcgan32", "gemma-2b", "starcoder2-7b", "yi-34b",
             "chameleon-34b", "command-r-plus-104b", "qwen3-moe-30b-a3b",
-            "arctic-480b")
+            "arctic-480b", "mamba2-1.3b", "recurrentgemma-2b",
+            "whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", IN_SCOPE)
@@ -557,8 +752,8 @@ def test_rank_parameter_bytes_equal_the_jax_layout(arch):
     local = tbuild(cfg, mesh).init(device="meta", max_seq=64)
     got = sum(x.numel() * x.element_size() for x in T.leaves(local))
     # the figure the dry-run prints for the JAX layout
-    assert got == dryrun.param_bytes_per_device(cfg, "dp",
-                                                mesh.shape)["bytes"]
+    assert got == dryrun.param_bytes_per_device(cfg, "dp", mesh.shape,
+                                                64)["bytes"]
 
     jcfg = jcfgs.get(arch)
     shapes = jax.eval_shape(lambda: jbuild(jcfg).init(jax.random.key(0),
@@ -582,28 +777,42 @@ class _FakeMesh:
         self.axis_names = tuple(shape)
 
 
-@pytest.mark.parametrize("arch", ("mamba2-1.3b", "recurrentgemma-2b",
-                                  "whisper-tiny"))
-def test_mixers_and_encdec_refused_at_model_two(arch):
-    from repro_torch.launch.mesh import meta_mesh
+@pytest.mark.multidevice
+@pytest.mark.parametrize("arch,name", [("mamba2-1.3b", "mamba2"),
+                                       ("recurrentgemma-2b", "rg"),
+                                       ("whisper-tiny", "whisper")])
+def test_mixers_and_encdec_train_at_model_two(runs, arch, name,
+                                              monkeypatch):
+    """Nothing refuses the arch at model 2: `build` lays it out over the
+    mesh (its sharded leaves cut), the launcher at a world of 4 goes on
+    to join its (2, 2) mesh, and the (2, 2) run of the fixture took its
+    three steps with finite losses."""
+    from repro_torch.launch.mesh import ProcessMesh, meta_mesh
     from repro_torch.launch import train as ttrain
     cfg = configs.get(arch).reduced()
-    with pytest.raises(ValueError, match="slice 9b"):
-        tbuild(cfg, meta_mesh(4, 0, model=2))
+    mesh = meta_mesh(4, 0, model=2)
+    local = tbuild(cfg, mesh).init(device="meta", max_seq=S)
+    full = tbuild(cfg).init(device="meta", max_seq=S)
+    assert (sum(x.numel() for x in T.leaves(local))
+            < sum(x.numel() for x in T.leaves(full)))
     assert tparam_specs(cfg, meta_mesh(4, 0, model=1)) is None
-    env = {"RANK": "0", "WORLD_SIZE": "4"}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        with pytest.raises(SystemExit):
-            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                         "--workers", "2", "--steps", "1"])
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+
+    class Joined(Exception):
+        pass
+
+    def from_env(device_type, model=1):
+        raise Joined(model)
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setattr(ProcessMesh, "from_env", staticmethod(from_env))
+    with pytest.raises(Joined) as joined:
+        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--workers", "2", "--steps", "1"])
+    assert joined.value.args == (2,)
+    metrics = runs["port"][0][name]["metrics"]
+    assert len(metrics) == STEPS
+    assert all(np.isfinite(list(m.values())).all() for m in metrics)
 
 
 @pytest.mark.parametrize("world,fsdp,model", [(1, False, 1), (2, False, 1),

@@ -28,6 +28,7 @@ from repro_torch import tree as T
 from repro_torch.convert import params_from_jax
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 ARCHS = ["qwen3-moe-30b-a3b", "arctic-480b"]
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -9,7 +9,9 @@ the wire τ_m steps after it was made).
 One subprocess runs every configuration on the JAX side and writes, per
 configuration, the initial parameters, each step's batch and draws and the
 final state to an `.npz`; the port replays them stacked in this process
-and across 4 ranks (`torch_ranks.run_ranks`, spawned once). The draws are computed outside the `shard_map`
+and across 4 ranks (`torch_ranks.run_ranks`, spawned once). The JAX
+step's output state is held to its input's shardings, so the steps of a
+configuration share one compilation. The draws are computed outside the `shard_map`
 the way the JAX step derives them: worker key `fold_in(key, w)`, then
 `split(fold_in(·, step))` into the field's key and the quantizer's `kq`;
 bucket draws from `fold_in(kq, 100_000 + bid)` (two_phase: `split(·, W+1)`,
@@ -48,6 +50,7 @@ from repro_torch.models import gan as TG
 from repro_torch.parity import agreement
 from repro_torch.strategy import Strategy as TStrategy
 from torch_ranks import run_cases, run_ranks
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 W, B, STEPS = 4, 64, 3
 TCFG = TG.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
@@ -78,7 +81,7 @@ SCRIPT = r"""
 import json, warnings
 import numpy as np
 import jax, jax.numpy as jnp
-from jax.sharding import PartitionSpec as P
+from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.parallel.compat import make_mesh, set_mesh
 from repro.configs.base import DQConfig
 from repro.core import compressors as C
@@ -164,8 +167,20 @@ for name, sjson in CONFIGS.items():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         with set_mesh(mesh):
-            step = jax.jit(tr.step)
             st = tr.init(params)
+            # the output state keeps the input's shardings: one compile
+            # serves every step
+            shardings = jax.tree.map(
+                lambda x: x.sharding if isinstance(x.sharding, NamedSharding)
+                else NamedSharding(mesh, P()), st)
+            st = jax.device_put(st, shardings)
+
+            def pinned(st, batch, key):
+                res = tr.step(st, batch, key)
+                return res._replace(state=jax.lax.with_sharding_constraint(
+                    res.state, shardings))
+
+            step = jax.jit(pinned)
             for t in range(STEPS[name]):
                 real = jax.random.normal(jax.random.fold_in(
                     jax.random.key(1), t), (B, 2))

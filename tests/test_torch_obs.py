@@ -39,6 +39,7 @@ from repro_torch import obs as TOBS
 from repro_torch import tree as T
 from repro_torch.core import compressors as TC
 from repro_torch.parity import DELTA_ROUNDING, MAX_FLIPPED
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 # --------------------------------------------------------------------------- #
 # the metrics module on the same inputs

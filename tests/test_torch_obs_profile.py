@@ -19,6 +19,7 @@ from repro_torch.obs.profile import (DEFAULT_WINDOW, NullStepProfiler,
                                      overlap_ratio, phase_costs)
 from repro_torch.obs.tracing import (DEVICE_PHASES, HOST_PHASES, PREFIX,
                                      device_span, host_span)
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")

@@ -28,6 +28,7 @@ import pytest
 
 from repro_torch.parity import obs_agreement
 from torch_ranks import fsdp_strategy, mixture_case, run_ranks, strategy_case
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 WORLDS = (2, 4)
 KINDS = ("sim", "allgather", "two_phase")

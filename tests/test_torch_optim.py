@@ -11,6 +11,7 @@ import torch
 from repro import optim as JO
 from repro_torch import optim as TO
 from repro_torch import tree as T
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 SHAPES = {"gen": {"w": (7, 5), "b": (5,)}, "disc": {"w": (5, 3)}}
 

@@ -28,6 +28,7 @@ import torch
 from repro_torch.strategy import (Compression, ExchangePlan, Schedule,
                                   Strategy, StrategyError)
 from torch_ranks import MIX, mixture_case, run_case, run_cases, run_ranks
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 STEPS = 6
 

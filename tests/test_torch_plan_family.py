@@ -11,6 +11,7 @@ from repro.configs import get as jget
 from repro.models import gan as jgan
 from repro.strategy import Compression as JComp
 from repro_torch.strategy import Compression as TComp
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 FULL = jget("dcgan32")
 WORKERS = [4, 8]

@@ -13,6 +13,7 @@ import sys
 
 import pytest
 import torch
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")

@@ -16,6 +16,7 @@ from repro.kernels import quantize as JQ
 from repro.kernels.ref import quantize_ef_ref as jax_quantize_ef_ref
 from repro_torch.kernels import quantize as Q
 from repro_torch.kernels.ref import quantize_ef_ref
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 
 def _operands(seed, rows, cols):

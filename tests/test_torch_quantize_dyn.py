@@ -27,6 +27,7 @@ from repro.kernels import quantize as JQ
 from repro_torch.core import compressors as TC
 from repro_torch.core import error_feedback as TEF
 from repro_torch.kernels import quantize as Q
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 LEVELS = [127, 7, 1]
 

@@ -43,6 +43,7 @@ from repro_torch.serve import (
     quantize_weights,
 )
 from repro_torch.strategy import Compression
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 JCFG = jcfgs.get("gemma-2b").reduced()
 TCFG = tcfgs.get("gemma-2b").reduced()

@@ -42,6 +42,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.dqgan import DQGAN as TDQGAN
 from repro_torch.models import gan as TG
 from repro_torch.strategy import Strategy as TStrategy
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 PROFILES = ("none", "mild", "heavy")
 

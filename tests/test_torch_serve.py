@@ -39,6 +39,7 @@ from repro_torch.serve import (
     required_tokens,
 )
 from repro_torch.serve.engine import draw_seed, sample_token
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 JCFG = jcfgs.get("gemma-2b").reduced()
 TCFG = tcfgs.get("gemma-2b").reduced()

@@ -25,6 +25,7 @@ from repro_torch import tree as T
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import specs as tspecs
 from repro_torch.parallel import sharding as tshd
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 ARCHS = list(jcfgs.ASSIGNED) + ["gemma-2b-swa"]
 MESHES = {"single": (False, ""), "multi": (True, "")}

@@ -11,6 +11,7 @@ from repro import strategy as JS
 from repro.configs.base import DQConfig as JDQ
 from repro_torch import strategy as TS
 from repro_torch.configs.base import DQConfig as TDQ
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 PRESETS = sorted(JS.PRESETS)
 

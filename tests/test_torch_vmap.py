@@ -35,6 +35,7 @@ from repro_torch.core.dqgan import DQGAN as TDQGAN
 from repro_torch.models import gan as TG
 from repro_torch.parity import agreement, obs_agreement
 from repro_torch.strategy import Strategy as TStrategy
+from torch_ranks import one_thread  # noqa: F401 (autouse)
 
 W, B, STEPS = 4, 64, 3
 TCFG = TG.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,

@@ -8,6 +8,14 @@ port), with one thread each, as a (world / model, model) mesh; `fn(mesh, *args)`
 come back in rank order. Every wait has a deadline: a rank that fails or
 hangs fails the test instead of stalling the run. This module imports no
 JAX, so the ranks start quickly.
+
+`one_thread`, a module-scoped autouse fixture, runs a test module's torch
+on one intra-op thread (the port's test modules import it): the suite
+runs its files in parallel processes, where torch's default pool of a
+thread a core in every process oversubscribes the cores many times over.
+`test_torch_dqgan.py` keeps the default pool: its check of the
+global-extrapolation state admits no flipped code, and at one thread the
+reordered sums flip one.
 """
 from __future__ import annotations
 
@@ -19,6 +27,16 @@ import time
 import traceback
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _entry(rank, world, init_file, fn, args, q, model=1):
