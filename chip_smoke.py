@@ -164,7 +164,10 @@ result line):
               device: the forecast peak within 0.85-1.15 of the peak they
               measured, traced FLOPs at least the model FLOPs, B1 once a
               step; the steps' model-FLOPs share of the bf16 peak
-              (reported); the phase under 120 s
+              (reported); each prefill and decode combo traced on a
+              rank's shards at model 16, its cache bytes the JAX
+              layout's, its parameter bytes too below 10 B parameters
+              (above, labelled `layout_traced` dp); the phase under 120 s
  22. tp       the trainer's tensor-parallel 'model' axis (run after phase
               dryrun): NCCL with two ranks on the one card (expected
               refused; the ranks then take gloo over CUDA tensors);
@@ -181,7 +184,17 @@ result line):
               zoo's for the three); the dry-run's forecast of a rank's
               peak within 0.85-1.15 of the measured for gemma-2b and
               mamba2-1.3b (reported for the other two), its parameter
-              bytes equal to the rank's
+              bytes equal to the rank's; then prefill and decode on the
+              same ranks (8 rows x 2048 tokens): gemma-2b whole (18
+              layers) and mamba2-1.3b (48) in bf16, 32 and 16 greedy
+              steps, one process then the ranks, gemma-2b's cache under
+              hd_model and seq_model: each rank's cache exactly half the
+              one process's, its prefill and decode peaks within
+              0.85-1.15 of the dry-run's forecast, token agreement
+              reported beside the prefill logits' |diff| and top-two
+              gaps; in f32 (gemma-2b at 4 layers, mamba2-1.3b at 48)
+              greedy tokens equal at every step and last logits within
+              rtol = atol = 1e-4
 
 The line before the last is {"kernels": [...]}, one record per kernel with
 its launches on its path, its error against the plain version, its time,
@@ -3969,6 +3982,24 @@ def phase_dryrun(gpu, lm_meas, zoo_meas):
     check(before == after and not any(cu for _, cu in out),
           f"dryrun: device memory {before} -> {after} bytes, CUDA "
           f"initialized in {sum(cu for _, cu in out)} pool processes")
+    # prefill and decode: a rank of the model axis, its cache the JAX
+    # layout's part, its parameters too under dp (above 10 B the
+    # reference takes fsdp, and the record says it traced dp)
+    for r in recs:
+        if r["status"] != "ok" or r["shape"] == "train_4k":
+            continue
+        big = r["params"] > 10e9
+        check(r["model_axis"] == 16 and r["cache_bytes_per_rank"]
+              == r["cache_bytes_per_device"]["bytes"]
+              and (r.get("layout_traced") == "dp") == big
+              and (big or r["param_bytes_per_rank"]
+                   == r["param_bytes_per_device"]["bytes"]),
+              f"dryrun {r['arch']} {r['shape']}: model axis "
+              f"{r['model_axis']}, cache {r['cache_bytes_per_rank']} "
+              f"against {r['cache_bytes_per_device']}, parameters "
+              f"{r['param_bytes_per_rank']} against "
+              f"{r['param_bytes_per_device']['bytes']}, layout traced "
+              f"{r.get('layout_traced')}")
     fits = sorted(f"{r['arch']}/{r['shape']}" for r in recs if r.get("fits"))
     print(f"# dryrun sweep: {len(recs)} combos over {DRYRUN_JOBS} processes "
           f"in {time.perf_counter() - t0:.1f} s, {len(recs) - len(skips)} "
@@ -4029,6 +4060,17 @@ TP_ARCH, TP_LAYERS, TP_STEPS = "gemma-2b", 4, 5
 TP_ZOO = ((ZOO_SSD, ZOO_SSD_LAYERS, LM_BATCH, LM_SEQ, 3, 23),
           (ZOO_RG, ZOO_RG_LAYERS, ZOO_RG_BATCH, LM_SEQ, 3, 29),
           (ZOO_WH, 4, ZOO_WH_BATCH, ZOO_WH_SEQ, 3, 29))
+# prefill and decode on the same two ranks: (arch, layers, dtype, decode
+# steps, kv layouts), TP_SERVE_ROWS rows of TP_SERVE_PROMPT tokens, once in
+# one process and on the ranks under each layout. In bf16 the ranks' peaks
+# are held to the dry-run's forecast and their tokens reported; in f32 the
+# tokens and the last logits are held to the one process's
+TP_SERVE = (("gemma-2b", 18, "bfloat16", 32, ("hd_model", "seq_model")),
+            (ZOO_SSD, ZOO_SSD_LAYERS, "bfloat16", 16, ("hd_model",)),
+            ("gemma-2b", TP_LAYERS, "float32", 32, ("hd_model", "seq_model")),
+            (ZOO_SSD, ZOO_SSD_LAYERS, "float32", 16, ("hd_model",)))
+TP_SERVE_ROWS, TP_SERVE_PROMPT, TP_SERVE_SEED = 8, 2048, 41
+TP_SERVE_TOL = 1e-4        # rtol and atol, the CPU parity test's in f32
 TP_WAIT_S = 600.0          # the ranks' deadline
 PROBE_WAIT_S = 90.0
 
@@ -4100,18 +4142,19 @@ def tp_nccl_probe(rank, init):
             dist.destroy_process_group()
 
 
-def tp_rank(rank, init, backend, runs):
+def tp_rank(rank, init, backend, runs, serves):
     """Rank `rank` of the data 1 x model 2 mesh on cuda:0, each of `runs`
-    in turn (`_tp_train`). What the rank prints comes back as "log", for
-    the parent to print in rank order."""
+    in turn (`_tp_train`), then each of `serves` (`_tp_serve`). What the
+    rank prints comes back as "log", for the parent to print in rank
+    order."""
     import io
     buf = io.StringIO()
     with redirect_stdout(buf):
-        out = _tp_rank(rank, init, backend, runs)
-    return {"runs": out, "log": buf.getvalue()}
+        out = _tp_rank(rank, init, backend, runs, serves)
+    return {"runs": out[0], "serves": out[1], "log": buf.getvalue()}
 
 
-def _tp_rank(rank, init, backend, runs):
+def _tp_rank(rank, init, backend, runs, serves):
     import torch
     from repro_torch.launch.mesh import ProcessMesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4122,9 +4165,75 @@ def _tp_rank(rank, init, backend, runs):
                             init_method=init, model=2, backend=backend,
                             timeout_s=TP_WAIT_S)
     try:
-        return [_tp_train(mesh, rank, *run) for run in runs]
+        return ([_tp_train(mesh, rank, *run) for run in runs],
+                [_tp_serve(mesh.device, mesh, *run) for run in serves])
     finally:
         mesh.close()
+
+
+def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout):
+    """`arch` at `layers` layers in `dtype`, over the rank's shards of
+    `mesh` (None: one process): prefill of TP_SERVE_ROWS x
+    TP_SERVE_PROMPT tokens (the cache reserving `steps` more positions,
+    in `kv_layout`), then `steps` greedy decode steps. Returns the greedy
+    tokens (rows x steps + 1), the prefill's and the last step's logits
+    in f32, the bytes of the
+    cache on the card, and the peak memory and wall time of the prefill
+    and of the decode steps (each peak from the state before it)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get(arch), num_layers=layers,
+                              param_dtype=dtype)
+    bundle = build(cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(TP_SERVE_SEED)
+    params = bundle.init(generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (TP_SERVE_ROWS, TP_SERVE_PROMPT), generator=gen,
+                           device=dev)
+    free_cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # kv_layout splits the cache over a model axis: one process has none
+    kw = {} if mesh is None else {"kv_layout": kv_layout}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, c = bundle.prefill(params, tokens, None,
+                               max_len=TP_SERVE_PROMPT + steps, **kw)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre_peak = torch.cuda.max_memory_allocated()
+        first = lg.float().cpu().numpy()
+        # the device's cache: every leaf but the host-side "pos"
+        cache = sum(x.numel() * x.element_size()
+                    for p, x in zip(*T.flatten(c))
+                    if x is not None and p[-1] != "pos")
+        out = [tok]
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            lg, c = bundle.decode_step(params, tok[:, None], c)
+            tok = lg.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    res = {"arch": arch, "layers": layers, "dtype": dtype,
+           "kv_layout": kv_layout,
+           # numpy: a tensor leaving a spawned rank through its queue
+           # would share its storage with a process that is exiting
+           "tokens": torch.stack(out, 1).cpu().numpy(),
+           "first": first, "last": lg.float().cpu().numpy(),
+           "cache": cache, "prefill_peak": pre_peak,
+           "decode_peak": torch.cuda.max_memory_allocated(),
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in T.leaves(params)),
+           "prefill_s": t1 - t0, "decode_s": t2 - t1}
+    del params, c, lg, bundle
+    free_cuda()
+    return res
 
 
 def _tp_train(mesh, rank, arch, layers, batch, seq, steps, seed):
@@ -4245,10 +4354,25 @@ def phase_tp(dev, gpu, zoo_peaks):
     (d) the dry-run's forecast of one rank (`launch.dryrun`'s trace at the
         same mesh, on the meta device): its parameter bytes equal to the
         rank's, its peak within 0.85-1.15 of the measured for gemma-2b
-        and mamba2-1.3b (reported for the other two).
+        and mamba2-1.3b (reported for the other two);
+    (e) prefill and decode (TP_SERVE): gemma-2b whole (18 layers) and
+        mamba2-1.3b (48) in bf16, TP_SERVE_ROWS x TP_SERVE_PROMPT then
+        32 and 16 greedy steps, once in one process and then on the same
+        two ranks, gemma-2b's cache in each kv layout: each rank's cache
+        (K/V, or the mixers' state) exactly half of the one process's,
+        the two ranks' tokens equal, the share of the one process's
+        tokens reported (bf16 near-ties part them), and each rank's
+        prefill and decode peaks within 0.85-1.15 of the dry-run's
+        forecast of a rank at the same mesh, rows and layout, with the
+        prefill logits' max |diff| from the one process's beside its
+        top-two gaps and the step at which each row first parts; then
+        gemma-2b at TP_LAYERS and mamba2-1.3b at all 48 layers in f32,
+        where the ranks' greedy tokens equal the one process's at every
+        step and their last logits agree within TP_SERVE_TOL.
     Returns B1's launches on the path (each rank's, by arch)."""
     import dataclasses
 
+    import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch import tree as T
@@ -4284,10 +4408,18 @@ def phase_tp(dev, gpu, zoo_peaks):
     del tr, st, batches
     free_cuda()
 
+    # ---- (e) prefill and decode in one process ---------------------------- #
+    t0 = time.perf_counter()
+    one = {run[:3]: _tp_serve(dev, None, *run[:4], "hd_model")
+           for run in TP_SERVE}
+    serves = [run[:4] + (kv,) for run in TP_SERVE for kv in run[4]]
+    print(f"# tp (e): prefill and decode in one process took "
+          f"{time.perf_counter() - t0:.1f} s")
+
     # ---- (c) two ranks, data 1 x model 2 --------------------------------- #
     t0 = time.perf_counter()
     runs = ((TP_ARCH, TP_LAYERS, LM_BATCH, LM_SEQ, TP_STEPS, 7),) + TP_ZOO
-    res = _spawn_ranks(tp_rank, 2, (backend, runs), TP_WAIT_S)
+    res = _spawn_ranks(tp_rank, 2, (backend, runs, serves), TP_WAIT_S)
     bad = [r for ok, r in res if not ok]
     check(not bad, "tp: a rank failed:\n" + "\n".join(bad))
     for _, r in res:
@@ -4319,7 +4451,112 @@ def phase_tp(dev, gpu, zoo_peaks):
             _tp_forecast(i, r, fc, arch in (TP_ARCH, ZOO_SSD))
     print(f"# tp (c): the ranks took {time.perf_counter() - t0:.1f} s; gpu "
           f"{gpu}")
+    t0 = time.perf_counter()
+    for run, *ranks in zip(serves, *[r["serves"] for _, r in res]):
+        _tp_serve_report(one[run[:3]], ranks, gpu)
+        f32 = one.get(run[:2] + ("float32",))
+        if run[2] == "bfloat16" and f32 is not None:
+            # bf16's own error at this depth: the same seed's f32 run
+            # (weights unrounded) against the one process's and a rank's
+            # bf16 prefill logits
+            d1, d2 = (float(np.abs(x["first"] - f32["first"]).max())
+                      for x in (one[run[:3]], ranks[0]))
+            print(f"# tp (e) {run[0]} {run[1]} layers {run[4]}: bf16 "
+                  f"prefill logits against the f32 run's, max |diff| one "
+                  f"process {d1:.3e}, rank 0 {d2:.3e}")
+    print(f"# tp (e): the serving checks and forecasts took "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _tp_serve_report(one, ranks, gpu):
+    """One serving run of the two ranks against the one process's: the
+    cache half, the ranks' tokens equal, and in bf16 the token share and
+    the peaks against the dry-run's forecast, in f32 the tokens and last
+    logits (phase tp (e))."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    arch, layers, dtype, kv = (ranks[0][k] for k in ("arch", "layers",
+                                                     "dtype", "kv_layout"))
+    label = f"tp (e) {arch} {layers} layers {dtype} {kv}"
+    steps = one["tokens"].shape[1] - 1
+    check(np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]),
+          f"{label}: the two ranks' greedy tokens differ")
+    same = float((ranks[0]["tokens"] == one["tokens"]).mean())
+
+    def rows(a):
+        return np.array2string(a, max_line_width=10 ** 6, formatter={
+            "float_kind": lambda x: f"{x:.3e}"})
+
+    # whether a parting is a near tie: the prefill's logits apart by more
+    # than the one process's gap between its top two tokens
+    diff = np.abs(ranks[0]["first"] - one["first"]).max(-1)
+    top2 = np.sort(one["first"], -1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    parted = ranks[0]["tokens"] != one["tokens"]
+    at = np.where(parted.any(1), parted.argmax(1), -1)
+    print(f"# {label}: prefill logits max |diff| {diff.max():.3e} (max "
+          f"|logit| {np.abs(one['first']).max():.3f}); per row |diff| "
+          f"{rows(diff)}, the one process's top-two gap {rows(gap)}; each row "
+          f"first parts at step {at.tolist()} of 0-{steps} (-1: never)")
+    for i, r in enumerate(ranks):
+        check(2 * r["cache"] == one["cache"], f"{label} rank {i}: cache "
+              f"{r['cache']} bytes against the one process's "
+              f"{one['cache']}")
+        print(f"# {label} rank {i}: cache {r['cache']} bytes (one process "
+              f"{one['cache']}: {r['cache'] / one['cache']:.4f}); "
+              f"parameters {r['param_bytes']} (one process "
+              f"{one['param_bytes']}); prefill {TP_SERVE_ROWS} x "
+              f"{TP_SERVE_PROMPT} {r['prefill_s']:.3f} s (one process "
+              f"{one['prefill_s']:.3f}), {steps} decode steps "
+              f"{r['decode_s']:.3f} s (one process {one['decode_s']:.3f}; "
+              f"two ranks share the card over gloo); peaks prefill "
+              f"{gib(r['prefill_peak']):.3f} GiB, decode "
+              f"{gib(r['decode_peak']):.3f} GiB (one process "
+              f"{gib(one['prefill_peak']):.3f}, "
+              f"{gib(one['decode_peak']):.3f}); greedy tokens equal to the "
+              f"one process's: {same:.4f} of {one['tokens'].size}; gpu "
+              f"{gpu}")
+    if dtype == "float32":
+        check(same == 1.0, f"{label}: greedy tokens equal to the one "
+              f"process's at {same:.4f} of the steps")
+        err = np.abs(ranks[0]["last"] - one["last"])
+        bound = TP_SERVE_TOL + TP_SERVE_TOL * np.abs(one["last"])
+        print(f"# {label}: last logits max |diff| {err.max():.3e} (max "
+              f"|logit| {np.abs(one['last']).max():.3f}), "
+              f"{int((err > bound).sum())} over rtol = atol = "
+              f"{TP_SERVE_TOL:g}")
+        check(bool((err <= bound).all()), f"{label}: last logits differ "
+              f"from the one process's beyond rtol = atol = {TP_SERVE_TOL}")
+        return
+    cfg = dataclasses.replace(configs.get(arch), num_layers=layers,
+                              param_dtype=dtype)
+    shape = configs.InputShape(f"{arch}-{layers}", TP_SERVE_PROMPT,
+                               TP_SERVE_ROWS, "prefill")
+    fc = {"prefill": dryrun.trace_prefill(
+              cfg, shape, TP_SERVE_ROWS, ranks=2, model=2, kv_layout=kv,
+              max_len=TP_SERVE_PROMPT + steps),
+          "decode": dryrun.trace_decode(
+              cfg, dataclasses.replace(shape, seq_len=TP_SERVE_PROMPT + steps,
+                                       kind="decode"),
+              TP_SERVE_ROWS, ranks=2, model=2, kv_layout=kv)}
+    for i, r in enumerate(ranks):
+        for k, f in fc.items():
+            ratio = f["peak_bytes"] / r[f"{k}_peak"]
+            print(f"# {label} rank {i}: forecast {k} peak "
+                  f"{gib(f['peak_bytes']):.3f} GiB against "
+                  f"{gib(r[f'{k}_peak']):.3f} measured (ratio {ratio:.3f}); "
+                  f"forecast cache {f['cache_bytes_per_rank']} bytes, "
+                  f"parameters {f['param_bytes_per_rank']}")
+            check(0.85 <= ratio <= 1.15, f"{label} rank {i}: forecast {k} "
+                  f"peak {f['peak_bytes']} against {r[f'{k}_peak']}")
+        check(fc["decode"]["param_bytes_per_rank"] == r["param_bytes"],
+              f"{label} rank {i}: forecast parameter bytes "
+              f"{fc['decode']['param_bytes_per_rank']} against "
+              f"{r['param_bytes']}")
 
 
 def timed(label, fn, *args, **kw):

@@ -26,9 +26,19 @@ or 512 (`multi`) cards is that many ranks, one card each.
   too. Under `fsdp` the port's ZeRO-3 runs over all the ranks with model
   1 (uniform 4 MiB buckets), as the port keeps fsdp on a pure data mesh. One `step` on one rank's rows of
   the global batch.
-- prefill: `prefill` at the shape's batch split per `batch_spec`.
-- decode: `decode_step` against dense caches of `seq_len`, batch split
-  per `batch_spec`.
+- prefill: the sharded bundle's `prefill` (`models.build(cfg, mesh)`) of
+  the rank's rows (the shape's batch split per `batch_spec`) on its
+  parameter shards under the `dp` rules, one rank of the production
+  mesh's 'model' axis (16), filling the rank's part of the cache in the
+  record's `kv_layout`.
+- decode: the sharded bundle's `decode_step` of the rank's rows against
+  the rank's part of dense caches of `seq_len` (`init_cache` under
+  `cache_specs` at `kv_layout`), on the same shards.
+Above 10 B parameters the reference lays its parameters out under
+`fsdp` (over 'data' too); the port traces prefill and decode under `dp`
+(ROADMAP slice 11 ports `fsdp`), so such a record's
+`param_bytes_per_rank` exceeds `param_bytes_per_device`, and says so
+(`layout_traced`).
 A `*_block1024` compressor's kernel is traced as the card runs it: one
 op with its outputs (`kernels.meta`).
 
@@ -40,7 +50,11 @@ bottleneck, flops, traffic_result_bytes, collectives) and adds:
 package's layout, its 'model' axis included, labelled as such),
 `param_bytes_per_rank` (what the traced rank holds: equal to the former
 under `dp` with a model axis), `model_axis`, `collectives_model` (the
-model group's, apart from the exchange's `collectives`), `ledger` (the
+model group's, apart from the exchange's `collectives`); for prefill and
+decode `cache_bytes_per_rank` (the traced rank's cache) and
+`cache_bytes_per_device` (the JAX package's layout of the same cache
+under `cache_specs`, equal to the former), and `layout_traced` with
+`layout_note` where the traced layout is not the record's; `ledger` (the
 `comm.CommLedger` per-step wire bytes of the strategy at that worker
 count) and `roofline` {compute_s, memory_s, collective_s} at the H100
 SXM data-sheet constants below. The JAX package's TPU constants are not
@@ -149,17 +163,23 @@ def _meta_launches() -> dict:
             "flash_attention": FA.flash_meta_launches}
 
 
-def _traced(fn, *args) -> dict:
-    """`op_analysis.analyze(fn, *args)`'s totals and phases, with the
-    kernels' meta launches the call made."""
+def _traced(fn, *args, **kwargs):
+    """(`op_analysis.analyze(fn, *args, **kwargs)`'s totals and phases,
+    with the kernels' meta launches the call made; the call's result)."""
     from repro_torch.launch.op_analysis import analyze
     before = _meta_launches()
-    res = analyze(fn, *args)
+    res = analyze(fn, *args, **kwargs)
     out = {k: res[k] for k in ("calls", "flops", "traffic_result_bytes",
                                "held_bytes", "peak_bytes", "phases")}
     out["kernels_meta"] = {k: v - before[k]
                            for k, v in _meta_launches().items()}
-    return out
+    return out, res["result"]
+
+
+def _nbytes(tree) -> int:
+    from repro_torch import tree as T
+    return int(sum(x.numel() * x.element_size() for x in T.leaves(tree)
+                   if x is not None))
 
 
 def _max_seq(cfg, shape):
@@ -200,7 +220,7 @@ def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
                                             _max_seq(cfg, shape)))
     state = trainer.init(_meta_params(cfg, shape, mesh))
     batch, _ = S.train_batch_specs(cfg, shape, {"data": workers})
-    out = _traced(trainer.step, state, batch)
+    out, _ = _traced(trainer.step, state, batch)
     out["collectives"] = dict(getattr(trainer.worker_backend,
                                       "collectives", {}))
     group = TP.model_group_for(mesh)
@@ -218,29 +238,81 @@ def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
     return out
 
 
-def trace_prefill(cfg, shape, batch: int) -> dict:
-    """`prefill` of `batch` sequences of `shape.seq_len` tokens on meta
-    params (no autograd)."""
-    from repro_torch.launch import specs as S
+def _serving(cfg, shape, ranks, model):
+    """(the sharded bundle over one rank of `ranks` with a model axis of
+    `model`, its meta parameters, its model group)."""
+    from repro_torch.launch.mesh import meta_mesh
     from repro_torch.models import build
+    from repro_torch.parallel import tensor as TP
+    if model < 2:
+        raise ValueError(f"prefill and decode trace a rank of a model axis "
+                         f"above 1, got {model}")
+    mesh = meta_mesh(ranks, model=model)
+    return (build(cfg, mesh), _meta_params(cfg, shape, mesh),
+            TP.model_group_for(mesh))
+
+
+def _serving_record(out, params, caches, group, model) -> dict:
+    out["collectives_model"] = dict(getattr(group, "collectives", {}))
+    out["model_axis"] = model
+    out["param_bytes_per_rank"] = _nbytes(params)
+    out["cache_bytes_per_rank"] = _nbytes(caches)
+    return out
+
+
+def trace_prefill(cfg, shape, batch: int, *, ranks: int, model: int,
+                  kv_layout: str = "hd_model",
+                  max_len: int = 0) -> dict:
+    """`prefill` of `batch` sequences of `shape.seq_len` tokens on one
+    rank's meta parameter shards (a model axis of `model` over `ranks`
+    ranks), filling the rank's part of the cache under `kv_layout`
+    (`max_len` positions reserved where longer); no autograd."""
+    from repro_torch.launch import specs as S
     local = dataclasses.replace(shape, global_batch=batch)
     (tokens, enc), _ = S.prefill_input_specs(cfg, local, {})
+    bundle, params, group = _serving(cfg, shape, ranks, model)
     with torch.no_grad():
-        return _traced(build(cfg).prefill, _meta_params(cfg, shape), tokens,
-                       enc)
+        out, (_, caches) = _traced(bundle.prefill, params, tokens, enc,
+                                   max_len=max_len, kv_layout=kv_layout)
+    return _serving_record(out, params, caches, group, model)
 
 
-def trace_decode(cfg, shape, batch: int, mesh=None,
+def trace_decode(cfg, shape, batch: int, *, ranks: int, model: int,
                  kv_layout: str = "hd_model") -> dict:
-    """One `decode_step` of `batch` rows against dense caches of
-    `shape.seq_len` on meta params (no autograd)."""
+    """One `decode_step` of `batch` rows against the rank's part of dense
+    caches of `shape.seq_len` (`init_cache` under `kv_layout`) on one
+    rank's meta parameter shards; no autograd."""
+    from repro_torch.launch import specs as S
+    bundle, params, group = _serving(cfg, shape, ranks, model)
+    caches = bundle.init_cache(batch, shape.seq_len, device=S.META,
+                               kv_layout=kv_layout)
+    tokens = torch.empty((batch, 1), dtype=torch.int32, device=S.META)
+    with torch.no_grad():
+        out, _ = _traced(bundle.decode_step, params, tokens, caches)
+    return _serving_record(out, params, caches, group, model)
+
+
+def cache_bytes_per_device(cfg, shape, mesh, kv_layout: str) -> dict:
+    """Bytes of one device's part of the decode cache that `shape`'s
+    prefill fills or its decode reads (the global batch, `seq_len`
+    positions; a windowed model's rolling window), under the JAX
+    package's `cache_specs` on `mesh`."""
+    from repro_torch import tree as T
     from repro_torch.launch import specs as S
     from repro_torch.models import build
-    tokens, caches, _ = S.decode_input_specs(cfg, shape, mesh or {},
-                                             kv_layout, batch=batch)
-    with torch.no_grad():
-        return _traced(build(cfg).decode_step, _meta_params(cfg, shape),
-                       tokens, caches)
+    from repro_torch.parallel import sharding as shd
+    B = shape.global_batch
+    caches = build(cfg).init_cache(
+        B, max(shape.seq_len, cfg.attention_window), device=S.META)
+    specs = shd.cache_specs(caches, mesh, B, kv_layout)
+    paths, leaves = T.flatten(caches)
+    total = sum(math.prod(shd.local_shape(tuple(x.shape), sp, mesh))
+                * x.element_size()
+                for x, sp in zip(leaves, T.flatten_up_to(paths, specs))
+                if x is not None)
+    return {"bytes": int(total), "kv_layout": kv_layout, "mesh": dict(mesh),
+            "of": "the JAX package's cache_specs, its 'model' axis "
+                  "included"}
 
 
 def param_bytes_per_device(cfg, layout: str, mesh, max_seq: int) -> dict:
@@ -314,13 +386,26 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, *,
             rec.update(trace_train(cfg, shape, strat, ranks=n_chips,
                                    model=model, optimizer=optimizer,
                                    extrapolation=extrapolation))
-        elif shape.kind == "prefill":
-            rec["batch_per_rank"] = local
-            rec.update(trace_prefill(cfg, shape, local))
         else:
+            # the production mesh's model axis, and its rank's shards
+            # under the dp rules whatever the record's layout
+            model = mesh.get("model", 1)
+            trace = (trace_prefill if shape.kind == "prefill"
+                     else trace_decode)
             rec["kv_layout"] = kv_layout
             rec["batch_per_rank"] = local
-            rec.update(trace_decode(cfg, shape, local, mesh, kv_layout))
+            rec.update(trace(cfg, shape, local, ranks=n_chips, model=model,
+                             kv_layout=kv_layout))
+            rec["cache_bytes_per_device"] = cache_bytes_per_device(
+                cfg, shape, mesh, kv_layout)
+            if layout != "dp":
+                rec["layout_traced"] = "dp"
+                rec["layout_note"] = (
+                    f"the reference lays the parameters out under {layout}"
+                    f" (param_bytes_per_device); the port traces prefill "
+                    f"and decode under dp, its 'model' axis alone "
+                    f"(param_bytes_per_rank): ROADMAP slice 11 ports "
+                    f"fsdp")
         rec["trace_s"] = round(time.time() - t0, 2)
         rec["fits"] = rec["peak_bytes"] <= HBM_BYTES
         rec["mf"] = model_flops(cfg, shape)

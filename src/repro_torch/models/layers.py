@@ -27,6 +27,24 @@ MQA head over two ranks) it gathers the sharded projections over the
 model group, computes attention replicated, and hands the row-parallel
 `o` the rank's slice of its input. Cross-attention follows the same
 rule, its k and v projecting the encoder output.
+
+Prefill and decode under a model group keep a rank's part of the K/V
+cache, as `parallel.sharding.cache_spec` lays it out over 'model'
+(a prefill's `fill_cache` names the layout): "hd_model" splits head_dim,
+"seq_model" (or a head_dim the group does not divide) the positions,
+contiguous blocks of them (a rolling cache's slots). Prefill runs
+attention as training does and fills the cache from the post-RoPE K/V,
+gathered to whole heads, then cut to the rank's part. A decode step
+gathers the token's q, k and v (B x 1 x heads x head_dim) and ropes them
+whole (RoPE pairs dim i with dim i + hd/2, which a head_dim slice splits),
+and the rank that holds the token's slot writes it. With head_dim split
+each rank's f32 partial scores over its slice are summed over the group
+before the scale, the mask and the softmax, and the ranks' slices of
+probs·V gathered back; with the positions split each rank takes a
+softmax over its own (max, sum of exponentials, weighted V sum), and the
+group merges them by log-sum-exp (an all-max, then the sums rescaled by
+exp(m - M)). Either way the row-parallel `o` takes the rank's block of
+the heads' output.
 """
 from __future__ import annotations
 
@@ -36,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import paged_flash_attention
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor as TP
 
 _CHUNKED_PREFILL = 2048   # the JAX package switches to attention_chunked above
@@ -302,6 +321,24 @@ def attention_chunked(q, k, v, window=0, causal=True, q_chunk=1024):
     return torch.cat(outs, dim=1)
 
 
+def _cache_layout(k, v, win, length=0):
+    """A prefill's K/V (B, S, K, hd) in cache layout: with a window of
+    `win` > 0 its rolling `win` slots, else the S positions, padded to
+    `length` when longer."""
+    S = k.shape[1]
+    if win > 0 and S >= win:
+        # rolling layout: slot i holds position
+        # S - win + ((i - S) mod win), so that it is ≡ i (mod win)
+        idx = S - win + torch.remainder(
+            torch.arange(win, device=k.device) - S, win)
+        return k.index_select(1, idx), v.index_select(1, idx)
+    pad = (win if win > 0 else max(length, S)) - S
+    if pad > 0:  # a prompt shorter than the window, or reserved positions
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v
+
+
 def _grouped_decode(q, ck, cv, valid, cfg):
     """The grouped-GQA decode math of the dense-cache and gather branches:
     q (B, S, H, hd) against ck/cv (B, Sc, K, hd) with `valid` (B or 1, Sc)
@@ -320,17 +357,26 @@ def _grouped_decode(q, ck, cv, valid, cfg):
 
 def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
                fill_cache=False):
-    """Prefill or train (cache None; with fill_cache=True the K/V come back
-    as a decode-ready cache), dense-cache decode (cache {"k", "v", "pos"}),
+    """Prefill or train (cache None; with `fill_cache` the K/V come back as
+    a decode-ready cache), dense-cache decode (cache {"k", "v", "pos"}),
     paged decode (cache {"k": pool, "v": pool, "table"}), or
     cross-attention (cross_kv: the encoder output (B, Se, d), which the
     block's k and v project; no mask, no cache). Returns (out,
-    new_cache)."""
+    new_cache).
+
+    `fill_cache` is False, or (kv_layout, max_len): a global-attention
+    cache reserves max_len positions where longer than the prompt, and
+    under a model group the rank keeps its part under kv_layout."""
     B, S, d = x.shape
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if TP.current() is not None and cache is None:
-        return _attn_train_tp(p, x, cfg, positions, causal, fill_cache,
-                              enc=cross_kv)
+    if TP.current() is not None:
+        if cache is None:
+            return _attn_train_tp(p, x, cfg, positions, causal, fill_cache,
+                                  enc=cross_kv)
+        if "table" in cache:
+            raise ValueError("attn_apply: no paged decode under a model "
+                             "group; the paged engine is one process")
+        return _attn_decode_tp(p, x, cfg, cache)
     q = _split_heads(linear(p["q"], x), H, hd)
     if cross_kv is not None:
         k = _split_heads(linear(p["k"], cross_kv), Kh, hd)
@@ -355,15 +401,7 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
                                   causal=causal)
         new_cache = None
         if fill_cache:
-            if win > 0 and S >= win:
-                # rolling layout: slot i holds position
-                # S - win + ((i - S) mod win), so that it is ≡ i (mod win)
-                idx = S - win + torch.remainder(
-                    torch.arange(win, device=x.device) - S, win)
-                k, v = k.index_select(1, idx), v.index_select(1, idx)
-            elif win > 0:  # prompt shorter than the window: win slots
-                k = F.pad(k, (0, 0, 0, 0, 0, win - S))
-                v = F.pad(v, (0, 0, 0, 0, 0, win - S))
+            k, v = _cache_layout(k, v, win, fill_cache[1])
             new_cache = {"k": k, "v": v,
                          "pos": torch.tensor(S, dtype=torch.int32)}
         return linear(p["o"], out), new_cache
@@ -374,35 +412,27 @@ def attn_apply(p, x, cfg, positions, cache=None, cross_kv=None, causal=True,
     ck, cv = cache["k"], cache["v"]
     # "pos" is host state (a CPU int32 tensor): reading it needs no sync
     t = int(cache["pos"])
-    if win > 0 and ck.shape[1] == win:
-        # rolling: write at t mod win; slot i holds t - ((slot - i) mod win)
-        slot = t % win
-        ck[:, slot:slot + S] = k
-        cv[:, slot:slot + S] = v
-        k_pos = t - torch.remainder(
-            slot - torch.arange(win, device=x.device), win)
-        valid = (k_pos >= 0)[None]
-    else:
-        ck[:, t:t + S] = k
-        cv[:, t:t + S] = v
-        valid = (torch.arange(ck.shape[1], device=x.device) <= t)[None]
+    slot, rolling = _slot(t, win, ck.shape[1])
+    ck[:, slot:slot + S] = k
+    cv[:, slot:slot + S] = v
+    valid = _valid(t, slot, torch.arange(ck.shape[1], device=x.device), win,
+                   rolling)[None]
     out = _grouped_decode(q, ck, cv, valid, cfg)
     cache["pos"] += S
     return linear(p["o"], out), cache
 
 
 def _attn_train_tp(p, x, cfg, positions, causal, fill_cache, enc=None):
-    """Training attention under a model group: self-attention, or with
-    `enc` (the encoder output) cross-attention, whose k and v project
-    `enc`. The column-parallel q/k/v take their input through `copy_to`,
-    replicated ones take it as it is. Head-local when q, k and v all
-    shard on head boundaries (each rank's query heads then attend to its
-    own KV heads); otherwise the sharded projections are gathered and
-    attention runs replicated, and the row-parallel `o` takes the rank's
-    slice of its output."""
-    if fill_cache:
-        raise ValueError("attn_apply: a tensor-parallel prefill is not "
-                         "supported; the model axis is the trainer's")
+    """Training or prefill attention under a model group: self-attention,
+    or with `enc` (the encoder output) cross-attention, whose k and v
+    project `enc`. The column-parallel q/k/v take their input through
+    `copy_to`, replicated ones take it as it is. Head-local when q, k and
+    v all shard on head boundaries (each rank's query heads then attend
+    to its own KV heads); otherwise the sharded projections are gathered
+    and attention runs replicated, and the row-parallel `o` takes the
+    rank's slice of its output. With `fill_cache` the rank's part of the
+    K/V cache comes back too (`_fill_cache_tp`; `fill_cache` as
+    `attn_apply` takes it)."""
     B, S, _ = x.shape
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = TP.current().size
@@ -439,9 +469,148 @@ def _attn_train_tp(p, x, cfg, positions, causal, fill_cache, enc=None):
         else:
             out = attention_dense(q, k, v, pos, pos, window=win,
                                   causal=causal)
+    new_cache = None
+    if fill_cache:
+        if local:   # the rank's KV heads: gather them whole
+            k, v = TP.gather_from(k, 2), TP.gather_from(v, 2)
+        new_cache = _fill_cache_tp(k, v, win, *fill_cache)
     if not local and q_sh:
         out = TP.scatter_to(out)
-    return row_linear(p["o"], out, H * hd), None
+    return row_linear(p["o"], out, H * hd), new_cache
+
+
+def _fill_cache_tp(k, v, win, layout, max_len):
+    """A rank's part of the decode cache from a prefill's post-RoPE K/V,
+    whole on every rank (B, S, K, hd): the rolling or padded layout
+    first, then the rank's slice of head_dim or of the positions
+    (`parallel.sharding.kv_split` under `layout`)."""
+    g = TP.current()
+    S = k.shape[1]
+    k, v = _cache_layout(k, v, win, max_len)
+    length, hd = k.shape[1], k.shape[3]
+    ax = shd.kv_split(layout, length, hd, g.size)
+    if ax is None:
+        raise ValueError(f"attn_apply: a K/V cache of {length} positions "
+                         f"and head_dim {hd} splits over {g.size} model "
+                         f"ranks on neither; give it a length {g.size} "
+                         f"divides")
+    return {"k": g.slice(k, ax).contiguous(),
+            "v": g.slice(v, ax).contiguous(),
+            "pos": torch.tensor(S, dtype=torch.int32)}
+
+
+def _attn_decode_tp(p, x, cfg, cache):
+    """One decode token against a rank's part of a dense (or rolling)
+    cache {"k", "v", "pos"} under a model group, written in place: the
+    token's q, k and v gathered whole and roped; a cache whose head_dim
+    is the rank's slice takes `_decode_hd`, one that holds the rank's
+    block of positions `_decode_seq`. Returns (out, cache)."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"attn_apply: a decode step under a model group "
+                         f"takes one token a row, got {S}")
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q_sh, kv_sh = TP.shards(H * hd), TP.shards(Kh * hd)
+    xs = TP.copy_to(x) if q_sh or kv_sh else x
+    q = linear(p["q"], xs if q_sh else x)
+    k = linear(p["k"], xs if kv_sh else x)
+    v = linear(p["v"], xs if kv_sh else x)
+    if q_sh:
+        q = TP.gather_from(q)
+    if kv_sh:
+        k, v = TP.gather_from(k), TP.gather_from(v)
+    q, k, v = (_split_heads(q, H, hd), _split_heads(k, Kh, hd),
+               _split_heads(v, Kh, hd))
+    # "pos" is host state (a CPU int32 tensor): reading it needs no sync
+    t = int(cache["pos"])
+    if cfg.use_rope:
+        pos = torch.full((1,), t, dtype=torch.int32, device=x.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    # head_dim split, or the positions: the cache's global length
+    split_hd = cache["k"].shape[-1] != hd
+    length = cache["k"].shape[1] * (1 if split_hd else TP.current().size)
+    slot, rolling = _slot(t, cfg.attention_window, length)
+    decode = _decode_hd if split_hd else _decode_seq
+    out = decode(q, k, v, cache, t, slot, rolling, cfg)
+    cache["pos"] += S
+    if q_sh:
+        return row_linear(p["o"], TP.scatter_to(out), H * hd), cache
+    return linear(p["o"], out), cache
+
+
+def _decode_hd(q, k, v, cache, t, slot, rolling, cfg):
+    """Decode against a cache split on head_dim (rank slice [lo, lo + n)):
+    the rank's slice of the token's k and v written at `slot`, f32
+    partial scores over the slice summed over the group, then the scale,
+    the mask and the softmax whole, and the slices of probs·V gathered
+    back. Returns (B, 1, H·hd)."""
+    g = TP.current()
+    ck, cv = cache["k"], cache["v"]
+    B, L = ck.shape[:2]
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = ck.shape[-1]
+    lo = g.index * n
+    ck[:, slot] = k[:, 0, :, lo:lo + n]
+    cv[:, slot] = v[:, 0, :, lo:lo + n]
+    valid = _valid(t, slot, torch.arange(L, device=ck.device),
+                   cfg.attention_window, rolling)
+    qg = q[..., lo:lo + n].reshape(B, 1, Kh, H // Kh, n)
+    scores = TP.reduce_from(torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                                         ck.float()))
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(cv.dtype), cv)
+    return TP.gather_from(out).reshape(B, 1, H * hd)
+
+
+def _decode_seq(q, k, v, cache, t, slot, rolling, cfg):
+    """Decode against a cache split on its positions (the rank's block of
+    L / size slots): the rank holding `slot` writes the token, each
+    rank takes a softmax over its slots (its max m, sum of exponentials
+    and weighted V sum, in f32), and the group merges them by log-sum-exp
+    (M the all-max of m, the sums rescaled by exp(m - M) and summed).
+    Returns (B, 1, H·hd)."""
+    g = TP.current()
+    ck, cv = cache["k"], cache["v"]
+    B, n = ck.shape[:2]
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lo = g.index * n
+    if lo <= slot < lo + n:
+        ck[:, slot - lo] = k[:, 0]
+        cv[:, slot - lo] = v[:, 0]
+    valid = _valid(t, slot, lo + torch.arange(n, device=ck.device),
+                   cfg.attention_window, rolling)
+    qg = q.reshape(B, 1, Kh, H // Kh, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), ck.float())
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    top = TP.all_max(m)
+    w = torch.exp(m - top)                          # (B, Kh, G, 1, 1)
+    part = torch.cat([torch.einsum("bkgqs,bskd->bkgqd", e, cv.float()) * w,
+                      e.sum(-1, keepdim=True) * w], dim=-1)
+    part = TP.reduce_from(part)
+    out = (part[..., :hd] / part[..., hd:]).to(cv.dtype)    # (B,Kh,G,1,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd)
+
+
+def _slot(t, win, length):
+    """(slot, rolling): where a decode at position t writes in a cache of
+    `length` positions; a rolling one (`win` slots) writes t mod win."""
+    rolling = win > 0 and length == win
+    return (t % win if rolling else t), rolling
+
+
+def _valid(t, slot, idx, win, rolling):
+    """The slots `idx` (global indices) a decode at position t attends to:
+    a rolling cache's slot i holds t - ((slot - i) mod win), valid when
+    not negative; a plain cache's the positions up to t."""
+    if rolling:
+        return (t - torch.remainder(slot - idx, win)) >= 0
+    return idx <= t
 
 
 def _paged_attn_decode(p, cfg, q, k, v, cache, positions):

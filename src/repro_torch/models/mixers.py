@@ -20,11 +20,16 @@ views of a layer-stacked cache, so a fresh tensor would be lost.
 
 Under a model group (`parallel.tensor`, the trainer's 'model' axis, by
 `parallel.sharding`'s rules: z, x, B, C, dt, in_x, in_gate, W_a and W_i
-column-parallel, `out` row-parallel, the rest replicated) the
-full-sequence mixers run on the rank's shards: the SSD on its heads with B
-and C gathered whole (`_ssd_train_tp`), the RG-LRU on its channels with
-the gates' input gathered (`_rglru_train_tp`). The math is the one-device
-math; only its layout and the order of a few sums change.
+column-parallel, `out` row-parallel, the rest replicated) the mixers
+run on the rank's shards, over a full sequence (train, prefill) and as a
+decode step: the SSD on its heads with B and C gathered whole (`_ssd_tp`),
+the RG-LRU on its channels with the gates' input gathered (`_rglru_tp`).
+A rank's state is its part of the reference's (`parallel.sharding.
+cache_spec`): the SSD's h on its heads (B, H / size, P, N), the RG-LRU's
+h and conv buffer on its channels, and the SSD's conv buffer the rank's
+[x_r | B_r | C_r] channels (`parallel.sharding.shard_cache`). The math is
+the one-device math; only its layout and the order of a few sums
+change.
 
 Activations follow the reference in bfloat16: `layers._silu` for
 `jax.nn.silu` and `layers._gelu_tanh` for `jax.nn.gelu(approximate=True)`,
@@ -127,25 +132,16 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
     (prefill); state {"h", "conv"}: one decode token, the state updated in
     place. Returns (y, state)."""
     if TP.current() is not None:
-        _train_only("ssd_apply", state, return_state)
-        return _ssd_train_tp(p, cfg, u)
+        return _ssd_tp(p, cfg, u, state, return_state)
     s, di, n_h = _ssd_dims(cfg)
-    P_, N = s.head_dim, s.state_dim
     A = -torch.exp(p["A_log"])                  # (H,) negative decay rates
     z, xBC, dt = _ssd_inputs(p, u)
 
     if state is not None:
         conv_out, conv_buf = conv_step(p["conv"], state["conv"], xBC)
         x, Bm, Cm = _ssd_split(_silu(conv_out), cfg)
-        B_ = x.shape[0]
-        xh = x.reshape(B_, n_h, P_)
-        dt1 = dt[:, 0]                                     # (B, H)
-        da = torch.exp(A[None] * dt1)
-        h = state["h"] * da[..., None, None] + torch.einsum(
-            "bh,bhp,bn->bhpn", dt1, xh.float(), Bm[:, 0].float())
-        y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0].float())
-        y = y.to(u.dtype) + p["D"].to(u.dtype)[None, :, None] * xh
-        y = _gated_norm(p["norm"], y.reshape(B_, 1, di), z)
+        y, h = _ssd_step(state["h"], x, Bm, Cm, dt, A, p["D"], s.head_dim)
+        y = _gated_norm(p["norm"], y, z)
         state["h"].copy_(h)
         state["conv"].copy_(conv_buf)
         return linear(p["out"], y), state
@@ -159,6 +155,24 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
         new_state = {"h": h,
                      "conv": xBC[:, -(s.conv_width - 1):, :].clone()}
     return linear(p["out"], y), new_state
+
+
+def _ssd_step(h0, x, Bm, Cm, dt, A, D, P_):
+    """One decode token of the SSD: x (B, 1, H·P) (its dtype is the
+    output's), Bm and Cm (B, 1, N), dt (B, 1, H) float32, A and D (H,),
+    the state h0 (B, H, P, N) float32. Returns y (B, 1, H·P) with the
+    skip D·x, before the gated norm, and the new state. The heads are
+    independent: a model rank runs this on its own heads with B and C
+    whole."""
+    B_, _, di = x.shape
+    xh = x.reshape(B_, -1, P_)
+    dt1 = dt[:, 0]                                         # (B, H)
+    da = torch.exp(A[None] * dt1)
+    h = h0 * da[..., None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt1, xh.float(), Bm[:, 0].float())
+    y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0].float())
+    y = y.to(x.dtype) + D.to(x.dtype)[None, :, None] * xh
+    return y.reshape(B_, 1, di), h
 
 
 def _ssd_chunked(x, Bm, Cm, dt, A, D, P_, chunk_size):
@@ -213,58 +227,71 @@ def _ssd_chunked(x, Bm, Cm, dt, A, D, P_, chunk_size):
     return y.reshape(B_, T, di), h
 
 
-def _ssd_train_tp(p, cfg, u):
-    """The full-sequence SSD under a model group (training).
+def _ssd_tp(p, cfg, u, state=None, return_state=False):
+    """The SSD under a model group: the full sequence (training, and with
+    `return_state` prefill) or, with the rank's `state`, one decode token
+    (its state updated in place).
 
     The heads and the state dimension N shard (the group's size divides
     n_h and N: z, x and dt are column-parallel on head boundaries, B and
     C over N), and each rank runs its own heads: its channels of x, B and
-    C through its slice of the depthwise conv, B and C gathered whole
-    after it (the SSD contracts over N in C·Bᵀ, in the chunk states and
-    in y_inter; their backward sums the ranks' heads, then takes the
-    rank's slice), the gated RMSNorm's mean of squares summed over the
-    group, and the row-parallel `out`. The replicated leaves a rank uses
-    a slice of (conv, norm.scale, dt_bias, A_log, D) go through
-    `scatter_to`, whose backward gathers the slices' gradients, so the
-    whole leaf's gradient is the same on every rank. A group whose size
-    does not divide the heads or N is refused (every arch's are multiples
-    of the model axes the launcher and the dry-run take)."""
+    C, [x_r | B_r | C_r] (the layout of its conv buffer), through its
+    slice of the depthwise conv, B and C gathered whole after it (the SSD
+    contracts over N in C·Bᵀ, in the chunk states and in y_inter, and in
+    a decode step's state update and read; their backward sums the
+    ranks' heads, then takes the rank's slice), the gated RMSNorm's mean
+    of squares summed over the group, and the row-parallel `out`. The
+    replicated leaves a rank uses a slice of (conv, norm.scale, dt_bias,
+    A_log, D) go through `scatter_to`, whose backward gathers the slices'
+    gradients, so the whole leaf's gradient is the same on every rank. A
+    group whose size does not divide the heads or N is refused (every
+    arch's are multiples of the model axes the launcher and the dry-run
+    take)."""
     s, di, n_h = _ssd_dims(cfg)
     N = s.state_dim
     for n, what in ((n_h, "heads"), (N, "state channels")):
         if not TP.shards(n):
             raise ValueError(f"ssd_apply: {n} {what} do not split over a "
                              f"model group of {TP.current().size}")
+    size = TP.current().size
     xs = TP.copy_to(u)
-    conv = p["conv"]
-
-    def conv_silu(v, lo, n):
-        """silu of the conv over the rank's 1/size of channels
-        [lo, lo + n) of the conv's input."""
-        cp = {k: TP.scatter_to(conv[k][..., lo:lo + n]) for k in ("w", "b")}
-        return _silu(causal_conv1d(cp, v))
-
-    def whole(name, lo):
-        """B or C after the conv, whole on every rank; the gradient that
-        leaves it is the sum over the ranks' heads."""
-        return TP.copy_to(TP.gather_from(
-            conv_silu(linear(p[name], xs), lo, N)))
-
+    # the rank's conv channels, in its buffer's [x_r | B_r | C_r] order
+    cp = {k: torch.cat([TP.scatter_to(t[..., lo:lo + n])
+                        for lo, n in ((0, di), (di, N), (di + N, N))], -1)
+          for k, t in p["conv"].items()}
+    xBC = torch.cat([linear(p[k], xs) for k in ("x", "B", "C")], dim=-1)
     z = linear(p["z"], xs)
-    x = conv_silu(linear(p["x"], xs), 0, di)
-    Bm, Cm = whole("B", di), whole("C", di + N)
     dt = F.softplus(linear(p["dt"], xs).float()
                     + TP.scatter_to(p["dt_bias"]).float())
     A = -torch.exp(TP.scatter_to(p["A_log"]))
-    y, _ = _ssd_chunked(x, Bm, Cm, dt, A, TP.scatter_to(p["D"]),
-                        s.head_dim, s.chunk_size)
+    D = TP.scatter_to(p["D"])
+    if state is not None:
+        conv_out, conv_buf = conv_step(cp, state["conv"], xBC)
+    else:
+        conv_out = causal_conv1d(cp, xBC)
+    # B or C after the conv, whole on every rank; the gradient that leaves
+    # it is the sum over the ranks' heads
+    x, Bm, Cm = _silu(conv_out).split([di // size, N // size, N // size],
+                                      dim=-1)
+    Bm, Cm = (TP.copy_to(TP.gather_from(m)) for m in (Bm, Cm))
+    if state is not None:
+        y, h = _ssd_step(state["h"], x, Bm, Cm, dt, A, D, s.head_dim)
+        state["h"].copy_(h)
+        state["conv"].copy_(conv_buf)
+        new_state = state
+    else:
+        y, h = _ssd_chunked(x, Bm, Cm, dt, A, D, s.head_dim, s.chunk_size)
+        new_state = None
+        if return_state:
+            new_state = {"h": h,
+                         "conv": xBC[:, -(s.conv_width - 1):, :].clone()}
     # the gated RMSNorm over the sharded di: the mean of squares is a
     # group sum (whose gradient, partial on each rank, is summed too)
     v = (y * _silu(z)).float()
     ms = TP.copy_to(TP.reduce_from(v.square().sum(-1, keepdim=True))) / di
     v = v * torch.rsqrt(ms + 1e-6)
     y = (v * TP.scatter_to(p["norm"]["scale"]).float()).to(y.dtype)
-    return row_linear(p["out"], y, di), None
+    return row_linear(p["out"], y, di), new_state
 
 
 def ssd_state_init(cfg, batch, dtype, device=None):
@@ -356,8 +383,7 @@ def rglru_apply(p, cfg, x, state=None, return_state=False):
     the final state too); state {"h": (B, w), "conv": buffer}: one decode
     token, the state updated in place. Returns (y, state)."""
     if TP.shards(cfg.rglru.expand * cfg.d_model):
-        _train_only("rglru_apply", state, return_state)
-        return _rglru_train_tp(p, cfg, x)
+        return _rglru_tp(p, cfg, x, state, return_state)
     u0 = linear(p["in_x"], x)
     gate = _gelu_tanh(linear(p["in_gate"], x))
 
@@ -381,32 +407,40 @@ def rglru_apply(p, cfg, x, state=None, return_state=False):
     return linear(p["out"], y), new_state
 
 
-def _rglru_train_tp(p, cfg, x):
-    """The full-sequence RG-LRU under a model group that shards its width
-    w (training): in_x and in_gate column-parallel, so the conv (its
-    replicated weights sliced by `scatter_to`) and the recurrence run on
-    the rank's w / size channels; W_a and W_i, column-parallel too, take
-    the whole conv output (gathered; their backward sums the ranks'
-    partial input gradients, then takes the rank's slice); `out`
-    row-parallel."""
+def _rglru_tp(p, cfg, x, state=None, return_state=False):
+    """The RG-LRU under a model group that shards its width w: the full
+    sequence (training, and with `return_state` prefill) or, with the
+    rank's `state` (h and conv buffer on its channels), one decode token
+    (the state updated in place). in_x and in_gate are column-parallel,
+    so the conv (its replicated weights sliced by `scatter_to`) and the
+    recurrence run on the rank's w / size channels; W_a and W_i,
+    column-parallel too, take the whole conv output (gathered; their
+    backward sums the ranks' partial input gradients, then takes the
+    rank's slice); `out` row-parallel."""
+    w = cfg.rglru.expand * cfg.d_model
     xs = TP.copy_to(x)
     u0 = linear(p["in_x"], xs)
     gate = _gelu_tanh(linear(p["in_gate"], xs))
-    u = causal_conv1d({k: TP.scatter_to(t) for k, t in p["conv"].items()},
-                      u0)
-    a, b = _rglru_gates(p, cfg, u, TP.copy_to(TP.gather_from(u)),
-                        TP.scatter_to(p["lam"]))
+    cp = {k: TP.scatter_to(t) for k, t in p["conv"].items()}
+    lam = TP.scatter_to(p["lam"])
+    if state is not None:
+        conv_out, conv_buf = conv_step(cp, state["conv"], u0)
+        a, b = _rglru_gates(p, cfg, conv_out,
+                            TP.copy_to(TP.gather_from(conv_out)), lam)
+        h = a[:, 0] * state["h"] + b[:, 0]                 # (B, w / size)
+        state["h"].copy_(h)
+        state["conv"].copy_(conv_buf)
+        return row_linear(p["out"], h[:, None, :].to(x.dtype) * gate,
+                          w), state
+    u = causal_conv1d(cp, u0)
+    a, b = _rglru_gates(p, cfg, u, TP.copy_to(TP.gather_from(u)), lam)
     _, h = associative_scan(a, b)
-    return row_linear(p["out"], h.to(x.dtype) * gate,
-                      cfg.rglru.expand * cfg.d_model), None
-
-
-def _train_only(fn, state, return_state):
-    """A mixer under a model group runs the trainer's full sequence
-    only: the model axis has no prefill or decode."""
-    if state is not None or return_state:
-        raise ValueError(f"{fn}: a tensor-parallel prefill or decode is "
-                         f"not supported; the model axis is the trainer's")
+    new_state = None
+    if return_state:
+        width = cfg.rglru.conv_width
+        new_state = {"h": h[:, -1].clone(),
+                     "conv": u0[:, -(width - 1):, :].clone()}
+    return row_linear(p["out"], h.to(x.dtype) * gate, w), new_state
 
 
 def rglru_state_init(cfg, batch, dtype, device=None):

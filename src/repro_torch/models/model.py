@@ -38,6 +38,11 @@ no rank holds a full (B, chunk, V) block. The SSD and RG-LRU mixers
 (`mixers`), the encoder's self-attention and the decoder's
 cross-attention (`layers.attn_apply`) run on the rank's shards too, so
 the axis covers every arch; the learned positions stay replicated.
+Prefill and decode run there as well, against a rank's part of the
+decode cache (`parallel.sharding.shard_cache`, in `kv_layout`
+"hd_model" or "seq_model"); they gather the rank's block of the
+last-token logits, so they return the whole (B, V) logits, as the
+reference's sharded functions do.
 
 Caches keep the JAX tree too ({"scan": ..., "tail": [...]}, and
 ``"enc_out"`` for an encoder-decoder model); decode writes into their
@@ -120,7 +125,7 @@ def block_apply(p, cfg, kind, x, positions, cache=None, cross_kv=None,
                 causal=True, fill_cache=False):
     """Returns (x, new_cache, aux_losses): the MoE router's losses, or {}.
     cross_kv is the raw encoder output; each block projects its own K/V
-    from it."""
+    from it. `fill_cache` as `layers.attn_apply` takes it."""
     aux = {}
     h = apply_norm(cfg.norm, p["norm1"], x)
     if kind == "attn":
@@ -128,10 +133,10 @@ def block_apply(p, cfg, kind, x, positions, cache=None, cross_kv=None,
                                     causal=causal, fill_cache=fill_cache)
     elif kind == "rglru":
         out, new_cache = mixers.rglru_apply(p["rglru"], cfg, h, state=cache,
-                                            return_state=fill_cache)
+                                            return_state=bool(fill_cache))
     elif kind == "ssd":
         out, new_cache = mixers.ssd_apply(p["ssd"], cfg, h, state=cache,
-                                          return_state=fill_cache)
+                                          return_state=bool(fill_cache))
     else:
         raise ValueError(kind)
     x = x + out
@@ -237,7 +242,8 @@ def _stack_apply(params, cfg, x, positions, caches=None, cross_kv=None,
                  fill_cache=False):
     """Run all layers. Three modes:
       train   : caches=None, fill_cache=False  (remat'd periods, aux summed)
-      prefill : caches=None, fill_cache=True   (caches stacked per layer)
+      prefill : caches=None, fill_cache=(kv_layout, max_len)
+                (caches stacked per layer)
       decode  : caches=tree                     (updated in place)
     Returns (x, new_caches, aux)."""
     period, n_scan = _n_scan(cfg)
@@ -349,6 +355,14 @@ def logits_fn(params, cfg, hidden):
     if cfg.tie_embeddings:
         return hidden @ params["embed"].T
     return linear(params["unembed"], hidden)
+
+
+def _last_logits(params, cfg, hidden):
+    """The whole (B, V) logits of the last position: under a model group
+    that shards the vocabulary, the ranks' blocks gathered."""
+    logits = logits_fn(params, cfg, hidden[:, -1])
+    return (TP.gather_from(logits) if TP.shards(cfg.vocab_size)
+            else logits)
 
 
 # ------------------------------------------------------------------------- #
@@ -467,7 +481,7 @@ def decode_step(params, cfg, tokens, caches):
                                     caches=caches, enc_out=enc_out)
     if enc_out is not None:
         new_caches["enc_out"] = enc_out
-    return logits_fn(params, cfg, hidden[:, -1]), new_caches
+    return _last_logits(params, cfg, hidden), new_caches
 
 
 def decode_step_paged(params, cfg, tokens, caches, lengths):
@@ -482,39 +496,25 @@ def decode_step_paged(params, cfg, tokens, caches, lengths):
     return logits_fn(params, cfg, hidden[:, -1]), new_caches
 
 
-def prefill(params, cfg, tokens, enc_embeds=None, max_len: int = 0):
+def prefill(params, cfg, tokens, enc_embeds=None, max_len: int = 0,
+            kv_layout: str = "hd_model"):
     """Run the whole prompt in one pass; return (last_logits, decode-ready
     caches): attention K/V in cache layout, each mixer's final state, and
     the encoder output of an encoder-decoder model (from `enc_embeds`).
     max_len > prompt length reserves decode positions in global-attention
-    caches (rolling-window caches are fixed-size)."""
+    caches (rolling-window caches are fixed-size). Under a model group
+    the caches are the rank's part, K/V split as `kv_layout` says."""
+    if kv_layout not in ("hd_model", "seq_model"):
+        raise ValueError(f"kv_layout must be hd_model|seq_model, got "
+                         f"{kv_layout!r}")
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     enc_out = encode(params, cfg, enc_embeds) if cfg.is_encdec else None
     hidden, caches, _ = forward(params, cfg, tokens, positions,
-                                enc_out=enc_out, fill_cache=True)
-    if max_len > tokens.shape[1] and cfg.attention_window == 0:
-        caches = _pad_attn_caches(caches, max_len)
+                                enc_out=enc_out,
+                                fill_cache=(kv_layout, max_len))
     if cfg.is_encdec:
         caches["enc_out"] = enc_out
-    return logits_fn(params, cfg, hidden[:, -1]), caches
-
-
-def _pad_attn_caches(caches, max_len):
-    def pad(sub):
-        if isinstance(sub, dict):
-            if "k" in sub and "pos" in sub:
-                extra = max_len - sub["k"].shape[-3]
-                if extra > 0:
-                    widths = (0, 0, 0, 0, 0, extra)   # the sequence axis
-                    sub = dict(sub, k=F.pad(sub["k"], widths),
-                               v=F.pad(sub["v"], widths))
-                return sub
-            return {k: pad(v) for k, v in sub.items()}
-        if isinstance(sub, list):
-            return [pad(v) for v in sub]
-        return sub
-
-    return pad(caches)
+    return _last_logits(params, cfg, hidden), caches
 
 
 def _cache_pos(caches, cfg) -> int:

@@ -13,13 +13,21 @@ parameters' dtypes, with the metrics {"loss", **aux}. An LM field draws
 nothing, so it has no `draw_z`.
 
 `build(cfg, mesh=...)` with a `launch.mesh.ProcessMesh` whose model axis
-is above 1 gives the field over a rank's shards: `init` makes the full
+is above 1 gives the bundle over a rank's shards: `init` makes the full
 tree and keeps the rank's shard of each leaf under the JAX package's
 rules (`parallel.sharding`, "dp" layout), `param_specs(cfg, mesh,
 max_seq)` gives those rules sanitised for the mesh (`DQGAN`'s
 `param_specs`), and `field_fn` runs the model under the mesh's
 model group (`parallel.tensor`), returning the gradients of the rank's
-shards. Every arch of the zoo trains so.
+shards. Every arch of the zoo trains so, and an LM serves so:
+`prefill(params, tokens, enc=None, max_len=0, kv_layout="hd_model")` and
+`decode_step(params, tokens, caches)` run under the model group against
+the rank's part of the decode cache, and `init_cache(batch, seq, dtype,
+device, kv_layout="hd_model")` makes that part (`cache_specs(cfg, mesh,
+batch, seq, kv_layout)` lays it out, `parallel.sharding.gather_cache`
+puts the reference's cache back together). Their logits are the whole
+(B, V). `decode_paged` refuses: the paged engine (`serve`) is one
+process, in the reference too.
 """
 from __future__ import annotations
 
@@ -81,6 +89,22 @@ def param_specs(cfg, mesh, max_seq: int = 0):
     return shd.param_specs(full, cfg, "dp", mesh.shape)
 
 
+def cache_specs(cfg, mesh, batch: int, seq: int,
+                kv_layout: str = "hd_model"):
+    """The spec tree, over `mesh`'s model axis alone, of the decode cache
+    `init_cache(cfg, batch, seq)` makes (the JAX package's `cache_specs`;
+    traced on meta). A prefill's cache takes the same specs at its
+    length: the prompt's, or max_len where longer."""
+    full = lm.init_cache(cfg, batch, seq, device="meta")
+    return shd.cache_specs(full, {"model": mesh.model}, batch, kv_layout)
+
+
+def _decode_paged_refused(*args, **kwargs):
+    raise ValueError("decode_paged: no paged decode over a model axis; the "
+                     "paged engine is one process, as in the JAX package "
+                     "(its serve/engine.py takes no mesh)")
+
+
 def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
     """`bundle` over the rank's shards of `mesh`'s model axis."""
     group = TP.model_group_for(mesh)
@@ -101,14 +125,41 @@ def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
 
     if hasattr(field, "draw_z"):
         field_fn.draw_z = field.draw_z
+    if bundle.prefill is None:      # a GAN: no serving entry points
+        return ModelBundle(cfg=cfg, init=init, field_fn=field_fn,
+                           loss_fn=None, prefill=None, decode_step=None,
+                           init_cache=None)
+
+    def prefill(params, tokens, enc=None, max_len=0, kv_layout="hd_model"):
+        with TP.model_parallel(group):
+            return lm.prefill(params, cfg, tokens, enc, max_len=max_len,
+                              kv_layout=kv_layout)
+
+    def decode_step(params, tokens, caches):
+        with TP.model_parallel(group):
+            return lm.decode_step(params, cfg, tokens, caches)
+
+    def init_cache(batch, seq, dtype=None, device=None,
+                   kv_layout="hd_model"):
+        """The rank's part of `init_cache(batch, seq)`: each leaf made at
+        its local shape ("pos" on the CPU, as ever)."""
+        part = shd.shard_cache(
+            lm.init_cache(cfg, batch, seq, dtype, device="meta"),
+            cache_specs(cfg, mesh, batch, seq, kv_layout),
+            mesh.model_index, mesh.model)
+        return T.tree_map(
+            lambda x: x if x is None or x.device.type != "meta" else
+            torch.zeros(x.shape, dtype=x.dtype, device=device), part)
+
     return ModelBundle(cfg=cfg, init=init, field_fn=field_fn,
-                       loss_fn=None, prefill=None, decode_step=None,
-                       init_cache=None)
+                       loss_fn=None, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache,
+                       decode_paged=_decode_paged_refused)
 
 
 def build(cfg, mesh=None) -> ModelBundle:
     """The bundle of `cfg`; over the shards of `mesh`'s model axis when it
-    has one above 1 (training only: no serving entry points)."""
+    has one above 1."""
     bundle = _build(cfg)
     if mesh is not None and mesh.model > 1:
         return _sharded(bundle, mesh)

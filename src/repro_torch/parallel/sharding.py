@@ -28,12 +28,17 @@ do. The port's trainer lays its parameters out by these rules over the
 leaf under its sanitised spec and `gather_to_full` (a collective over the
 model group) puts the leaf back together, both exact; `shard_tree` and
 `gather_tree` do so leaf by leaf. `launch.dryrun` uses the same rules for
-a rank's parameter bytes and for batch splitting.
+a rank's parameter bytes and for batch splitting. A rank's decode cache
+is cut and gathered by `shard_cache` and `gather_cache`, under
+`cache_specs` on the model axis alone (the batch rows are the rank's
+already).
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch import tree as T
 
@@ -280,3 +285,101 @@ def cache_specs(caches, mesh: Mesh, batch_size: int,
         None if l is None else
         cache_spec(p, _shape(l), mesh, batch_size, kv_layout)
         for p, l in zip(paths, leaves)])
+
+
+def kv_split(kv_layout: str, length: int, head_dim: int,
+             size: int) -> Optional[int]:
+    """The dimension of a (B, length, K, head_dim) K/V cache that a model
+    axis of `size` splits under `cache_spec`: 3 (head_dim), 1 (the
+    sequence) or None (neither divides: the reference replicates it)."""
+    return model_axis(cache_spec(("k",), (1, length, 1, head_dim),
+                                 {"model": size}, 1, kv_layout))
+
+
+# --------------------------------------------------------------------------- #
+# a rank's decode cache
+# --------------------------------------------------------------------------- #
+def _ssd_blocks(channels: int, N: int, size: int):
+    """[(start, width)] of the x, B and C blocks of an SSD conv buffer of
+    `channels`: the whole buffer's (size 1), or a rank's [x_r | B_r |
+    C_r] of (di + 2N) / size (N the whole state dimension)."""
+    n = N // size
+    di = channels - 2 * n
+    return ((0, di), (di, n), (di + n, n))
+
+
+def _map_cache(fn, node, spec, key=None, N=None):
+    """fn(leaf, spec, key, N) over a cache tree, keeping its structure (an
+    empty "tail" stays, a None slot stays None); `key` is the leaf's name
+    and N the state dimension at an SSD state's conv buffer (in the dict
+    {"h": (.., B, H, P, N), "conv"}), else None."""
+    if isinstance(node, list):
+        return [_map_cache(fn, x, spec[i]) for i, x in enumerate(node)]
+    if isinstance(node, dict):
+        h, conv = node.get("h"), node.get("conv")
+        ssd = h is not None and conv is not None and h.ndim == conv.ndim + 1
+        return {k: _map_cache(fn, x, None if spec is None else spec.get(k),
+                              k, h.shape[-1] if ssd and k == "conv"
+                              else None)
+                for k, x in node.items()}
+    return None if node is None else fn(node, spec, key, N)
+
+
+def shard_cache(caches, specs, index: int, size: int):
+    """Model rank `index` of `size`'s part of the full decode `caches`
+    (`models.model.init_cache`'s or `prefill`'s tree) under `specs`
+    (`cache_specs` on the model axis): each leaf's slice on its spec's
+    'model' dimension (a copy); "pos" and the replicated leaves (the
+    encoder output) whole.
+
+    The SSD conv buffer is one (B, w - 1, di + 2N) leaf, [x | B | C] in
+    its channels, which the reference's spec cuts into contiguous
+    (di + 2N) / size blocks. A rank here holds as many channels, but its
+    own: [x_r | B_r | C_r], its di / size channels of x and its N / size
+    of B and of C, the slices its column-parallel projections give and
+    its conv slice takes (`models.mixers`), so a decode step needs no
+    reshuffle; `gather_cache` puts them back in the reference's order.
+
+    A K/V leaf that the spec leaves whole on a model axis above 1 (its
+    length and head_dim both indivisible) is refused: a rank's attention
+    reads its layout off its cache's shape, head_dim or sequence."""
+    def one(x, spec, key, N):
+        ax = model_axis(spec)
+        if size == 1:
+            return x
+        if ax is None:
+            if key in ("k", "v"):
+                raise ValueError(
+                    f"shard_cache: a K/V cache of {tuple(x.shape)} splits "
+                    f"neither its length nor its head_dim over {size} model "
+                    f"ranks; give it a length {size} divides")
+            return x
+        if N is not None:
+            return torch.cat([x.narrow(-1, lo + index * (n // size),
+                                       n // size)
+                              for lo, n in _ssd_blocks(x.shape[-1], N, 1)],
+                             -1)
+        n = x.shape[ax] // size
+        return x.narrow(ax, index * n, n).clone()
+
+    return _map_cache(one, caches, specs)
+
+
+def gather_cache(caches, specs, group):
+    """The full decode cache from the model ranks' parts (`shard_cache`'s
+    inverse; a collective over `group`, a `parallel.tensor.ModelGroup`):
+    the reference's global cache, element for element."""
+    def one(x, spec, key, N):
+        ax = model_axis(spec)
+        if ax is None or group is None or group.size == 1:
+            return x
+        full = group.all_gather(x, ax)
+        if N is None:
+            return full
+        chunks = full.split(x.shape[-1], dim=-1)       # one a rank
+        return torch.cat([c.narrow(-1, lo, n)
+                          for lo, n in _ssd_blocks(x.shape[-1], N,
+                                                   group.size)
+                          for c in chunks], -1)
+
+    return _map_cache(one, caches, specs)

@@ -291,6 +291,12 @@ def test_run_combo_at_a_reduced_config(arch, shape, layout, exchange,
     assert rec["bottleneck"] == max(rf, key=rf.get).replace("_s", "")
     assert rec["ranks"] == 256 and rec["peak_bytes"] > rec["held_bytes"]
     assert rec["param_bytes_per_device"]["bytes"] > 0
+    if shape != "train_4k":    # a rank of the (16, 16) model axis
+        assert rec["model_axis"] == 16 and rec["collectives_model"]
+        assert (rec["param_bytes_per_rank"]
+                == rec["param_bytes_per_device"]["bytes"])
+        assert (rec["cache_bytes_per_rank"]
+                == rec["cache_bytes_per_device"]["bytes"])
     if shape == "train_4k":
         assert rec["flops"] >= rec["mf"] / 256   # one rank's share
         # dp: the (16, 16) data x model grid, 16 workers; fsdp: a pure
@@ -330,6 +336,9 @@ def test_cli_writes_its_record(tmp_path, capsys):
     rec = json.loads(out.read_text())
     assert rc == 0 and rec["status"] == "ok" and rec["fits"] is True
     assert rec["constants"]["peak_flop_s"] == 989e12
+    assert rec["model_axis"] == 16 and rec["kv_layout"] == "hd_model"
+    assert (rec["cache_bytes_per_rank"]
+            == rec["cache_bytes_per_device"]["bytes"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["status"] == "ok" and line["arch"] == "whisper-tiny"
     rc = dryrun.main(["--arch", "yi-34b", "--shape", "long_500k",
@@ -341,3 +350,91 @@ def test_cli_writes_its_record(tmp_path, capsys):
         dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
                      "--lower-only"])
     assert "no eager meaning" in capsys.readouterr().err
+
+
+# --------------------------------------------------------------------------- #
+# serving on a rank's shards at model 16
+# --------------------------------------------------------------------------- #
+def _jax_cache_bytes(arch, shape_name, kv_layout):
+    """One device's bytes of the decode cache of `shape_name` (the global
+    batch, seq_len positions: what its prefill fills or its decode reads)
+    under the JAX package's `cache_specs` on the (16, 16) mesh."""
+    from repro.models import build as jbuild
+    from repro.parallel import sharding as jshd
+    cfg, shape = jcfgs.get(arch), jcfgs.SHAPES[shape_name]
+    B = shape.global_batch
+    b = jbuild(cfg)
+    caches = jax.eval_shape(lambda: b.init_cache(
+        B, max(shape.seq_len, cfg.attention_window)))
+    mesh = {"data": 16, "model": 16}
+
+    class FakeMesh:
+        shape = mesh
+
+    specs = jshd.cache_specs(caches, FakeMesh, B, kv_layout)
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa
+    total = 0
+    for x, sp in zip(jax.tree.leaves(caches),
+                     jax.tree.leaves(specs, is_leaf=is_spec)):
+        n = x.dtype.itemsize
+        for dim, ent in zip(x.shape, tuple(sp) + (None,) * x.ndim):
+            axes = () if ent is None else (
+                ent if isinstance(ent, tuple) else (ent,))
+            n *= dim // math.prod(mesh[a] for a in axes)
+        total += n
+    return total
+
+
+SERVING = [("gemma-2b", "prefill_32k"), ("gemma-2b", "decode_32k"),
+           ("mamba2-1.3b", "prefill_32k"), ("mamba2-1.3b", "decode_32k"),
+           ("whisper-tiny", "prefill_32k"), ("whisper-tiny", "decode_32k"),
+           ("recurrentgemma-2b", "long_500k")]
+
+
+@pytest.mark.parametrize("kv_layout", ["hd_model", "seq_model"])
+@pytest.mark.parametrize("arch,shape", SERVING)
+def test_serving_traces_a_rank_of_the_model_axis(arch, shape, kv_layout):
+    """Prefill and decode at published widths trace one rank of the (16,
+    16) mesh: its parameter shards under dp (the JAX layout's bytes for
+    these <= 10 B archs) and its part of the cache (the JAX layout's
+    local bytes under the same kv_layout), with the model group's
+    collectives."""
+    rec = dryrun.run_combo(arch, shape, False, kv_layout=kv_layout,
+                           quiet=True)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["model_axis"] == 16 and rec["kv_layout"] == kv_layout
+    assert rec["collectives_model"].get("all_gather", {}).get("count", 0)
+    assert (rec["param_bytes_per_rank"]
+            == rec["param_bytes_per_device"]["bytes"])
+    assert "layout_traced" not in rec
+    want = _jax_cache_bytes(arch, shape, kv_layout)
+    assert rec["cache_bytes_per_rank"] == want
+    assert rec["cache_bytes_per_device"]["bytes"] == want
+    assert rec["peak_bytes"] >= (rec["param_bytes_per_rank"]
+                                 + rec["cache_bytes_per_rank"])
+
+
+@pytest.mark.parametrize("trace", ["trace_prefill", "trace_decode"])
+def test_serving_traces_refuse_a_model_axis_of_one(trace):
+    """Prefill and decode trace a rank of the sharded bundle: a model axis
+    of 1 (a full replica, no cache to split) is refused by name."""
+    shape = tcfgs.InputShape("tiny", 16, 2, trace[len("trace_"):])
+    with pytest.raises(ValueError, match="model axis above 1"):
+        getattr(dryrun, trace)(tcfgs.get("gemma-2b").reduced(), shape, 2,
+                               ranks=2, model=1)
+
+
+def test_yi_decode_holds_a_sixteenth_and_names_its_layout():
+    """yi-34b decode_32k, which a full replica put at 135.4 GB a rank:
+    the rank's dp shards and its part of the cache come under an eighth
+    of that; above 10 B parameters the reference lays the parameters out
+    under fsdp, so the record says it traced dp."""
+    rec = dryrun.run_combo("yi-34b", "decode_32k", False, quiet=True)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["peak_bytes"] < 135.4e9 / 8
+    assert rec["layout"] == "fsdp" and rec["layout_traced"] == "dp"
+    assert "slice 11" in rec["layout_note"]
+    assert (rec["param_bytes_per_rank"]
+            > rec["param_bytes_per_device"]["bytes"])
+    assert rec["cache_bytes_per_rank"] == _jax_cache_bytes(
+        "yi-34b", "decode_32k", "hd_model")

@@ -28,6 +28,8 @@ from torch_ranks import one_thread  # noqa: F401 (autouse)
 JCFG = jcfgs.get("gemma-2b").reduced()
 TCFG = tcfgs.get("gemma-2b").reduced()
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the port's fill_cache: (kv_layout, max_len), nothing reserved
+FILL = ("hd_model", 0)
 
 
 def _close(actual, desired, **tol):
@@ -233,7 +235,7 @@ def test_attn_apply_prefill_and_dense_decode(weights):
     out_j, cache_j = JL.attn_apply(p, jnp.asarray(x), JCFG, jnp.arange(8),
                                    fill_cache=True)
     out_t, cache_t = TL.attn_apply(tp, _t(x), TCFG, torch.arange(8),
-                                   fill_cache=True)
+                                   fill_cache=FILL)
     _close(out_t, out_j)
     _trees_close(cache_t, cache_j)
     # decode one token against a dense cache with room for it

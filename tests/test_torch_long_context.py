@@ -32,6 +32,8 @@ JCFG = dataclasses.replace(jcfgs.get("gemma-2b-swa").reduced(),
                            attention_window=WIN)
 TCFG = dataclasses.replace(tcfgs.get("gemma-2b-swa").reduced(),
                            attention_window=WIN)
+# the port's fill_cache: (kv_layout, max_len), nothing reserved
+FILL = ("hd_model", 0)
 
 
 def _close(actual, desired, **tol):
@@ -126,7 +128,7 @@ def test_attn_apply_prefill_4096_takes_the_chunked_path(weights, window):
     TL.attention_dense = spy
     try:
         out_t, cache_t = TL.attn_apply(tp, _t(x), tcfg, torch.arange(S),
-                                       fill_cache=True)
+                                       fill_cache=FILL)
     finally:
         TL.attention_dense = real
     assert calls == [1024] * 4
@@ -151,14 +153,14 @@ def test_window_prefill_cache_layout(weights, S):
     out_j, cache_j = JL.attn_apply(p, jnp.asarray(x), JCFG, jnp.arange(S),
                                    fill_cache=True)
     out_t, cache_t = TL.attn_apply(tp, _t(x), TCFG, torch.arange(S),
-                                   fill_cache=True)
+                                   fill_cache=FILL)
     _close(out_t, out_j)
     _trees_close(cache_t, cache_j)
     assert cache_t["k"].shape[1] == WIN and int(cache_t["pos"]) == S
     # the layout, exactly: the unrolled K/V of the same call
     _, full = TL.attn_apply(tp, _t(x), dataclasses.replace(TCFG,
                                                           attention_window=0),
-                            torch.arange(S), fill_cache=True)
+                            torch.arange(S), fill_cache=FILL)
     for i in range(WIN):
         p_i = i if S < WIN else S - WIN + (i - S) % WIN
         for name in ("k", "v"):
