@@ -165,9 +165,9 @@ result line):
               measured, traced FLOPs at least the model FLOPs, B1 once a
               step; the steps' model-FLOPs share of the bf16 peak
               (reported); each prefill and decode combo traced on a
-              rank's shards at model 16, its cache bytes the JAX
-              layout's, its parameter bytes too below 10 B parameters
-              (above, labelled `layout_traced` dp); the phase under 120 s
+              rank's shards at model 16 under the reference's layout
+              (fsdp above 10 B parameters, one worker), its parameter and
+              cache bytes the JAX layout's; the phase under 120 s
  22. tp       the trainer's tensor-parallel 'model' axis (run after phase
               dryrun): NCCL with two ranks on the one card (expected
               refused; the ranks then take gloo over CUDA tensors);
@@ -194,6 +194,30 @@ result line):
               reported beside the prefill logits' |diff| and top-two
               gaps; in f32 (gemma-2b at 4 layers, mamba2-1.3b at 48)
               greedy tokens equal at every step and last logits within
+              rtol = atol = 1e-4
+ 23. layout   the reference's fsdp parameter layout (Mode B; run after
+              phase tp, on its backend): yi-34b at its published widths,
+              1 of 60 layers (1.48 B parameters), one worker on four
+              spawned ranks of a data 2 x model 2 Mode-B mesh (each
+              holding its shard of every parameter over its data and
+              model indices, the field gathering each period's over the
+              data ranks), omd, qsgd8_block1024 over uniform 4 MiB
+              buckets, batch 2 x 2048; one process at
+              the same depth (the same specs, so the same buckets and
+              draws) first. (a) bf16, 3 steps: each rank's parameter
+              bytes the reference's per-device bytes at that mesh, finite
+              losses, B1 once a step over the replicated leaves' bucket
+              and bit-equal to its plain version on one more step's
+              operands, the replicated parameters bit-identical across
+              the ranks, each rank's peak within 0.85-1.15 of the
+              dry-run's forecast and its share of the one process's; (b)
+              f32, 3 steps, B1 at qsgd4_block1024's 7 levels: each
+              rank's shards against the one process's by
+              repro_torch.parity's rule, the step-0 loss within rtol
+              1e-5; (c) prefill of 8 rows x 2048 (each data rank its 4)
+              and 16 greedy decode steps: in bf16 the peaks within
+              0.85-1.15 of the forecast and the token share reported, in
+              f32 every greedy token equal and the last logits within
               rtol = atol = 1e-4
 
 The line before the last is {"kernels": [...]}, one record per kernel with
@@ -3982,24 +4006,27 @@ def phase_dryrun(gpu, lm_meas, zoo_meas):
     check(before == after and not any(cu for _, cu in out),
           f"dryrun: device memory {before} -> {after} bytes, CUDA "
           f"initialized in {sum(cu for _, cu in out)} pool processes")
-    # prefill and decode: a rank of the model axis, its cache the JAX
-    # layout's part, its parameters too under dp (above 10 B the
-    # reference takes fsdp, and the record says it traced dp)
+    # every combo a rank of the model axis under the reference's layout
+    # (fsdp above 10 B parameters): its parameters the JAX layout's
+    # per-device bytes, and for prefill and decode its cache too
     for r in recs:
-        if r["status"] != "ok" or r["shape"] == "train_4k":
+        if r["status"] != "ok":
             continue
         big = r["params"] > 10e9
-        check(r["model_axis"] == 16 and r["cache_bytes_per_rank"]
-              == r["cache_bytes_per_device"]["bytes"]
-              and (r.get("layout_traced") == "dp") == big
-              and (big or r["param_bytes_per_rank"]
-                   == r["param_bytes_per_device"]["bytes"]),
-              f"dryrun {r['arch']} {r['shape']}: model axis "
-              f"{r['model_axis']}, cache {r['cache_bytes_per_rank']} "
-              f"against {r['cache_bytes_per_device']}, parameters "
+        serving = r["shape"] != "train_4k"
+        check(r["model_axis"] == 16 and "layout_traced" not in r
+              and r["layout"] == ("fsdp" if big else "dp")
+              and r["param_bytes_per_rank"]
+              == r["param_bytes_per_device"]["bytes"]
+              and (not serving or r["cache_bytes_per_rank"]
+                   == r["cache_bytes_per_device"]["bytes"])
+              and (serving or r["n_workers"] == (1 if big else 16)),
+              f"dryrun {r['arch']} {r['shape']}: layout {r['layout']}, "
+              f"model axis {r['model_axis']}, workers {r.get('n_workers')}, "
+              f"cache {r.get('cache_bytes_per_rank')} against "
+              f"{r.get('cache_bytes_per_device')}, parameters "
               f"{r['param_bytes_per_rank']} against "
-              f"{r['param_bytes_per_device']['bytes']}, layout traced "
-              f"{r.get('layout_traced')}")
+              f"{r['param_bytes_per_device']['bytes']}")
     fits = sorted(f"{r['arch']}/{r['shape']}" for r in recs if r.get("fits"))
     print(f"# dryrun sweep: {len(recs)} combos over {DRYRUN_JOBS} processes "
           f"in {time.perf_counter() - t0:.1f} s, {len(recs) - len(skips)} "
@@ -4171,11 +4198,12 @@ def _tp_rank(rank, init, backend, runs, serves):
         mesh.close()
 
 
-def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout):
+def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout, rows=None):
     """`arch` at `layers` layers in `dtype`, over the rank's shards of
     `mesh` (None: one process): prefill of TP_SERVE_ROWS x
-    TP_SERVE_PROMPT tokens (the cache reserving `steps` more positions,
-    in `kv_layout`), then `steps` greedy decode steps. Returns the greedy
+    TP_SERVE_PROMPT tokens (`rows`, a slice: those rows alone; the cache
+    reserving `steps` more positions, in `kv_layout`), then `steps`
+    greedy decode steps. Returns the greedy
     tokens (rows x steps + 1), the prefill's and the last step's logits
     in f32, the bytes of the
     cache on the card, and the peak memory and wall time of the prefill
@@ -4194,6 +4222,8 @@ def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout):
     tokens = torch.randint(0, cfg.vocab_size,
                            (TP_SERVE_ROWS, TP_SERVE_PROMPT), generator=gen,
                            device=dev)
+    if rows is not None:    # a data rank's rows (the fsdp layout)
+        tokens = tokens[rows].contiguous()
     free_cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4369,7 +4399,8 @@ def phase_tp(dev, gpu, zoo_peaks):
         gemma-2b at TP_LAYERS and mamba2-1.3b at all 48 layers in f32,
         where the ranks' greedy tokens equal the one process's at every
         step and their last logits agree within TP_SERVE_TOL.
-    Returns B1's launches on the path (each rank's, by arch)."""
+    Returns B1's launches on the path (each rank's, by arch) and the
+    ranks' backend."""
     import dataclasses
 
     import numpy as np
@@ -4466,7 +4497,7 @@ def phase_tp(dev, gpu, zoo_peaks):
                   f"process {d1:.3e}, rank 0 {d2:.3e}")
     print(f"# tp (e): the serving checks and forecasts took "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, backend
 
 
 def _tp_serve_report(one, ranks, gpu):
@@ -4559,6 +4590,512 @@ def _tp_serve_report(one, ranks, gpu):
               f"{r['param_bytes']}")
 
 
+# --------------------------------------------------------------------------- #
+# the fsdp parameter layout (the reference's Mode B)
+# --------------------------------------------------------------------------- #
+# yi-34b at its published widths (d_model 7168, 56 heads over 8 KV heads of
+# 128, d_ff 20480, vocab 64,000) cut to LAYOUT_LAYERS of its 60 layers
+# (1.48 B parameters): four ranks of a data 2 x model 2 Mode-B mesh share
+# the one card, one worker, each rank holding its shard of every
+# parameter; the one-process step at the same depth must fit the card too
+LAYOUT_ARCH, LAYOUT_LAYERS, LAYOUT_STEPS, LAYOUT_SEED = "yi-34b", 1, 3, 53
+LAYOUT_DATA, LAYOUT_MODEL = 2, 2
+LAYOUT_RANKS = LAYOUT_DATA * LAYOUT_MODEL
+LAYOUT_SERVE_STEPS = 16
+LAYOUT_LOSS_RTOL = 1e-5   # the step-0 loss in f32, the CPU parity test's
+# (b)'s quantizer: B1 at 7 levels over the same buckets. At 127 levels the
+# card's float32 reorders (a data rank's half batch, a model rank's half
+# of each contraction) moved the codes of 1.03e-3 of a rank's residuals
+# (PERF.md §6), past the parity rule's 1e-3 budget; a code flips with
+# probability ~ levels x the message's relative error. The witness at
+# 127 levels: the one process against itself with its batch in two
+# halves whose fields are summed, the data ranks' reorder alone
+LAYOUT_F32_COMPRESSOR = "qsgd4_block1024"
+LAYOUT_WITNESS_COMPRESSOR = "qsgd8_block1024"
+
+
+def layout_strategy(compressor="qsgd8_block1024"):
+    """Phase layout's strategy: `compressor` over uniform 4 MiB buckets,
+    float32 residuals (a bf16 residual rounds a float32 reorder of the
+    message into a flipped element, which `repro_torch.parity` counts
+    against the f32 comparison)."""
+    from repro_torch.strategy import Compression, Strategy
+    return Strategy(compression=Compression(compressor=compressor,
+                                            plan="uniform"))
+
+
+def _layout_specs():
+    """The full parameters' spec tree at the phase's Mode-B mesh (one
+    process takes it too, for the same buckets and draws)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import meta_mesh
+    from repro_torch.models import param_specs
+    cfg = dataclasses.replace(get(LAYOUT_ARCH), num_layers=LAYOUT_LAYERS)
+    return param_specs(cfg, meta_mesh(LAYOUT_RANKS, 0, model=LAYOUT_MODEL,
+                                      layout="fsdp"), LM_SEQ)
+
+
+def _data_digests(st, shards):
+    """{name: (sha256, cut over 'model')} of each parameter and residual
+    e1 of the state `st` that no data rank cuts (by `shards`, the
+    trainer's `state_shards`): the replicated leaves, and the shards of
+    those cut over 'model' alone. Each is one value across an fsdp
+    group."""
+    import hashlib
+
+    import torch
+    from repro_torch import checkpoint as CK
+    return {n: (hashlib.sha256(x.detach().contiguous().reshape(-1).cpu()
+                               .view(torch.uint8).numpy()).hexdigest(),
+                n in shards.leaves)
+            for n, x in CK._paths(st)
+            if (n.startswith("params/") or n.endswith("/e1"))
+            and (n not in shards.leaves
+                 or shards.leaves[n].data_axis is None)}
+
+
+def _layout_fsdp_groups(ranks, key, label):
+    """Each fsdp group's ranks (one model index, every data index) hold
+    the same bits of every parameter and residual that no data rank cuts
+    (`_data_digests` of each rank's `key` run)."""
+    groups = {}
+    for r in ranks:
+        groups.setdefault(r["coords"][1], []).append(r[key]["data_digests"])
+    for m, g in sorted(groups.items()):
+        bad = sorted(n for d in g[1:] for n in set(g[0]) | set(d)
+                     if d.get(n) != g[0].get(n))
+        check(len(g) == LAYOUT_DATA and g[0] and not bad, f"{label}: the "
+              f"leaves no data rank cuts differ across the data ranks of "
+              f"model index {m}: {bad[:8]}")
+    d = g[0]
+    print(f"# {label}: {len(d)} parameters and residuals that no data rank "
+          f"cuts ({sum(c for _, c in d.values())} of them model shards, e.g. "
+          f"{sorted(n for n, (_, c) in d.items() if c)[:3]}) bit-identical "
+          f"across each fsdp group ({LAYOUT_DATA} data ranks of one model "
+          f"index)")
+
+
+def _in_halves(field_fn):
+    """`field_fn` over a batch's two halves of rows, the two fields and
+    losses averaged: the data ranks' reorder in one process."""
+    from repro_torch import tree as T
+
+    def field(params, batch, **kw):
+        n = next(iter(batch.values())).shape[0] // 2
+        g, met = field_fn(params, {k: v[:n] for k, v in batch.items()}, **kw)
+        g2, met2 = field_fn(params, {k: v[n:] for k, v in batch.items()},
+                            **kw)
+        g = T.tree_map(lambda a, b: a.add_(b).div_(2), g, g2)
+        return g, {"loss": (met["loss"] + met2["loss"]) / 2}
+    return field
+
+
+def _layout_train(dev, mesh, dtype, steps, check_b1, ref_dir=None,
+                  compressor="qsgd8_block1024", halves=False):
+    """yi-34b at LAYOUT_LAYERS layers in `dtype` over the rank's Mode-B
+    shards of `mesh` (None: one process with the same specs), batch
+    LM_BATCH x LM_SEQ from one seeded generator: `steps` steps (B1 once a
+    step, finite losses), the peak past the initial state, then with
+    `check_b1` one more step with B1's operands held bit for bit to its
+    plain version and a digest of each replicated parameter; else, at
+    `ref_dir`, one process writes its parameters and residuals e1 there
+    (a .npy a leaf) and a rank, or the one process with `halves` (its
+    field over the batch's two halves, `_in_halves`), holds its own
+    against their slices (`_layout_agreement`). A rank also digests each
+    parameter and residual that no data rank cuts (`_data_digests`)."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint as CK
+    from repro_torch import tree as T
+    from repro_torch.configs import DQConfig, get
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.data import lm_batch_iterator
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get(LAYOUT_ARCH), num_layers=LAYOUT_LAYERS,
+                              param_dtype=dtype)
+    bundle = build(cfg, mesh)
+    dq = DQConfig.from_strategy(layout_strategy(compressor),
+                                optimizer="omd", lr=1e-4,
+                                message="update")
+    field_fn = _in_halves(bundle.field_fn) if halves else bundle.field_fn
+    tr = DQGAN(field_fn=field_fn, dq=dq, device=dev, mesh=mesh,
+               seed=LAYOUT_SEED + 1, param_specs=_layout_specs())
+    gen = torch.Generator(device=dev).manual_seed(LAYOUT_SEED)
+    st = tr.init(bundle.init(generator=gen, device=dev, max_seq=LM_SEQ))
+    batches = lm_batch_iterator(LM_BATCH, LM_SEQ, cfg.vocab_size,
+                                generator=gen, device=dev)
+    layout = tr._comm(st.params)[0]
+    rows = sum(b.size for b in layout.buckets) // 1024
+    label = f"layout {dtype} " + ("one process" if mesh is None
+                                  else f"rank {mesh.rank}")
+    label += " in halves" if halves else ""
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    Q.reset_launches()
+    times, losses = [], []
+    for _ in range(steps):      # one step a call (see _tp_train)
+        st, t, l, _ = lm_steps(tr, st, batches, 1, label)
+        times += t
+        losses += l
+    launches = Q.launches
+    peak = torch.cuda.max_memory_allocated()
+    out = {"launches": launches, "peak": peak, "times": times,
+           "losses": losses, "rows": rows, "skipped": len(layout.skipped),
+           "param_bytes": sum(x.numel() * x.element_size()
+                              for x in T.leaves(st.params))}
+    if check_b1:
+        st = lm_check_b1_step(tr, st, batches, rows, label)
+        shards = tr.state_shards(st)
+        out["digests"] = {
+            n: hashlib.sha256(x.detach().cpu().view(torch.uint8).numpy()
+                              .tobytes()).hexdigest()
+            for n, x in CK._paths(st.params)
+            if shards is None or f"params/{n}" not in shards.leaves}
+    else:
+        named = [(n, x) for n, x in CK._paths(st)
+                 if n.startswith("params/") or n.endswith("/e1")]
+        if mesh is None and not halves:
+            for i, (n, x) in enumerate(named):
+                np.save(os.path.join(ref_dir, f"{i}.npy"),
+                        x.detach().float().cpu().numpy())
+            with open(os.path.join(ref_dir, "names.json"), "w") as f:
+                json.dump([n for n, _ in named], f)
+        else:
+            out["agreement"] = _layout_agreement(named, ref_dir, mesh)
+        del named
+    if mesh is not None:
+        out["data_digests"] = _data_digests(st, tr.state_shards(st))
+    del tr, st, batches, bundle
+    free_cuda()
+    return out
+
+
+def layout_rank(rank, init, backend, serves, ref_dir):
+    """Rank `rank` of the phase's Mode-B mesh on cuda:0: (a) the bf16
+    steps, (b) the f32 steps, (c) each of `serves` on its data index's
+    rows. What the rank prints comes back as "log"."""
+    import io
+
+    import torch
+    from repro_torch.launch.mesh import ProcessMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        mesh = ProcessMesh.init(rank, LAYOUT_RANKS, device_type="cuda",
+                                local_rank=0, init_method=init,
+                                model=LAYOUT_MODEL, layout="fsdp",
+                                backend=backend, timeout_s=TP_WAIT_S)
+        try:
+            n = TP_SERVE_ROWS // mesh.data
+            rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+            out = {"coords": (mesh.data_index, mesh.model_index),
+                   "walls": {}}
+            for key, fn in (
+                    ("bf16", lambda: _layout_train(
+                        mesh.device, mesh, "bfloat16", LAYOUT_STEPS, True)),
+                    ("f32", lambda: _layout_train(
+                        mesh.device, mesh, "float32", LAYOUT_STEPS, False,
+                        ref_dir, LAYOUT_F32_COMPRESSOR)),
+                    ("serves", lambda: [_tp_serve(mesh.device, mesh, *run,
+                                                  rows=rows)
+                                        for run in serves])):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                out["walls"][key] = time.perf_counter() - t0
+        finally:
+            mesh.close()
+    out["log"] = buf.getvalue()
+    return out
+
+
+def _layout_agreement(named, ref_dir, mesh):
+    """(b) on a rank: its shards of the f32 parameters and residuals
+    (`named`, [(name, tensor)]) against the one process's at `ref_dir`
+    cut the same way (mesh None: whole; each read through a memory map), by
+    `repro_torch.parity`'s rule (one worker); its numbers, problems and
+    the leaves with the most flipped residuals."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parity import named_agreement
+    specs = {"/".join(map(str, p)): sp
+             for p, sp in zip(*T.flatten(_layout_specs()))}
+    with open(os.path.join(ref_dir, "names.json")) as f:
+        names = json.load(f)
+    cut = (dict(index=0, size=1, data_index=0, data_size=1) if mesh is None
+           else shd.rank_cut(mesh))
+    got = dict(named)
+    ref = {}
+    for i, name in enumerate(names):
+        key, lead = name.split("/", 1)[1], 0
+        if name.startswith("ef/"):          # (1, *leaf) under the worker
+            key, lead = key.removeprefix("leaf/").removesuffix("/e1"), 1
+        full = torch.from_numpy(np.load(os.path.join(ref_dir, f"{i}.npy"),
+                                        mmap_mode="r"))
+        ref[name] = np.ascontiguousarray(shd.shard_of(
+            full, (None,) * lead + tuple(specs[key]), **cut).numpy())
+    got = {k: got[k].detach().float().cpu().numpy() for k in ref}
+    ag = named_agreement(ref, got, 1, 1)
+    flips = sorted(((float((np.abs(ref[k] - got[k]) > 1e-3 * ag.emax).sum()),
+                     got[k].size, k) for k in ref if k.endswith("/e1")),
+                   reverse=True)
+    return {"d_params": ag.d_params, "d_invariant": ag.d_invariant,
+            "atol": ag.atol, "emax": ag.emax, "problems": ag.problems,
+            "flipped": sum(c for c, _, _ in flips)
+            / sum(n for _, n, _ in flips),
+            "flips": [(k, int(c), n) for c, n, k in flips[:4]]}
+
+
+def phase_layout(dev, gpu, backend):
+    """The reference's fsdp parameter layout (Mode B) on the card: yi-34b
+    at its published widths cut to LAYOUT_LAYERS layers, one worker over
+    LAYOUT_RANKS spawned ranks of a data LAYOUT_DATA x model
+    LAYOUT_MODEL Mode-B mesh sharing the card over `backend` (phase tp's
+    probe: gloo over CUDA tensors where NCCL refuses two ranks of one
+    device), omd, `layout_strategy()`, batch LM_BATCH x LM_SEQ; one
+    process at the same depth first:
+    (a) bf16, LAYOUT_STEPS steps: each rank's parameter bytes the JAX
+        layout's per-device bytes at the mesh, finite losses, B1 once a
+        step over the replicated leaves' bucket and bit-equal to its
+        plain version on one more step's operands, the replicated
+        parameters bit-identical across the ranks and each parameter and
+        residual that no data rank cuts across each fsdp group, each
+        rank's peak
+        within 0.85-1.15 of the dry-run's forecast of a rank at the same
+        mesh, rows and layout, and its share of the one process's;
+    (b) f32, LAYOUT_STEPS steps (the same sequence: the state, not the
+        activations, sets the peak), B1 at LAYOUT_F32_COMPRESSOR's
+        levels: each rank's shards of the parameters and residuals
+        against the one process's by `repro_torch.parity`'s rule (its
+        flipped residuals reported by leaf), the step-0 loss within
+        LAYOUT_LOSS_RTOL, each parameter and residual that no data rank
+        cuts bit-identical across each fsdp group; and its witness at
+        LAYOUT_WITNESS_COMPRESSOR's 127 levels, reported: the one process
+        with its batch in halves against it whole (the data ranks'
+        float32 reorder without Mode B), the residuals it flips;
+    (c) prefill of TP_SERVE_ROWS x TP_SERVE_PROMPT (each data rank its
+        rows) and LAYOUT_SERVE_STEPS greedy decode steps, the one process
+        first: in bf16 each rank's prefill and decode peaks within
+        0.85-1.15 of the forecast and the share of the one process's
+        tokens reported, in f32 every greedy token equal and the last
+        logits within rtol = atol = TP_SERVE_TOL.
+    Returns B1's launches on the path (each rank's)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    arch, layers = LAYOUT_ARCH, LAYOUT_LAYERS
+    mesh = {"data": LAYOUT_DATA, "model": LAYOUT_MODEL}
+
+    # ---- one process, the same depth and specs --------------------------- #
+    import tempfile
+    ref = tempfile.TemporaryDirectory()     # the f32 state, for the ranks
+    one = {"bfloat16": _layout_train(dev, None, "bfloat16", LAYOUT_STEPS,
+                                     True),
+           "float32": _layout_train(dev, None, "float32", LAYOUT_STEPS,
+                                    False, ref.name, LAYOUT_F32_COMPRESSOR)}
+    serves = [(arch, layers, dt, LAYOUT_SERVE_STEPS, "hd_model")
+              for dt in ("bfloat16", "float32")]
+    one_serve = {run[2]: _tp_serve(dev, None, *run) for run in serves}
+    for dt, o in one.items():
+        print(f"# layout one process {arch} {layers} of 60 layers {dt}: "
+              f"{o['param_bytes']} parameter bytes, peak "
+              f"{gib(o['peak']):.2f} GiB, losses "
+              f"{[round(x, 5) for x in o['losses']]}, median step "
+              f"{statistics.median(o['times'][1:]) * 1e3:.1f} ms; gpu {gpu}")
+    print(f"# layout: the one process took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b)'s witness at 127 levels: the one process against itself with
+    # its batch in halves (the data ranks' reorder, without Mode B) ------ #
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wdir:
+        _layout_train(dev, None, "float32", LAYOUT_STEPS, False, wdir,
+                      LAYOUT_WITNESS_COMPRESSOR)
+        w = _layout_train(dev, None, "float32", LAYOUT_STEPS, False, wdir,
+                          LAYOUT_WITNESS_COMPRESSOR, halves=True)["agreement"]
+    free_cuda()
+    print(f"# layout (b) witness {arch} f32 {LAYOUT_WITNESS_COMPRESSOR}: the "
+          f"one process with its batch in halves against it whole after "
+          f"{LAYOUT_STEPS} steps: {w['flipped']:.3e} of the residuals "
+          f"flipped (the parity rule's budget 1e-3), by leaf (count of "
+          f"elements) {w['flips']}; parameters max |diff| "
+          f"{w['d_params']:.3e}, invariant part {w['d_invariant']:.3e}, one "
+          f"quantization step {w['emax']:.3e}; {time.perf_counter() - t0:.1f}"
+          f" s; gpu {gpu}")
+
+    # ---- the ranks -------------------------------------------------------- #
+    t0 = time.perf_counter()
+    try:
+        res = _spawn_ranks(layout_rank, LAYOUT_RANKS,
+                           (backend, serves, ref.name), TP_WAIT_S)
+    finally:
+        ref.cleanup()
+    bad = [r for ok, r in res if not ok]
+    check(not bad, "layout: a rank failed:\n" + "\n".join(bad))
+    ranks = [r for _, r in res]
+    for r in ranks:
+        print(r["log"], end="")
+    print(f"# layout: the {LAYOUT_RANKS} ranks ({backend}) took "
+          f"{time.perf_counter() - t0:.1f} s; rank 0's walls "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in ranks[0]["walls"].items())
+          + f"; its f32 steps "
+          f"{[round(x, 2) for x in ranks[0]['f32']['times']]} s")
+
+    # ---- (a) bf16 --------------------------------------------------------- #
+    cfg = dataclasses.replace(configs.get(arch), num_layers=layers,
+                              param_dtype="bfloat16")
+    want_bytes = dryrun.param_bytes_per_device(cfg, "fsdp", mesh,
+                                               LM_SEQ)["bytes"]
+    shape = configs.InputShape(f"{arch}-{layers}", LM_SEQ, LM_BATCH, "train")
+    fc = dryrun.trace_train(cfg, shape, layout_strategy(),
+                            ranks=LAYOUT_RANKS, model=LAYOUT_MODEL,
+                            optimizer="omd", lr=1e-4, message="update",
+                            layout="fsdp")
+    launches = {}
+    for i, r in enumerate(ranks):
+        a = r["bf16"]
+        label = f"layout (a) {arch} bf16 rank {i} {r['coords']}"
+        check(a["launches"] == LAYOUT_STEPS, f"{label}: B1 launched "
+              f"{a['launches']} times in {LAYOUT_STEPS} steps")
+        check(a["param_bytes"] == want_bytes == fc["param_bytes_per_rank"],
+              f"{label}: {a['param_bytes']} parameter bytes, the JAX "
+              f"layout's {want_bytes}, the forecast's "
+              f"{fc['param_bytes_per_rank']}")
+        ratio = fc["peak_bytes"] / a["peak"]
+        print(f"# {label}: {a['param_bytes']} parameter bytes (the JAX "
+              f"fsdp layout's per-device bytes at (2, 2): {want_bytes}; one "
+              f"process {one['bfloat16']['param_bytes']}), {a['skipped']} "
+              f"sharded leaves on the per-tensor path, B1 {a['launches']} "
+              f"in {LAYOUT_STEPS} steps over {a['rows']} rows, losses "
+              f"{[round(x, 5) for x in a['losses']]}, peak "
+              f"{gib(a['peak']):.2f} GiB ({a['peak'] / one['bfloat16']['peak']:.3f} "
+              f"of the one process's {gib(one['bfloat16']['peak']):.2f} "
+              f"GiB), forecast {gib(fc['peak_bytes']):.2f} GiB (forecast "
+              f"over measured {ratio:.3f}), median step "
+              f"{statistics.median(a['times'][1:]) * 1e3:.1f} ms over "
+              f"{backend} (four ranks share the card: not an fsdp speed); "
+              f"gpu {gpu}")
+        check(0.85 <= ratio <= 1.15, f"{label}: forecast peak "
+              f"{fc['peak_bytes']} against {a['peak']} measured")
+        launches[f"layout {arch} fsdp rank {i}"] = a["launches"]
+    d0 = ranks[0]["bf16"]["digests"]
+    check(d0 and all(r["bf16"]["digests"] == d0 for r in ranks),
+          "layout (a): the replicated parameters differ across the ranks")
+    check(all(r["bf16"]["losses"] == ranks[0]["bf16"]["losses"]
+              for r in ranks), "layout (a): the ranks' losses differ")
+    print(f"# layout (a): {len(d0)} replicated parameters bit-identical on "
+          f"the {LAYOUT_RANKS} ranks after {LAYOUT_STEPS + 1} steps; "
+          f"fsdp-group collectives of a rank's step (forecast) "
+          f"{fc['collectives_fsdp']}")
+    _layout_fsdp_groups(ranks, "bf16", "layout (a)")
+
+    # ---- (b) f32 ---------------------------------------------------------- #
+    l0 = one["float32"]["losses"][0]
+    for i, r in enumerate(ranks):
+        b = r["f32"]
+        ag = b["agreement"]
+        label = (f"layout (b) {arch} f32 {LAYOUT_F32_COMPRESSOR} rank {i} "
+                 f"{r['coords']}")
+        check(b["launches"] == LAYOUT_STEPS, f"{label}: B1 launched "
+              f"{b['launches']} times")
+        print(f"# {label}: after {LAYOUT_STEPS} steps against the one "
+              f"process's state cut to the rank: parameters max |diff| "
+              f"{ag['d_params']:.3e}, invariant part {ag['d_invariant']:.3e}"
+              f" (float32 bound {ag['atol']:.3e}), one quantization step "
+              f"{ag['emax']:.3e}; {ag['flipped']:.3e} of the residuals "
+              f"flipped, by leaf (count of elements) {ag['flips']}; losses "
+              f"{b['losses']} (one process {one['float32']['losses']}), peak {gib(b['peak']):.2f} GiB "
+              f"(one process {gib(one['float32']['peak']):.2f}); gpu {gpu}")
+    for i, r in enumerate(ranks):
+        b, ag = r["f32"], r["f32"]["agreement"]
+        label = f"layout (b) {arch} f32 rank {i} {r['coords']}"
+        check(not ag["problems"], f"{label}: {ag['problems']}")
+        check(abs(b["losses"][0] - l0) <= LAYOUT_LOSS_RTOL * abs(l0),
+              f"{label}: step-0 loss {b['losses'][0]} against {l0}")
+        launches[f"layout {arch} fsdp f32 rank {i}"] = b["launches"]
+    _layout_fsdp_groups(ranks, "f32", "layout (b)")
+
+    # ---- (c) prefill and decode ------------------------------------------ #
+    n = TP_SERVE_ROWS // LAYOUT_DATA
+    for k, run in enumerate(serves):
+        dt = run[2]
+        o = one_serve[dt]
+        label = f"layout (c) {arch} {layers} layers {dt}"
+        for i, r in enumerate(ranks):
+            sv = r["serves"][k]
+            di = r["coords"][0]
+            want = o["tokens"][di * n:(di + 1) * n]
+            same = float((sv["tokens"] == want).mean())
+            print(f"# {label} rank {i} {r['coords']}: rows {di * n}-"
+                  f"{di * n + n - 1}, parameters {sv['param_bytes']} (one "
+                  f"process {o['param_bytes']}), cache {sv['cache']} bytes "
+                  f"(one process, all rows, {o['cache']}); prefill "
+                  f"{sv['prefill_s']:.3f} s, {LAYOUT_SERVE_STEPS} decode "
+                  f"steps {sv['decode_s']:.3f} s over {backend}; peaks "
+                  f"prefill {gib(sv['prefill_peak']):.3f} GiB, decode "
+                  f"{gib(sv['decode_peak']):.3f} GiB; greedy tokens equal "
+                  f"to the one process's: {same:.4f} of {want.size}; gpu "
+                  f"{gpu}")
+            if dt == "float32":
+                check(same == 1.0, f"{label} rank {i}: greedy tokens equal "
+                      f"at {same:.4f} of the steps")
+                last = o["last"][di * n:(di + 1) * n]
+                err = np.abs(sv["last"] - last)
+                bound = TP_SERVE_TOL + TP_SERVE_TOL * np.abs(last)
+                print(f"# {label} rank {i}: last logits max |diff| "
+                      f"{err.max():.3e}, {int((err > bound).sum())} over "
+                      f"rtol = atol = {TP_SERVE_TOL:g}")
+                check(bool((err <= bound).all()), f"{label} rank {i}: last "
+                      f"logits beyond rtol = atol = {TP_SERVE_TOL}")
+        if dt != "bfloat16":
+            continue
+        scfg = dataclasses.replace(configs.get(arch), num_layers=layers,
+                                   param_dtype=dt)
+        sshape = configs.InputShape(f"{arch}-{layers}", TP_SERVE_PROMPT,
+                                    TP_SERVE_ROWS, "prefill")
+        total = TP_SERVE_PROMPT + LAYOUT_SERVE_STEPS
+        sfc = {"prefill": dryrun.trace_prefill(
+                   scfg, sshape, n, ranks=LAYOUT_RANKS, model=LAYOUT_MODEL,
+                   kv_layout="hd_model", max_len=total, layout="fsdp"),
+               "decode": dryrun.trace_decode(
+                   scfg, dataclasses.replace(sshape, seq_len=total,
+                                             kind="decode"),
+                   n, ranks=LAYOUT_RANKS, model=LAYOUT_MODEL,
+                   kv_layout="hd_model", layout="fsdp")}
+        for i, r in enumerate(ranks):
+            sv = r["serves"][k]
+            for kind, f in sfc.items():
+                ratio = f["peak_bytes"] / sv[f"{kind}_peak"]
+                print(f"# {label} rank {i}: forecast {kind} peak "
+                      f"{gib(f['peak_bytes']):.3f} GiB against "
+                      f"{gib(sv[f'{kind}_peak']):.3f} measured (ratio "
+                      f"{ratio:.3f}); forecast parameters "
+                      f"{f['param_bytes_per_rank']}, cache "
+                      f"{f['cache_bytes_per_rank']} bytes")
+                check(0.85 <= ratio <= 1.15, f"{label} rank {i}: forecast "
+                      f"{kind} peak {f['peak_bytes']} against "
+                      f"{sv[f'{kind}_peak']}")
+            check(sfc["decode"]["param_bytes_per_rank"] == sv["param_bytes"],
+                  f"{label} rank {i}: parameter bytes {sv['param_bytes']} "
+                  f"against the forecast's "
+                  f"{sfc['decode']['param_bytes_per_rank']}")
+    print(f"# layout: the phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"gpu {gpu}")
+    return launches
+
+
 def timed(label, fn, *args, **kw):
     """fn(*args, **kw), printing its wall time."""
     t0 = time.perf_counter()
@@ -4619,7 +5156,8 @@ def main():
         zoo_b1, zoo_b2, zoo_call, zoo_meas = timed("zoo", phase_zoo, dev,
                                                    gpu)
         timed("dryrun", phase_dryrun, gpu, lm_meas, zoo_meas)
-        tp_b1 = timed("tp", phase_tp, dev, gpu, zoo_meas["peaks"])
+        tp_b1, backend = timed("tp", phase_tp, dev, gpu, zoo_meas["peaks"])
+        layout_b1 = timed("layout", phase_layout, dev, gpu, backend)
         b1["launches"] = timed("train 1 worker", phase_train)
         b2["launches"] = timed("train 4 workers", phase_train_workers, dev)
         b3["launches"] = timed("serve", phase_serve)
@@ -4647,7 +5185,7 @@ def main():
             **{f"resume {k}": v for k, v in resumed.items()},
             **{f"overlap {k}": v[0] for k, v in overlapped.items()},
             **{k: v[0] for k, v in observed.items() if v[0]},
-            **fsdp, **quant_b1, **lm_b1, **zoo_b1, **tp_b1}
+            **fsdp, **quant_b1, **lm_b1, **zoo_b1, **tp_b1, **layout_b1}
         # B1's one launch over the LM gradient, timed in the profiled
         # window of phase lm train
         b1["lm_call"] = lm_call

@@ -31,7 +31,9 @@ model group first (`parallel.sharding.gather_to_full`), so the file holds
 the JAX package's full leaves; a restore slices each rank's part. The
 file does not depend on the mesh it was saved from, so a checkpoint
 crosses mesh shapes (a (2, 2) save resumes on one process and the other
-way round) and packages.
+way round) and packages. Under the fsdp layout a leaf is cut over the
+data ranks as well (`ShardedLeaf.data_axis`, gathered over the fsdp
+group), and a Mode-B save is the same file again.
 """
 from __future__ import annotations
 
@@ -90,40 +92,52 @@ PER_WORKER_FIELDS = ("prev_grad", "ef", "sched", "fsdp")
 
 @dataclasses.dataclass(frozen=True)
 class ShardedLeaf:
-    """How one model-sharded leaf is stored: its trailing shape on a rank
+    """How one sharded leaf is stored: its trailing shape on a rank
     (`local`) and in the file (`full`), the shape `view` (on a rank) that
     its elements are a reshape of, and the dimension `axis` of the view
-    the model ranks split. For a parameter's shard (or its residual e1)
-    the view is its own shape; two_phase's owner residual e2 is stored,
-    as the JAX package stores it, as its moved chunk reshaped to the
-    leaf's axis order, and the view is that chunk."""
+    the model ranks split (None: none) and `data_axis` the data ranks
+    split (the fsdp layout; None: none). For a parameter's shard (or its
+    residual e1) the view is its own shape; two_phase's owner residual e2
+    is stored, as the JAX package stores it, as its moved chunk reshaped
+    to the leaf's axis order, and the view is that chunk."""
     local: Tuple[int, ...]
     full: Tuple[int, ...]
     view: Tuple[int, ...]
-    axis: int
+    axis: Optional[int]
+    data_axis: Optional[int] = None
 
 
 @dataclasses.dataclass
 class ModelShards:
-    """The model-sharded leaves of a tree, {leaf name: ShardedLeaf}, and
-    the model group (a `parallel.tensor.ModelGroup`) whose ranks hold
-    them. Leading axes beyond the trailing shapes (the worker axis, the
-    delayed ring) pass through."""
+    """The sharded leaves of a tree, {leaf name: ShardedLeaf}, the model
+    group (a `parallel.tensor.ModelGroup`) and, under the fsdp layout, the
+    fsdp group (a `parallel.fsdp.FsdpGroup`) whose ranks hold them.
+    Leading axes beyond the trailing shapes (the worker axis, the delayed
+    ring) pass through."""
     leaves: Dict[str, ShardedLeaf]
     group: Any
+    data_group: Any = None
+
+    def _cuts(self, sl):
+        """[(view dimension, group)] of each cut of the leaf."""
+        return [(ax, g) for ax, g in ((sl.axis, self.group),
+                                      (sl.data_axis, self.data_group))
+                if ax is not None and g is not None and g.size > 1]
 
     def _full_view(self, sl):
         v = list(sl.view)
-        v[sl.axis] *= self.group.size
+        for ax, g in self._cuts(sl):
+            v[ax] *= g.size
         return tuple(v)
 
     def gather(self, tree):
         """`tree` with each sharded leaf gathered to the full leaf (a
-        collective: every model rank calls it)."""
+        collective: every rank of the groups calls it)."""
         def full(sl, x):
             lead = tuple(x.shape[:x.dim() - len(sl.local)])
-            y = self.group.all_gather(x.reshape(lead + sl.view),
-                                      len(lead) + sl.axis)
+            y = x.reshape(lead + sl.view)
+            for ax, g in self._cuts(sl):
+                y = g.all_gather(y, len(lead) + ax)
             return y.reshape(lead + sl.full)
         return _rebuild(tree, iter(
             full(self.leaves[n], x) if n in self.leaves else x
@@ -135,11 +149,11 @@ class ModelShards:
         if sl is None:
             return arr
         lead = tuple(arr.shape[:arr.ndim - len(sl.full)])
-        v = arr.reshape(lead + self._full_view(sl))
-        c = sl.view[sl.axis]
-        out = np.take(v, range(self.group.index * c,
-                               (self.group.index + 1) * c),
-                      axis=len(lead) + sl.axis)
+        out = arr.reshape(lead + self._full_view(sl))
+        for ax, g in self._cuts(sl):
+            c = sl.view[ax]
+            out = np.take(out, range(g.index * c, (g.index + 1) * c),
+                          axis=len(lead) + ax)
         return np.ascontiguousarray(out).reshape(lead + sl.local)
 
     def full_shape(self, name, shape):

@@ -240,6 +240,7 @@ class TracedQuant:
     bits = None          # not known on the host
     unbiased = True
     _blocked = StochasticQuant._blocked
+    _scale = StochasticQuant._scale
 
     def __init__(self, levels, per_block: int = 0,
                  name: str = "adaptive_linf"):

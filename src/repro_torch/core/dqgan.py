@@ -35,6 +35,19 @@ made at the global shape, each rank taking its slice); the replicated
 leaves bucket as before, computed alike on every model rank. The norms
 in the metrics sum the sharded leaves over the model group.
 
+The fsdp parameter layout (the JAX package's Mode B, a
+`launch.mesh.ProcessMesh` of layout "fsdp"): the parameters are cut
+over the data axis as well (`param_specs` under "fsdp"), the workers are
+the pods (W = pods, one a pod), a rank takes its data index's rows of
+its worker's batch, and the field (`models.build(cfg, mesh)`) gathers
+each period's parameters over the fsdp group and returns the gradient of
+the worker's loss with respect to the rank's shards. One pod runs the
+single-worker step; across pods the vmap step runs over the exchange
+group (the mean of the workers' decompressed messages, exchange `sim`).
+A leaf sharded over either axis skips the buckets; `loss` sums the data
+ranks' shares, and the norms sum each leaf over the groups it is cut
+over.
+
 Partial participation masks the sitting workers' messages and residuals
 to zero, rescales q̂ by W/n and folds their messages into their EF. An
 adaptive PlanFamily selects each bucket's level count by the round's
@@ -102,11 +115,13 @@ bucket, overlapped or not.
 each leaf compressed by the registry compressor (`allow_fused=False`, so
 no kernel), the mean over the worker axis, and JAX's vmap metrics: the
 global norms over all workers' gradients and residuals, not the mean of
-per-worker norms. It runs on stacked workers only.
+per-worker norms. It runs on stacked workers, or over the pods of an
+fsdp-layout mesh (one worker a pod, the mean over the exchange group).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -116,6 +131,7 @@ from repro_torch import tree as T
 from repro_torch.comm import CommLedger
 from repro_torch.comm import buckets as B
 from repro_torch.configs.base import DQConfig
+from repro_torch.parallel import fsdp as FS
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor as TP
 from repro_torch.sched.participation import round_count
@@ -124,7 +140,7 @@ from repro_torch.strategy import Strategy
 from . import compressors as C
 from . import exchange as X
 from .error_feedback import (LeafShard, compress_with_ef_stacked,
-                             fused_quantize_ef, packed_levels)
+                             fused_quantize_ef, leaf_stream, packed_levels)
 
 
 class DQState(NamedTuple):
@@ -154,26 +170,32 @@ class StepOutput(NamedTuple):
     mask: Optional[torch.Tensor] = None
 
 
-def _worker_sq(tensors, L):
-    """(L,) per-worker sum of squares over a list of (L, ...) tensors, or
-    None for none."""
-    tensors = [t for t in tensors if t is not None]
-    if not tensors:
-        return None
-    return sum(torch.square(t.float()).reshape(L, -1).sum(dim=1)
-               for t in tensors)
+def _firsts(message):
+    """Each (L, ...) message's first row (None for a spent one): the
+    templates `comm.buckets.unpack_into` reads the bucketed leaves'
+    dtypes from."""
+    return [None if m is None else m[0] for m in message]
 
 
-def _worker_norms(tensors, L, sharded=(), group=None):
-    """(L,) per-worker global L2 norm over a list of (L, ...) tensors and
-    the rank's slices of model-sharded ones (`sharded`, summed over the
-    model `group`)."""
-    sq = _worker_sq(tensors, L)
-    sh = _worker_sq(sharded, L) if group is not None else None
-    if sh is not None:
-        group.all_reduce(sh)
-        sq = sh if sq is None else sq + sh.to(sq.device)
-    return torch.zeros((L,)) if sq is None else torch.sqrt(sq)
+def _cut_key(shard):
+    """(cut over 'model', cut over 'data') of a leaf's `LeafShard`."""
+    if shard is None:
+        return (False, False)
+    return (shard.axis is not None and shard.size > 1,
+            shard.data_axis is not None and shard.data_size > 1)
+
+
+class _CutGroups:
+    """The groups a sharded leaf is cut over, as one group: `all_reduce`
+    over each in turn, `size` their product (what `obs.Collector.leaf`
+    takes)."""
+
+    def __init__(self, shard):
+        self.shard = shard
+        self.size = math.prod(n for _, _, n, _ in shard.cuts)
+
+    def all_reduce(self, x, op=None):
+        return self.shard.reduce(x, op)
 
 
 def _record_stream(tree, stream):
@@ -263,7 +285,9 @@ class DQGAN:
                 "DQGAN: dq and strategy disagree:\n  "
                 + "\n  ".join(self.dq.strategy.diff(self.strategy)))
         self.strategy = self.dq.strategy
-        if self.strategy.exchange.spmd == "vmap" and self.mesh is not None:
+        fsdp_mesh = getattr(self.mesh, "fsdp", False)
+        if (self.strategy.exchange.spmd == "vmap" and self.mesh is not None
+                and not fsdp_mesh):
             raise ValueError(
                 "DQGAN: spmd='vmap' runs on stacked workers only, because "
                 "the JAX package's vmap step calls no collective of its "
@@ -278,17 +302,22 @@ class DQGAN:
                 "DQGAN: workers > 1 needs strategy.exchange.worker_axes "
                 "(the JAX package runs one worker without them)")
         self.model = self.mesh.model if self.mesh is not None else 1
-        if self.model > 1 and self.param_specs is None:
+        # under the fsdp layout the parameters are also cut over 'data'
+        self.data_cut = self.mesh.data if fsdp_mesh else 1
+        if (self.model > 1 or fsdp_mesh) and self.param_specs is None:
             raise ValueError(
                 "DQGAN: a mesh with a model axis of "
-                f"{self.model} needs param_specs (the spec tree of the full "
-                "parameters, parallel.sharding.param_specs)")
-        if self.model > 1 and self.fsdp:
+                f"{self.model} (or the fsdp layout) needs param_specs (the "
+                "spec tree of the full parameters, "
+                "parallel.sharding.param_specs)")
+        if (self.model > 1 or fsdp_mesh) and self.fsdp:
             raise ValueError(
                 "DQGAN: exchange.parallelism='fsdp' keeps a pure data mesh "
                 "(its flat shard buckets need every leaf replicated), as "
-                "the JAX launcher does; use a model axis of 1")
+                "the JAX launcher does; use a model axis of 1 and the dp "
+                "layout")
         self._mg = TP.model_group_for(self.mesh)
+        self._fg = FS.fsdp_group_for(self.mesh)
         if self.mesh is not None:
             self.device = self.mesh.device
         self.device = torch.device(self.device)
@@ -428,10 +457,12 @@ class DQGAN:
         if spec.ef_norms:
             ef_rep, ef_sh = self._ef_split(params_tree, new_ef)
             e1, e2 = OBS.ef_norms_sq(ef_rep, self.device)
-            if ef_sh:
-                s1, s2 = OBS.ef_norms_sq(ef_sh, self.device)
-                e1 = e1 + self._mg.all_reduce(s1)
-                e2 = e2 + self._mg.all_reduce(s2)
+            for key in sorted({_cut_key(sh) for _, sh in ef_sh}):
+                s12 = torch.stack(OBS.ef_norms_sq(
+                    [d for d, sh in ef_sh if _cut_key(sh) == key],
+                    self.device))
+                s12 = self._reduce_cut(s12, key)
+                e1, e2 = e1 + s12[0], e2 + s12[1]
             sums["e1_sq"], sums["e2_sq"] = e1, e2
         if spec.staleness:
             # staleness-free schedules: every worker at staleness 0
@@ -443,31 +474,39 @@ class DQGAN:
 
     def _shapes(self, params):
         """The shape tree of the full parameters (each leaf's rank-local
-        shape, its sharded dimension times the model axis)."""
+        shape, its sharded dimensions times the model axis and, under the
+        fsdp layout, the data axis)."""
         if self.param_specs is None:
             return T.tree_map(lambda x: tuple(x.shape), params)
         paths, leaves = T.flatten(params)
         specs = T.flatten_up_to(paths, self.param_specs)
         return T.unflatten(paths, [
-            shd.global_shape(tuple(x.shape), sp, self.model)
+            shd.global_shape(tuple(x.shape), sp, self.model, self.data_cut)
             for x, sp in zip(leaves, specs)])
 
     def _leaf_shards(self, params):
         """Per leaf (flatten order): the `LeafShard` of a leaf sharded
-        over the model axis, else None."""
+        over the model axis (or, under the fsdp layout, the data axis),
+        else None."""
         paths, leaves = T.flatten(params)
-        if self._mg is None:
+        mg, fg = self._mg, self._fg
+        if mg is None and fg is None:
             return [None] * len(paths)
         key = ("shards",) + tuple(tuple(x.shape) for x in leaves)
         hit = self._comm_cache.get(key)
         if hit is None:
             shapes = T.flatten_up_to(paths, self._shapes(params))
             specs = T.flatten_up_to(paths, self.param_specs)
-            hit = self._comm_cache[key] = [
-                None if shd.model_axis(sp) is None else LeafShard(
-                    sh, shd.model_axis(sp), self._mg.index, self._mg.size,
-                    self._mg)
-                for sh, sp in zip(shapes, specs)]
+            hit = []
+            for sh, sp in zip(shapes, specs):
+                ma = None if mg is None else shd.model_axis(sp)
+                da = None if fg is None else shd.data_axis(sp)
+                hit.append(None if ma is None and da is None else LeafShard(
+                    sh, ma, 0 if mg is None else mg.index,
+                    1 if mg is None else mg.size, mg, da,
+                    0 if fg is None else fg.index,
+                    1 if fg is None else fg.size, fg))
+            self._comm_cache[key] = hit
         return hit
 
     def state_shards(self, state):
@@ -476,7 +515,7 @@ class DQGAN:
         and everything laid out like them, and the per-tensor two_phase
         residuals e2, stored as reshapes of their chunks), or None
         without a model axis."""
-        if self._mg is None:
+        if self._mg is None and self._fg is None:
             return None
         from repro_torch import checkpoint as CK
         paths, leaves = T.flatten(state.params)
@@ -498,17 +537,20 @@ class DQGAN:
                 continue
             sh, plan = sharded[rest]
             local, full = sh.local_shape, sh.shape
-            view, axis = local, sh.axis
+            view, cut = local, sh
             if e2:      # the chunk of chunk_axis ax, (c_ax, *rest)
                 ax, W = plan["chunk_axis"], self.n_workers
-                c = sh.chunked(ax, W)
+                cut = sh.chunked(ax, W)
                 local = tuple(d // W if i == ax else d
                               for i, d in enumerate(local))
                 full = tuple(d // W if i == ax else d
                              for i, d in enumerate(full))
-                view, axis = c.local_shape, c.axis
-            out[name] = CK.ShardedLeaf(local, full, view, axis)
-        return CK.ModelShards(out, self._mg)
+                view = cut.local_shape
+            out[name] = CK.ShardedLeaf(
+                local, full, view,
+                cut.axis if cut.size > 1 else None,
+                cut.data_axis if cut.data_size > 1 else None)
+        return CK.ModelShards(out, self._mg, self._fg)
 
     def _comm(self, params):
         """(BucketLayout, CommPlan): the static (full-participation) view."""
@@ -693,15 +735,22 @@ class DQGAN:
     # ------------------------------------------------------------------ #
     def _split_batch(self, batch):
         """This process's L slices of the global batch split W ways in
-        order (the JAX package's batch_spec P(('data',)))."""
-        W = self.n_workers
+        order (the JAX package's batch_spec P(('data',))); under the fsdp
+        layout the rank's rows of its worker's slice, split over the data
+        ranks in order (the JAX package's batch over ('pod', 'data'))."""
+        W, D = self.n_workers, self.data_cut
 
         def split(x):
-            if x.shape[0] % W:
+            if x.shape[0] % (W * D):
                 raise ValueError(f"batch of {x.shape[0]} does not split "
-                                 f"over {W} workers")
-            return self._workers.rows(
+                                 f"over {W} workers" + (
+                                     f" of {D} data ranks" if D > 1 else ""))
+            x = self._workers.rows(
                 x.reshape((W, x.shape[0] // W) + tuple(x.shape[1:])))
+            if D == 1:
+                return x
+            n = x.shape[1] // D
+            return x.narrow(1, self.mesh.data_index * n, n)
 
         stacked = {k: split(x) for k, x in batch.items()}
         return [{k: x[i] for k, x in stacked.items()}
@@ -823,7 +872,7 @@ class DQGAN:
                     finish = self._start_overlapped(
                         self._start_exchange, state.params, paths,
                         T.flatten_up_to(paths, pending), ef, ef_leaves,
-                        plans, rand, part, col)
+                        plans, rand, part, col, state.step)
         # a field without `draw_z` must then draw nothing: its draws would
         # follow the exchange's, not precede them as they do blocking
         gen_states = ([g.get_state() for g in self._gens]
@@ -874,7 +923,11 @@ class DQGAN:
                 "exchange.overlap: the field drew from its generator but "
                 "has no draw_z, so the overlapped step would not draw what "
                 "the blocking step draws; expose field_fn.draw_z")
-        grads = [torch.stack(gs) for gs in zip(*grads_w)]   # (L, ...)
+        grads = [gs[0][None] if L == 1 else torch.stack(gs)
+                 for gs in zip(*grads_w)]                   # (L, ...)
+        # the lookahead and the unstacked gradients are done with: free
+        # them before the exchange's buffers come
+        grads_w = worker_params = w_half = upd = None
         if dq.message == "update" and dq.optimizer == "omd":
             message = [(eta * g).float() for g in grads]
         else:
@@ -908,14 +961,22 @@ class DQGAN:
         else:
             with OBS.device_span("exchange", spans):
                 if finish is None:
+                    # the exchange owns the message list: a leaf's message
+                    # can go once its compression has started
+                    msgs = T.flatten_up_to(paths, exch_msg)
+                    message = exch_msg = None
                     finish = self._start_exchange(
-                        state.params, paths, T.flatten_up_to(paths, exch_msg),
-                        ef, ef_leaves, plans, rand, part, col)
+                        state.params, paths, msgs, ef, ef_leaves, plans,
+                        rand, part, col, state.step)
+                    msgs = None
                 qhat, new_ef = finish()
+                message = exch_msg = finish = None
             with OBS.device_span("apply", spans):
                 new_params, new_m, new_v, new_prev_update = (
                     self._server_update(state, paths, qhat))
 
+        # the wire's buffers are done with before the metrics' temporaries
+        message = exch_msg = qhat = finish = None
         new_prev_grad = None
         if prev_grad is not None:
             new_prev_grad = T.unflatten(
@@ -923,7 +984,7 @@ class DQGAN:
 
         if self.vmap:
             loss, gn, en, st_max, st_mean, st_now = self._vmap_metrics(
-                losses, grads, new_ef, state.step, new_sched)
+                losses, grads, new_ef, state.step, new_sched, state.params)
         else:
             loss, gn, en, st_max, st_mean, st_now = self._metrics(
                 losses, grads, new_ef, state.step, new_sched, state.params)
@@ -941,8 +1002,8 @@ class DQGAN:
                           mask=None if part is None else part[0])
 
     def _ef_split(self, params_tree, new_ef):
-        """(EF dicts of the replicated leaves and the buckets, EF dicts of
-        the model-sharded leaves)."""
+        """(EF dicts of the replicated leaves and the buckets, [(EF dict,
+        `LeafShard`)] of the sharded leaves)."""
         shards = self._leaf_shards(params_tree)
         if new_ef is None or not any(s is not None for s in shards):
             return [new_ef], []
@@ -952,25 +1013,76 @@ class DQGAN:
         rep = [d for d, s in zip(dicts, shards) if s is None]
         if self.bucketed:
             rep.append(new_ef["bucket"])
-        return rep, [d for d, s in zip(dicts, shards) if s is not None]
+        return rep, [(d, s) for d, s in zip(dicts, shards)
+                     if s is not None and d is not None]
+
+    def _reduce_cut(self, x, key):
+        """x summed over the groups a leaf of cut `key` (`_cut_key`) is
+        cut over."""
+        if key[0]:
+            x = self._mg.all_reduce(x)
+        if key[1]:
+            x = self._fg.all_reduce(x)
+        return x
+
+    def _global_sq(self, tensors, shards, L):
+        """(L,) each worker's sum of squares of the global tensors whose
+        rank-local parts (L, ...) are `tensors`, cut as `shards` says: the
+        sums of the sharded ones reduced over their groups, one
+        collective a group."""
+        cats = {}
+        for t, sh in zip(tensors, shards):
+            if t is None:
+                continue
+            k = _cut_key(sh)
+            v = torch.square(t.float()).reshape(L, -1).sum(dim=1)
+            cats[k] = v if k not in cats else cats[k] + v.to(cats[k].device)
+        dev = (next(iter(cats.values())).device if cats
+               else torch.device(self.device))
+        zero = torch.zeros((L,), device=dev)
+        get = {k: cats.get(k, zero).to(dev) for k in
+               ((False, False), (True, False), (False, True), (True, True))}
+        if self._mg is not None and any(k[0] for k in cats):
+            m = self._mg.all_reduce(torch.stack([get[(True, False)],
+                                                 get[(True, True)]]))
+            get[(True, False)], get[(True, True)] = m[0], m[1]
+        if self._fg is not None and any(k[1] for k in cats):
+            d = self._fg.all_reduce(torch.stack([get[(False, True)],
+                                                 get[(True, True)]]))
+            get[(False, True)], get[(True, True)] = d[0], d[1]
+        return sum(get.values())
+
+    def _ef_sq(self, params_tree, new_ef, L):
+        """(L,) each worker's sum of squares of its global residuals."""
+        ef_rep, ef_sh = self._ef_split(params_tree, new_ef)
+        tensors = _ef_tensors(ef_rep)
+        shards = [None] * len(tensors)
+        for d, sh in ef_sh:
+            ts = _ef_tensors(d)
+            tensors += ts
+            shards += [sh] * len(ts)
+        return self._global_sq(tensors, shards, L)
+
+    def _losses(self, losses):
+        """This process's (L,) worker losses: under the fsdp layout the
+        data group's sum of the ranks' shares."""
+        ls = torch.stack(losses)
+        return ls if self._fg is None else self._fg.all_reduce(ls.float())
 
     def _metrics(self, losses, grads, new_ef, step, new_sched, params_tree):
         """(loss, grad_norm, error_norm, staleness max, mean, the (L,)
         staleness or 0): the mean over all W workers of each worker's
         value (the JAX package's pmean), the staleness also by max
-        (pmax). The norms are the global tensors' (model-sharded leaves
-        summed over the model group)."""
+        (pmax). The norms are the global tensors' (sharded leaves summed
+        over the groups they are cut over)."""
         L, wk = self.n_local, self._workers
         shards = self._leaf_shards(params_tree)
-        gn_w = _worker_norms(
-            [g for g, s in zip(grads, shards) if s is None], L,
-            [g for g, s in zip(grads, shards) if s is not None], self._mg)
-        ef_rep, ef_sh = self._ef_split(params_tree, new_ef)
-        en_w = _worker_norms(_ef_tensors(ef_rep), L, _ef_tensors(ef_sh),
-                             self._mg).to(gn_w.device)
+        gn_w = torch.sqrt(self._global_sq(grads, shards, L))
+        en_w = torch.sqrt(self._ef_sq(params_tree, new_ef, L)).to(
+            gn_w.device)
         st_now = self.strategy.schedule.staleness_now(step, new_sched,
                                                       gn_w.device)
-        per_worker = [torch.stack(losses), gn_w, en_w]
+        per_worker = [self._losses(losses), gn_w, en_w]
         if st_now.dim():
             per_worker.append(st_now)
         means = wk.mean_each(per_worker)
@@ -979,12 +1091,29 @@ class DQGAN:
                            else (st_now, st_now))
         return loss, gn, en, st_max, st_mean, st_now
 
-    def _vmap_metrics(self, losses, grads, new_ef, step, new_sched):
+    def _vmap_metrics(self, losses, grads, new_ef, step, new_sched,
+                      params_tree):
         """`_metrics` as the JAX package's vmap step defines them: the loss
         is the workers' mean, grad_norm and error_norm the global norms of
         all workers' stacked gradients and residuals (not a mean of
         per-worker norms), the staleness max and mean over the workers
-        under delayed, else 0."""
+        under delayed, else 0. Over a mesh (the fsdp layout's pods) the
+        sums run over the exchange group and the groups a leaf is cut
+        over."""
+        if self.mesh is not None:
+            L, wk = self.n_local, self._workers
+            shards = self._leaf_shards(params_tree)
+            sq = wk.sum_dict({
+                "g": self._global_sq(grads, shards, L).sum(),
+                "e": self._ef_sq(params_tree, new_ef, L).sum().to(
+                    self.device)})
+            st_now = self.strategy.schedule.staleness_now(step, new_sched,
+                                                          self.device)
+            st_max, st_mean = ((wk.max(st_now), wk.mean_each([st_now])[0])
+                               if st_now.dim() else (st_now, st_now))
+            return (wk.mean_each([self._losses(losses)])[0],
+                    torch.sqrt(sq["g"]), torch.sqrt(sq["e"]), st_max,
+                    st_mean, st_now)
         def global_norm(tensors):
             return torch.sqrt(sum((torch.square(t.float()).sum()
                                    for t in tensors),
@@ -1022,39 +1151,51 @@ class DQGAN:
         return finish
 
     def _start_exchange(self, params_tree, paths, message, ef, ef_leaves,
-                        plans, rand, part, col):
+                        plans, rand, part, col, step):
         """`col` records each bucket or leaf at its finish (the
-        `obs.Collector`, or the `NullCollector`)."""
+        `obs.Collector`, or the `NullCollector`); `step` seeds the leaves'
+        tile streams."""
         if part is not None:
             return self._start_with_participation(
                 params_tree, paths, message, ef, ef_leaves, plans, rand, part,
-                col)
+                col, step)
         return self._start_plain(params_tree, paths, message, ef, ef_leaves,
-                                 plans, rand, col)
+                                 plans, rand, col, step)
 
-    def _start_one(self, comp, plan, p, e, rand, shard=None):
+    def _leaf_streams(self, step: int, leaf: int):
+        """The tile-stream seeds of leaf `leaf`'s rows at `step`, one a
+        local worker (`error_feedback.leaf_stream`)."""
+        return [leaf_stream(self._step_seed(step, self.offset + i), leaf)
+                for i in range(self.n_local)]
+
+    def _start_one(self, comp, plan, p, e, rand, shard=None, stream=None):
         """The finish of the exchange of one stacked (L, ...) tensor or
         bucket. One worker: (EF-)compression, whatever the strategy. The
         vmap step: each worker's registry compression, then the mean over
-        the worker axis. `shard` (a `LeafShard`): p holds the rank's
-        slices of a model-sharded tensor."""
+        the worker axis (over the exchange group, the fsdp layout's
+        pods, on a mesh). `shard` (a `LeafShard`): p holds the rank's
+        slices of a sharded tensor. `stream` (`_leaf_streams`): p is a
+        leaf's message, whose draws above one tile come from its tile
+        streams."""
         if self.vmap:
             e1 = e.get("e1", torch.zeros_like(p))
             with OBS.device_span("compress", self._obs_spans):
                 _, p_hat, e_new = compress_with_ef_stacked(
-                    comp, p, e1, rand, self._gens,
-                    use_ef=self.dq.error_feedback, allow_fused=False)
+                    comp, p, e1, self._local_rand(rand), self._gens,
+                    use_ef=self.dq.error_feedback, allow_fused=False,
+                    shard=shard, stream=stream, payload=False)
             ne = dict(e)
             if self.dq.error_feedback:
                 ne["e1"] = e_new
-            q = p_hat.mean(dim=0)
+            q = (p_hat.mean(dim=0) if self.mesh is None
+                 else self._workers.mean(p_hat))
             return lambda: (q, ne)
         if self.n_workers > 1:
             exch = self.strategy.exchange
             handle = exch.start(comp, plan, p, e, self._local_rand(rand),
                                 self._workers, self.dq.error_feedback,
                                 self._gens, spans=self._obs_spans,
-                                shard=shard)
+                                shard=shard, stream=stream)
             return lambda: exch.finish(handle)
         if plan["strategy"] == "exact" or comp.name == "identity":
             out = (p[0], dict(e))
@@ -1063,22 +1204,27 @@ class DQGAN:
         with OBS.device_span("compress", self._obs_spans):
             _, p_hat, e_new = compress_with_ef_stacked(
                 comp, p, e1, rand, self.generator,
-                use_ef=self.dq.error_feedback, shard=shard)
+                use_ef=self.dq.error_feedback, shard=shard, stream=stream,
+                payload=False)
         ne = dict(e)
         if self.dq.error_feedback:
             ne["e1"] = e_new
         return lambda: (p_hat[0], ne)
 
     def _start_plain(self, params_tree, paths, message, ef, ef_leaves, plans,
-                     rand, col, plan_sel=None):
+                     rand, col, step, plan_sel=None):
         if self.bucketed:
             return self._start_bucketed(params_tree, paths, message, ef,
-                                        ef_leaves, rand, col, plan_sel)
+                                        ef_leaves, rand, col, step, plan_sel)
         comp = self.compressor
         shards = self._leaf_shards(params_tree)
-        fins = [self._start_one(comp, plan, p, e, rand.get(i), sh)
-                for i, (p, plan, e, sh) in enumerate(zip(message, plans,
-                                                         ef_leaves, shards))]
+        fins = []
+        for i, (plan, e, sh) in enumerate(zip(plans, ef_leaves, shards)):
+            fins.append(self._start_one(comp, plan, message[i], e,
+                                        rand.get(i), sh,
+                                        self._leaf_streams(step, i)))
+            if not col.enabled:     # the leaf's message is spent
+                message[i] = None
 
         def finish():
             qhat, new_ef = [], []
@@ -1092,7 +1238,7 @@ class DQGAN:
         return finish
 
     def _start_with_participation(self, params_tree, paths, message, ef,
-                                  ef_leaves, plans, rand, part, col):
+                                  ef_leaves, plans, rand, part, col, step):
         """Partial participation: the sitting workers' messages and
         residuals are masked to zero before the exchange (every compressor
         maps 0 to a zero payload), q̂ is rescaled from 1/W to 1/n, and the
@@ -1109,7 +1255,7 @@ class DQGAN:
                  if "e1" in e else e for e in ef_leaves]
         plan_sel = round_count(mask) - 1 if self.adaptive else None
         inner = self._start_plain(params_tree, paths, msg_in, ef, ef_in,
-                                  plans, rand, col, plan_sel)
+                                  plans, rand, col, step, plan_sel)
 
         def finish():
             qhat, new_ef = inner()
@@ -1135,7 +1281,7 @@ class DQGAN:
         return finish
 
     def _start_bucketed(self, params_tree, paths, message, ef, ef_leaves,
-                        rand, col, plan_sel=None):
+                        rand, col, step, plan_sel=None):
         """Pack the message (and e1) into the flat buckets, (L, size) each,
         start each one's exchange with its planned compressor; the finish
         unpacks q̂ and e1 back into leaves. `plan_sel` (a device tensor:
@@ -1164,7 +1310,7 @@ class DQGAN:
                                             e1_leaves, bucket_ef, rand, L,
                                             col)
                 skipped = self._start_skipped(params_tree, layout, message,
-                                              ef_leaves, rand)
+                                              ef_leaves, rand, col, step)
                 return lambda: self._finish_skipped(paths, skipped, *out,
                                                     col)
         flats = B.pack(layout, message)
@@ -1189,7 +1335,7 @@ class DQGAN:
         # the skipped (model-sharded) leaves after the buckets, as the JAX
         # package orders them
         skipped = self._start_skipped(params_tree, layout, message,
-                                      ef_leaves, rand)
+                                      ef_leaves, rand, col, step)
 
         def finish():
             out_flats, new_e1_flats, new_bucket_ef = [], [], {}
@@ -1203,7 +1349,7 @@ class DQGAN:
                     new_e1_flats.append(ne.get("e1", est.get("e1")))
                 if X.plan_has_owner_ef(plan_b):
                     new_bucket_ef[str(b.bid)] = {"e2": ne["e2"].to(ef_dtype)}
-            qhat = B.unpack_into(layout, out_flats, [m[0] for m in message])
+            qhat = B.unpack_into(layout, out_flats, _firsts(message))
             new_leaf_ef = [None] * len(message)
             if dq.error_feedback:
                 new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
@@ -1213,29 +1359,37 @@ class DQGAN:
                                        "bucket": new_bucket_ef}, col)
         return finish
 
-    def _record_leaf(self, col, p, e, ne, sharded):
-        """`col` records a leaf outside the buckets; a model-sharded one's
-        sums are taken over the model group."""
-        if sharded is None or self._mg is None:
+    def _record_leaf(self, col, p, e, ne, shard):
+        """`col` records a leaf outside the buckets; a sharded one's sums
+        are taken over the groups it is cut over."""
+        if shard is None or not shard.cuts:
             col.leaf(p, *_obs_op_err(p, e, ne))
         else:
-            col.leaf(p, *_obs_op_err(p, e, ne), group=self._mg)
+            col.leaf(p, *_obs_op_err(p, e, ne), group=_CutGroups(shard))
 
-    def _start_skipped(self, params_tree, layout, message, ef_leaves, rand):
+    def _start_skipped(self, params_tree, layout, message, ef_leaves, rand,
+                       col, step):
         """Start the per-tensor exchange of each leaf the layout skipped
-        (a model-sharded leaf, `rand` keyed by its leaf index, as the JAX
-        package folds it): [(index, message, EF, finish)]."""
+        (a sharded leaf, `rand` keyed by its leaf index, as the JAX
+        package folds it): [(index, message, EF, finish, shard)]. Where
+        `col` records nothing, a leaf's message leaves `message` once its
+        exchange has started (the message None in the tuple too)."""
         if not layout.skipped:
             return []
         plans = self._plans(params_tree)
         shards = self._leaf_shards(params_tree)
         comp = self.compressor
-        return [(s.index, message[s.index], ef_leaves[s.index],
-                 self._start_one(comp, plans[s.index], message[s.index],
-                                 ef_leaves[s.index],
-                                 rand.get(f"leaf/{s.index}"),
-                                 shards[s.index]))
-                for s in layout.skipped]
+        out = []
+        for s in layout.skipped:
+            i = s.index
+            fin = self._start_one(comp, plans[i], message[i], ef_leaves[i],
+                                  rand.get(f"leaf/{i}"), shards[i],
+                                  self._leaf_streams(step, i))
+            out.append((i, message[i] if col.enabled else None,
+                        ef_leaves[i], fin, shards[i]))
+            if not col.enabled:
+                message[i] = None
+        return out
 
     def _finish_skipped(self, paths, skipped, qhat, new_ef, col):
         """The bucketed exchange's (q̂, new EF) with the skipped leaves'
@@ -1243,10 +1397,10 @@ class DQGAN:
         if not skipped:
             return qhat, new_ef
         leaf_ef = T.flatten_up_to(paths, new_ef["leaf"])
-        for i, p, e, fin in skipped:
+        for i, p, e, fin, shard in skipped:
             q, ne = fin()
             if col.enabled:
-                self._record_leaf(col, p, e, ne, self._mg)
+                self._record_leaf(col, p, e, ne, shard)
             qhat[i] = q
             leaf_ef[i] = ne or None
         return qhat, {"leaf": T.unflatten(paths, leaf_ef),
@@ -1294,7 +1448,7 @@ class DQGAN:
             for b, raw, op, err in zip(layout.buckets, *views):
                 col.bucket(b.bid, raw, op, err)
         qhat = B.unpack_into(layout, B.split_concat(layout, m_hat),
-                             [m[0] for m in message])
+                             _firsts(message))
         new_e1 = B.unpack_into(layout, B.split_concat(layout, e_new, (1,)),
                                e1_leaves)
         return qhat, {"leaf": T.unflatten(paths, [{"e1": x}

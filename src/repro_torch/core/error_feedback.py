@@ -12,22 +12,30 @@ blocks tile each row; `row_draws` gives each worker its own generator's
 draws; `packed_levels` says when one launch over a step's comm buckets
 packed back to back is exact.
 
-A leaf sharded over the model axis (`LeafShard`: each rank holds a slice
-of it along one dimension) is compressed as the JAX package compresses
-the global tensor: a per-tensor scale is the model group's max (linf) or
-root sum of squares (l2) over the rank's slices; a blocked quantizer's
-blocks are the global ravel's, local where every block lies inside the
-rank's slice, else taken on the leaf gathered over the model group; the
-draws are made at the global shape and each rank takes its slice. The
-bucket path is unchanged.
+A leaf sharded over the model axis, or under the fsdp layout over the
+data and model axes (`LeafShard`: each rank holds a slice of it, cut
+along one dimension a mesh axis), is compressed as the JAX package
+compresses the global tensor: a per-tensor scale is the groups' max
+(linf) or root sum of squares (l2) over the rank's slices; a blocked
+quantizer's blocks are the global ravel's, quantized on the rank's slice
+where every block lies inside it, or where the caller reads no payload
+(the scales of blocks that cross the slices reduced over the groups),
+else on the leaf gathered over the groups (a stacked leaf one layer at a
+time). A leaf's draws above one tile (`DRAW_TILE`) come from its own
+stream in tiles of its global ravel, of which a rank draws only those
+its slice meets (`DrawChunks`); one process draws the same stream
+(`stream_draws`). A leaf of at most one
+tile draws at its global shape from the generator, each rank taking its
+slice. The bucket path is unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.quantize import quantize_ef_flat
@@ -157,38 +165,65 @@ def decompress_rows(compressor, payload, row_shape, dtype, shard=None):
 @dataclasses.dataclass(frozen=True)
 class LeafShard:
     """Where a stack of rows sits in its global tensors: each row's global
-    shape is `shape`, of which this rank (model index `index` of `size`)
-    holds the slice of dimension `axis`; `group` is the model group (a
-    `parallel.tensor.ModelGroup`)."""
+    shape is `shape`, of which this rank holds the slice that model index
+    `index` of `size` takes of dimension `axis` (None: not cut over
+    'model') and, under the fsdp layout, data index `data_index` of
+    `data_size` takes of dimension `data_axis`; `group` and `data_group`
+    are the model and fsdp groups (`parallel.tensor.ModelGroup`,
+    `parallel.fsdp.FsdpGroup`)."""
     shape: Tuple[int, ...]
-    axis: int
+    axis: Optional[int]
     index: int
     size: int
     group: Any = dataclasses.field(compare=False, default=None)
+    data_axis: Optional[int] = None
+    data_index: int = 0
+    data_size: int = 1
+    data_group: Any = dataclasses.field(compare=False, default=None)
+
+    @property
+    def cuts(self):
+        """[(dimension, index, size, group)] of each cut, the model's
+        first."""
+        out = []
+        if self.axis is not None and self.size > 1:
+            out.append((self.axis, self.index, self.size, self.group))
+        if self.data_axis is not None and self.data_size > 1:
+            out.append((self.data_axis, self.data_index, self.data_size,
+                        self.data_group))
+        return out
 
     @property
     def local_shape(self) -> Tuple[int, ...]:
         s = list(self.shape)
-        s[self.axis] //= self.size
+        for ax, _, n, _ in self.cuts:
+            s[ax] //= n
         return tuple(s)
+
+    def ranges(self):
+        """[(dimension, lo, hi)]: the global index range of each cut."""
+        out = []
+        for ax, i, n, _ in self.cuts:
+            c = self.shape[ax] // n
+            out.append((ax, i * c, (i + 1) * c))
+        return out
 
     def chunked(self, ax: int, n: int) -> "LeafShard":
         """The shard of two_phase's chunks: a row of `shape` moved to lead
         with unsharded axis `ax` and cut n ways along it."""
         rest = [d for i, d in enumerate(self.shape) if i != ax]
-        axis = self.axis + 1 if self.axis < ax else self.axis
-        return dataclasses.replace(
-            self, shape=(self.shape[ax] // n, *rest), axis=axis)
 
-    def _pre_post(self):
-        return (math.prod(self.shape[:self.axis]), self.shape[self.axis],
-                math.prod(self.shape[self.axis + 1:]))
+        def moved(a):
+            return None if a is None else (a + 1 if a < ax else a)
+        return dataclasses.replace(
+            self, shape=(self.shape[ax] // n, *rest), axis=moved(self.axis),
+            data_axis=moved(self.data_axis))
 
     def mode(self, compressor) -> str:
         """"local": the compressor acts on the slice as on the global
         tensor (elementwise, or every scale block inside the slice);
         "scale": a per-tensor quantizer, its scale reduced over the
-        group; "gather": the rest, compressed on the gathered leaf."""
+        groups; "gather": the rest, compressed on the gathered leaf."""
         if compressor.name == "identity":
             return "local"
         if not isinstance(compressor, (C.StochasticQuant, C.TracedQuant)):
@@ -196,9 +231,11 @@ class LeafShard:
         b = compressor.per_block
         if b <= 0:
             return "scale"
-        _, D, post = self._pre_post()
-        c = D // self.size
-        if (c * post) % b == 0 and (D * post) % b == 0:
+        # the rank's elements are runs of the innermost cut's c · post
+        # elements at multiples of that, inside rows of D · post
+        ax, _, n, _ = max(self.cuts)
+        D, post = self.shape[ax], math.prod(self.shape[ax + 1:])
+        if (D // n * post) % b == 0 and (D * post) % b == 0:
             return "local"
         return "gather"
 
@@ -206,19 +243,32 @@ class LeafShard:
         """(R, ≥ global numel) rows of the global ravel (draws) -> this
         rank's slices, (R, local numel)."""
         R = flat.shape[0]
-        pre, D, post = self._pre_post()
-        c = D // self.size
-        g = flat[:, :pre * D * post].reshape(R, pre, D, post)
-        return g[:, :, self.index * c:(self.index + 1) * c].reshape(R, -1)
+        g = flat[:, :math.prod(self.shape)].reshape((R,) + self.shape)
+        for ax, lo, hi in self.ranges():
+            g = g.narrow(ax + 1, lo, hi - lo)
+        return g.reshape(R, -1)
 
     def gather(self, x):
-        """(R, *local) -> (R, *shape): the rows gathered over the group."""
-        return self.group.all_gather(x, self.axis + 1)
+        """(R, *local) -> (R, *shape): the rows gathered over the groups."""
+        for ax, _, _, group in self.cuts:
+            x = group.all_gather(x, ax + 1)
+        return x
 
     def slice(self, x):
         """(R, *shape) -> (R, *local): this rank's slices."""
-        c = self.shape[self.axis] // self.size
-        return x.narrow(self.axis + 1, self.index * c, c)
+        for ax, lo, hi in self.ranges():
+            x = x.narrow(ax + 1, lo, hi - lo)
+        return x
+
+    def reduce(self, x, op=None):
+        """x summed (or reduced by `op`) over the cuts' groups, in
+        place."""
+        for _, _, _, group in self.cuts:
+            if op is None:
+                group.all_reduce(x)
+            else:
+                group.all_reduce(x, op)
+        return x
 
 
 def _draw_count(compressor, d: int) -> int:
@@ -230,9 +280,151 @@ def _draw_count(compressor, d: int) -> int:
     return d if b <= 0 else -(-d // b) * b
 
 
+# --------------------------------------------------------------------------- #
+# a leaf's draws, in tiles
+# --------------------------------------------------------------------------- #
+# A leaf whose quantizer takes more than DRAW_TILE draws draws them from
+# its own stream, in tiles of DRAW_TILE elements of its global ravel: tile
+# t from a generator seeded by (the stream's seed, t), the stream's seed
+# from (the worker's step seed, the leaf's index) (`leaf_stream`). A rank
+# holding a slice draws the tiles its slice meets, one at a time, keeping
+# its part of each (`DrawChunks`); one process draws them all
+# (`tile_draws`). A leaf of at most one tile draws from the step's
+# generator, in leaf order, as ever.
+DRAW_TILE = 1 << 20
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: a well-spread 64-bit value of x."""
+    x &= (1 << 64) - 1
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return x ^ (x >> 31)
+
+
+def leaf_stream(step_seed: int, leaf: int) -> int:
+    """The seed of a leaf's tile stream: a function of the worker's step
+    seed and the leaf's index alone."""
+    return _mix64(step_seed ^ _mix64(leaf + 1))
+
+
+def _tile(stream: int, t: int, n: int, device):
+    """Tile t of a stream of n draws: min(DRAW_TILE, n − t·DRAW_TILE)
+    uniforms."""
+    m = min(DRAW_TILE, n - t * DRAW_TILE)
+    if device.type == "meta":
+        return torch.rand((m,), device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(_mix64(stream + (t + 1) * 0x9E3779B97F4A7C15))
+    return torch.rand((m,), generator=g, device=device)
+
+
+def tile_draws(stream: int, n: int, start: int, stop: int, device):
+    """Draws [start, stop) of a stream of n, tile by tile."""
+    device = torch.device(device)
+    out = torch.empty((stop - start,), device=device)
+    if device.type == "meta":
+        _tile(stream, start // DRAW_TILE, n, device)
+        return out
+    T = DRAW_TILE
+    for t in range(start // T, (stop - 1) // T + 1):
+        tile = _tile(stream, t, n, device)
+        a, b = max(start, t * T), min(stop, t * T + tile.numel())
+        out[a - start:b - start] = tile[a - t * T:b - t * T]
+        del tile
+    return out
+
+
+def _met_tiles(n: int, shard: "LeafShard", device):
+    """(tile index, mask of the slice's elements in it, their count) of
+    each tile of a stream of n that the slice meets, in order: the tiles
+    of each block of the outermost cut's rows."""
+    shape, ranges = shard.shape, shard.ranges()
+    T = DRAW_TILE
+    a0, lo0, hi0 = min(ranges)
+    pre, S0 = math.prod(shape[:a0]), shape[a0]
+    post0 = math.prod(shape[a0 + 1:])
+    p = np.arange(pre, dtype=np.int64) * S0
+    t_lo, t_hi = (p + lo0) * post0 // T, ((p + hi0) * post0 - 1) // T
+    mark = np.zeros(-(-n // T) + 1, np.int64)
+    np.add.at(mark, t_lo, 1)
+    np.add.at(mark, t_hi + 1, -1)
+    strides = [math.prod(shape[ax + 1:]) for ax, _, _ in ranges]
+    for t in np.flatnonzero(np.cumsum(mark)[:-1] > 0):
+        t = int(t)
+        idx = torch.arange(min(T, n - t * T), device=device) + t * T
+        keep = idx < math.prod(shape)
+        for (ax, lo, hi), st in zip(ranges, strides):
+            c = torch.div(idx, st, rounding_mode="floor") % shape[ax]
+            keep &= (c >= lo) & (c < hi)
+        yield t, keep, int(keep.sum())
+
+
+class DrawChunks:
+    """The draws of R rows' slices of a leaf (`shard`), each row from its
+    stream of n (`leaf_stream`), in the slice's ravel order, made as they
+    are read: `take(a, z)` gives local elements [a, z), (R, z − a), for
+    consecutive ranges from 0, drawing the tiles the range meets one at
+    a time (the whole rows of the outer cut's range, each masked to the
+    slice's elements) and keeping only the part of the last one that the
+    next range starts with. A rank so holds a range's draws and a tile,
+    never its slice's draws whole unless it reads them in one range."""
+
+    def __init__(self, streams, n: int, shard: "LeafShard", device):
+        self.streams, self.n, self.device = streams, n, torch.device(device)
+        self.tiles = (None if self.device.type == "meta"
+                      else _met_tiles(n, shard, self.device))
+        self.start, self.buf = 0, None
+
+    def take(self, a: int, z: int):
+        assert a == self.start, (a, self.start)
+        R = len(self.streams)
+        out = torch.empty((R, z - a), device=self.device)
+        self.start = z
+        if self.tiles is None:     # meta: the range, and one tile made
+            _tile(self.streams[0], 0, self.n, self.device)
+            return out
+        have = 0
+        if self.buf is not None:
+            have = min(self.buf.shape[1], z - a)
+            out[:, :have] = self.buf[:, :have]
+            self.buf = self.buf[:, have:] if self.buf.shape[1] > have \
+                else None
+        while have < z - a:
+            t, keep, cnt = next(self.tiles)
+            c = min(cnt, z - a - have)
+            rest = (torch.empty((R, cnt - c), device=self.device)
+                    if cnt > c else None)
+            for i, s in enumerate(self.streams):
+                part = _tile(s, t, self.n, self.device)[keep]
+                out[i, have:have + c] = part[:c]
+                if rest is not None:
+                    rest[i] = part[c:]
+                del part
+            self.buf, have = rest, have + c
+        return out
+
+
+def stream_draws(compressor, R: int, n_elems: int, stream, device,
+                 shard=None):
+    """(R, draws) of R rows of a leaf of `n_elems` global elements from
+    their tile streams (`stream`: one seed a row), this rank's slices with
+    a `shard`; None when the leaf takes at most one tile (it draws from
+    the generator) or no stream is given."""
+    n = _draw_count(compressor, n_elems)
+    if stream is None or n <= DRAW_TILE:
+        return None
+    if shard is not None and shard.cuts:
+        return DrawChunks(stream, n, shard, device).take(
+            0, math.prod(shard.local_shape))
+    rows = [tile_draws(s, n, 0, n, device) for s in stream]
+    return rows[0][None] if R == 1 else torch.stack(rows)
+
+
 def _sharded_draws(compressor, R, shard, rand, generator, device):
     """(R, global draws) for the rows: `rand` (already global), or made at
-    the global shape from the generator(s), one a worker."""
+    the global shape from the generator(s), one a worker (a leaf of at
+    most one tile)."""
     n = _draw_count(compressor, math.prod(shard.shape))
     if rand is not None or n == 0:
         return None if rand is None else rand.reshape(R, -1)
@@ -242,14 +434,162 @@ def _sharded_draws(compressor, R, shard, rand, generator, device):
                       dtype=torch.float32)
 
 
-def _compress_sharded(compressor, m, rand, generator, shard):
+def _slice_draws(compressor, R, shard, rand, generator, stream, device):
+    """The draws of the rows' slices: a `DrawChunks` over their tile
+    streams (a leaf above one tile, no `rand`), else (R, local numel)
+    cut from the global draws (`rand`, or the generator's)."""
+    n = _draw_count(compressor, math.prod(shard.shape))
+    if rand is None and stream is not None and n > DRAW_TILE:
+        return DrawChunks(stream, n, shard, device)
+    return shard.take(_sharded_draws(compressor, R, shard, rand, generator,
+                                     device))
+
+
+def _gathered_slices(compressor, m, rand, generator, shard, stream):
+    """"gather" mode, one leading slice at a time: a stacked leaf whose
+    leading (layer) axis no cut splits and whose quantizer's blocks tile
+    one layer. (payload, m_hat) as the whole leaf's, or None when the
+    leaf does not qualify."""
+    shape = shard.shape
+    b = getattr(compressor, "per_block", 0)
+    if (len(shape) < 2 or shape[0] < 2 or b <= 0
+            or any(ax == 0 for ax, _, _ in shard.ranges())
+            or not isinstance(compressor, (C.StochasticQuant, C.TracedQuant))
+            or math.prod(shape[1:]) % b):
+        return None
+    R, P = m.shape[0], math.prod(shape[1:])
+    n = _draw_count(compressor, math.prod(shape))
+    glob = None
+    if rand is None and (stream is None or n <= DRAW_TILE):
+        glob = _sharded_draws(compressor, R, shard, None, generator, m.device)
+    elif rand is not None:
+        glob = rand.reshape(R, -1)
+    m_hat = torch.empty_like(m)
+    parts = []
+    for layer in range(shape[0]):
+        full = shard.gather(m[:, layer:layer + 1])[:, 0]       # (R, *rest)
+        if glob is not None:
+            r = glob[:, layer * P:(layer + 1) * P]
+        else:
+            r = torch.stack([tile_draws(s, n, layer * P, (layer + 1) * P,
+                                        m.device) for s in stream])
+        pl = compress_rows(compressor, full, r, generator)
+        parts.append(pl)
+        deq = decompress_rows(compressor, pl, full.shape[1:], m.dtype)
+        m_hat[:, layer] = shard.slice(deq[:, None])[:, 0]
+    payload = {k: torch.cat([pl[k] for pl in parts], 1) for k in parts[0]}
+    return payload, m_hat
+
+
+# elements a chunk of `_blocked_slices`: its temporaries are a few of these
+QUANT_CHUNK = 1 << 22
+
+
+def _global_positions(shard, start: int, stop: int, device):
+    """The global ravel positions of the rank's local ravel indices
+    [start, stop)."""
+    rem = torch.arange(start, stop, device=device)
+    offset = {ax: lo for ax, lo, _ in shard.ranges()}
+    local, out, stride = shard.local_shape, torch.zeros_like(rem), 1
+    for d in reversed(range(len(local))):
+        out += (rem % local[d] + offset.get(d, 0)) * stride
+        rem = torch.div(rem, local[d], rounding_mode="floor")
+        stride *= shard.shape[d]
+    return out
+
+
+def _blocked_slices(compressor, m, draws, shard, payload: bool):
+    """(payload, m_hat (R, *local)) of a blocked stochastic quantizer on
+    the rows of m, each row compressed as its global tensor is, with no
+    gathered leaf, QUANT_CHUNK elements at a time. A block's scale is the
+    compressor's over it, taken on the rank's slice where every block
+    lies inside it ("local" mode) or, where blocks cross the slices, from
+    the ranks' parts of it (the (R, global blocks) partial maxima, or
+    sums of squares, all-reduced over the cuts' groups); each element is
+    rounded where it lies, with its own draw, by the compressor's own
+    arithmetic (`compressors._stochastic_round_codes`, its
+    dequantization). With `payload` ("local" mode only) the slice's
+    blocks come back as `compress_rows` lays them out, else None.
+    `draws` (R, local numel): the slice's draws, or a `DrawChunks` making
+    them as the chunks read them."""
+    R, b, levels = m.shape[0], compressor.per_block, compressor.levels
+    flat = m.reshape(R, -1)
+    k, dev = flat.shape[1], m.device
+    local = shard.mode(compressor) == "local"
+    assert local or not payload, "a payload needs every block local"
+    l2 = compressor.norm == "l2"
+    chunk = max(b, QUANT_CHUNK // b * b)
+    if not local:
+        nb = -(-math.prod(shard.shape) // b)
+        part = torch.zeros((R, nb), dtype=torch.float32, device=dev)
+        for a in range(0, k, chunk):
+            z = min(k, a + chunk)
+            gid = torch.div(_global_positions(shard, a, z, dev), b,
+                            rounding_mode="floor").expand(R, -1)
+            f = flat[:, a:z].float()
+            if l2:
+                part.scatter_add_(1, gid, f.square())
+            else:
+                part.scatter_reduce_(1, gid, f.abs(), "amax")
+        shard.reduce(part, None if l2 else torch.distributed.ReduceOp.MAX)
+        if l2:
+            part.sqrt_()
+    out = torch.empty_like(flat)
+    codes = scales = None
+    if payload:
+        codes = torch.empty((R, k // b, b), dtype=torch.int8, device=dev)
+        scales = torch.empty((R, k // b, 1), dtype=torch.float32, device=dev)
+    for a in range(0, k, chunk):
+        z = min(k, a + chunk)
+        f = flat[:, a:z].float()
+        if local:   # the chunk is whole blocks of the slice
+            f = f.reshape(R, -1, b)
+            s = compressor._scale(f) + C._EPS
+        else:
+            gid = torch.div(_global_positions(shard, a, z, dev), b,
+                            rounding_mode="floor")
+            s = part.gather(1, gid.expand(R, -1)) + C._EPS
+        u = (draws.take(a, z) if isinstance(draws, DrawChunks)
+             else draws[:, a:z])
+        q = C._stochastic_round_codes(f, s, levels, u.reshape(f.shape))
+        out[:, a:z] = C._dequantize_codes({"codes": q, "scale": s},
+                                          (R, z - a), m.dtype, levels)
+        if payload:
+            codes[:, a // b:z // b] = q
+            scales[:, a // b:z // b] = s
+    pl = {"codes": codes, "scale": scales} if payload else None
+    return pl, out.reshape(m.shape)
+
+
+def _compress_sharded(compressor, m, rand, generator, shard, stream=None,
+                      payload: bool = True):
     """(payload, m_hat) of the rows of m (R, *local), each compressed as
-    its global tensor is (see `LeafShard.mode`); `rand` the global draws."""
+    its global tensor is (see `LeafShard.mode`); `rand` the global draws,
+    else the rows' tile streams (`stream`) or the generator(s). A blocked
+    quantizer runs on the slices (`_blocked_slices`) in "local" mode, and
+    in "gather" mode too where the caller reads no `payload` (None is
+    returned for it); the rest of "gather" mode compresses the gathered
+    leaf."""
     R = m.shape[0]
     mode = shard.mode(compressor)
-    rand = _sharded_draws(compressor, R, shard, rand, generator, m.device)
+    if (getattr(compressor, "per_block", 0) > 0
+            and isinstance(compressor, (C.StochasticQuant, C.TracedQuant))
+            and (mode == "local" or not payload)):
+        return _blocked_slices(
+            compressor, m, _slice_draws(compressor, R, shard, rand,
+                                        generator, stream, m.device),
+            shard, payload and mode == "local")
     if mode == "gather":
+        out = _gathered_slices(compressor, m, rand, generator, shard, stream)
+        if out is not None:
+            return out
         full = shard.gather(m)
+        n = math.prod(shard.shape)
+        tiles = None if rand is not None else stream_draws(
+            compressor, R, n, stream, m.device)
+        rand = _sharded_draws(compressor, R, shard,
+                              rand if tiles is None else tiles, generator,
+                              m.device)
         outs = [compressor.compress(full[i], None if rand is None
                                     else rand[i],
                                     _row_generator(generator, R, i))
@@ -258,29 +598,30 @@ def _compress_sharded(compressor, m, rand, generator, shard):
         m_hat = decompress_rows(compressor, payload, m.shape[1:], m.dtype,
                                 shard)
         return payload, m_hat
-    local = None if rand is None else shard.take(rand)
     if mode == "scale":
         f = m.reshape(R, -1).float()
         if compressor.norm == "l2":
-            s = torch.sqrt(shard.group.all_reduce(
-                f.square().sum(-1, keepdim=True)))
+            s = torch.sqrt(shard.reduce(f.square().sum(-1, keepdim=True)))
         else:
-            s = shard.group.all_reduce(f.abs().amax(-1, keepdim=True),
-                                       torch.distributed.ReduceOp.MAX)
+            s = shard.reduce(f.abs().amax(-1, keepdim=True),
+                             torch.distributed.ReduceOp.MAX)
         s = s + C._EPS
-        codes = C._stochastic_round_codes(f, s, compressor.levels, local)
+        u = _slice_draws(compressor, R, shard, rand, generator, stream,
+                         m.device)
+        if isinstance(u, DrawChunks):
+            u = u.take(0, f.shape[1])
+        codes = C._stochastic_round_codes(f, s, compressor.levels, u)
         payload = {"codes": codes[:, None, :], "scale": s[:, None, :]}
-    elif compressor.name == "identity":
+    else:       # "local": the identity
         payload = {"values": m}
-    else:
-        payload = compress_rows(compressor, m, local, generator)
     return payload, decompress_rows(compressor, payload, m.shape[1:],
                                     m.dtype, shard)
 
 
 def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
                              generator=None, *, use_ef: bool = True,
-                             allow_fused: bool = True, shard=None):
+                             allow_fused: bool = True, shard=None,
+                             stream=None, payload: bool = True):
     """`compress_with_ef` for each row of an (R, ...) stack (R workers'
     messages, or their chunks), as JAX's per-worker body computes it;
     returns the stacked (payload, m_hat, e_new), each payload entry with a
@@ -298,31 +639,46 @@ def compress_with_ef_stacked(compressor, message, e_prev, rand=None,
     tensors, compressed as the global tensors are (a flat one the fused
     kernel realizes through it: on the slices where each holds whole
     scale rows, else on the gathered rows); `rand` then holds the global
-    draws."""
+    draws. `stream` (one seed a row, `leaf_stream`): the rows are a
+    leaf's, whose draws, above one tile, come from its tile streams
+    (`DrawChunks`) instead of the generator. `payload=False`: the caller
+    reads m_hat alone (one worker, a mean of the m_hats), and a sharded
+    leaf's blocked quantizer runs on the rank's slice without gathering
+    the leaf (its payload comes back None)."""
     R = message.shape[0]
     n = message[0].numel()
+    if shard is not None and not shard.cuts:
+        shard = None
+    if rand is None and shard is None:
+        rand = stream_draws(compressor, R, n, stream, message.device)
     if shard is not None and not (
             use_ef and allow_fused and len(shard.shape) == 1
             and fused_compatible(compressor, message.new_empty(
                 shard.shape, device="meta"))):
         m = message + e_prev.to(message.dtype) if use_ef else message
-        payload, m_hat = _compress_sharded(compressor, m, rand, generator,
-                                           shard)
-        e_new = (m - m_hat).to(e_prev.dtype) if use_ef else e_prev
-        return payload, m_hat, e_new
+        pl, m_hat = _compress_sharded(compressor, m, rand, generator,
+                                      shard, stream, payload)
+        if use_ef and pl is None:   # m is this call's own, and no payload
+            e_new = m.sub_(m_hat).to(e_prev.dtype)     # holds it
+        else:
+            e_new = (m - m_hat).to(e_prev.dtype) if use_ef else e_prev
+        return pl, m_hat, e_new
     if shard is not None and not fused_compatible(compressor, message[0]):
         # the slices cut the flat leaf's scale rows: the fused kernel runs
         # on the gathered leaf, as the JAX package runs it on the global one
         payload, m_hat, e_new = compress_with_ef_stacked(
             compressor, shard.gather(message), shard.gather(e_prev), rand,
-            generator)
+            generator, stream=stream)
         return payload, shard.slice(m_hat), shard.slice(e_new)
     per_worker = isinstance(generator, (list, tuple))
     if shard is not None:
         # a flat sharded leaf the fused kernel takes (as the JAX package
         # takes the global one): its scale rows lie inside each slice
-        rand = shard.take(_sharded_draws(compressor, R, shard, rand,
-                                         generator, message.device))
+        local = None if rand is not None else stream_draws(
+            compressor, R, math.prod(shard.shape), stream, message.device,
+            shard)
+        rand = local if local is not None else shard.take(_sharded_draws(
+            compressor, R, shard, rand, generator, message.device))
     if use_ef and allow_fused and fused_compatible(compressor, message[0]):
         if rand is None and per_worker:
             rand = row_draws(generator, R, n, message.device)

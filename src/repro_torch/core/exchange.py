@@ -257,8 +257,11 @@ class StackedWorkers(_Workers):
 class ProcessGroupWorkers(_Workers):
     """W workers spread over the data ranks of a `launch.mesh.ProcessMesh`,
     a contiguous block of L = W / data rows on each (every model rank of
-    a data index holds the same rows). The collectives run over the data
-    group (nccl on CUDA, gloo on the CPU; the whole world with model 1):
+    a data index holds the same rows; under the fsdp layout the workers
+    are the pods, one a pod). The collectives run over the mesh's
+    exchange group (the data group under dp, the whole world with model
+    1; the ranks of one (data, model) index across the pods under fsdp;
+    nccl on CUDA, gloo on the CPU):
 
         mean        local sum of the L rows, all_reduce(SUM), / W
                     (the JAX pmean; divided by a device tensor, IEEE
@@ -280,11 +283,11 @@ class ProcessGroupWorkers(_Workers):
         self._divisor = {}
 
     def _collective(self, kind: str, result, fn, *args, **kwargs):
-        """`fn(*args, **kwargs)` over the data group, the
+        """`fn(*args, **kwargs)` over the exchange group, the
         `torch.distributed` call of collective `kind` that writes
         `result`: its work handle (None for a blocking call)."""
         del kind, result
-        return fn(*args, group=self.mesh.data_group, **kwargs)
+        return fn(*args, group=self.mesh.exchange, **kwargs)
 
     def start_mean(self, x):
         s = x.sum(dim=0)
@@ -304,7 +307,7 @@ class ProcessGroupWorkers(_Workers):
     def start_reduce_scatter(self, x):
         L = self.n_local
         s = x.sum(dim=0)
-        out = s.new_empty((s.shape[0] // self.mesh.data,))
+        out = s.new_empty((s.shape[0] // self.mesh.n_exchange,))
         scatter = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
         work = self._collective("reduce_scatter", out, scatter, out, s,
@@ -312,7 +315,7 @@ class ProcessGroupWorkers(_Workers):
         return _Pending(work, out, lambda o: self._over_n(o.reshape(L, -1)))
 
     def start_all_to_all(self, x):
-        L, world = self.n_local, self.mesh.data
+        L, world = self.n_local, self.mesh.n_exchange
         rest = tuple(x.shape[2:])
         # (L_src, W_chunk, ...) -> (world_dst, L_dst, L_src, ...): rank d's
         # piece is the chunks it owns, from every local source row
@@ -392,7 +395,8 @@ def workers_for(mesh, n: int) -> _Workers:
 
 def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
                    workers: _Workers, use_ef: bool, generator=None,
-                   spans: bool = False, shard=None) -> ExchangeHandle:
+                   spans: bool = False, shard=None,
+                   stream=None) -> ExchangeHandle:
     """Start the exchange of one tensor or bucket across the workers.
 
     p: (L, *shape), the messages of this process's L workers (all W on
@@ -413,7 +417,8 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
     each compression in a ``repro.obs/compress`` profiler range. `shard`
     (an `error_feedback.LeafShard`): p holds this rank's slices of a
     model-sharded tensor, compressed as the global one is, `rand` the
-    global draws."""
+    global draws. `stream` (one seed a row, sim and allgather): a leaf's
+    tile streams (`error_feedback.stream_draws`)."""
     strategy = plan["strategy"]
     new_state = dict(ef_state)
     if strategy == "exact":
@@ -428,7 +433,8 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
     e1 = ef_state.get("e1", torch.zeros_like(p))
     with device_span("compress", spans):
         payload, p_hat, e_new = compress_with_ef_stacked(
-            compressor, p, e1, rand, generator, use_ef=use_ef, shard=shard)
+            compressor, p, e1, rand, generator, use_ef=use_ef, shard=shard,
+            stream=stream, payload=strategy != "sim")
     if use_ef:
         new_state["e1"] = e_new
     if strategy == "sim":

@@ -15,30 +15,34 @@ every op's FLOPs and result bytes and the peak of live bytes.
 How a combo runs. A production fleet of 256 (one pod, `--mesh single`)
 or 512 (`multi`) cards is that many ranks, one card each.
 - train: the port's `DQGAN` over meta params, one rank of a `meta_mesh`
-  of that many ranks (`core.exchange.MetaWorkers` and
-  `parallel.tensor.MetaModelGroup`: the rank's own ops and each
-  collective's result buffer, no communication). Under layout `dp` the
-  ranks form the JAX package's (data, model) grid, (16, 16) or (2·16,
-  16): each rank holds its shards of the parameters under the rules
-  (`parallel.sharding`), the workers run over 'pod' × 'data' (16, or 32
-  sharing the global batch of 256 in the multi-pod fleet), the flags'
-  per-leaf exchange; every arch, the mixers and the encoder-decoder
-  too. Under `fsdp` the port's ZeRO-3 runs over all the ranks with model
-  1 (uniform 4 MiB buckets), as the port keeps fsdp on a pure data mesh. One `step` on one rank's rows of
-  the global batch.
+  of that many ranks (`core.exchange.MetaWorkers`,
+  `parallel.tensor.MetaModelGroup` and `parallel.fsdp.MetaFsdpGroup`:
+  the rank's own ops and each collective's result buffer, no
+  communication), laid out as the reference lays the combo out. Under
+  layout `dp` the ranks form the JAX package's (data, model) grid, (16,
+  16) or (2·16, 16): each rank holds its shards of the parameters under
+  the rules (`parallel.sharding`), the workers run over 'pod' × 'data'
+  (16, or 32 sharing the global batch of 256 in the multi-pod fleet),
+  the flags' per-leaf exchange; every arch, the mixers and the
+  encoder-decoder too. Under `fsdp` (the reference's Mode B, `auto`
+  above 10 B parameters) the ranks form (16, 16) or (2, 16, 16) ('pod',
+  'data', 'model'): a rank holds its shard of each parameter cut over
+  'data' and 'model', the field gathers each period's parameters over
+  the data ranks (`parallel.fsdp`), and the workers are the pods: one
+  on a pod (the reference's single-worker step), two across pods under
+  the reference's vmap step with exchange `sim`. One `step` on one
+  rank's rows of the global batch.
 - prefill: the sharded bundle's `prefill` (`models.build(cfg, mesh)`) of
   the rank's rows (the shape's batch split per `batch_spec`) on its
-  parameter shards under the `dp` rules, one rank of the production
-  mesh's 'model' axis (16), filling the rank's part of the cache in the
-  record's `kv_layout`.
+  parameter shards under the record's layout, one rank of the
+  production mesh, its 'model' axis 16, filling the rank's part of the
+  cache in the record's `kv_layout`.
 - decode: the sharded bundle's `decode_step` of the rank's rows against
   the rank's part of dense caches of `seq_len` (`init_cache` under
   `cache_specs` at `kv_layout`), on the same shards.
-Above 10 B parameters the reference lays its parameters out under
-`fsdp` (over 'data' too); the port traces prefill and decode under `dp`
-(ROADMAP slice 11 ports `fsdp`), so such a record's
-`param_bytes_per_rank` exceeds `param_bytes_per_device`, and says so
-(`layout_traced`).
+In every record a rank's parameter bytes (`param_bytes_per_rank`) are
+the reference's per-device bytes under the same layout
+(`param_bytes_per_device`).
 A `*_block1024` compressor's kernel is traced as the card runs it: one
 op with its outputs (`kernels.meta`).
 
@@ -48,13 +52,13 @@ bottleneck, flops, traffic_result_bytes, collectives) and adds:
 `peak_bytes` (the rank's own step: what the card must hold), `fits`
 (`peak_bytes` within HBM_BYTES), `param_bytes_per_device` (under the JAX
 package's layout, its 'model' axis included, labelled as such),
-`param_bytes_per_rank` (what the traced rank holds: equal to the former
-under `dp` with a model axis), `model_axis`, `collectives_model` (the
-model group's, apart from the exchange's `collectives`); for prefill and
-decode `cache_bytes_per_rank` (the traced rank's cache) and
-`cache_bytes_per_device` (the JAX package's layout of the same cache
-under `cache_specs`, equal to the former), and `layout_traced` with
-`layout_note` where the traced layout is not the record's; `ledger` (the
+`param_bytes_per_rank` (what the traced rank holds: equal to the
+former), `model_axis`, `collectives_model` and `collectives_fsdp` (the
+model group's and the fsdp group's, apart from the exchange's
+`collectives`); for prefill and decode `cache_bytes_per_rank` (the
+traced rank's cache) and `cache_bytes_per_device` (the JAX package's
+layout of the same cache under `cache_specs`, equal to the former);
+`ledger` (the
 `comm.CommLedger` per-step wire bytes of the strategy at that worker
 count) and `roofline` {compute_s, memory_s, collective_s} at the H100
 SXM data-sheet constants below. The JAX package's TPU constants are not
@@ -136,20 +140,25 @@ def applicable(cfg, shape) -> tuple:
 # --------------------------------------------------------------------------- #
 def train_strategy(layout: str, *, exchange: str = "two_phase",
                    compressor: str = "qsgd8_linf",
-                   ef_dtype: str = "bfloat16"):
-    """The strategy a `train` combo traces: `dp`, each rank a worker with
-    the replica, per-leaf exchange; `fsdp`, ZeRO-3 over the ranks through
-    uniform 4 MiB buckets. Spans on, for the per-phase split."""
+                   ef_dtype: str = "bfloat16", multi_pod: bool = False):
+    """The strategy a `train` combo traces, the reference's for the
+    layout (`repro.launch.dryrun.run_combo`), per-leaf exchange: `dp`,
+    the workers over the data ranks; `fsdp`, the workers the pods (worker
+    axes `()` on one pod, `('pod',)` under the vmap step with exchange
+    `sim` on two). Spans on, for the per-phase split."""
+    from repro_torch.launch.mesh import worker_axes_for
     from repro_torch.strategy import (Compression, ExchangePlan,
                                       Observability, Strategy)
-    fsdp = layout == "fsdp"
+    axes = worker_axes_for(layout, multi_pod)
+    if layout == "dp":
+        axes = ("data",)     # the port's workers span 'pod' × 'data'
+    vmap = layout == "fsdp" and multi_pod
     return Strategy(
-        compression=Compression(compressor=compressor,
-                                plan="uniform" if fsdp else "none",
+        compression=Compression(compressor=compressor, plan="none",
                                 ef_dtype=ef_dtype),
-        exchange=ExchangePlan(kind=exchange, worker_axes=("data",),
-                              parallelism="fsdp" if fsdp else "replicated",
-                              zero_stage=3),
+        exchange=ExchangePlan(kind="sim" if vmap else exchange,
+                              worker_axes=axes,
+                              spmd="vmap" if vmap else "shard_map"),
         observability=Observability(spans=True))
 
 
@@ -194,25 +203,30 @@ def _meta_params(cfg, shape, mesh=None):
 
 def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
                 optimizer: str = "omd", extrapolation: str = "local",
-                lr: float = 1e-4, message: str = "update") -> dict:
+                lr: float = 1e-4, message: str = "update",
+                layout: str = "dp", pods: int = 1) -> dict:
     """One rank's `DQGAN.step` of `cfg` under `strategy` on `ranks` ranks
-    with a model axis of `model` (ranks / model workers, one a data rank;
-    one worker on its own device when `ranks` is 1), on the meta device,
-    over the global batch of `shape`: the op analysis, the kernels' meta
-    launches, the collectives the rank issues (the exchange's, and the
-    model group's apart) and the strategy's `CommLedger`."""
+    with a model axis of `model` (layout `dp`: ranks / model workers, one
+    a data rank; layout `fsdp`: `pods` pods, a worker each, over which a
+    rank's parameters are cut over 'data' and 'model'; one worker on its
+    own device when `ranks` is 1), on the meta device, over the global
+    batch of `shape`: the op analysis, the kernels' meta launches, the
+    collectives the rank issues (the exchange's, and the model group's
+    and the fsdp group's apart) and the strategy's `CommLedger`."""
     from repro_torch import tree as T
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.launch import specs as S
     from repro_torch.launch.mesh import meta_mesh
     from repro_torch.models import build, param_specs
+    from repro_torch.parallel import fsdp as FS
     from repro_torch.parallel import tensor as TP
 
     dq = cfgs.DQConfig.from_strategy(strategy, optimizer=optimizer, lr=lr,
                                      message=message,
                                      extrapolation=extrapolation)
-    workers = ranks // model
-    mesh = meta_mesh(ranks, model=model) if ranks > 1 else None
+    workers = pods if layout == "fsdp" else ranks // model
+    mesh = (meta_mesh(ranks, model=model, layout=layout, pods=pods)
+            if ranks > 1 else None)
     bundle = build(cfg, mesh)
     trainer = DQGAN(field_fn=bundle.field_fn, dq=dq, device=S.META,
                     workers=workers, mesh=mesh,
@@ -225,6 +239,8 @@ def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
                                       "collectives", {}))
     group = TP.model_group_for(mesh)
     out["collectives_model"] = dict(getattr(group, "collectives", {}))
+    out["collectives_fsdp"] = dict(getattr(FS.fsdp_group_for(mesh),
+                                           "collectives", {}))
     out["model_axis"] = model
     out["param_bytes_per_rank"] = int(sum(
         x.numel() * x.element_size() for x in T.leaves(state.params)))
@@ -238,58 +254,63 @@ def trace_train(cfg, shape, strategy, *, ranks: int = 1, model: int = 1,
     return out
 
 
-def _serving(cfg, shape, ranks, model):
+def _serving(cfg, shape, ranks, model, layout, pods):
     """(the sharded bundle over one rank of `ranks` with a model axis of
-    `model`, its meta parameters, its model group)."""
+    `model` under `layout`, its meta parameters, its mesh)."""
     from repro_torch.launch.mesh import meta_mesh
     from repro_torch.models import build
-    from repro_torch.parallel import tensor as TP
     if model < 2:
         raise ValueError(f"prefill and decode trace a rank of a model axis "
                          f"above 1, got {model}")
-    mesh = meta_mesh(ranks, model=model)
-    return (build(cfg, mesh), _meta_params(cfg, shape, mesh),
-            TP.model_group_for(mesh))
+    mesh = meta_mesh(ranks, model=model, layout=layout, pods=pods)
+    return build(cfg, mesh), _meta_params(cfg, shape, mesh), mesh
 
 
-def _serving_record(out, params, caches, group, model) -> dict:
-    out["collectives_model"] = dict(getattr(group, "collectives", {}))
-    out["model_axis"] = model
+def _serving_record(out, params, caches, mesh) -> dict:
+    from repro_torch.parallel import fsdp as FS
+    from repro_torch.parallel import tensor as TP
+    out["collectives_model"] = dict(getattr(TP.model_group_for(mesh),
+                                            "collectives", {}))
+    out["collectives_fsdp"] = dict(getattr(FS.fsdp_group_for(mesh),
+                                           "collectives", {}))
+    out["model_axis"] = mesh.model
     out["param_bytes_per_rank"] = _nbytes(params)
     out["cache_bytes_per_rank"] = _nbytes(caches)
     return out
 
 
 def trace_prefill(cfg, shape, batch: int, *, ranks: int, model: int,
-                  kv_layout: str = "hd_model",
-                  max_len: int = 0) -> dict:
+                  kv_layout: str = "hd_model", max_len: int = 0,
+                  layout: str = "dp", pods: int = 1) -> dict:
     """`prefill` of `batch` sequences of `shape.seq_len` tokens on one
     rank's meta parameter shards (a model axis of `model` over `ranks`
-    ranks), filling the rank's part of the cache under `kv_layout`
-    (`max_len` positions reserved where longer); no autograd."""
+    ranks, under `layout`), filling the rank's part of the cache under
+    `kv_layout` (`max_len` positions reserved where longer); no
+    autograd."""
     from repro_torch.launch import specs as S
     local = dataclasses.replace(shape, global_batch=batch)
     (tokens, enc), _ = S.prefill_input_specs(cfg, local, {})
-    bundle, params, group = _serving(cfg, shape, ranks, model)
+    bundle, params, mesh = _serving(cfg, shape, ranks, model, layout, pods)
     with torch.no_grad():
         out, (_, caches) = _traced(bundle.prefill, params, tokens, enc,
                                    max_len=max_len, kv_layout=kv_layout)
-    return _serving_record(out, params, caches, group, model)
+    return _serving_record(out, params, caches, mesh)
 
 
 def trace_decode(cfg, shape, batch: int, *, ranks: int, model: int,
-                 kv_layout: str = "hd_model") -> dict:
+                 kv_layout: str = "hd_model", layout: str = "dp",
+                 pods: int = 1) -> dict:
     """One `decode_step` of `batch` rows against the rank's part of dense
     caches of `shape.seq_len` (`init_cache` under `kv_layout`) on one
-    rank's meta parameter shards; no autograd."""
+    rank's meta parameter shards (under `layout`); no autograd."""
     from repro_torch.launch import specs as S
-    bundle, params, group = _serving(cfg, shape, ranks, model)
+    bundle, params, mesh = _serving(cfg, shape, ranks, model, layout, pods)
     caches = bundle.init_cache(batch, shape.seq_len, device=S.META,
                                kv_layout=kv_layout)
     tokens = torch.empty((batch, 1), dtype=torch.int32, device=S.META)
     with torch.no_grad():
         out, _ = _traced(bundle.decode_step, params, tokens, caches)
-    return _serving_record(out, params, caches, group, model)
+    return _serving_record(out, params, caches, mesh)
 
 
 def cache_bytes_per_device(cfg, shape, mesh, kv_layout: str) -> dict:
@@ -377,35 +398,29 @@ def run_combo(arch: str, shape_name: str, multi_pod: bool, *,
             cfg, layout, mesh, _max_seq(cfg, shape))
         B = shape.global_batch
         local = shd.local_shape((B,), shd.batch_spec(mesh, B), mesh)[0]
+        # the production mesh, laid out as the reference lays the combo
+        # out: its model axis, and under fsdp its pods
+        model = mesh.get("model", 1)
+        pods = mesh.get("pod", 1) if layout == "fsdp" else 1
         if shape.kind == "train":
             strat = train_strategy(layout, exchange=exchange,
-                                   compressor=compressor, ef_dtype=ef_dtype)
-            # the production mesh's model axis under dp; fsdp keeps a
-            # pure data mesh
-            model = mesh.get("model", 1) if layout == "dp" else 1
+                                   compressor=compressor, ef_dtype=ef_dtype,
+                                   multi_pod=multi_pod)
+            if layout == "fsdp" and multi_pod:
+                rec["exchange"] = "sim(vmap)"
             rec.update(trace_train(cfg, shape, strat, ranks=n_chips,
                                    model=model, optimizer=optimizer,
-                                   extrapolation=extrapolation))
+                                   extrapolation=extrapolation,
+                                   layout=layout, pods=pods))
         else:
-            # the production mesh's model axis, and its rank's shards
-            # under the dp rules whatever the record's layout
-            model = mesh.get("model", 1)
             trace = (trace_prefill if shape.kind == "prefill"
                      else trace_decode)
             rec["kv_layout"] = kv_layout
             rec["batch_per_rank"] = local
             rec.update(trace(cfg, shape, local, ranks=n_chips, model=model,
-                             kv_layout=kv_layout))
+                             kv_layout=kv_layout, layout=layout, pods=pods))
             rec["cache_bytes_per_device"] = cache_bytes_per_device(
                 cfg, shape, mesh, kv_layout)
-            if layout != "dp":
-                rec["layout_traced"] = "dp"
-                rec["layout_note"] = (
-                    f"the reference lays the parameters out under {layout}"
-                    f" (param_bytes_per_device); the port traces prefill "
-                    f"and decode under dp, its 'model' axis alone "
-                    f"(param_bytes_per_rank): ROADMAP slice 11 ports "
-                    f"fsdp")
         rec["trace_s"] = round(time.time() - t0, 2)
         rec["fits"] = rec["peak_bytes"] <= HBM_BYTES
         rec["mf"] = model_flops(cfg, shape)

@@ -44,6 +44,12 @@ decode cache (`parallel.sharding.shard_cache`, in `kv_layout`
 last-token logits, so they return the whole (B, V) logits, as the
 reference's sharded functions do.
 
+Under the fsdp parameter layout (`parallel.fsdp`, the trainer's Mode
+B) the parameters are a rank's shards over 'data' as well: each period
+of the stacked layers, each tail block and each encoder block gathers
+its sharded leaves at its top (a period inside its checkpoint), and the
+loss is the rank's share of its worker's.
+
 Caches keep the JAX tree too ({"scan": ..., "tail": [...]}, and
 ``"enc_out"`` for an encoder-decoder model); decode writes into their
 tensors in place (attention K/V, and a mixer's recurrent state and conv
@@ -60,6 +66,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
+from repro_torch.parallel import fsdp as FS
 from repro_torch.parallel import tensor as TP
 
 from . import moe as moe_lib
@@ -255,6 +262,9 @@ def _stack_apply(params, cfg, x, positions, caches=None, cross_kv=None,
             aux_total[k] = aux_total.get(k, 0.0) + v
 
     def period_fn(x, layer_p, layer_c):
+        # the fsdp layout's gathers, inside the period's checkpoint: its
+        # backward gathers again, and one period's weights live at a time
+        layer_p = FS.gathered(layer_p, ("scan",), stacked=True)
         lc, aux_p = {}, {}
         for i in range(period):
             x, lc[f"b{i}"], aux = block_apply(
@@ -293,6 +303,7 @@ def _stack_apply(params, cfg, x, positions, caches=None, cross_kv=None,
     for i, bp in enumerate(params.get("tail", [])):
         kind = cfg.layer_pattern[(n_scan * period + i) % period]
         c = None if caches is None else caches["tail"][i]
+        bp = FS.gathered(bp, ("tail", i))
         x, nc, aux = block_apply(bp, cfg, kind, x, positions, cache=c,
                                  cross_kv=cross_kv, fill_cache=fill_cache)
         add_aux(aux)
@@ -310,8 +321,9 @@ def encode(params, cfg, enc_embeds):
     e = params["enc"]
     x = enc_embeds.to(_dtype(cfg)) + e["pos"][None, :enc_embeds.shape[1]]
     pos = torch.arange(x.shape[1], device=x.device)
-    for bp in e["blocks"]:
-        x, _, _ = block_apply(bp, cfg, "attn", x, pos, causal=False)
+    for i, bp in enumerate(e["blocks"]):
+        x, _, _ = block_apply(FS.gathered(bp, ("enc", "blocks", i)), cfg,
+                              "attn", x, pos, causal=False)
     return apply_norm(cfg.norm, e["final_norm"], x)
 
 
@@ -393,7 +405,8 @@ def _xent(logits, targets, vocab: int = 0):
 def chunked_xent(params, cfg, hidden, targets, chunk):
     """Mean cross-entropy without materializing (B, S, V): the float32
     total of each `chunk` tokens, divided once by B·S, as the JAX scan
-    does; under autograd each chunk's logits are recomputed in the
+    does (under the fsdp layout by the worker's B·S·data: the rank's
+    share); under autograd each chunk's logits are recomputed in the
     backward pass (`torch.utils.checkpoint`, the JAX package's
     `jax.checkpoint` of the scan body)."""
     B, S, _ = hidden.shape
@@ -411,15 +424,21 @@ def chunked_xent(params, cfg, hidden, targets, chunk):
         t = targets[:, start:start + chunk]
         tot = tot + (checkpoint(body, h, t, use_reentrant=False) if remat
                      else body(h, t))
-    return tot / (B * S)
+    return tot / (B * S * FS.data_size())
 
 
 def loss_fn(params, cfg, batch, generator=None):
     """batch: {"tokens": (B, S), "targets": (B, S)} integer, and
     "enc_embeds" (B, Se, d) for an encoder-decoder model. Returns
     (loss + Σ aux, {"loss": loss, **aux}). The chunked cross-entropy is
-    taken when ``cfg.xent_chunk`` divides S."""
+    taken when ``cfg.xent_chunk`` divides S.
+
+    Under the fsdp layout (`parallel.fsdp`) the batch is the rank's rows
+    of its worker's, and the loss and the router-z term are the rank's
+    shares of the worker's (the shares sum to them over the data
+    group); the load-balance term is the worker's."""
     del generator   # the LM's loss draws nothing
+    params = FS.prepare(params)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     enc_out = (encode(params, cfg, batch["enc_embeds"]) if cfg.is_encdec
@@ -429,8 +448,10 @@ def loss_fn(params, cfg, batch, generator=None):
         loss = chunked_xent(params, cfg, hidden, batch["targets"],
                             cfg.xent_chunk)
     else:
-        loss = _xent(logits_fn(params, cfg, hidden), batch["targets"],
-                     cfg.vocab_size).mean()
+        xe = _xent(logits_fn(params, cfg, hidden), batch["targets"],
+                   cfg.vocab_size)
+        d = FS.data_size()
+        loss = xe.mean() if d == 1 else xe.sum() / (xe.numel() * d)
     metrics = {"loss": loss, **aux}
     total = loss + sum(aux.values()) if aux else loss
     return total, metrics

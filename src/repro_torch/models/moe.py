@@ -20,6 +20,17 @@ the combine is all-reduced. The router, the capacity ranks and the aux
 losses stay replicated, the same on every rank; the tokens and gates
 enter the expert region through `copy_to`. Arctic's dense residual
 follows the MLP's rules.
+
+Under the fsdp layout (`parallel.fsdp`) a rank holds its rows of its
+worker's batch. The global dispatch ranks the worker's tokens against
+the worker's pool of `_capacity(m, S) · B_worker` slots: a token's rank
+within its expert starts at the count of that expert's tokens on the
+lower data ranks (an exclusive prefix of the (E,) counts, one small
+all-gather over the data group a layer), and the rank's buffer holds its
+own kept tokens. The load-balance term takes `me` and `ce` over the
+worker's tokens (group sums; `ce` carries no gradient) and is the
+worker's on every rank; the router-z term is the rank's share, as the
+cross-entropy is.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import fsdp as FS
 from repro_torch.parallel import tensor as TP
 
 from .layers import _gelu_tanh, _silu, linear, linear_init, mlp, mlp_init
@@ -75,12 +87,21 @@ def moe_apply(p, cfg, x):
     gate_vals, expert_idx = torch.topk(probs, m.top_k, dim=-1)   # (T, k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
 
-    me = probs.mean(0)                                           # (E,)
-    ce = F.one_hot(expert_idx, m.num_experts).sum(1).float().mean(0)
+    fg = FS.current()
+    counts = F.one_hot(expert_idx, m.num_experts).sum(1).float()
+    z2 = torch.logsumexp(logits, dim=-1).square()
+    if fg is None:
+        me = probs.mean(0)                                       # (E,)
+        ce = counts.mean(0)
+        z = z2.mean()
+    else:   # the worker's tokens: sums over the data group
+        n = B * S * fg.size
+        me = TP.reduce_from(probs.sum(0), group=fg) / n
+        ce = fg.all_reduce(counts.sum(0).detach()) / n
+        z = z2.sum() / n
     aux = {"moe_load_balance": m.router_aux_coef * m.num_experts
            * (me * ce).sum(),
-           "moe_router_z": m.router_z_coef
-           * torch.logsumexp(logits, dim=-1).square().mean()}
+           "moe_router_z": m.router_z_coef * z}
 
     if m.dispatch == "per_row":
         cap = _capacity(m, S)
@@ -90,7 +111,8 @@ def moe_apply(p, cfg, x):
                          for b in range(B)])
     else:
         y = _dispatch_combine(p, cfg, xt, expert_idx, gate_vals,
-                              _capacity(m, S) * B).reshape(B, S, d)
+                              _capacity(m, S) * B * FS.data_size(),
+                              fg).reshape(B, S, d)
 
     if "dense" in p:   # Arctic: a dense FFN in parallel with the experts
         y = y + mlp(p["dense"], xt, cfg.activation,
@@ -98,18 +120,35 @@ def moe_apply(p, cfg, x):
     return y, aux
 
 
-def _dispatch_combine(p, cfg, xt, expert_idx, gate_vals, cap):
+def dispatch_keep(flat_e, E: int, cap: int, fg=None):
+    """(rank, keep) of each (token, choice) routed to expert `flat_e`
+    (T·k,): its rank within its expert's tokens, in order, and whether it
+    fits the expert's `cap` slots. `fg` (an fsdp group): the tokens are
+    this data rank's, after the expert's tokens on the lower ranks, which
+    count toward the pool (the rank returned is the token's own)."""
+    onehot = F.one_hot(flat_e, E)
+    ranks = torch.cumsum(onehot, dim=0) - onehot        # rank within expert
+    rank = ranks.gather(1, flat_e[:, None])[:, 0]
+    if fg is None:
+        return rank, rank < cap
+    counts = fg.all_gather(onehot.sum(0)[None], 0)      # (data, E)
+    below = counts[:fg.index].sum(0)
+    return rank, rank + below[flat_e] < cap
+
+
+def _dispatch_combine(p, cfg, xt, expert_idx, gate_vals, cap, fg=None):
     """One-hot-cumsum capacity dispatch, the batched expert FFN, and the
-    gate-weighted combine. xt: (T, d); expert_idx, gate_vals: (T, k)."""
+    gate-weighted combine. xt: (T, d); expert_idx, gate_vals: (T, k).
+    `fg` (an fsdp group): xt is this data rank's part of a pool of `cap`
+    slots shared with the group's lower ranks."""
     m = cfg.moe
     T, d = xt.shape
     k, E = m.top_k, m.num_experts
 
     flat_e = expert_idx.reshape(T * k)
-    onehot = F.one_hot(flat_e, E)
-    ranks = torch.cumsum(onehot, dim=0) - onehot        # rank within expert
-    rank = ranks.gather(1, flat_e[:, None])[:, 0]
-    keep = rank < cap
+    rank, keep = dispatch_keep(flat_e, E, cap, fg)
+    # under fsdp a kept token's own rank is below both
+    slots = cap if fg is None else min(cap, T * k)
     rank_c = torch.where(keep, rank, 0)
     El = p["gate_proj"].shape[0]          # this rank's experts
     tp = TP.shards(E)
@@ -124,7 +163,7 @@ def _dispatch_combine(p, cfg, xt, expert_idx, gate_vals, cap):
     # JAX package's .at[].add(mode="drop") of a masked row), so however
     # the device orders the accumulation no kept sum changes
     x_rep = torch.repeat_interleave(xt, k, dim=0)                # (T·k, d)
-    buf = torch.zeros((El, cap, d), dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros((El, slots, d), dtype=xt.dtype, device=xt.device)
     buf = buf.index_put((flat_e, rank_c),
                         torch.where(keep[:, None], x_rep, 0),
                         accumulate=True)

@@ -13,13 +13,16 @@ parameters' dtypes, with the metrics {"loss", **aux}. An LM field draws
 nothing, so it has no `draw_z`.
 
 `build(cfg, mesh=...)` with a `launch.mesh.ProcessMesh` whose model axis
-is above 1 gives the bundle over a rank's shards: `init` makes the full
-tree and keeps the rank's shard of each leaf under the JAX package's
-rules (`parallel.sharding`, "dp" layout), `param_specs(cfg, mesh,
-max_seq)` gives those rules sanitised for the mesh (`DQGAN`'s
-`param_specs`), and `field_fn` runs the model under the mesh's
-model group (`parallel.tensor`), returning the gradients of the rank's
-shards. Every arch of the zoo trains so, and an LM serves so:
+is above 1, or whose layout is "fsdp", gives the bundle over a rank's
+shards: `init` makes the full tree and keeps the rank's shard of each
+leaf under the JAX package's rules for the mesh's layout
+(`parallel.sharding`: "dp" over 'model', "fsdp" over 'data' and
+'model'), `param_specs(cfg, mesh, max_seq)` gives those rules sanitised
+for the mesh (`DQGAN`'s `param_specs`), and `field_fn` runs the model
+under the mesh's model group (`parallel.tensor`) and, under fsdp, its
+fsdp group (`parallel.fsdp`: each period's parameters gathered over the
+data ranks at use, the loss the rank's share of its worker's), returning
+the gradients of the rank's shards (under fsdp, of its worker's loss). Every arch of the zoo trains so, and an LM serves so:
 `prefill(params, tokens, enc=None, max_len=0, kv_layout="hd_model")` and
 `decode_step(params, tokens, caches)` run under the model group against
 the rank's part of the decode cache, and `init_cache(batch, seq, dtype,
@@ -31,12 +34,14 @@ process, in the reference too.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.parallel import fsdp as FS
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor as TP
 
@@ -79,14 +84,26 @@ def lm_field_fn(cfg):
     return field_fn
 
 
+def _sharded_mesh(mesh) -> bool:
+    """True when a rank of `mesh` holds shards: a model axis above 1, or
+    the fsdp layout."""
+    return mesh is not None and (mesh.model > 1
+                                 or getattr(mesh, "fsdp", False))
+
+
+def _layout(mesh) -> str:
+    return "fsdp" if getattr(mesh, "fsdp", False) else "dp"
+
+
 def param_specs(cfg, mesh, max_seq: int = 0):
     """The spec tree of `cfg`'s full parameters on `mesh` (the JAX
-    package's "dp" rules, sanitised; traced on meta), or None when the
-    mesh has no model axis above 1."""
-    if mesh is None or mesh.model == 1:
+    package's rules for the mesh's layout, "dp" or "fsdp", sanitised;
+    traced on meta), or None when a rank of the mesh holds whole
+    parameters."""
+    if not _sharded_mesh(mesh):
         return None
     full = _build(cfg).init(generator=None, device="meta", max_seq=max_seq)
-    return shd.param_specs(full, cfg, "dp", mesh.shape)
+    return shd.param_specs(full, cfg, _layout(mesh), mesh.shape)
 
 
 def cache_specs(cfg, mesh, batch: int, seq: int,
@@ -106,21 +123,37 @@ def _decode_paged_refused(*args, **kwargs):
 
 
 def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
-    """`bundle` over the rank's shards of `mesh`'s model axis."""
+    """`bundle` over the rank's shards of `mesh` (its model axis, and its
+    data axis under the fsdp layout)."""
     group = TP.model_group_for(mesh)
+    fgroup = FS.fsdp_group_for(mesh)
     cfg = bundle.cfg
+    layout = _layout(mesh)
+    if fgroup is not None and bundle.prefill is None:
+        raise ValueError(
+            f"{cfg.name}: the fsdp layout takes the LM archs; the JAX "
+            f"package picks it above 10 B parameters only, and no GAN of "
+            f"the zoo is near that")
+    # the full parameters' specs, for the fsdp gathers: made here, not in
+    # a traced call (a learned position table's length changes no spec)
+    specs = None if fgroup is None else param_specs(cfg, mesh, 1)
 
     def init(generator=None, device=None, max_seq=0):
         full = bundle.init(generator=generator, device=device,
                            max_seq=max_seq)
         return shd.shard_tree(
-            full, shd.param_specs(full, cfg, "dp", mesh.shape),
-            mesh.model_index, mesh.model)
+            full, shd.param_specs(full, cfg, layout, mesh.shape),
+            **shd.rank_cut(mesh))
+
+    @contextlib.contextmanager
+    def parallel():
+        with TP.model_parallel(group), FS.fsdp_parallel(fgroup, specs):
+            yield
 
     field = bundle.field_fn
 
     def field_fn(params, batch, z=None, generator=None):
-        with TP.model_parallel(group):
+        with parallel():
             return field(params, batch, z=z, generator=generator)
 
     if hasattr(field, "draw_z"):
@@ -131,12 +164,12 @@ def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
                            init_cache=None)
 
     def prefill(params, tokens, enc=None, max_len=0, kv_layout="hd_model"):
-        with TP.model_parallel(group):
+        with parallel():
             return lm.prefill(params, cfg, tokens, enc, max_len=max_len,
                               kv_layout=kv_layout)
 
     def decode_step(params, tokens, caches):
-        with TP.model_parallel(group):
+        with parallel():
             return lm.decode_step(params, cfg, tokens, caches)
 
     def init_cache(batch, seq, dtype=None, device=None,
@@ -158,10 +191,10 @@ def _sharded(bundle: ModelBundle, mesh) -> ModelBundle:
 
 
 def build(cfg, mesh=None) -> ModelBundle:
-    """The bundle of `cfg`; over the shards of `mesh`'s model axis when it
-    has one above 1."""
+    """The bundle of `cfg`; over a rank's shards of `mesh` when it has a
+    model axis above 1 or the fsdp layout."""
     bundle = _build(cfg)
-    if mesh is not None and mesh.model > 1:
+    if _sharded_mesh(mesh):
         return _sharded(bundle, mesh)
     return bundle
 

@@ -22,9 +22,12 @@ off a `torch.profiler` capture of the step instead (``record_shapes=True``;
 * a collective of the model group (the tensor-parallel 'model' axis:
   the field's all-reduces and gathers, a sharded leaf's scale) is called
   inside a `parallel.tensor.MODEL_GROUP_RANGE` range and counts under
-  group "model", apart from the exchange's ("data"): the summaries and
-  checks below read the data group's unless told otherwise, so the byte
-  check against the ledger compares the exchange alone.
+  group "model", apart from the exchange's ("data"); one of the fsdp
+  layout's data group (`parallel.fsdp.FSDP_GROUP_RANGE`: the parameter
+  all-gathers and gradient reduce-scatters) under group "fsdp": the
+  summaries and checks below read the data group's unless told
+  otherwise, so the byte check against the ledger compares the exchange
+  alone.
 
 Functions:
 
@@ -63,6 +66,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from repro_torch.core.exchange import transport_factor
+from repro_torch.parallel.fsdp import FSDP_GROUP_RANGE
 from repro_torch.parallel.tensor import MODEL_GROUP_RANGE
 
 from .profile import phase_of
@@ -92,21 +96,29 @@ class Collective(NamedTuple):
     start_us: float        # call time (the c10d:: operator's start)
     bytes: int             # the result's bytes on this rank
     dtype: str             # the result's element type
-    group: str = "data"    # "model": a model-group collective
+    group: str = "data"    # "model" / "fsdp": a model / fsdp group's
+
+
+# a field group's profiler range -> the group its collectives count under
+_GROUP_RANGES = ((MODEL_GROUP_RANGE, "model"), (FSDP_GROUP_RANGE, "fsdp"))
 
 
 def _model_range(event):
-    """The MODEL_GROUP_RANGE range around a call, or None."""
+    """The MODEL_GROUP_RANGE (or FSDP_GROUP_RANGE) range around a call,
+    or None."""
     e = event
     while e is not None:
-        if e.name.startswith(MODEL_GROUP_RANGE):
+        if any(e.name.startswith(r + ":") for r, _ in _GROUP_RANGES):
             return e
         e = e.cpu_parent
     return None
 
 
 def _group_of(event) -> str:
-    return "data" if _model_range(event) is None else "model"
+    rng = _model_range(event)
+    if rng is None:
+        return "data"
+    return next(g for r, g in _GROUP_RANGES if rng.name.startswith(r + ":"))
 
 
 def _pair(calls, records):
@@ -122,7 +134,7 @@ def _pair(calls, records):
         if rng is None:
             data_calls.append(c)
             continue
-        shape = [int(d) for d in rng.name[len(MODEL_GROUP_RANGE) + 1:]
+        shape = [int(d) for d in rng.name.rpartition(":")[2]
                  .split(",") if d]
         i = next((i for i, r in enumerate(records)
                   if r.time_range.start >= c.time_range.start
@@ -244,7 +256,7 @@ def _summary(colls: List[Collective]) -> dict:
 def collective_summary(prof, phase: Optional[str] = None,
                        group: Optional[str] = "data") -> dict:
     """{kind: {count, bytes, int8_bytes}} of a capture's collectives of
-    `group` ("data", the exchange's; "model"; None: both), of those
+    `group` ("data", the exchange's; "model"; "fsdp"; None: all), of those
     `phase` called, given one."""
     return _summary([c for c in collectives(prof)
                      if (phase is None or c.phase == phase)

@@ -24,10 +24,13 @@ ordered {axis: size} dict (`launch.mesh.production_mesh_shape`). Trees
 are the port's nested dicts (`repro_torch.tree`), whose keys are the JAX
 package's; a list index in a path reads "[i]", as JAX's sequence keys
 do. The port's trainer lays its parameters out by these rules over the
-'model' axis of its process mesh: `shard_of` cuts a rank's shard of a
-leaf under its sanitised spec and `gather_to_full` (a collective over the
-model group) puts the leaf back together, both exact; `shard_tree` and
-`gather_tree` do so leaf by leaf. `launch.dryrun` uses the same rules for
+'model' axis of its process mesh (layout "dp"), or over its 'data' and
+'model' axes (layout "fsdp", a `launch.mesh.ProcessMesh` of that
+layout): `shard_of` cuts a rank's shard of a leaf under its sanitised
+spec and `gather_to_full` (a collective over the model group, and the
+fsdp group for a leaf cut over 'data') puts the leaf back together, both
+exact; `shard_tree` and `gather_tree` do so leaf by leaf; `rank_cut`
+gives a mesh rank's (index, size, data_index, data_size). `launch.dryrun` uses the same rules for
 a rank's parameter bytes and for batch splitting. A rank's decode cache
 is cut and gathered by `shard_cache` and `gather_cache`, under
 `cache_specs` on the model axis alone (the batch rows are the rank's
@@ -165,54 +168,89 @@ def model_axis(spec: Optional[Spec]) -> Optional[int]:
     return None
 
 
-def shard_of(leaf, spec: Optional[Spec], index: int, size: int):
-    """Model rank `index` of `size`'s shard of the full `leaf` under its
-    (sanitised) spec: a view of its slice, or the leaf itself when the
-    spec shards nothing over 'model'."""
+def data_axis(spec: Optional[Spec]) -> Optional[int]:
+    """The dimension a spec shards over 'data' (the fsdp layout), or
+    None."""
+    for i, ent in enumerate(spec or ()):
+        if ent is not None and "data" in _axes(ent):
+            return i
+    return None
+
+
+def rank_cut(mesh) -> Dict[str, int]:
+    """A mesh rank's cut, as `shard_of` and `shard_tree` take it: its
+    model (index, size) and, under the fsdp layout, its data (index,
+    size)."""
+    fsdp = getattr(mesh, "fsdp", False)
+    return dict(index=mesh.model_index, size=mesh.model,
+                data_index=mesh.data_index if fsdp else 0,
+                data_size=mesh.data if fsdp else 1)
+
+
+def _narrow(x, ax, index, size):
+    n = x.shape[ax] // size
+    return x.narrow(ax, index * n, n)
+
+
+def shard_of(leaf, spec: Optional[Spec], index: int, size: int,
+             data_index: int = 0, data_size: int = 1):
+    """The shard of the full `leaf` that model rank `index` of `size` (and
+    data rank `data_index` of `data_size`) holds under its (sanitised)
+    spec: a view of its slice, or the leaf itself when the spec shards
+    nothing over those axes."""
     ax = model_axis(spec)
-    if ax is None or size == 1:
-        return leaf
-    n = leaf.shape[ax] // size
-    return leaf.narrow(ax, index * n, n)
+    if ax is not None and size > 1:
+        leaf = _narrow(leaf, ax, index, size)
+    ax = data_axis(spec)
+    if ax is not None and data_size > 1:
+        leaf = _narrow(leaf, ax, data_index, data_size)
+    return leaf
 
 
-def gather_to_full(shard, spec: Optional[Spec], group):
-    """The full leaf from the model ranks' shards (`shard_of`'s inverse):
-    an all-gather over `group` (a `parallel.tensor.ModelGroup`) along the
-    spec's 'model' dimension; the shard itself when nothing is sharded.
-    The one place a rank holds a whole sharded leaf."""
+def gather_to_full(shard, spec: Optional[Spec], group, data_group=None):
+    """The full leaf from the ranks' shards (`shard_of`'s inverse): an
+    all-gather over `group` (a `parallel.tensor.ModelGroup`) along the
+    spec's 'model' dimension and over `data_group` (a
+    `parallel.fsdp.FsdpGroup`) along its 'data' one; the shard itself
+    when nothing is sharded. The one place a rank holds a whole sharded
+    leaf."""
     ax = model_axis(spec)
-    if ax is None or group is None or group.size == 1:
-        return shard
-    return group.all_gather(shard, ax)
+    if ax is not None and group is not None and group.size > 1:
+        shard = group.all_gather(shard, ax)
+    ax = data_axis(spec)
+    if ax is not None and data_group is not None and data_group.size > 1:
+        shard = data_group.all_gather(shard, ax)
+    return shard
 
 
-def shard_tree(tree, specs, index: int, size: int, copy: bool = True):
-    """Every leaf of `tree` cut to rank `index`'s shard (copies, so the
-    full leaves can be freed, unless `copy` is False)."""
+def shard_tree(tree, specs, index: int, size: int, copy: bool = True,
+               data_index: int = 0, data_size: int = 1):
+    """Every leaf of `tree` cut to the rank's shard (copies, so the full
+    leaves can be freed, unless `copy` is False)."""
     paths, leaves = T.flatten(tree)
     sp = T.flatten_up_to(paths, specs)
     out = []
     for x, s in zip(leaves, sp):
-        y = shard_of(x, s, index, size)
+        y = shard_of(x, s, index, size, data_index, data_size)
         out.append(y.clone() if copy and y is not x else y)
     return T.unflatten(paths, out)
 
 
-def gather_tree(tree, specs, group):
+def gather_tree(tree, specs, group, data_group=None):
     """Every leaf of `tree` (a rank's shards) gathered to the full leaf."""
     paths, leaves = T.flatten(tree)
     sp = T.flatten_up_to(paths, specs)
-    return T.unflatten(paths, [gather_to_full(x, s, group)
+    return T.unflatten(paths, [gather_to_full(x, s, group, data_group)
                                for x, s in zip(leaves, sp)])
 
 
-def global_shape(local, spec: Optional[Spec], size: int):
+def global_shape(local, spec: Optional[Spec], size: int,
+                 data_size: int = 1):
     """The full shape of a leaf whose rank-local shape is `local`."""
-    ax = model_axis(spec)
     out = list(local)
-    if ax is not None:
-        out[ax] *= size
+    for ax, n in ((model_axis(spec), size), (data_axis(spec), data_size)):
+        if ax is not None:
+            out[ax] *= n
     return tuple(out)
 
 

@@ -54,13 +54,15 @@ class ModelGroup:
     `result` is the tensor each rank sends (the all_reduce's, one part of
     the all_gather): its shape names the range."""
 
+    RANGE = MODEL_GROUP_RANGE
+
     def __init__(self, group, size: int, index: int):
         self.group, self.size, self.index = group, size, index
 
     def _collective(self, kind: str, result, fn, *args, **kwargs):
         del kind
         name = ",".join(map(str, result.shape))
-        with record_function(f"{MODEL_GROUP_RANGE}:{name}"):
+        with record_function(f"{self.RANGE}:{name}"):
             return fn(*args, group=self.group, **kwargs)
 
     def all_reduce(self, x, op=dist.ReduceOp.SUM):
@@ -75,6 +77,16 @@ class ModelGroup:
         self._collective("all_gather", parts[0], dist.all_gather, parts, x)
         parts[self.index] = x
         return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x, dim: int):
+        """The sum over the ranks of x, this rank's 1/size of it along
+        `dim`."""
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+        scatter = (getattr(dist, "reduce_scatter_single", None)
+                   or dist.reduce_scatter_tensor)
+        self._collective("reduce_scatter", out, scatter, out, x)
+        return out.movedim(0, dim)
 
     def slice(self, x, dim: int):
         """This rank's 1/size of x along `dim`."""
@@ -100,7 +112,9 @@ class MetaModelGroup(ModelGroup):
         rec = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
         rec["count"] += 1
         nbytes = result.numel() * result.element_size()
-        rec["bytes"] += nbytes * (self.size if kind == "all_gather" else 1)
+        rec["bytes"] += nbytes * (self.size if kind in ("all_gather",
+                                                         "reduce_scatter")
+                                  else 1)
         return None
 
 

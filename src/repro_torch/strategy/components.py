@@ -300,17 +300,19 @@ class ExchangePlan:
     # ------------------------------------------------------------------ #
     def start(self, compressor, plan: dict, p, ef_state: dict, rand,
               workers, use_ef: bool, generator=None, spans: bool = False,
-              shard=None):
+              shard=None, stream=None):
         """Start the exchange of one stacked (L, ...) tensor across
         `workers` (`core.exchange.StackedWorkers`, all W rows on one
         device, or `ProcessGroupWorkers`, a rank's L rows): issues the
         collectives and returns a `core.exchange.ExchangeHandle`, whose
         `finish` waits for them. `spans` marks each compression with a
         ``repro.obs/compress`` profiler range; `shard` (an
-        `error_feedback.LeafShard`) marks a model-sharded tensor."""
+        `error_feedback.LeafShard`) marks a model-sharded tensor; `stream`
+        (one seed a row) a leaf's tile streams."""
         from repro_torch.core import exchange as X
         return X.start_exchange(compressor, plan, p, ef_state, rand,
-                                workers, use_ef, generator, spans, shard)
+                                workers, use_ef, generator, spans, shard,
+                                stream)
 
     def finish(self, handle):
         """(q̂, new_ef_state) from a handle returned by `start`."""

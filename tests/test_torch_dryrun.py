@@ -299,18 +299,21 @@ def test_run_combo_at_a_reduced_config(arch, shape, layout, exchange,
                 == rec["cache_bytes_per_device"]["bytes"])
     if shape == "train_4k":
         assert rec["flops"] >= rec["mf"] / 256   # one rank's share
-        # dp: the (16, 16) data x model grid, 16 workers; fsdp: a pure
-        # data mesh of 256
-        assert rec["n_workers"] == (16 if layout == "dp" else 256)
-        assert rec["model_axis"] == (16 if layout == "dp" else 1)
-        if layout == "dp":
-            assert (rec["param_bytes_per_rank"]
-                    == rec["param_bytes_per_device"]["bytes"])
-            assert rec["collectives_model"]
+        # the (16, 16) data x model grid: dp, 16 workers over the data
+        # ranks; fsdp (the reference's Mode B), one worker, the
+        # parameters cut over 'data' too and gathered by the field
+        assert rec["n_workers"] == (16 if layout == "dp" else 1)
+        assert rec["model_axis"] == 16
+        assert (rec["param_bytes_per_rank"]
+                == rec["param_bytes_per_device"]["bytes"])
+        assert rec["collectives_model"]
         assert rec["ledger"]["wire_bytes_per_step"] > 0
-        kinds = set(rec["collectives"])
-        assert kinds >= ({"reduce_scatter", "all_gather"} if layout == "fsdp"
-                         else {"all_reduce"})
+        if layout == "fsdp":
+            assert set(rec["collectives_fsdp"]) >= {"reduce_scatter",
+                                                    "all_gather"}
+        else:
+            assert "all_reduce" in rec["collectives"]
+            assert not rec["collectives_fsdp"]
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
@@ -426,15 +429,48 @@ def test_serving_traces_refuse_a_model_axis_of_one(trace):
 
 def test_yi_decode_holds_a_sixteenth_and_names_its_layout():
     """yi-34b decode_32k, which a full replica put at 135.4 GB a rank:
-    the rank's dp shards and its part of the cache come under an eighth
-    of that; above 10 B parameters the reference lays the parameters out
-    under fsdp, so the record says it traced dp."""
+    above 10 B parameters the reference lays the parameters out under
+    fsdp, and the rank traces that layout: its Mode-B shards (the JAX
+    layout's bytes, cut over 'data' and 'model') and its part of the
+    cache, under an eighth of the replica, with the fsdp group's
+    gathers; no record of another layout traced."""
     rec = dryrun.run_combo("yi-34b", "decode_32k", False, quiet=True)
     assert rec["status"] == "ok", rec.get("error")
     assert rec["peak_bytes"] < 135.4e9 / 8
-    assert rec["layout"] == "fsdp" and rec["layout_traced"] == "dp"
-    assert "slice 11" in rec["layout_note"]
+    assert rec["layout"] == "fsdp" and "layout_traced" not in rec
     assert (rec["param_bytes_per_rank"]
-            > rec["param_bytes_per_device"]["bytes"])
+            == rec["param_bytes_per_device"]["bytes"])
+    assert rec["param_bytes_per_device"]["layout"] == "fsdp"
+    assert rec["collectives_fsdp"]["all_gather"]["count"] > 0
     assert rec["cache_bytes_per_rank"] == _jax_cache_bytes(
         "yi-34b", "decode_32k", "hd_model")
+
+
+def test_arctic_decode_holds_its_mode_b_shards():
+    """arctic-480b decode_32k at published widths, which the dp shards put
+    at 63.17 GB a rank: its 3.96 GB of Mode-B shards, its 2.35 GB of
+    cache and one period's gathered weights (about 1.7 GB, twice while
+    `all_gather` concatenates its parts) come under 12 GB."""
+    rec = dryrun.run_combo("arctic-480b", "decode_32k", False, quiet=True)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["layout"] == "fsdp" and "layout_traced" not in rec
+    assert (rec["param_bytes_per_rank"]
+            == rec["param_bytes_per_device"]["bytes"])
+    assert rec["peak_bytes"] < 12e9
+    assert rec["peak_bytes"] >= (rec["param_bytes_per_rank"]
+                                 + rec["cache_bytes_per_rank"])
+
+
+def test_fsdp_train_on_two_pods_runs_the_pods_as_workers(reduced_configs):
+    """train_4k under fsdp on the (2, 16, 16) fleet: the reference's vmap
+    step with exchange sim, a worker a pod, the parameters cut over
+    'data' and 'model' inside each."""
+    rec = dryrun.run_combo("qwen3-moe-30b-a3b", "train_4k", True,
+                           layout="fsdp", quiet=True)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["ranks"] == 512 and rec["n_workers"] == 2
+    assert rec["model_axis"] == 16 and rec["exchange"] == "sim(vmap)"
+    assert (rec["param_bytes_per_rank"]
+            == rec["param_bytes_per_device"]["bytes"])
+    assert set(rec["collectives_fsdp"]) >= {"reduce_scatter", "all_gather"}
+    assert rec["collectives"]["all_reduce"]["count"] > 0   # the pods' mean

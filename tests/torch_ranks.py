@@ -2,9 +2,10 @@
 of a gloo process group of CPU processes, and train DQGAN cases the same
 way in one process (stacked workers) or across the ranks.
 
-`run_ranks(fn, world, *args, model=1)` spawns `world` processes, each
-joining the group through a `file://` store in a temporary directory (no
-port), with one thread each, as a (world / model, model) mesh; `fn(mesh, *args)` runs on every rank and its results
+`run_ranks(fn, world, *args, model=1, layout="dp", pods=1)` spawns
+`world` processes, each joining the group through a `file://` store in
+a temporary directory (no port), with one thread each, as a (world /
+model, model) mesh (or a (pods, data, model) Mode-B one); `fn(mesh, *args)` runs on every rank and its results
 come back in rank order. Every wait has a deadline: a rank that fails or
 hangs fails the test instead of stalling the run. This module imports no
 JAX, so the ranks start quickly.
@@ -39,14 +40,16 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def _entry(rank, world, init_file, fn, args, q, model=1):
+def _entry(rank, world, init_file, fn, args, q, model=1, layout="dp",
+           pods=1):
     try:
         import torch
         torch.set_num_threads(1)
         from repro_torch.launch.mesh import ProcessMesh
         mesh = ProcessMesh.init(rank, world, device_type="cpu",
                                 init_method=f"file://{init_file}",
-                                timeout_s=120, model=model)
+                                timeout_s=120, model=model, layout=layout,
+                                pods=pods)
         try:
             out = fn(mesh, *args)
         finally:
@@ -56,9 +59,11 @@ def _entry(rank, world, init_file, fn, args, q, model=1):
         q.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, world, *args, timeout=150.0, model=1):
+def run_ranks(fn, world, *args, timeout=150.0, model=1, layout="dp",
+              pods=1):
     """[fn(mesh_r, *args) for r in range(world)], each on its own rank of
-    a (world / model, model) mesh."""
+    a (world / model, model) mesh (layout "fsdp": a (pods, world / (pods
+    · model), model) Mode-B mesh)."""
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
     results = {}
@@ -66,7 +71,7 @@ def run_ranks(fn, world, *args, timeout=150.0, model=1):
         init_file = os.path.join(tmp, "group")
         procs = [ctx.Process(target=_entry,
                              args=(r, world, init_file, fn, args, q,
-                                   model))
+                                   model, layout, pods))
                  for r in range(world)]
         for p in procs:
             p.start()
