@@ -881,32 +881,35 @@ class DQGAN:
         # ---------- extrapolation to w_{t-1/2}, per worker ------------- #
         # delayed: w_{t-1} is τ applied updates stale, so the lookahead
         # also subtracts the sum of the worker's in-flight messages
-        stale = sched_c.staleness_correction(pending_buf, dq.message, eta,
-                                             off)
-        stale = (T.flatten_up_to(paths, stale) if stale is not None
-                 else [None] * len(params))
-        if dq.optimizer == "omd" and dq.extrapolation == "local":
-            w_half = []
-            for w, g, e, s in zip(params, prev_grad, ef_leaves, stale):
-                upd = eta * g
-                if dq.error_feedback and "e1" in e:
-                    upd = upd + e["e1"].to(w.dtype)
-                if s is not None:
-                    upd = upd + s.to(w.dtype)
-                w_half.append(w - upd.to(w.dtype))      # (L, ...)
-            worker_params = [T.unflatten(paths, [x[i] for x in w_half])
-                             for i in range(L)]
-        elif dq.optimizer == "omd":     # global: the last applied update
-            upd = T.flatten_up_to(paths, state.prev_update)
-            w_half = [w - (u if s is None else u + s.to(u.dtype)).to(w.dtype)
-                      for w, u, s in zip(params, upd, stale)]
-            if pending_buf is None:
-                worker_params = [T.unflatten(paths, w_half)] * L
-            else:   # (L, ...): each worker's own in-flight messages
+        with OBS.device_span("lookahead", spans):
+            stale = sched_c.staleness_correction(pending_buf, dq.message, eta,
+                                                 off)
+            stale = (T.flatten_up_to(paths, stale) if stale is not None
+                     else [None] * len(params))
+            if dq.optimizer == "omd" and dq.extrapolation == "local":
+                w_half = []
+                for w, g, e, s in zip(params, prev_grad, ef_leaves, stale):
+                    upd = eta * g
+                    if dq.error_feedback and "e1" in e:
+                        upd = upd + e["e1"].to(w.dtype)
+                    if s is not None:
+                        upd = upd + s.to(w.dtype)
+                    w_half.append(w - upd.to(w.dtype))      # (L, ...)
                 worker_params = [T.unflatten(paths, [x[i] for x in w_half])
                                  for i in range(L)]
-        else:   # adam/oadam/sgd evaluate at the current params
-            worker_params = [T.unflatten(paths, params)] * L
+            elif dq.optimizer == "omd":     # global: the last applied update
+                upd = T.flatten_up_to(paths, state.prev_update)
+                w_half = [w - (u if s is None
+                               else u + s.to(u.dtype)).to(w.dtype)
+                          for w, u, s in zip(params, upd, stale)]
+                if pending_buf is None:
+                    worker_params = [T.unflatten(paths, w_half)] * L
+                else:   # (L, ...): each worker's own in-flight messages
+                    worker_params = [
+                        T.unflatten(paths, [x[i] for x in w_half])
+                        for i in range(L)]
+            else:   # adam/oadam/sgd evaluate at the current params
+                worker_params = [T.unflatten(paths, params)] * L
 
         # ---------- each worker's stochastic field --------------------- #
         grads_w, losses = [], []
@@ -923,23 +926,24 @@ class DQGAN:
                 "exchange.overlap: the field drew from its generator but "
                 "has no draw_z, so the overlapped step would not draw what "
                 "the blocking step draws; expose field_fn.draw_z")
-        grads = [gs[0][None] if L == 1 else torch.stack(gs)
-                 for gs in zip(*grads_w)]                   # (L, ...)
-        # the lookahead and the unstacked gradients are done with: free
-        # them before the exchange's buffers come
-        grads_w = worker_params = w_half = upd = None
-        if dq.message == "update" and dq.optimizer == "omd":
-            message = [(eta * g).float() for g in grads]
-        else:
-            message = [g.float() for g in grads]
+        with OBS.device_span("message", spans):
+            grads = [gs[0][None] if L == 1 else torch.stack(gs)
+                     for gs in zip(*grads_w)]               # (L, ...)
+            # the lookahead and the unstacked gradients are done with: free
+            # them before the exchange's buffers come
+            grads_w = worker_params = w_half = upd = None
+            if dq.message == "update" and dq.optimizer == "omd":
+                message = [(eta * g).float() for g in grads]
+            else:
+                message = [g.float() for g in grads]
 
-        # ---------- schedule dataflow ------------------------------------ #
-        # accumulate (local_k), ring-shift and advance the versions
-        # (delayed), or pass the fresh message through (every_step)
-        exch_msg, new_sched = sched_c.fold(
-            state.sched, T.unflatten(paths, message), pending, do_exchange,
-            state.step, mask_rows,
-            lambda tree: T.tree_map(torch.zeros_like, tree), off)
+            # ---------- schedule dataflow -------------------------------- #
+            # accumulate (local_k), ring-shift and advance the versions
+            # (delayed), or pass the fresh message through (every_step)
+            exch_msg, new_sched = sched_c.fold(
+                state.sched, T.unflatten(paths, message), pending,
+                do_exchange, state.step, mask_rows,
+                lambda tree: T.tree_map(torch.zeros_like, tree), off)
 
         # ---------- exchange + server update ---------------------------- #
         new_fsdp = state.fsdp
@@ -977,27 +981,31 @@ class DQGAN:
 
         # the wire's buffers are done with before the metrics' temporaries
         message = exch_msg = qhat = finish = None
-        new_prev_grad = None
-        if prev_grad is not None:
-            new_prev_grad = T.unflatten(
-                paths, [g.to(o.dtype) for o, g in zip(prev_grad, grads)])
+        with OBS.device_span("carry", spans):
+            new_prev_grad = None
+            if prev_grad is not None:
+                new_prev_grad = T.unflatten(
+                    paths, [g.to(o.dtype) for o, g in zip(prev_grad, grads)])
 
-        if self.vmap:
-            loss, gn, en, st_max, st_mean, st_now = self._vmap_metrics(
-                losses, grads, new_ef, state.step, new_sched, state.params)
-        else:
-            loss, gn, en, st_max, st_mean, st_now = self._metrics(
-                losses, grads, new_ef, state.step, new_sched, state.params)
-        new_state = DQState(step=state.step + 1, params=new_params,
-                            prev_grad=new_prev_grad,
-                            prev_update=new_prev_update, ef=new_ef,
-                            m=new_m, v=new_v, sched=new_sched, fsdp=new_fsdp)
-        out_metrics = {"loss": loss, "grad_norm": gn,
-                       "error_norm": en, "staleness_max": st_max,
-                       "staleness_mean": st_mean}
-        if col.enabled:
-            out_metrics["obs"] = self._obs_finalize(col, new_ef, st_now,
-                                                    state.params)
+            if self.vmap:
+                loss, gn, en, st_max, st_mean, st_now = self._vmap_metrics(
+                    losses, grads, new_ef, state.step, new_sched,
+                    state.params)
+            else:
+                loss, gn, en, st_max, st_mean, st_now = self._metrics(
+                    losses, grads, new_ef, state.step, new_sched,
+                    state.params)
+            new_state = DQState(step=state.step + 1, params=new_params,
+                                prev_grad=new_prev_grad,
+                                prev_update=new_prev_update, ef=new_ef,
+                                m=new_m, v=new_v, sched=new_sched,
+                                fsdp=new_fsdp)
+            out_metrics = {"loss": loss, "grad_norm": gn,
+                           "error_norm": en, "staleness_max": st_max,
+                           "staleness_mean": st_mean}
+            if col.enabled:
+                out_metrics["obs"] = self._obs_finalize(col, new_ef, st_now,
+                                                        state.params)
         return StepOutput(state=new_state, metrics=out_metrics,
                           mask=None if part is None else part[0])
 
@@ -1188,7 +1196,7 @@ class DQGAN:
             if self.dq.error_feedback:
                 ne["e1"] = e_new
             q = (p_hat.mean(dim=0) if self.mesh is None
-                 else self._workers.mean(p_hat))
+                 else self._workers.mean(p_hat, self._obs_spans))
             return lambda: (q, ne)
         if self.n_workers > 1:
             exch = self.strategy.exchange
@@ -1313,8 +1321,10 @@ class DQGAN:
                                               ef_leaves, rand, col, step)
                 return lambda: self._finish_skipped(paths, skipped, *out,
                                                     col)
-        flats = B.pack(layout, message)
-        e1_flats = B.pack(layout, e1_leaves) if dq.error_feedback else None
+        with OBS.device_span("pack", self._obs_spans):
+            flats = B.pack(layout, message)
+            e1_flats = (B.pack(layout, e1_leaves) if dq.error_feedback
+                        else None)
 
         fins = []
         for b, assign in zip(layout.buckets, cplan.assignments):
@@ -1349,11 +1359,12 @@ class DQGAN:
                     new_e1_flats.append(ne.get("e1", est.get("e1")))
                 if X.plan_has_owner_ef(plan_b):
                     new_bucket_ef[str(b.bid)] = {"e2": ne["e2"].to(ef_dtype)}
-            qhat = B.unpack_into(layout, out_flats, _firsts(message))
-            new_leaf_ef = [None] * len(message)
-            if dq.error_feedback:
-                new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
-                new_leaf_ef = [{"e1": x} for x in new_e1]
+            with OBS.device_span("unpack", self._obs_spans):
+                qhat = B.unpack_into(layout, out_flats, _firsts(message))
+                new_leaf_ef = [None] * len(message)
+                if dq.error_feedback:
+                    new_e1 = B.unpack_into(layout, new_e1_flats, e1_leaves)
+                    new_leaf_ef = [{"e1": x} for x in new_e1]
             return self._finish_skipped(
                 paths, skipped, qhat, {"leaf": T.unflatten(paths, new_leaf_ef),
                                        "bucket": new_bucket_ef}, col)
@@ -1431,8 +1442,9 @@ class DQGAN:
         views of the packed buffers: the operand is one float32 add over
         the packed buffer, the kernel's own m = g + e bit for bit, the
         residual B1's e'."""
-        msg = B.pack_concat(layout, message)            # (Σ size,)
-        e1 = B.pack_concat(layout, e1_leaves)
+        with OBS.device_span("pack", self._obs_spans):
+            msg = B.pack_concat(layout, message)        # (Σ size,)
+            e1 = B.pack_concat(layout, e1_leaves)
         r = None
         if any(b.bid in rand for b in layout.buckets):
             r = torch.cat([
@@ -1447,10 +1459,12 @@ class DQGAN:
                      for x in (msg, msg + e1, e_new)]
             for b, raw, op, err in zip(layout.buckets, *views):
                 col.bucket(b.bid, raw, op, err)
-        qhat = B.unpack_into(layout, B.split_concat(layout, m_hat),
-                             _firsts(message))
-        new_e1 = B.unpack_into(layout, B.split_concat(layout, e_new, (1,)),
-                               e1_leaves)
+        with OBS.device_span("unpack", self._obs_spans):
+            qhat = B.unpack_into(layout, B.split_concat(layout, m_hat),
+                                 _firsts(message))
+            new_e1 = B.unpack_into(layout,
+                                   B.split_concat(layout, e_new, (1,)),
+                                   e1_leaves)
         return qhat, {"leaf": T.unflatten(paths, [{"e1": x}
                                                   for x in new_e1]),
                       "bucket": dict(bucket_ef)}
@@ -1527,8 +1541,10 @@ class DQGAN:
             e1_leaves = [e.get("e1", torch.zeros(l.shape, dtype=self.ef_dtype,
                                                  device=l.device))
                          for l, e in zip(message, ef_leaves)]
-            e1_flats = B.pack(layout, e1_leaves)
-        flats = B.pack(layout, message)
+        with OBS.device_span("pack", spans):
+            if dq.error_feedback:
+                e1_flats = B.pack(layout, e1_leaves)
+            flats = B.pack(layout, message)
         started = []
         for b, assign in zip(layout.buckets, cplan.assignments):
             est = {"e1": e1_flats[b.bid]} if dq.error_feedback else {}
@@ -1541,8 +1557,10 @@ class DQGAN:
 
         def finish():
             params = T.flatten_up_to(paths, params_tree)
-            w_flats = (None if exch.zero_stage == 3 else
-                       B.pack(layout, [p.float() for p in params]))
+            w_flats = None
+            if exch.zero_stage != 3:
+                with OBS.device_span("pack", spans):
+                    w_flats = B.pack(layout, [p.float() for p in params])
             bc = (self._bias_corrections(step, self.device)
                   if self.uses_adam else None)
             new_w, new_e1_flats, new_fb = [], [], {}
@@ -1562,12 +1580,13 @@ class DQGAN:
                 new_fb[str(b.bid)] = ent
                 new_w.append(full if w_flats is None
                              else w_flats[b.bid] - full)
-            new_params = T.unflatten(paths, B.unpack_into(layout, new_w,
-                                                          params))
-            new_leaf_ef = [None] * len(message)
-            if dq.error_feedback:
-                new_leaf_ef = [{"e1": x} for x in B.unpack_into(
-                    layout, new_e1_flats, e1_leaves)]
+            with OBS.device_span("unpack", spans):
+                new_params = T.unflatten(paths, B.unpack_into(layout, new_w,
+                                                              params))
+                new_leaf_ef = [None] * len(message)
+                if dq.error_feedback:
+                    new_leaf_ef = [{"e1": x} for x in B.unpack_into(
+                        layout, new_e1_flats, e1_leaves)]
             return (new_params, {"leaf": T.unflatten(paths, new_leaf_ef),
                                  "bucket": {}}, new_fb)
         return finish

@@ -157,14 +157,17 @@ class _Ready:
 class _Pending:
     """A collective in flight: `wait` waits for `work` (on CUDA it makes the
     current stream wait; it does not block the host) and returns
-    `post(out)`."""
+    `post(out)`. `spans` (the flag of the caller that started it) puts the
+    wait in a ``repro.obs/wait`` range."""
 
-    def __init__(self, work, out, post=None):
+    def __init__(self, work, out, post=None, spans: bool = False):
         self._work, self._out, self._post = work, out, post
+        self._spans = spans
 
     def wait(self):
         if self._work is not None:
-            self._work.wait()
+            with device_span("wait", self._spans):
+                self._work.wait()
             self._work = None
         return self._out if self._post is None else self._post(self._out)
 
@@ -174,7 +177,9 @@ class _Workers:
     a handle (`start_mean`, `start_all_gather`, `start_all_to_all`,
     `start_reduce_scatter`; `handle.wait()` gives the result) and a
     blocking form. `n` is the global worker count W, `n_local` the rows
-    this process holds (L), `offset` the global index of its first row."""
+    this process holds (L), `offset` the global index of its first row.
+    `spans` puts the wait for a collective in flight in a
+    ``repro.obs/wait`` range."""
 
     n: int
     n_local: int
@@ -192,8 +197,8 @@ class _Workers:
                                                 device=x.device)
         return x / d
 
-    def mean(self, x):
-        return self.start_mean(x).wait()
+    def mean(self, x, spans: bool = False):
+        return self.start_mean(x, spans).wait()
 
     def reduce_scatter(self, x):
         return self.start_reduce_scatter(x).wait()
@@ -201,8 +206,8 @@ class _Workers:
     def all_gather(self, x):
         return self.start_all_gather(x).wait()
 
-    def all_to_all(self, x):
-        return self.start_all_to_all(x).wait()
+    def all_to_all(self, x, spans: bool = False):
+        return self.start_all_to_all(x, spans).wait()
 
     def rows(self, x):
         """This process's rows of a global (W, ...) tensor."""
@@ -227,18 +232,18 @@ class StackedWorkers(_Workers):
         self.n = self.n_local = n
         self._divisor = {}
 
-    def start_mean(self, x):
+    def start_mean(self, x, spans: bool = False):
         return _Ready(x.mean(dim=0))
 
-    def start_reduce_scatter(self, x):
+    def start_reduce_scatter(self, x, spans: bool = False):
         W = self.n
         s = x.reshape((W, W, x.shape[1] // W)).sum(dim=0)
         return _Ready(self._over_n(s))
 
-    def start_all_gather(self, x):
+    def start_all_gather(self, x, spans: bool = False):
         return _Ready(x)
 
-    def start_all_to_all(self, x):
+    def start_all_to_all(self, x, spans: bool = False):
         return _Ready(x.transpose(0, 1))
 
     def mean_each(self, vectors):
@@ -289,22 +294,22 @@ class ProcessGroupWorkers(_Workers):
         del kind, result
         return fn(*args, group=self.mesh.exchange, **kwargs)
 
-    def start_mean(self, x):
+    def start_mean(self, x, spans: bool = False):
         s = x.sum(dim=0)
         work = self._collective("all_reduce", s, dist.all_reduce, s,
                                 op=dist.ReduceOp.SUM, async_op=True)
-        return _Pending(work, s, self._over_n)
+        return _Pending(work, s, self._over_n, spans)
 
-    def start_all_gather(self, x):
+    def start_all_gather(self, x, spans: bool = False):
         x = x.contiguous()
         out = x.new_empty((self.n,) + tuple(x.shape[1:]))
         gather = (getattr(dist, "all_gather_single", None)
                   or dist.all_gather_into_tensor)
         work = self._collective("all_gather", out, gather, out, x,
                                 async_op=True)
-        return _Pending(work, out)
+        return _Pending(work, out, spans=spans)
 
-    def start_reduce_scatter(self, x):
+    def start_reduce_scatter(self, x, spans: bool = False):
         L = self.n_local
         s = x.sum(dim=0)
         out = s.new_empty((s.shape[0] // self.mesh.n_exchange,))
@@ -312,9 +317,10 @@ class ProcessGroupWorkers(_Workers):
                    or dist.reduce_scatter_tensor)
         work = self._collective("reduce_scatter", out, scatter, out, s,
                                 op=dist.ReduceOp.SUM, async_op=True)
-        return _Pending(work, out, lambda o: self._over_n(o.reshape(L, -1)))
+        return _Pending(work, out, lambda o: self._over_n(o.reshape(L, -1)),
+                        spans)
 
-    def start_all_to_all(self, x):
+    def start_all_to_all(self, x, spans: bool = False):
         L, world = self.n_local, self.mesh.n_exchange
         rest = tuple(x.shape[2:])
         # (L_src, W_chunk, ...) -> (world_dst, L_dst, L_src, ...): rank d's
@@ -327,7 +333,7 @@ class ProcessGroupWorkers(_Workers):
 
         def post(o):    # (world_src, L_dst, L_src, ...) -> (L_dst, W_src, ...)
             return o.transpose(0, 1).reshape((L, self.n) + rest)
-        return _Pending(work, out, post)
+        return _Pending(work, out, post, spans)
 
     def mean_each(self, vectors):
         """The mean over all W workers of each (L,) vector: one all_reduce."""
@@ -422,7 +428,7 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
     strategy = plan["strategy"]
     new_state = dict(ef_state)
     if strategy == "exact":
-        pend = workers.start_mean(p)
+        pend = workers.start_mean(p, spans)
         return ExchangeHandle(strategy, lambda: (pend.wait(), new_state))
     if strategy == "two_phase":
         return _start_two_phase(compressor, plan, p, ef_state, new_state,
@@ -438,9 +444,10 @@ def start_exchange(compressor, plan: dict, p, ef_state: dict, rand,
     if use_ef:
         new_state["e1"] = e_new
     if strategy == "sim":
-        pend = workers.start_mean(p_hat)
+        pend = workers.start_mean(p_hat, spans)
         return ExchangeHandle(strategy, lambda: (pend.wait(), new_state))
-    pends = {k: workers.start_all_gather(v) for k, v in payload.items()}
+    pends = {k: workers.start_all_gather(v, spans)
+             for k, v in payload.items()}
 
     def _finish_allgather():
         gathered = {k: h.wait() for k, h in pends.items()}
@@ -493,7 +500,7 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
         e_new = e_new.reshape((L, shape[ax]) + rest)
         new_state["e1"] = torch.movedim(e_new, 1, ax + 1).to(e1.dtype)
     payload = {k: v.reshape((L, W) + v.shape[1:]) for k, v in payload.items()}
-    moved = {k: workers.all_to_all(v) for k, v in payload.items()}
+    moved = {k: workers.all_to_all(v, spans) for k, v in payload.items()}
     chunk_shape = (shape[ax] // W,) + rest
     contrib = decompress_rows(                  # (L_dst, W_src, chunk)
         compressor, {k: v.reshape((L * W,) + v.shape[2:])
@@ -508,7 +515,8 @@ def _start_two_phase(compressor, plan, p, ef_state, new_state, rand,
             shard=cshard)
     new_state["e2"] = e2_new.reshape(ef_state["e2"].shape).to(
         ef_state["e2"].dtype)
-    pends = {k: workers.start_all_gather(v) for k, v in payload2.items()}
+    pends = {k: workers.start_all_gather(v, spans)
+             for k, v in payload2.items()}
 
     def _finish_two_phase():
         gathered = {k: h.wait() for k, h in pends.items()}
@@ -556,7 +564,7 @@ def start_reduce_scatter(compressor, kind: str, p, ef_state: dict, rand,
             new_state["e1"] = e_new.to(e1.dtype)
         return _resolved(kind, p_hat.to(p.dtype), new_state)
     if kind == "exact":
-        pend = workers.start_reduce_scatter(p)
+        pend = workers.start_reduce_scatter(p, spans)
         return ExchangeHandle(kind, lambda: (pend.wait().to(p.dtype),
                                              new_state))
     if kind != "two_phase":
@@ -574,7 +582,8 @@ def start_reduce_scatter(compressor, kind: str, p, ef_state: dict, rand,
     if use_ef:
         new_state["e1"] = e_new.reshape(L, d).to(e1.dtype)
     # int8 on the wire: (L_src, W_chunk, ...) -> (L_dst, W_src, ...)
-    pends = {k: workers.start_all_to_all(v.reshape((L, W) + v.shape[1:]))
+    pends = {k: workers.start_all_to_all(v.reshape((L, W) + v.shape[1:]),
+                                         spans)
              for k, v in payload.items()}
 
     def _finish_rs():
@@ -605,7 +614,8 @@ def start_all_gather_shard(compressor, shard, ag_ef, rand,
     if workers.n == 1:
         return _resolved("allgather_shard", c_hat.reshape(-1).to(shard.dtype),
                          new_ef)
-    pends = {k: workers.start_all_gather(v) for k, v in payload.items()}
+    pends = {k: workers.start_all_gather(v, spans)
+             for k, v in payload.items()}
 
     def _finish_ag():
         gathered = {k: h.wait() for k, h in pends.items()}

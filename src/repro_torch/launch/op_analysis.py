@@ -28,7 +28,8 @@ Per op (and summed):
 The same sums are kept per ``repro.obs/<phase>`` span (`obs.tracing`):
 the mode sees each span's profiler range open and close as ops of the
 ``profiler`` namespace and keeps a stack of their names, so an op is
-charged to the innermost span around it (``"(none)"`` outside any).
+charged to the innermost span around it (``"(none)"`` outside any),
+the clock's finer spans (`tracing.CLOCK_PHASES`) seen through.
 Spans must be on in the traced call for the split; the totals do not
 depend on it. A kernel's abstract form (`kernels.meta`) is one op of the
 ``repro_torch`` namespace with its outputs, as the card runs it.
@@ -52,7 +53,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.obs.tracing import PREFIX
+from repro_torch.obs.tracing import CLOCK_PHASES, PREFIX
 
 NONE = "(none)"
 _CALL = "call"          # a signature whose op is always called
@@ -163,8 +164,10 @@ class OpAnalysis(TorchDispatchMode):
         phase = NONE
         for span in reversed(self._stack):
             if span.startswith(PREFIX):
-                phase = span[len(PREFIX):].split("/", 1)[0]
-                break
+                name = span[len(PREFIX):].split("/", 1)[0]
+                if name not in CLOCK_PHASES:
+                    phase = name
+                    break
         for rec in (self.ops.setdefault(str(func), _empty_sums()),
                     self.phases.setdefault(phase, _empty_sums()),
                     self.total):

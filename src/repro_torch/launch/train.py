@@ -106,7 +106,12 @@ moments, staleness histogram), ``--obs-spans`` the ``repro.obs/<phase>``
 profiler ranges, ``--profile-steps N`` (or ``--obs-profile``) one
 ``profile`` event over the first N steps, with kernels per phase when
 spans are on, and ``--profile-trace-dir DIR`` a Chrome trace of the
-window. Under torchrun only rank 0 writes:
+window. With spans on, a phase clock (`repro_torch.obs.tracing.PhaseClock`)
+times the window's spans too: the event's ``phase_ms`` holds each span's
+count and its device, device-self and host milliseconds a step (CUDA
+events and the host clock on one timeline), ``host_gap_ms`` the wall
+time a step in which the device ran none of the step's phases; the
+report prints both. Under torchrun only rank 0 writes:
 
     python -m repro_torch.launch.train --arch dcgan32 --steps 20 \
         --compressor qsgd8_block1024 --comm-plan uniform \

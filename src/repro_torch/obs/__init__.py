@@ -12,10 +12,14 @@ steps (counterpart of `repro.obs`).
 - `report`, `calibrate` — ``python -m repro_torch.obs {report,calibrate}``,
   copies of the JAX package's CLIs over the port's `strategy` and
   `sched`.
-- `tracing` — ``repro.obs/<phase>`` ranges for `torch.profiler`.
+- `tracing` — ``repro.obs/<phase>`` ranges for `torch.profiler`, and the
+  `PhaseClock` that times them on the device (CUDA events) and the host
+  on one timeline, without a profiler: each span's device and host
+  milliseconds, and the device's gaps between the step's phases.
 - `profile` — the `StepProfiler`: synced step walls, host phases and,
   with spans on, kernels and allocated bytes per phase from a
-  `torch.profiler` capture (``--profile-steps``).
+  `torch.profiler` capture and the phase clock's readings over the same
+  steps (``--profile-steps``).
 - `trace` — the counterpart of `repro.obs.hlo`: collectives of a profiled
   step against the `CommLedger`, and schedule-shaped checks.
 """
@@ -48,4 +52,4 @@ from .profile import (  # noqa: F401
     StepProfiler,
     make_profiler,
 )
-from .tracing import device_span, host_span  # noqa: F401
+from .tracing import PhaseClock, device_span, host_span  # noqa: F401

@@ -42,6 +42,15 @@
   their keys, not their units. On a CUDA device
   a capture that saw no kernel is an error, never a report of host
   times.
+* **phase clock** — with spans on, a `tracing.PhaseClock` runs over the
+  same window as the capture and times every span on the device and the
+  host: ``phase_ms`` holds, for each span name, its count over the window
+  and its device, device-self and host milliseconds a step (device
+  entries null off CUDA), ``phase_steps`` the steps it timed, and
+  ``host_gap_ms`` the wall time a step in which the device ran no
+  top-level span of the step (null off CUDA). The profiler's capture
+  runs beside the clock, so these times carry its host cost; the
+  benchmark's are taken without it.
 * **trace capture** — ``trace_dir`` keeps the capture as a Chrome trace
   (``repro_obs_steps_<first>_<last>.json``) in that directory; it too
   starts at the window's second step.
@@ -60,7 +69,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .tracing import DEVICE_PHASES, HOST_PHASES, PREFIX
+from .tracing import DEVICE_PHASES, HOST_PHASES, PREFIX, PhaseClock
 
 DEFAULT_WINDOW = 32
 
@@ -202,7 +211,8 @@ class StepProfiler:
     calls are no-ops. `emit(sink)` writes the window as a single
     ``profile`` event. `device_phases` (spans on) and `trace_dir` run a
     `torch.profiler` capture over the window past its first step, with
-    CUDA activity when `device` is a CUDA device."""
+    CUDA activity when `device` is a CUDA device; `device_phases` runs a
+    `tracing.PhaseClock` over the same steps."""
 
     def __init__(self, window: int = DEFAULT_WINDOW, trace_dir: str = "",
                  device_phases: bool = False, device=None):
@@ -219,6 +229,8 @@ class StepProfiler:
         self.captured_steps = 0
         self._prof = None
         self._tracing = False
+        self._clock = PhaseClock(self.device) if self.device_phases else None
+        self._reading = None
         self._emitted = False
 
     # ------------------------------------------------------------------ #
@@ -260,6 +272,8 @@ class StepProfiler:
             return
         if self._tracing:
             self.captured_steps += 1
+            if self._clock is not None:
+                self._clock.end_step()
         if self.first_step is None:
             self.first_step = int(step)
             if (self.device_phases or self.trace_dir) and self.window > 1:
@@ -278,12 +292,17 @@ class StepProfiler:
                              profile_memory=True)
         self._prof.start()
         self._tracing = True
+        if self._clock is not None:
+            # the launcher ended the step just recorded in a synchronize
+            self._clock.start()
 
     def _stop_trace(self) -> None:
         if not self._tracing:
             return
         if self.cuda:
             torch.cuda.synchronize(self.device)
+        if self._clock is not None:
+            self._reading = self._clock.stop()
         self._prof.stop()
         self._tracing = False
         if self.trace_dir:
@@ -325,6 +344,12 @@ class StepProfiler:
                 out["device_phase_steps"] = self.captured_steps
                 if None in dev:
                     out["device_unattributed"] = dev[None]
+            r = self._reading
+            if r is not None and r.n_steps:
+                gap = r.host_gap_ms()
+                out["phase_ms"] = r.summary()
+                out["phase_steps"] = r.n_steps
+                out["host_gap_ms"] = None if gap is None else round(gap, 3)
         if self.trace_dir:
             out["trace_dir"] = self.trace_dir
         return out

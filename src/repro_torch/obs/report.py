@@ -22,7 +22,9 @@ Sections (each skipped cleanly when its events are absent):
   events): per-window step-wall stats, host-phase split and, when spans
   were on, the device-phase attribution (`obs.profile`: kernels and
   allocated bytes per phase from the profiler here, HLO ops and result
-  bytes in the JAX package).
+  bytes in the JAX package) and, from the port's phase clock, each
+  span's device, device-self and host milliseconds a step and the host
+  gap a step.
 * **measured vs modeled** — when the file holds enough to calibrate
   (run_meta + timing/profile + comm_summary), the report runs
   `repro_torch.obs.calibrate` on its own events and prints the fitted
@@ -229,6 +231,18 @@ def render(summary: dict) -> str:
         for name, rec in (prof.get("device_phases") or {}).items():
             lines.append(f"  device{name:>9}: {rec['ops']:>5} ops  "
                          f"{_fmt_bytes(rec['bytes'])} result traffic")
+        if prof.get("phase_ms"):
+            lines.append(f"  clock (ms a step over {prof['phase_steps']} "
+                         f"steps): device / device self / host")
+        for name, rec in (prof.get("phase_ms") or {}).items():
+            dev = "  ".join("       -" if rec[k] is None else
+                            f"{rec[k]:8.3f}"
+                            for k in ("device_ms", "device_self_ms"))
+            lines.append(f"  clock {name:>9}: {dev}  {rec['host_ms']:8.3f}"
+                         f"  ({rec['count']} spans)")
+        if prof.get("host_gap_ms") is not None:
+            lines.append(f"  host gap: {prof['host_gap_ms']:.3f}ms a step "
+                         f"with no step phase on the device")
         if prof.get("trace_dir"):
             lines.append(f"  trace: {prof['trace_dir']}")
 

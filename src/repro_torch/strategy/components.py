@@ -766,8 +766,9 @@ class Observability:
         "obs_metrics", "on-device telemetry level (repro.obs)",
         _metric_levels))
     spans: bool = field(default=False, metadata=_cli(
-        "obs_spans", "named phase spans (compress/exchange/apply/eval) "
-                     "for the jax profiler"))
+        "obs_spans", "named phase spans: repro.obs/<phase> ranges for "
+                     "torch.profiler, timed by the phase clock "
+                     "(repro_torch.obs.tracing) in a profiled window"))
     # Host-side step profiler (repro.obs.profile, DESIGN.md §12.1):
     # block_until_ready-bracketed step walls over a --profile-steps
     # window, per-phase attribution keyed off the repro.obs/ span names.

@@ -739,6 +739,51 @@ def test_obs_device_phases_hold_the_fields_backward(W, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4])
+def test_phase_clock_device_times_nest(W):
+    """Spans on, a phase clock over 3 steps (one worker B1, four B2): every
+    device time is non-negative and each span's device interval lies
+    inside its parent's (all on one stream); a step's busy time is no
+    more than the window's wall a step."""
+    from repro_torch.configs.base import DQConfig
+    from repro_torch.core.dqgan import DQGAN
+    from repro_torch.models import gan
+    from repro_torch.obs.tracing import PhaseClock
+    dev = _device()
+    cfg = gan.GANConfig(name="mix", image_size=0, data_dim=2, latent_dim=16,
+                        hidden=128)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    strat = _delayed("sim", W).evolve(obs_spans=True)
+    tr = DQGAN(field_fn=gan.gan_field_fn(cfg), dq=DQConfig.from_strategy(
+        strat, optimizer="omd", lr=1e-2), device=dev, workers=W)
+    st = tr.init(gan.init(cfg, generator=gen, device=dev))
+    batch = {"real": torch.randn((64, 2), generator=gen, device=dev)}
+    st = tr.step(st, batch).state
+    torch.cuda.synchronize()
+    clock = PhaseClock(dev).start()
+    try:
+        for _ in range(3):
+            st = tr.step(st, batch).state
+            clock.end_step()
+        torch.cuda.synchronize()
+    finally:
+        r = clock.stop()
+    assert r.n_steps == 3
+    assert {"lookahead", "field", "message", "exchange", "compress", "apply",
+            "carry"} <= set(r.phases)
+    eps = 1e-3      # ms: the events' resolution is about half a microsecond
+    for s in r.spans:
+        assert 0 <= s.device_in <= s.device_out, s
+        if s.parent is not None:
+            p = r.spans[s.parent]
+            assert p.device_in - eps <= s.device_in, (p, s)
+            assert s.device_out <= p.device_out + eps, (p, s)
+    for rec in r.phases.values():
+        assert rec["device_ms"] >= rec["device_self_ms"] >= -eps
+    assert 0 < r.busy_ms_per_step() <= r.wall_ms / r.n_steps + eps
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("W,shard_rows", [(4, (162, 162, 128)),
                                           (1, (648, 648, 512))])
 def test_fsdp_all_gather_leg_b1_matches_plain_version(W, shard_rows):
