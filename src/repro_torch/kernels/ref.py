@@ -2,7 +2,8 @@
 wrapper, and the reference `chip_smoke.py` holds each kernel against.
 
 Counterpart of `repro.kernels.ref`: one plain version for each of the four
-kernels (B1 and B2 share `quantize_ef_ref`)."""
+kernels (B1 and B2 share `quantize_ef_ref`), and the plain chunked SSD
+(`ssd_chunked_ref`) that B5 replaces, which the JAX package runs as XLA."""
 from __future__ import annotations
 
 import math
@@ -77,3 +78,56 @@ def flash_attention_ref(q, k, v, causal=True):
         s = torch.where(mask[None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def ssd_chunked_ref(x, Bm, Cm, dt, A, D, P_, chunk_size):
+    """Plain version of `kernels.ssd.ssd_chunked` (B5), the chunked SSD
+    of `models.mixers` over a full sequence: x (B, T, H·P) (its dtype is
+    the output's), Bm and Cm (B, T, N), dt (B, T, H) float32, A and D
+    (H,). Returns y (B, T, H·P) with the skip D·x, before the gated norm,
+    and the final state (B, H, P, N) float32. The heads are independent:
+    a model rank runs this on its own heads with B and C whole."""
+    B_, T, di = x.shape
+    n_h, N = dt.shape[-1], Bm.shape[-1]
+    L = min(chunk_size, T)
+    if T % L:
+        raise ValueError(f"ssd_apply: T={T} is not a multiple of the chunk "
+                         f"size {L}")
+    nc = T // L
+    xh = x.reshape(B_, nc, L, n_h, P_)
+    xf = xh.float()
+    Bc = Bm.reshape(B_, nc, L, N).float()
+    Cc = Cm.reshape(B_, nc, L, N).float()
+    dtc = dt.reshape(B_, nc, L, n_h)                       # f32
+    Adt = A[None, None, None] * dtc                        # (B, nc, L, H)
+    cum = torch.cumsum(Adt, dim=2)                         # running log-decay
+    # intra-chunk (lower-triangular) kernel. The reference takes
+    # exp(cum_l - cum_m) before its tril mask (`repro/models/mixers.py`
+    # :139-141): above the diagonal the exponent sums up to L-1 positive
+    # |A dt| terms and overflows to inf at L = 256, which its `where`
+    # drops in the forward, but whose backward forms 0 * inf = NaN in the
+    # gradients of A_log, dt and dt_bias. Masking the exponent to -inf
+    # first gives the same forward values (exp(-inf) = 0) and finite
+    # gradients.
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None] - cum[:, :, None, :]         # (B, nc, L, L, H)
+    kern = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                 -math.inf))
+    G = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # (B, nc, L, L)
+    W = G[..., None] * kern * dtc[:, :, None]              # weight of l <- m
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", W, xf)
+    # chunk-final states
+    dec_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (B, nc, L, H)
+    S_c = torch.einsum("bclh,bclhp,bcln->bchpn", dtc * dec_to_end, xf, Bc)
+    chunk_decay = torch.exp(Adt.sum(dim=2))                # (B, nc, H)
+    # the inter-chunk recurrence: h_prevs[c] is the state before chunk c
+    h = torch.zeros((B_, n_h, P_, N), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cc,
+                           torch.stack(h_prevs, dim=1), torch.exp(cum))
+    y = (y_intra + y_inter).to(x.dtype)
+    y = y + D.to(y.dtype)[None, None, None, :, None] * xh
+    return y.reshape(B_, T, di), h

@@ -3,12 +3,14 @@ the Mamba2 SSD mixer and the RG-LRU recurrent block of RecurrentGemma /
 Griffin, each over a full sequence (train and prefill) and as an O(1)
 decode step against a state.
 
-The JAX package runs both as XLA programs and calls no Pallas kernel, so
-they stay plain torch here:
-  * the SSD is the chunked einsum form (state-space duality): intra-chunk
-    work as batched products over (L, L) blocks, and the inter-chunk
-    state a Python loop over the ``T / chunk_size`` chunks (the JAX
-    package's `lax.scan`);
+The JAX package runs both as XLA programs and calls no Pallas kernel:
+  * the SSD is the chunked form (state-space duality). On CUDA tensors it
+    is kernel set B5 (`kernels.ssd`, hand-written, forward and backward:
+    no (L, L) block of a head in device memory, the recurrence over chunks
+    one small kernel); on the CPU and the meta device its plain version
+    (`kernels.ref.ssd_chunked_ref`): intra-chunk work as batched products
+    over (L, L) blocks, and the inter-chunk state a Python loop over the
+    ``T / chunk_size`` chunks (the JAX package's `lax.scan`);
   * the RG-LRU's linear recurrence h_t = a_t h_{t-1} + b_t is
     `associative_scan`, the odd/even recursion of
     `jax.lax.associative_scan` (log-depth: about 2 log2 T levels of
@@ -43,6 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ssd as SSD
 from repro_torch.parallel import tensor as TP
 
 from .layers import (_gelu_tanh, _randn, _silu, apply_norm, linear,
@@ -148,7 +151,8 @@ def ssd_apply(p, cfg, u, state=None, return_state=False):
 
     # ---- chunked SSD over the full sequence ------------------------------ #
     x, Bm, Cm = _ssd_split(_silu(causal_conv1d(p["conv"], xBC)), cfg)
-    y, h = _ssd_chunked(x, Bm, Cm, dt, A, p["D"], s.head_dim, s.chunk_size)
+    y, h = SSD.ssd_chunked(x, Bm, Cm, dt, A, p["D"], s.head_dim,
+                           s.chunk_size)
     y = _gated_norm(p["norm"], y, z)
     new_state = None
     if return_state:
@@ -173,58 +177,6 @@ def _ssd_step(h0, x, Bm, Cm, dt, A, D, P_):
     y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0].float())
     y = y.to(x.dtype) + D.to(x.dtype)[None, :, None] * xh
     return y.reshape(B_, 1, di), h
-
-
-def _ssd_chunked(x, Bm, Cm, dt, A, D, P_, chunk_size):
-    """The chunked SSD over a full sequence: x (B, T, H·P) (its dtype is
-    the output's), Bm and Cm (B, T, N), dt (B, T, H) float32, A and D
-    (H,). Returns y (B, T, H·P) with the skip D·x, before the gated norm,
-    and the final state (B, H, P, N) float32. The heads are independent:
-    a model rank runs this on its own heads with B and C whole."""
-    B_, T, di = x.shape
-    n_h, N = dt.shape[-1], Bm.shape[-1]
-    L = min(chunk_size, T)
-    if T % L:
-        raise ValueError(f"ssd_apply: T={T} is not a multiple of the chunk "
-                         f"size {L}")
-    nc = T // L
-    xh = x.reshape(B_, nc, L, n_h, P_)
-    xf = xh.float()
-    Bc = Bm.reshape(B_, nc, L, N).float()
-    Cc = Cm.reshape(B_, nc, L, N).float()
-    dtc = dt.reshape(B_, nc, L, n_h)                       # f32
-    Adt = A[None, None, None] * dtc                        # (B, nc, L, H)
-    cum = torch.cumsum(Adt, dim=2)                         # running log-decay
-    # intra-chunk (lower-triangular) kernel. The reference takes
-    # exp(cum_l - cum_m) before its tril mask (`repro/models/mixers.py`
-    # :139-141): above the diagonal the exponent sums up to L-1 positive
-    # |A dt| terms and overflows to inf at L = 256, which its `where`
-    # drops in the forward, but whose backward forms 0 * inf = NaN in the
-    # gradients of A_log, dt and dt_bias. Masking the exponent to -inf
-    # first gives the same forward values (exp(-inf) = 0) and finite
-    # gradients.
-    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    diff = cum[:, :, :, None] - cum[:, :, None, :]         # (B, nc, L, L, H)
-    kern = torch.exp(torch.where(tri[None, None, :, :, None], diff,
-                                 -math.inf))
-    G = torch.einsum("bcln,bcmn->bclm", Cc, Bc)            # (B, nc, L, L)
-    W = G[..., None] * kern * dtc[:, :, None]              # weight of l <- m
-    y_intra = torch.einsum("bclmh,bcmhp->bclhp", W, xf)
-    # chunk-final states
-    dec_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (B, nc, L, H)
-    S_c = torch.einsum("bclh,bclhp,bcln->bchpn", dtc * dec_to_end, xf, Bc)
-    chunk_decay = torch.exp(Adt.sum(dim=2))                # (B, nc, H)
-    # the inter-chunk recurrence: h_prevs[c] is the state before chunk c
-    h = torch.zeros((B_, n_h, P_, N), dtype=torch.float32, device=x.device)
-    h_prevs = []
-    for c in range(nc):
-        h_prevs.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
-    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cc,
-                           torch.stack(h_prevs, dim=1), torch.exp(cum))
-    y = (y_intra + y_inter).to(x.dtype)
-    y = y + D.to(y.dtype)[None, None, None, :, None] * xh
-    return y.reshape(B_, T, di), h
 
 
 def _ssd_tp(p, cfg, u, state=None, return_state=False):
@@ -280,7 +232,8 @@ def _ssd_tp(p, cfg, u, state=None, return_state=False):
         state["conv"].copy_(conv_buf)
         new_state = state
     else:
-        y, h = _ssd_chunked(x, Bm, Cm, dt, A, D, s.head_dim, s.chunk_size)
+        y, h = SSD.ssd_chunked(x, Bm, Cm, dt, A, D, s.head_dim,
+                               s.chunk_size)
         new_state = None
         if return_state:
             new_state = {"h": h,

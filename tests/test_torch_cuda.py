@@ -967,3 +967,182 @@ def test_lm_dqgan_steps_run_b1_once_a_step_bit_equal_to_plain():
     assert Q.launches - before == 2
     for a, b in zip(kern, ref):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# B5: the chunked SSD
+# --------------------------------------------------------------------------- #
+def _ssd_operands(seed, B, T, H, P, N, dtype, dev, big=False):
+    """x, B and C as views of one (B, T, H·P + 2N) tensor (the mixer's conv
+    output), dt = softplus(·) float32, A < 0 and D (H,), dy and dh. `big`:
+    |A·dt| near 6 a position, so that exp(cum_l − cum_m) above the diagonal
+    would overflow."""
+    rs = np.random.RandomState(seed)
+    di = H * P
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    xbc = f(B, T, di + 2 * N).to(dev, dtype)
+    x, Bm, Cm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+    dt = torch.nn.functional.softplus(f(B, T, H) + (2.0 if big else -1.0))
+    A = -torch.exp(f(H) * 0.5 + (1.0 if big else 0.0))
+    D = f(H)
+    dy = f(B, T, di).to(dev, dtype)
+    dh = f(B, H, P, N)
+    return x, Bm, Cm, dt.to(dev), A.to(dev), D.to(dev), dy, dh.to(dev)
+
+
+def _ssd_grads(fn, ops, P, L, dtype=None):
+    """y, h and the gradients of <y, dy> + <h, dh> for x, B, C, dt, A, D
+    through `fn` (the kernel's wrapper or the plain version), the operands
+    cast to `dtype` where given."""
+    x, Bm, Cm, dt, A, D, dy, dh = ops
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    leaves = [cast(t).detach().requires_grad_() for t in (x, Bm, Cm, dt, A,
+                                                          D)]
+    y, h = fn(*leaves, P, L)
+    loss = (y.float() * cast(dy).float()).sum() + (h * cast(dh)).sum()
+    return [y.detach(), h.detach()] + list(torch.autograd.grad(loss, leaves))
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+SSD_NAMES = ("y", "h", "dx", "dB", "dC", "ddt", "dA", "dD")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,L,dtype", [
+    (2, 2048, 64, 64, 128, 256, "bfloat16"),   # mamba2-1.3b's training cell
+    (2, 2048, 64, 64, 128, 256, "float32"),
+    (2, 2048, 32, 64, 128, 256, "bfloat16"),   # one of two model ranks
+    (2, 64, 32, 16, 16, 32, "float32"),        # the reduced config
+    (2, 64, 32, 16, 16, 32, "bfloat16"),
+    (2, 35, 4, 16, 16, 7, "float32"),          # T = 35 at chunk 7
+    (1, 512, 8, 128, 32, 256, "float32"),      # P 128: two channel tiles
+    (3, 96, 5, 32, 64, 96, "bfloat16")])       # odd heads, a partial tile
+def test_ssd_kernel_matches_plain_version(B, T, H, P, N, L, dtype):
+    """B5 against its plain version on the card: y, the final state and
+    the gradients of x, B, C, dt, A and D, each as a norm-relative gap. Both
+    sum in float32 in different orders (float32 operands: 2e-4); in
+    bfloat16, y, dx, dB and dC are rounded to bfloat16 by both (5e-3), the
+    float32 ones are not (1e-3). One forward and one backward launch."""
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    dev = _device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt_ = getattr(torch, dtype)
+    ops = _ssd_operands(T + H, B, T, H, P, N, dt_, dev)
+    before = (SSD.ssd_launches, SSD.ssd_bwd_launches)
+    got = _ssd_grads(SSD.ssd_chunked, ops, P, L)
+    assert (SSD.ssd_launches, SSD.ssd_bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = _ssd_grads(ssd_chunked_ref, ops, P, L)
+    torch.cuda.synchronize()
+    for name, a, b in zip(SSD_NAMES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        tol = (2e-4 if dtype == "float32" else
+               5e-3 if a.dtype == torch.bfloat16 else 1e-3)
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_gradients_finite_at_chunk_256_with_large_decays():
+    """C4 on the card: at chunk 256 with |A·dt| near 6 a position (masked
+    exponents far above float32's range) every gradient is finite, and the
+    kernel is as close to a float64 evaluation of the plain version as the
+    float32 plain version is (within twice its gap, or 1e-5)."""
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    dev = _device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = _ssd_operands(5, 1, 512, 4, 64, 128, torch.float32, dev, big=True)
+    got = _ssd_grads(SSD.ssd_chunked, ops, 64, 256)
+    f32 = _ssd_grads(ssd_chunked_ref, ops, 64, 256)
+    f64 = _ssd_grads(_ssd_ref64, ops, 64, 256, dtype=torch.float64)
+    for name, a, b, c in zip(SSD_NAMES, got, f32, f64):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, c) <= max(2 * _rel(b, c), 1e-5), (name, _rel(a, c),
+                                                          _rel(b, c))
+
+
+def _ssd_ref64(x, Bm, Cm, dt, A, D, P, L):
+    """The plain version's arithmetic in float64 (its casts to float32
+    turned to float64)."""
+    import inspect
+    import math
+    import textwrap
+
+    from repro_torch.kernels import ref
+    src = textwrap.dedent(inspect.getsource(ref.ssd_chunked_ref))
+    src = (src.replace(".float()", ".double()")
+           .replace("torch.float32", "torch.float64")
+           .replace("def ssd_chunked_ref", "def _f"))
+    ns = {"torch": torch, "math": math}
+    exec(src, ns)
+    return ns["_f"](x, Bm, Cm, dt, A, D, P, L)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take():
+    from repro_torch.kernels import ssd as SSD
+    dev = _device()
+    x, Bm, Cm, dt, A, D, _, _ = _ssd_operands(0, 1, 64, 2, 16, 16,
+                                              torch.float32, dev)
+    before = (SSD.ssd_launches, SSD.ssd_bwd_launches)
+    with pytest.raises(ValueError, match="P and N"):      # P = 8
+        SSD.ssd_chunked(x, Bm, Cm, dt.repeat(1, 1, 2), A.repeat(2),
+                        D.repeat(2), 8, 32)
+    with pytest.raises(ValueError, match="P and N"):      # N = 8
+        SSD.ssd_chunked(x, Bm[..., :8], Cm[..., :8], dt, A, D, 16, 32)
+    with pytest.raises(ValueError, match="chunk of 1 to 256"):
+        SSD.ssd_chunked(x.repeat(1, 8, 1), Bm.repeat(1, 8, 1),
+                        Cm.repeat(1, 8, 1), dt.repeat(1, 8, 1), A, D, 16,
+                        512)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        SSD.ssd_chunked(x.half(), Bm.half(), Cm.half(), dt, A, D, 16, 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        SSD.ssd_chunked(x, Bm.bfloat16(), Cm, dt, A, D, 16, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        SSD.ssd_chunked(x, Bm.transpose(1, 2).contiguous().transpose(1, 2),
+                        Cm, dt, A, D, 16, 32)
+    assert (SSD.ssd_launches, SSD.ssd_bwd_launches) == before
+
+
+@pytest.mark.cuda
+def test_mamba2_dqgan_steps_run_the_ssd_kernel():
+    """Reduced mamba2 (2 layers, P 16, N 16, chunk 32) in bfloat16 through
+    the trainer on the card: each step runs B5's forward twice a layer
+    (the field's forward and its recomputation under remat 'full') and its
+    backward once a layer, so 8 and 4 in two steps; the losses are finite
+    and B1 runs once a step."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import DQConfig
+    from repro_torch.core import dqgan
+    from repro_torch.data import lm_batch_iterator
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import build
+    from repro_torch.strategy import Compression, Strategy
+    dev = _device()
+    cfg = dataclasses.replace(configs.get("mamba2-1.3b").reduced(),
+                              param_dtype="bfloat16")
+    assert cfg.remat == "full" and cfg.num_layers == 2
+    bundle = build(cfg)
+    strat = Strategy(compression=Compression(compressor="qsgd8_block1024",
+                                             plan="uniform", bucket_mb=1.0))
+    tr = dqgan.DQGAN(field_fn=bundle.field_fn, dq=DQConfig.from_strategy(
+        strat, optimizer="omd", lr=1e-3, message="update"), device=dev,
+        seed=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = tr.init(bundle.init(generator=gen, device=dev))
+    it = lm_batch_iterator(4, 64, cfg.vocab_size, generator=gen, device=dev)
+    before = (SSD.ssd_launches, SSD.ssd_bwd_launches, Q.launches)
+    for _ in range(2):
+        out = tr.step(st, next(it))
+        st = out.state
+        assert torch.isfinite(out.metrics["loss"]).all()
+    assert (SSD.ssd_launches - before[0], SSD.ssd_bwd_launches - before[1],
+            Q.launches - before[2]) == (8, 4, 2)
