@@ -9,18 +9,19 @@ device memory. The forward is four launches (`cumsum`, `state`, `pass`,
 `scan`); the backward, a `torch.autograd.Function`, six (`state` again,
 `pass_bwd`, `bwd_bc`, `bwd_dx`, `bwd_dg`, `bwd_dt`) after one zeroing of
 its float32 workspace. The source builds into one library per pass and
-element type; `prebuild` starts a model's two at once. The forward keeps for the backward x, B, C, dt, A,
-the running log-decay `cum` (B, T, H), the chunk decays (B, nc, H) and the
-states entering each chunk (B, nc, H, P, N) float32. The skip D·x is
-added here, in x's dtype, as the plain version adds it.
+element type; `prebuild` starts a model's two at once. The forward keeps
+for the backward x, B, C, dt, A, the running log-decay `cum` (B, T, H),
+the chunk decays (B, nc, H) and the states entering each chunk (B, nc, H,
+P, N) float32. The skip D·x is added here, in x's dtype, as the plain
+version adds it.
 
 The kernels take P and N in (16, 32, 64, 128), a chunk of 1 to 256
 positions (T a multiple of it, as the plain version asks), any number of
 heads and rows, x, B and C in one dtype (float32 or bfloat16, the last
 dimension contiguous, 16-byte aligned with batch and token strides of
 whole 16 bytes, as the views of the mixer's conv output are: they need no
-copy), dt and A float32. `kernel_check`
-raises on anything else, on any device.
+copy), dt and A float32. `kernel_check` raises on anything else, on any
+device.
 
 Dispatch is by device: CPU and meta tensors go to the plain version (so
 the dry-run traces what the CPU runs), CUDA tensors to the kernels, which
@@ -71,7 +72,8 @@ def _fn(pass_, dtype):
     key = (pass_, dtype)
     fn = _fns.get(key)
     if fn is None:
-        fn = getattr(_build.load(_library(pass_, dtype)), f"ssd_chunked_{pass_}")
+        lib = _build.load(_library(pass_, dtype))
+        fn = getattr(lib, f"ssd_chunked_{pass_}")
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         seq = [ptr, i64, i64] * 3          # x, B, C with their strides
         if pass_ == "fwd":
@@ -205,7 +207,7 @@ class _SSDChunked(torch.autograd.Function):
             dhf = dhf.float().contiguous()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         grads = _launch_bwd(x, Bm, Cm, dt, A, cum, cd, hs, dy, dhf, ctx.P,
-                         ctx.L, stream)
+                            ctx.L, stream)
         ssd_bwd_launches += 1
         return (*grads, None, None)
 

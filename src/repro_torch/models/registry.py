@@ -201,7 +201,8 @@ def build(cfg, mesh=None) -> ModelBundle:
 
 
 def _build(cfg) -> ModelBundle:
-    if "ssd" in getattr(cfg, "layer_pattern", ()) and torch.cuda.is_available():
+    if ("ssd" in getattr(cfg, "layer_pattern", ())
+            and torch.cuda.is_available()):
         # B5's libraries build beside the rest of the set-up
         SSD.prebuild(getattr(torch, cfg.param_dtype))
     if isinstance(cfg, gan_lib.GANConfig):
