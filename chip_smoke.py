@@ -27,6 +27,15 @@ result line):
               and edge cases, and timed with the library call (SDPA) at
               the full tier (float32) and the gemma-2b call; its launches
               are counted over the timed full-tier run
+  3b. ssd     B5 (mamba2's chunked SSD, forward and backward) against its
+              plain version at mamba2-1.3b's training shape (2 x 2048, 64
+              heads of 64, state 128, chunk 256) in bfloat16 and at the
+              reduced config's and T = 35 at chunk 7 in float32: y, the
+              final state and the six gradients within the card tests'
+              norm-relative gaps, the backward twice bit-equal; forward
+              and forward + backward timed with the plain version at the
+              training shape. Its launches on each mamba2 path (zoo train,
+              serve, long, tp) are counted from zero on that path
   4. train    drive each path of the trainer through its CLI entry point,
               dcgan32 at full width, omd/update, with the launch count of
               every kernel zeroed just before and read just after:
@@ -154,7 +163,9 @@ result line):
               recurrentgemma-2b at 26 layers in bf16, a 4096-token prefill
               and 32 decode steps (timed); the CLI on each of the three
               archs (B1 5 in 5 steps) and four stacked workers on mamba2
-              reduced (B2 once a bucket a step)
+              reduced (B2 once a bucket a step); B5 on each mamba2 path:
+              2 forwards and 1 backward a layer a training step, forwards
+              only when serving
  21. dryrun   the launch tooling on the meta device (run after phases lm
               train and zoo): all 44 single-mesh (arch x shape) combos of
               `python -m repro_torch.launch.dryrun` at published widths
@@ -274,7 +285,13 @@ WAS_MS = {"quantize_ef": 0.0245, "quantize_ef_dyn": 0.0553,
           "paged_attention bfloat16": 0.1023,
           "paged_attention float32": 0.1249,
           "flash_attention (a) full tier": 0.1456,
-          "flash_attention (d) gemma-2b prefill": 0.0601}
+          "flash_attention (d) gemma-2b prefill": 0.0601,
+          # B5 before its backward summed through slots, with atomics
+          "ssd_chunked forward": 0.956,
+          "ssd_chunked forward + backward": 3.099}
+# B5's (forward, backward) calls on each mamba2 path, filled as the
+# phases run (`check_ssd_path`)
+SSD_PATHS = {}
 
 
 class SmokeFailure(Exception):
@@ -1178,6 +1195,163 @@ def phase_flash_kernel(dev):
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "library_ms": sdpa_ms, "bound_share": bound / ms}
     return rec
+
+
+SSD_CELL = (2, 2048, 64, 64, 128, 256)   # mamba2-1.3b's B, T, H, P, N, chunk
+SSD_NAMES = ("y", "h", "dx", "dB", "dC", "ddt", "dA", "dD")
+
+
+def ssd_operands(dev, seed, B, T, H, P, N, dtype):
+    """x, B and C as views of one (B, T, H·P + 2N) tensor (the mixer's
+    conv output), dt = softplus(·) float32, A < 0 and D (H,), and the
+    cotangents dy and dh, as the card tests draw them."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    di = H * P
+    f = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    xbc = f(B, T, di + 2 * N).to(dev, dtype)
+    x, Bm, Cm = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+    dt = torch.nn.functional.softplus(f(B, T, H) - 1.0)
+    A, D = -torch.exp(f(H) * 0.5), f(H)
+    dy, dh = f(B, T, di).to(dev, dtype), f(B, H, P, N)
+    return (x, Bm, Cm, dt.to(dev), A.to(dev), D.to(dev), dy,
+            dh.to(dev))
+
+
+def ssd_grads(fn, ops, P, L):
+    """y, h and the gradients of <y, dy> + <h, dh> for x, B, C, dt, A, D
+    through `fn` (B5's wrapper or its plain version)."""
+    import torch
+    x, Bm, Cm, dt, A, D, dy, dh = ops
+    leaves = [t.detach().requires_grad_() for t in (x, Bm, Cm, dt, A, D)]
+    y, h = fn(*leaves, P, L)
+    loss = (y.float() * dy.float()).sum() + (h * dh).sum()
+    return [y.detach(), h.detach()] + list(torch.autograd.grad(loss, leaves))
+
+
+def ssd_layers(cfg):
+    """The layers of `cfg` that run the SSD (B5 once a layer a forward)."""
+    pat = cfg.layer_pattern
+    return sum(1 for i in range(cfg.num_layers) if pat[i % len(pat)] == "ssd")
+
+
+def check_ssd_path(label, counts, layers, steps=None):
+    """B5's (forward, backward) calls on one path, counted from zero just
+    before it: a training path of `steps` steps makes 2 forwards (the
+    field's and its recomputation under remat) and 1 backward a layer a
+    step; a serving path (steps None) forwards only, a whole number a
+    layer. A model without SSD layers makes none. Kept in SSD_PATHS."""
+    fwd, bwd = counts
+    if not layers:
+        ok, want = fwd == bwd == 0, "0 and 0"
+    elif steps is not None:
+        ok = (fwd, bwd) == (2 * steps * layers, steps * layers)
+        want = f"{2 * steps * layers} and {steps * layers}"
+    else:
+        ok = fwd > 0 and fwd % layers == 0 and bwd == 0
+        want = f"forwards a multiple of {layers} and no backward"
+    check(ok, f"{label}: ssd_chunked ran {fwd} forward and {bwd} backward "
+          f"calls, expected {want}")
+    SSD_PATHS[label] = [fwd, bwd]
+
+
+def phase_ssd_kernel(dev):
+    """Hold B5 against its plain version: at mamba2-1.3b's training shape
+    (SSD_CELL) in bfloat16, at the reduced config's (2, 64, 32 heads of 16,
+    N 16, chunk 32) and at T = 35 with chunk 7, both in float32: y, the
+    final state and the gradients of x, B, C, dt, A and D as norm-relative
+    gaps, within the card tests' (float32 2e-4; in bfloat16 5e-3 for the
+    bfloat16 outputs, 1e-3 for the float32 ones); each call once more,
+    bit-equal. Time the forward and the forward + backward at SSD_CELL with
+    the plain version's; the bound is the operations of
+    `bench/flops/ssd_chunks.py`'s count at 67 TFLOP/s. Returns B5's record;
+    its launches are those of the timed forward + backward run."""
+    import torch
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels.ref import ssd_chunked_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("mamba2-1.3b cell", *SSD_CELL, bf16),
+             ("reduced config", 2, 64, 32, 16, 16, 32, f32),
+             ("T=35 at chunk 7", 2, 35, 4, 16, 16, 7, f32)]
+    SSD.reset_launches()
+    bad, worst = [], 0.0
+    for i, (label, B, T, H, P, N, L, dtype) in enumerate(cases):
+        ops = ssd_operands(dev, 50 + i, B, T, H, P, N, dtype)
+        got = ssd_grads(SSD.ssd_chunked, ops, P, L)
+        again = ssd_grads(SSD.ssd_chunked, ops, P, L)
+        want = ssd_grads(ssd_chunked_ref, ops, P, L)
+        torch.cuda.synchronize()
+        gaps = []
+        for name, a, a2, b in zip(SSD_NAMES, got, again, want):
+            a64, b64 = a.double(), b.double()
+            gap = float((a64 - b64).norm() / b64.norm())
+            tol = (2e-4 if dtype == f32 else
+                   5e-3 if a.dtype == bf16 else 1e-3)
+            gaps.append(f"{name} {gap:.2e}")
+            bad += [f"{label} {name}: {m}" for ok, m in (
+                (gap <= tol, f"gap {gap:.3e} > {tol:.0e}"),
+                (bool(torch.isfinite(a.float()).all()), "not finite"),
+                (torch.equal(a, a2), "two calls differ")) if not ok]
+            if label == cases[0][0]:
+                worst = max(worst, gap)
+        print(f"# kernel ssd_chunked [{label}] {str(dtype)[6:]} B={B} T={T} "
+              f"H={H} P={P} N={N} L={L}: norm-relative gaps against the "
+              f"plain version {', '.join(gaps)}; two calls bit-equal")
+        del ops, got, again, want
+    check(not bad, "ssd_chunked disagrees with its plain version or with "
+          "itself: " + "; ".join(bad))
+    check((SSD.ssd_launches, SSD.ssd_bwd_launches)
+          == (2 * len(cases), 2 * len(cases)),
+          f"ssd_chunked ran {SSD.ssd_launches} forward and "
+          f"{SSD.ssd_bwd_launches} backward calls for {2 * len(cases)} of "
+          f"each")
+
+    B, T, H, P, N, L = SSD_CELL
+    x, Bm, Cm, dt, A, D, dy, dh = ssd_operands(dev, 50, *SSD_CELL[:5], bf16)
+    leaves = [t.detach().requires_grad_() for t in (x, Bm, Cm, dt, A, D)]
+
+    def fwd(fn):
+        with torch.no_grad():
+            return fn(x, Bm, Cm, dt, A, D, P, L)
+
+    def fwd_bwd(fn):
+        y, h = fn(*leaves, P, L)
+        return torch.autograd.grad((y, h), leaves, (dy, dh))
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    iters = 20
+    fwd_ms = time_ms(lambda: fwd(SSD.ssd_chunked), iters, flush)
+    plain_fwd_ms = time_ms(lambda: fwd(ssd_chunked_ref), iters, flush)
+    SSD.reset_launches()
+    ms = time_ms(lambda: fwd_bwd(SSD.ssd_chunked), iters, flush)
+    launches = SSD.ssd_launches
+    check((launches, SSD.ssd_bwd_launches) == (iters + 3, iters + 3),
+          f"ssd_chunked ran {launches} forward and {SSD.ssd_bwd_launches} "
+          f"backward calls in a timed run of {iters + 3}")
+    plain_ms = time_ms(lambda: fwd_bwd(ssd_chunked_ref), iters, flush)
+    # bench/flops/ssd_chunks.py: C·Bᵀ and the masked product over the lower
+    # triangle, the chunk states and their read-out; 3x with the backward
+    flop = B * T * (L * N + L * H * P + 4.0 * H * P * N)
+    fwd_bound, bound = flop / PEAK_F32_FLOP_S * 1e3, 3 * flop / \
+        PEAK_F32_FLOP_S * 1e3
+    print(f"# kernel ssd_chunked timing [mamba2-1.3b cell] bfloat16 B={B} "
+          f"T={T} H={H} P={P} N={N} L={L} ({flop / 1e9:.2f} GFLOP forward, "
+          f"{3 * flop / 1e9:.2f} with the backward): forward {fwd_ms:.4f} ms "
+          f"(plain {plain_fwd_ms:.4f}, bound {fwd_bound:.4f}, "
+          f"{share_and_was('ssd_chunked forward', fwd_ms, fwd_bound)}); "
+          f"forward + backward {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+          f"{bound:.4f} (operations), launches {launches}, "
+          f"{share_and_was('ssd_chunked forward + backward', ms, bound)})")
+    return {"name": "ssd_chunked", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_chunked.cu",
+            "replaces": None,   # the JAX package runs the SSD as XLA
+            "launches": launches, "max_rel_err": worst, "ms": ms,
+            "fwd_ms": fwd_ms, "plain_ms": plain_ms,
+            "plain_fwd_ms": plain_fwd_ms, "bound_ms": bound,
+            "fwd_bound_ms": fwd_bound, "bound_by": "operations",
+            "library_ms": None, "bound_share": bound / ms}
 
 
 def serve_cli(argv, label):
@@ -3500,6 +3674,7 @@ def zoo_train_ssd(dev, gpu, b1_paths):
     from repro_torch import tree as T
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd as SSD
 
     tr, st, batches, cfg, _ = lm_trainer(dev, ZOO_SSD, ZOO_SSD_LAYERS, 23)
     layout = tr._comm(st.params)[0]
@@ -3517,6 +3692,7 @@ def zoo_train_ssd(dev, gpu, b1_paths):
     torch.cuda.reset_peak_memory_stats()
     Q.reset_launches()
     FA.reset_launches()
+    SSD.reset_launches()
     kept, times, losses = None, [], []
     for i in range(ZOO_STEPS):
         st, t, l, _ = lm_steps(tr, st, batches, 1, ZOO_SSD)
@@ -3524,6 +3700,8 @@ def zoo_train_ssd(dev, gpu, b1_paths):
         losses += l
         if i == LM_PARITY_STEPS - 1:
             kept = host_params(st)       # outside the timed steps
+    check_ssd_path(f"zoo {ZOO_SSD}", (SSD.ssd_launches, SSD.ssd_bwd_launches),
+                   ssd_layers(cfg), ZOO_STEPS)
     launches = Q.launches
     check(launches == ZOO_STEPS and Q.launches_dyn == 0
           and FA.flash_launches == 0 and FA.launches == 0,
@@ -3538,7 +3716,9 @@ def zoo_train_ssd(dev, gpu, b1_paths):
           f"finite every step, median step {step_s * 1e3:.3f} ms (first "
           f"step {times[0] * 1e3:.1f} ms), losses "
           f"{[round(x, 4) for x in losses]}, peak memory {gib(peak):.2f} "
-          f"GiB ({peak / n_params:.1f} B a parameter); gpu {gpu}")
+          f"GiB ({peak / n_params:.1f} B a parameter), ssd_chunked "
+          f"{SSD_PATHS[f'zoo {ZOO_SSD}']} (forward, backward) calls; gpu "
+          f"{gpu}")
     b1_paths[f"zoo {ZOO_SSD}"] = launches
     measured = {"peak_bytes": peak, "step_s": step_s,
                 "b1_a_step": launches / ZOO_STEPS}
@@ -3613,11 +3793,15 @@ def zoo_serve_ssd(dev, gpu):
     from repro_torch.serve import (Engine, Request, SequentialGenerator,
                                    ServeConfig)
     from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.launch import serve
     cfg = get(ZOO_SSD)
     FA.reset_launches()
     Q.reset_launches()
+    SSD.reset_launches()
     res = serve.main(["--arch", ZOO_SSD] + S_ARGS[2:])
+    check_ssd_path(f"zoo serve {ZOO_SSD} bf16",
+                   (SSD.ssd_launches, SSD.ssd_bwd_launches), ssd_layers(cfg))
     row, steps = res["row"], res["stats"]["steps"]
     check(row["generated"] == S_BATCH * S_GEN and steps == S_GEN - 1
           and FA.launches == FA.flash_launches == Q.launches
@@ -3661,6 +3845,7 @@ def zoo_serve_ssd(dev, gpu):
             for i, (P, G) in enumerate([(20, 8), (300, 8), (12, 6),
                                         (150, 8), (256, 5), (7, 8)])]
     eng = Engine(cfg, scfg, params)
+    SSD.reset_launches()
     for r in reqs[:3]:
         eng.submit(r)
     for r in reqs[3:]:
@@ -3668,6 +3853,8 @@ def zoo_serve_ssd(dev, gpu):
         eng.submit(r)
     while not eng.idle:
         eng.step()
+    check_ssd_path(f"zoo serve {ZOO_SSD} f32 engine",
+                   (SSD.ssd_launches, SSD.ssd_bwd_launches), ssd_layers(cfg))
     seq = SequentialGenerator(cfg, scfg, params)
     diff = [r.rid for r in reqs
             if seq.generate(list(r.prompt), r.max_new, rid=r.rid)
@@ -3678,7 +3865,10 @@ def zoo_serve_ssd(dev, gpu):
           f"(prompts {[len(r.prompt) for r in reqs]}), 4 slots, churn: "
           f"engine == sequential, token for token "
           f"({sum(len(v) for v in eng.outputs.values())} tokens, "
-          f"{eng.steps} engine steps, {time.perf_counter() - t0:.1f} s)")
+          f"{eng.steps} engine steps, {time.perf_counter() - t0:.1f} s); "
+          f"ssd_chunked (forward, backward) calls: the launcher's bf16 run "
+          f"{SSD_PATHS[f'zoo serve {ZOO_SSD} bf16']}, the f32 engine's "
+          f"{SSD_PATHS[f'zoo serve {ZOO_SSD} f32 engine']}")
     del eng, seq, params
     free_cuda()
 
@@ -3736,6 +3926,7 @@ def zoo_long(dev, gpu):
     import torch
     from repro_torch import tree as T
     from repro_torch.configs import get
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models import model as lm
     gen = torch.Generator(device=dev).manual_seed(41)
     P, k = ZOO_LONG, ZOO_LONG_K
@@ -3750,12 +3941,16 @@ def zoo_long(dev, gpu):
                 if (P + k) % c == 0)
     ref_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
         cfg.ssm, chunk_size=chunk))
+    SSD.reset_launches()
     err, scale = zoo_match_forward(params, cfg, toks, P, k, "long mamba2",
                                    ref_cfg=ref_cfg)
+    check_ssd_path(f"zoo long {ZOO_SSD} f32",
+                   (SSD.ssd_launches, SSD.ssd_bwd_launches), ssd_layers(cfg))
     print(f"# zoo long {ZOO_SSD} f32, 4 layers: prefill {P} "
           f"({P // cfg.ssm.chunk_size} SSD chunks) + {k} decode steps vs a "
           f"forward over {P + k} at chunk {chunk}: max |dlogit| {err:.3e} "
-          f"(max |logit| {scale:.3e})")
+          f"(max |logit| {scale:.3e}); ssd_chunked (forward, backward) "
+          f"calls {SSD_PATHS[f'zoo long {ZOO_SSD} f32']}")
     del params
     free_cuda()
 
@@ -4213,6 +4408,7 @@ def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout, rows=None):
     import torch
     from repro_torch import tree as T
     from repro_torch.configs import get
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models import build
     cfg = dataclasses.replace(get(arch), num_layers=layers,
                               param_dtype=dtype)
@@ -4229,6 +4425,7 @@ def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout, rows=None):
     torch.cuda.reset_peak_memory_stats()
     # kv_layout splits the cache over a model axis: one process has none
     kw = {} if mesh is None else {"kv_layout": kv_layout}
+    SSD.reset_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
         lg, c = bundle.prefill(params, tokens, None,
@@ -4260,7 +4457,9 @@ def _tp_serve(dev, mesh, arch, layers, dtype, steps, kv_layout, rows=None):
            "decode_peak": torch.cuda.max_memory_allocated(),
            "param_bytes": sum(x.numel() * x.element_size()
                               for x in T.leaves(params)),
-           "prefill_s": t1 - t0, "decode_s": t2 - t1}
+           "prefill_s": t1 - t0, "decode_s": t2 - t1,
+           "ssd": (SSD.ssd_launches, SSD.ssd_bwd_launches),
+           "ssd_layers": ssd_layers(cfg)}
     del params, c, lg, bundle
     free_cuda()
     return res
@@ -4282,6 +4481,7 @@ def _tp_train(mesh, rank, arch, layers, batch, seq, steps, seed):
     from repro_torch.core.dqgan import DQGAN
     from repro_torch.data import lm_batch_iterator
     from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models import build, param_specs
     dev = mesh.device
     cfg = dataclasses.replace(get(arch), num_layers=layers)
@@ -4301,6 +4501,7 @@ def _tp_train(mesh, rank, arch, layers, batch, seq, steps, seed):
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     Q.reset_launches()
+    SSD.reset_launches()
     # one step a call, as phase lm train takes them: a caller holding
     # the state it passed in would keep the first state alive beside
     # every later step's
@@ -4310,6 +4511,7 @@ def _tp_train(mesh, rank, arch, layers, batch, seq, steps, seed):
         times += t
         losses += l
     launches = Q.launches
+    ssd = (SSD.ssd_launches, SSD.ssd_bwd_launches)
     peak = torch.cuda.max_memory_allocated()
     st = lm_check_b1_step(tr, st, batches, rows, f"tp {arch} rank {rank}")
     shards = tr.state_shards(st)
@@ -4317,7 +4519,8 @@ def _tp_train(mesh, rank, arch, layers, batch, seq, steps, seed):
                                  .numpy().tobytes()).hexdigest()
                for n, x in CK._paths(st.params)
                if f"params/{n}" not in shards.leaves}
-    out = {"arch": arch, "launches": launches, "peak": peak,
+    out = {"arch": arch, "launches": launches, "ssd": ssd,
+           "ssd_layers": ssd_layers(cfg), "peak": peak,
            "times": times, "losses": losses, "rows": rows,
            "skipped": len(layout.skipped), "digests": digests,
            "backend": mesh.backend,
@@ -4332,12 +4535,15 @@ def _tp_report(i, r, steps, one_peak, gpu):
     """Rank i's record of one arch: its checks and its line."""
     check(r["launches"] == steps, f"tp {r['arch']} rank {i}: B1 launched "
           f"{r['launches']} times in {steps} steps")
+    check_ssd_path(f"tp {r['arch']} model 2 rank {i}", r["ssd"],
+                   r["ssd_layers"], steps)
     print(f"# tp (c) {r['arch']} rank {i}: {r['param_bytes']} parameter "
           f"bytes, {r['skipped']} sharded leaves on the per-tensor path, B1 "
           f"{r['launches']} in {steps} steps over {r['rows']} rows, losses "
           f"{[round(x, 4) for x in r['losses']]}, peak {gib(r['peak']):.2f} "
           f"GiB ({r['peak'] / one_peak:.3f} of the one-process peak "
-          f"{gib(one_peak):.2f} GiB), median step "
+          f"{gib(one_peak):.2f} GiB), ssd_chunked {list(r['ssd'])} "
+          f"(forward, backward) calls, median step "
           f"{statistics.median(r['times'][1:]) * 1e3:.3f} ms over "
           f"{r['backend']} (two ranks share the card: not a tensor-parallel "
           f"speed); gpu {gpu}")
@@ -4514,6 +4720,9 @@ def _tp_serve_report(one, ranks, gpu):
                                                      "dtype", "kv_layout"))
     label = f"tp (e) {arch} {layers} layers {dtype} {kv}"
     steps = one["tokens"].shape[1] - 1
+    check_ssd_path(f"{label} one process", one["ssd"], one["ssd_layers"])
+    for i, r in enumerate(ranks):
+        check_ssd_path(f"{label} rank {i}", r["ssd"], r["ssd_layers"])
     check(np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]),
           f"{label}: the two ranks' greedy tokens differ")
     same = float((ranks[0]["tokens"] == one["tokens"]).mean())
@@ -5151,6 +5360,7 @@ def main():
                    for i in range(S_BATCH)]
         b3 = timed("kernel B3", phase_paged_kernel, dev, scfg, lengths)
         b4 = timed("flash", phase_flash_kernel, dev)
+        b5 = timed("kernel B5", phase_ssd_kernel, dev)
         lm_b1, lm_b2, lm_call, lm_meas = timed("lm train", phase_lm_train,
                                                dev, gpu)
         zoo_b1, zoo_b2, zoo_call, zoo_meas = timed("zoo", phase_zoo, dev,
@@ -5192,6 +5402,8 @@ def main():
         # and over mamba2-1.3b's, timed in phase zoo's profiled window
         b1["zoo_call"] = zoo_call
         b3["launches_by_path"] = quant_b3
+        # B5's (forward, backward) calls on each mamba2 path
+        b5["launches_by_path"] = dict(SSD_PATHS)
         b2["launches_by_path"] = {
             **{f"sched {k}": v[1] for k, v in sched.items()},
             **{f"dist nccl {k}": v for k, v in dist_b2.items()},
@@ -5203,7 +5415,7 @@ def main():
         return 1
     print(f"# all phases passed in {time.perf_counter() - t0:.1f} s")
     print(f"# gpu: {gpu}")
-    print(json.dumps({"kernels": [b1, b2, b3, b4]}))
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,31 +37,24 @@
 //                      place: hs[c] becomes the state entering chunk c
 //             scan     y = exp(cum_l)·C_l·hs[c]ᵀ + Σ_{m≤l} G_lm·decay·dt_m·x_m
 //   backward  state    dHi[c] = Σ_l exp(cum_l)·dy_l ⊗ C_l (mode 1)
-//             pass_bwd the reversed recurrence: dS_c, d(cd_c)
+//             pass_bwd the reversed recurrence: dS_c, and d(cd_c)'s part of each CTA
 //             bwd_bc   dB from the states, dC from the read-out: one GEMM
 //                      over (head, channel) a (batch, chunk)
 //             bwd_dx   dx (the masked product's transpose and the states),
 //                      the state and read-out terms of dt and cum
 //             bwd_dg   dW = dy·xᵀ on the lower triangle: the cum and dt
 //                      terms of the masked product, and dG summed over the
-//                      heads, whose products with B and C go to dC and dB
+//                      CTA's heads
+//             bwd_gbc  dB += dGᵀ·C and dC += dG·B, dG summed over the head groups
 //             bwd_dt   da = the reversed running sum of dcum; ddt += A·da,
-//                      dA = Σ dt·da
+//                      dA's part of each (batch, chunk, head)
+// The backward is deterministic: no atomics. Where several CTAs add to one value, each
+// writes its part to a slot of its own in a workspace, and one later kernel sums the
+// slots in a fixed order; so one input gives the same bits on every run.
 // The skip D·x stays in PyTorch (`kernels/ssd.py`).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-// One library per element type of x, B, C and dy, and per pass, all from this source
-// (`kernels/_build.py`'s DEFINES), so that they build in parallel
-#ifndef SSD_BF16
-#define SSD_BF16 1
-#endif
-#ifndef SSD_BWD
-#define SSD_BWD 0
-#endif
 
 namespace {
 
@@ -286,7 +279,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-#if !SSD_BWD
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
@@ -312,7 +304,6 @@ __global__ void __launch_bounds__(NT) ssd_chunk_cumsum(Ops o) {
   }
   o.cd[idx] = expf(s);
 }
-#endif
 
 // MODE 0: out = S_c (x, B, dt·exp(cum_end − cum_l)); MODE 1: out = dHi (dy, C, exp(cum_l)).
 // grid (P tiles · N tiles, B·nc, H)
@@ -368,7 +359,6 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_state(Ops o, float* out) {
   }
 }
 
-#if !SSD_BWD
 // hs holds S_c on entry and the state entering chunk c on exit; grid (⌈P·N/256⌉, B·H)
 __global__ void __launch_bounds__(NT) ssd_chunk_pass(Ops o, float* hfin) {
   const int PN = o.P * o.N;
@@ -394,7 +384,6 @@ __global__ void __launch_bounds__(NT) ssd_chunk_pass(Ops o, float* hfin) {
   }
   hfin[((long long)b * o.H + h) * PN + e] = run;
 }
-#endif
 
 // y for 64 rows (l0..l0+63) of a chunk and up to HG_SCAN heads; grid (⌈L/64⌉, B·nc,
 // ⌈H/HG_SCAN⌉). Left of the diagonal tile the decay splits at the pivot l0:
@@ -524,14 +513,14 @@ __global__ void __launch_bounds__(NT) ssd_chunk_scan(Ops o, E* y) {
   }
 }
 
-#if SSD_BWD
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
 // ds holds dHi on entry and dS_c (the gradient of the state after chunk c) on exit;
-// dcd[b, c, h] += Σ_pn dS_c·hs[c]. grid (⌈P·N/256⌉, B·H)
+// dcdp[(b, c, h), blockIdx.x] = Σ over the CTA's (p, n) of dS_c·hs[c], the CTA's part of
+// d(cd_c). grid (⌈P·N/256⌉, B·H)
 __global__ void __launch_bounds__(NT) ssd_chunk_pass_bwd(Ops o, const float* dhf, float* ds,
-                                                          float* dcd) {
+                                                          float* dcdp) {
   __shared__ float red[4][NT / 32];
   const int PN = o.P * o.N;
   const int e = blockIdx.x * NT + threadIdx.x;
@@ -562,12 +551,11 @@ __global__ void __launch_bounds__(NT) ssd_chunk_pass_bwd(Ops o, const float* dhf
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < NT / 32; ++w) s += red[threadIdx.x][w];
-      atomicAdd(dcd + ((long long)b * o.nc + c1 - 1 - threadIdx.x) * o.H + h, s);
+      dcdp[(((long long)b * o.nc + c1 - 1 - threadIdx.x) * o.H + h) * gridDim.x + blockIdx.x] = s;
     }
     __syncthreads();
   }
 }
-#endif
 
 // dB (which 0) from the states and dC (which 1) from the read-out, for 64 rows and
 // 64 state channels of a chunk, summed over (head, channel); plain stores, before
@@ -630,12 +618,15 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_bwd_bc(Ops o, const float* dS
 }
 
 // dx for 64 rows (sources m0..m0+63) of a chunk and up to HG_SCAN heads, and the state
-// and read-out terms of ddt and dcum (added). grid (⌈L/64⌉, B·nc, ⌈H/HG_SCAN⌉). Below
+// and read-out terms of ddt and dcum, stored: this CTA alone writes them at its rows.
+// dlast[m] = dw·w is the term that row m adds to dcum at the chunk's last position,
+// which `bwd_dt` sums. grid (⌈L/64⌉, B·nc, ⌈H/HG_SCAN⌉). Below
 // the diagonal tile the decay splits at the pivot q, the tile's last row:
 // exp(cum_l − cum_m) = exp(cum_l − cum_q)·exp(cum_q − cum_m), both factors at most 1.
 template <class E, int NPT>
 __global__ void __launch_bounds__(NT) ssd_chunk_bwd_dx(Ops o, const float* dS, E* dx,
-                                                        float* dcum, float* ddt) {
+                                                        float* dcum, float* ddt,
+                                                        float* dlast) {
   extern __shared__ __align__(16) float sm[];
   const int H = o.H, P = o.P, N = o.N, L = o.L;
   const int nLp = (L + 63) / 64 * 64, KN = max(N, 64);
@@ -817,29 +808,32 @@ __global__ void __launch_bounds__(NT) ssd_chunk_bwd_dx(Ops o, const float* dS, E
         }
         const float e = expf(last - cs[m]), w = dts[m] * e;
         const long long at = ((long long)b * o.T + t0 + m) * H + h;
-        atomicAdd(ddt + at, dw * e);
-        atomicAdd(dcum + at, expf(cs[m]) * dz - dw * w);
-        atomicAdd(dcum + ((long long)b * o.T + t0 + L - 1) * H + h, dw * w);
+        ddt[at] = dw * e;
+        dcum[at] = expf(cs[m]) * dz - dw * w;
+        dlast[at] = dw * w;
       }
     }
     __syncthreads();
   }
 }
 
-// One 64 x 64 tile (rows l, sources m ≤ l) of a chunk over up to HG_DG heads: dW = dy·xᵀ,
-// the masked product's terms of dcum and ddt, and dG = Σ_h dW·decay·dt, whose products
-// dC += dG·B and dB += dGᵀ·C are added. grid (tiles on and below the diagonal, B·nc,
-// ⌈H/HG_DG⌉). Below the diagonal the decay splits at the pivot l0.
+// One 64 x 64 tile (rows l, sources m ≤ l, the tile (lt, qd)) of a chunk over up to
+// HG_DG heads: dW = dy·xᵀ, the masked product's terms of dcum and ddt, and
+// dG = Σ_h dW·decay·dt over the CTA's heads. Each is stored in a slot of its own:
+// dcum's terms at a position of tile k in slot j of `dcum_t` (j < k: the row's term from
+// the tile (k, j); j > k: the source's from (j, k); j = k: both, from the diagonal tile),
+// ddt's at a source of tile k in slot lt ≥ k of `ddt_t`, and dG in `dgw` by (batch,
+// chunk), tile and head group. grid (tiles on and below the diagonal, B·nc, ⌈H/HG_DG⌉).
+// Below the diagonal the decay splits at the pivot l0.
 template <class E>
-__global__ void __launch_bounds__(NT, 2) ssd_chunk_bwd_dg(Ops o, float* dcum, float* ddt,
-                                                          float* dB, float* dC) {
+__global__ void __launch_bounds__(NT, 2) ssd_chunk_bwd_dg(Ops o, float* dcum_t, float* ddt_t,
+                                                          float* dgw) {
   extern __shared__ __align__(16) float sm[];
   const int H = o.H, P = o.P, N = o.N, L = o.L;
   const int KM = max(max(N, P), 64);
   float* R1 = sm;               // [KM][TS]
   float* R2 = R1 + KM * TS;     // [KM][TS]
-  float* dGs = R2 + KM * TS;    // [64][TS]: dGs[l − l0][m − m0]
-  float* cl = dGs + 64 * TS;    // [64] cum at the rows
+  float* cl = R2 + KM * TS;     // [64] cum at the rows
   float* cmv = cl + 64;         // [64] cum at the sources
   float* dtm = cmv + 64;        // [64] dt at the sources
   float* er = dtm + 64;         // [64] exp(cum_l − cum_l0) (below the diagonal)
@@ -863,6 +857,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_bwd_dg(Ops o, float* dcum, fl
   const E* cgm = (const E*)o.cm + b * o.cb + t0 * o.ct;
   const E* dyg = (const E*)o.dy + ((long long)b * o.T + t0) * HP;
   const long long row0 = ((long long)b * o.T + t0) * H;  // (b, t0, 0) in (B, T, H)
+  const long long bth = (long long)o.Bn * o.T * H;       // floats a slot
   const int tx = tile_x(), ty = tile_y();
 
   fill_cols<E>(R1, TS, N, [&](int i) -> const E* {
@@ -936,82 +931,139 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_bwd_dg(Ops o, float* dcum, fl
         cq += pq[u * 64 + t];
         cgs += pg[u * 64 + t];
       }
-      if (l < L) atomicAdd(dcum + row0 + (long long)l * H + h, r);
-      if (m < L) {
-        atomicAdd(dcum + row0 + (long long)m * H + h, -cq);
-        atomicAdd(ddt + row0 + (long long)m * H + h, cgs);
+      if (diag) {  // l = m: the row's and the source's terms in the one slot
+        if (l < L) dcum_t[lt * bth + row0 + (long long)l * H + h] = r - cq;
+      } else {
+        if (l < L) dcum_t[qd * bth + row0 + (long long)l * H + h] = r;
+        if (m < L) dcum_t[lt * bth + row0 + (long long)m * H + h] = -cq;
       }
+      if (m < L) ddt_t[lt * bth + row0 + (long long)m * H + h] = cgs;
     }
     __syncthreads();
   }
 
+  float* dst = dgw + (((long long)blockIdx.y * gridDim.x + blockIdx.x) * gridDim.z + blockIdx.z) * 64 * 64;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dGs[(ty * 4 + i) * TS + tx * 4 + j] = dg[i][j];
-  for (int n0 = 0; n0 < N; n0 += 64) {
-    const int wn = min(64, N - n0);
-    fill_rows<64, E>(R2, TS, 64, wn, [&](int k) -> const E* {
-      return m0 + k < L ? bg + (m0 + k) * o.bt + n0 : nullptr;
-    }, one);
-    fill_rows<64, E>(R1, TS, 64, wn, [&](int k) -> const E* {
-      return l0 + k < L ? cgm + (l0 + k) * o.ct + n0 : nullptr;
+  for (int i = 0; i < 4; ++i) st4(dst + (ty * 4 + i) * 64 + tx * 4, dg[i]);
+}
+
+// dB (which 0) for the sources of tile k, dB += Σ_{lt ≥ k} dG(lt, k)ᵀ·C, or dC (which 1)
+// for the rows of tile k, dC += Σ_{qd ≤ k} dG(k, qd)·B, over 64 state channels; each dG
+// is `bwd_dg`'s tiles summed over the head groups in order. Adds to `bwd_bc`'s stores.
+// grid (⌈L/64⌉·⌈N/64⌉, B·nc, 2)
+template <class E>
+__global__ void __launch_bounds__(NT, 2) ssd_chunk_bwd_gbc(Ops o, const float* dgw, float* dB,
+                                                           float* dC) {
+  __shared__ __align__(16) float Gs[64 * TS];  // Gs[l − l0][m − m0] = dG
+  __shared__ __align__(16) float Rs[64 * TS];  // C's rows (which 0) or B's (which 1)
+  const int L = o.L, N = o.N;
+  const int nLt = (L + 63) / 64, nNt = (N + 63) / 64, nG = (o.H + HG_DG - 1) / HG_DG;
+  const int k = blockIdx.x / nNt, n0 = (blockIdx.x % nNt) * 64, which = blockIdx.z;
+  const int b = blockIdx.y / o.nc, c = blockIdx.y % o.nc;
+  const long long t0 = (long long)c * L;
+  const E* rows = which == 0 ? (const E*)o.cm + b * o.cb + t0 * o.ct
+                             : (const E*)o.bm + b * o.bb + t0 * o.bt;
+  const long long rt = which == 0 ? o.ct : o.bt;
+  const int wn = min(64, N - n0);
+  float acc[4][4] = {};
+  const int j0 = which == 0 ? k : 0, j1 = which == 0 ? nLt - 1 : k;
+  for (int j = j0; j <= j1; ++j) {
+    const int lt = which == 0 ? j : k, qd = which == 0 ? k : j;
+    const float* g = dgw + (((long long)blockIdx.y * (nLt * (nLt + 1) / 2) + lt * (lt + 1) / 2 + qd)
+                            * nG) * 64 * 64;
+    for (int e = threadIdx.x * 4; e < 64 * 64; e += NT * 4) {
+      float4 v = *reinterpret_cast<const float4*>(g + e);
+      for (int gi = 1; gi < nG; ++gi) {
+        const float4 u = *reinterpret_cast<const float4*>(g + (long long)gi * 64 * 64 + e);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(Gs + (e >> 6) * TS + (e & 63)) = v;
+    }
+    const int r0 = (which == 0 ? lt : qd) * 64;
+    fill_rows<64, E>(Rs, TS, 64, wn, [&](int kk) -> const E* {
+      return r0 + kk < L ? rows + (r0 + kk) * rt + n0 : nullptr;
     }, one);
     __syncthreads();
-    float a[4][4] = {}, bb[4][4] = {};
-    mm_ik(dGs, TS, R2, TS, 64, a);   // dC[l][n] = Σ_m dG[l][m]·B[m][n]
-    mm_kk(dGs, TS, R1, TS, 64, bb);  // dB[m][n] = Σ_l dG[l][m]·C[l][n]
-    const int n = n0 + tx * 4;
-    if (n < N) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = l0 + ty * 4 + i, m = m0 + ty * 4 + i;
-        if (l < L)
-          atomicAdd(reinterpret_cast<float4*>(dC + ((long long)b * o.T + t0 + l) * N + n),
-                    make_float4(a[i][0], a[i][1], a[i][2], a[i][3]));
-        if (m < L)
-          atomicAdd(reinterpret_cast<float4*>(dB + ((long long)b * o.T + t0 + m) * N + n),
-                    make_float4(bb[i][0], bb[i][1], bb[i][2], bb[i][3]));
-      }
+    if (which == 0) {
+      mm_kk(Gs, TS, Rs, TS, 64, acc);  // dB[m][n] += Σ_l dG[l][m]·C[l][n]
+    } else {
+      mm_ik(Gs, TS, Rs, TS, 64, acc);  // dC[l][n] += Σ_m dG[l][m]·B[m][n]
     }
     __syncthreads();
+  }
+  const int tx = tile_x(), ty = tile_y();
+  float* out = (which == 0 ? dB : dC) + ((long long)b * o.T + t0) * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = k * 64 + ty * 4 + i, n = n0 + tx * 4;
+    if (r < L && n < N) {
+      float4* p = reinterpret_cast<float4*>(out + (long long)r * N + n);
+      float4 v = *p;
+      v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
+      *p = v;
+    }
   }
 }
 
-#if SSD_BWD
-// da = the reversed running sum of dcum over a chunk (with the chunk decay's term at
-// its end); ddt += A·da, dA += Σ dt·da. One thread a (b, c, h)
+// da = the reversed running sum of dcum over a chunk, where dcum at a position is the
+// sum of `bwd_dx`'s term and `bwd_dg`'s slots, and the chunk's last position also
+// gathers every row's dlast and the chunk decay's gradient (the sum of `pass_bwd`'s
+// parts) times the decay; ddt = `bwd_dx`'s term + `bwd_dg`'s slots + A·da, and
+// dAp[(b, c, h)] = Σ dt·da. One warp a (b, c, h): lane i takes the positions
+// [i·K, i·K + K), K = ⌈L/32⌉ ≤ 8, and the lanes' sums combine by shuffles in a fixed order.
 __global__ void __launch_bounds__(NT) ssd_chunk_bwd_dt(Ops o, const float* dcum,
-                                                        const float* dcd, float* ddt,
-                                                        float* dA) {
-  const int idx = blockIdx.x * NT + threadIdx.x;
-  if (idx >= o.Bn * o.nc * o.H) return;
-  const int h = idx % o.H, bc = idx / o.H, c = bc % o.nc, b = bc / o.nc;
+                                                        const float* dlast, const float* dcum_t,
+                                                        const float* ddt_t, const float* dcdp,
+                                                        int nbx, float* ddt, float* dAp) {
+  const int w = (blockIdx.x * NT + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (w >= o.Bn * o.nc * o.H) return;  // whole warps: NT is a multiple of 32
+  const int h = w % o.H, bc = w / o.H, c = bc % o.nc, b = bc / o.nc;
   const long long base = ((long long)b * o.T + (long long)c * o.L) * o.H + h;
-  const float a = o.A[h];
-  float s = dcd[idx] * o.cd[idx], acc = 0.f;
-  for (int l1 = o.L; l1 > 0; l1 -= 8) {  // positions l1 − 1 down to l1 − 8
-    float dc[8], dd[8], tv[8];
+  const long long bth = (long long)o.Bn * o.T * o.H;
+  const int nLt = (o.L + 63) / 64, K = (o.L + 31) / 32, l0 = lane * K;
+  float dc[8], sc = 0.f, st = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int l = l1 - 1 - j;
+  for (int i = 0; i < 8; ++i) {
+    const int l = l0 + i;
+    dc[i] = 0.f;
+    if (i < K && l < o.L) {
       const long long at = base + (long long)l * o.H;
-      dc[j] = l >= 0 ? dcum[at] : 0.f;
-      dd[j] = l >= 0 ? ddt[at] : 0.f;
-      tv[j] = l >= 0 ? o.dt[at] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int l = l1 - 1 - j;
-      if (l < 0) break;
-      s += dc[j];
-      ddt[base + (long long)l * o.H] = fmaf(a, s, dd[j]);
-      acc = fmaf(tv[j], s, acc);
+      float v = dcum[at];
+      for (int j = 0; j < nLt; ++j) v += dcum_t[j * bth + at];
+      dc[i] = v;
+      sc += v;
+      st += dlast[at];
     }
   }
-  atomicAdd(dA + h, acc);
+  float part = 0.f;
+  for (int j = lane; j < nbx; j += 32) part += dcdp[(long long)w * nbx + j];
+  // the sum of sc over the lanes above this one: an inclusive suffix sum, shifted
+  float suf = sc;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float v = __shfl_down_sync(0xffffffffu, suf, d);
+    if (lane + d < 32) suf += v;
+  }
+  float above = __shfl_down_sync(0xffffffffu, suf, 1);
+  if (lane == 31) above = 0.f;
+  float s = fmaf(warp_sum(part), o.cd[w], warp_sum(st)) + above;
+  const float a = o.A[h];
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 7; i >= 0; --i) {
+    const int l = l0 + i;
+    if (i < K && l < o.L) {
+      const long long at = base + (long long)l * o.H;
+      s += dc[i];
+      float dd = ddt[at];
+      for (int j = l >> 6; j < nLt; ++j) dd += ddt_t[j * bth + at];
+      ddt[at] = fmaf(a, s, dd);
+      acc = fmaf(o.dt[at], s, acc);
+    }
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) dAp[w] = acc;
 }
-#endif
 
 // ---------------------------------------------------------------------------
 // host side
@@ -1041,7 +1093,7 @@ size_t dx_smem(const Ops& o, int npt) {
 size_t dg_smem(const Ops& o) {
   int km = o.N > o.P ? o.N : o.P;
   km = km > 64 ? km : 64;
-  return sizeof(float) * ((size_t)(2 * km + 64) * TS + 5 * 64 + 3 * 16 * 64);
+  return sizeof(float) * ((size_t)2 * km * TS + 5 * 64 + 3 * 16 * 64);
 }
 
 Ops make_ops(const void* x, long long xb, long long xt, const void* bm, long long bb,
@@ -1064,88 +1116,112 @@ bool shapes_ok(const Ops& o) {
          o.H >= 1 && o.Bn >= 1 && (long long)o.Bn * o.nc <= 65535 && o.H <= 65535;
 }
 
-using Elem = std::conditional_t<SSD_BF16, __nv_bfloat16, float>;
-
-#if !SSD_BWD
-int fwd(const Ops& o, Elem* y, float* hfin, cudaStream_t s) {
+template <class E>
+int fwd(const Ops& o, E* y, float* hfin, cudaStream_t s) {
   const int bch = o.Bn * o.nc * o.H;
   const int pn = o.P * o.N;
   int rc;
   if ((rc = launch(ssd_chunk_cumsum, dim3((bch + NT - 1) / NT), 0, s, o))) return rc;
   const dim3 gs(((o.P + 63) / 64) * ((o.N + 63) / 64), o.Bn * o.nc, o.H);
-  if ((rc = launch(ssd_chunk_state<Elem, 0>, gs, 0, s, o, o.hs))) return rc;
+  if ((rc = launch(ssd_chunk_state<E, 0>, gs, 0, s, o, o.hs))) return rc;
   if ((rc = launch(ssd_chunk_pass, dim3((pn + NT - 1) / NT, o.Bn * o.H), 0, s, o, hfin)))
     return rc;
   const dim3 gy((o.L + 63) / 64, o.Bn * o.nc, (o.H + HG_SCAN - 1) / HG_SCAN);
-  return launch(ssd_chunk_scan<Elem>, gy, scan_smem(o), s, o, y);
+  return launch(ssd_chunk_scan<E>, gy, scan_smem(o), s, o, y);
 }
-#else
-int bwd(Ops o, const float* dhf, Elem* dx, float* dS, float* ws, float* dB, float* dC,
-        cudaStream_t s) {
-  const long long bth = (long long)o.Bn * o.T * o.H;
-  const int bch = o.Bn * o.nc * o.H;
+
+// The backward's workspace, in floats, each part a multiple of 4 (16 bytes): dcum and
+// dlast (B·T·H each), `bwd_dg`'s slots of dcum and of ddt (⌈L/64⌉·B·T·H each),
+// `pass_bwd`'s parts of d(cd) (B·nc·H·⌈P·N/256⌉) and the dG tiles (B·nc, the tiles on and
+// below the diagonal, the head groups; 64·64 each). `kernels/ssd.py::ws_floats` sizes it
+// the same way; the backward refuses a smaller one.
+struct Work {
+  long long bth, nlt, nbx, slots, parts, tiles;
+  explicit Work(const Ops& o)
+      : bth(((long long)o.Bn * o.T * o.H + 3) / 4 * 4),
+        nlt((o.L + 63) / 64),
+        nbx((o.P * o.N + NT - 1) / NT),
+        slots(nlt * bth),
+        parts(((long long)o.Bn * o.nc * o.H * nbx + 3) / 4 * 4),
+        tiles((long long)o.Bn * o.nc * (nlt * (nlt + 1) / 2) * ((o.H + HG_DG - 1) / HG_DG) * 64 *
+              64) {}
+  long long floats() const { return 2 * bth + 2 * slots + parts + tiles; }
+};
+
+template <class E>
+int bwd(const Ops& o, const float* dhf, E* dx, float* dS, float* ws, float* dB, float* dC,
+        float* ddt, float* dAp, cudaStream_t s) {
+  const Work w(o);
   float* dcum = ws;
-  float* ddt = ws + bth;
-  float* dA = ws + 2 * bth;
-  float* dcd = dA + o.H;
-  const int pn = o.P * o.N, nLt = (o.L + 63) / 64;
+  float* dlast = dcum + w.bth;
+  float* dcum_t = dlast + w.bth;
+  float* ddt_t = dcum_t + w.slots;
+  float* dcdp = ddt_t + w.slots;
+  float* dgw = dcdp + w.parts;
+  const int bch = o.Bn * o.nc * o.H, nLt = (int)w.nlt;
   int rc;
   const dim3 gs(((o.P + 63) / 64) * ((o.N + 63) / 64), o.Bn * o.nc, o.H);
-  if ((rc = launch(ssd_chunk_state<Elem, 1>, gs, 0, s, o, dS))) return rc;
-  if ((rc = launch(ssd_chunk_pass_bwd, dim3((pn + NT - 1) / NT, o.Bn * o.H), 0, s, o, dhf, dS,
-                   dcd)))
+  if ((rc = launch(ssd_chunk_state<E, 1>, gs, 0, s, o, dS))) return rc;
+  if ((rc = launch(ssd_chunk_pass_bwd, dim3((int)w.nbx, o.Bn * o.H), 0, s, o, dhf, dS, dcdp)))
     return rc;
   const dim3 gb(nLt * ((o.N + 63) / 64), o.Bn * o.nc, 2);
-  if ((rc = launch(ssd_chunk_bwd_bc<Elem>, gb, 0, s, o, (const float*)dS, dB, dC))) return rc;
+  if ((rc = launch(ssd_chunk_bwd_bc<E>, gb, 0, s, o, (const float*)dS, dB, dC))) return rc;
   const dim3 gx(nLt, o.Bn * o.nc, (o.H + HG_SCAN - 1) / HG_SCAN);
   if (o.P > 64) {
-    if ((rc = launch(ssd_chunk_bwd_dx<Elem, 2>, gx, dx_smem(o, 2), s, o, (const float*)dS, dx,
-                     dcum, ddt)))
+    if ((rc = launch(ssd_chunk_bwd_dx<E, 2>, gx, dx_smem(o, 2), s, o, (const float*)dS, dx, dcum,
+                     ddt, dlast)))
       return rc;
-  } else if ((rc = launch(ssd_chunk_bwd_dx<Elem, 1>, gx, dx_smem(o, 1), s, o,
-                          (const float*)dS, dx, dcum, ddt))) {
+  } else if ((rc = launch(ssd_chunk_bwd_dx<E, 1>, gx, dx_smem(o, 1), s, o, (const float*)dS, dx,
+                          dcum, ddt, dlast))) {
     return rc;
   }
   const dim3 gg(nLt * (nLt + 1) / 2, o.Bn * o.nc, (o.H + HG_DG - 1) / HG_DG);
-  if ((rc = launch(ssd_chunk_bwd_dg<Elem>, gg, dg_smem(o), s, o, dcum, ddt, dB, dC))) return rc;
-  return launch(ssd_chunk_bwd_dt, dim3((bch + NT - 1) / NT), 0, s, o, (const float*)dcum,
-                (const float*)dcd, ddt, dA);
+  if ((rc = launch(ssd_chunk_bwd_dg<E>, gg, dg_smem(o), s, o, dcum_t, ddt_t, dgw))) return rc;
+  if ((rc = launch(ssd_chunk_bwd_gbc<E>, gb, 0, s, o, (const float*)dgw, dB, dC))) return rc;
+  return launch(ssd_chunk_bwd_dt, dim3((bch * 32 + NT - 1) / NT), 0, s, o, (const float*)dcum,
+                (const float*)dlast, (const float*)dcum_t, (const float*)ddt_t,
+                (const float*)dcdp, (int)w.nbx, ddt, dAp);
 }
-#endif
 
 }  // namespace
 
-#if !SSD_BWD
 // The forward: y (B, T, H·P) in x's type, without the skip; hfin (B, H, P, N) the
 // final state; cum (B, T, H), cd (B, nc, H) and hs (B, nc, H, P, N), the states
-// entering each chunk, kept for the backward. x, B, C and y are of the library's element
-// type. Returns 0 or the CUDA error of the first launch that failed (-1: shapes the
-// kernels do not take).
-extern "C" int ssd_chunked_fwd(const void* x, long long xb, long long xt, const void* bm,
-                               long long bb, long long bt, const void* cm, long long cb,
-                               long long ct, const float* dt, const float* A, float* cum,
-                               float* cd, float* hs, float* hfin, void* y, int Bn, int T,
-                               int H, int P, int N, int L, void* stream) {
-  const Ops o = make_ops(x, xb, xt, bm, bb, bt, cm, cb, ct, dt, A, cum, cd, hs, Bn, T, H, P,
-                         N, L);
-  if (!shapes_ok(o)) return -1;
-  return fwd(o, (Elem*)y, hfin, (cudaStream_t)stream);
-}
-#else
+// entering each chunk, kept for the backward. x, B, C and y are bfloat16 (`_bf16`) or
+// float (`_f32`). Returns 0 or the CUDA error of the first launch that failed (-1:
+// shapes the kernels do not take).
+#define SSD_FWD(NAME, E)                                                                   \
+  extern "C" int NAME(const void* x, long long xb, long long xt, const void* bm,          \
+                      long long bb, long long bt, const void* cm, long long cb, long long ct, \
+                      const float* dt, const float* A, float* cum, float* cd, float* hs,   \
+                      float* hfin, void* y, int Bn, int T, int H, int P, int N, int L,     \
+                      void* stream) {                                                      \
+    const Ops o = make_ops(x, xb, xt, bm, bb, bt, cm, cb, ct, dt, A, cum, cd, hs, Bn, T, H, \
+                           P, N, L);                                                       \
+    if (!shapes_ok(o)) return -1;                                                          \
+    return fwd(o, (E*)y, hfin, (cudaStream_t)stream);                                      \
+  }
+SSD_FWD(ssd_chunked_fwd_bf16, __nv_bfloat16)
+SSD_FWD(ssd_chunked_fwd_f32, float)
+
 // The backward from dy (B, T, H·P) in x's type, contiguous, and dhf (B, H, P, N) float32
 // (null: no gradient reached the final state). Writes dx (B, T, H·P) in x's type, dB
-// and dC (B, T, N) float32, and in `ws` (zeroed by the caller; B·T·H + B·T·H + H +
-// B·nc·H floats) dcum, ddt (the gradient of dt), dA and the chunk decays' gradients.
-// dS (B, nc, H, P, N) float32 is scratch.
-extern "C" int ssd_chunked_bwd(const void* x, long long xb, long long xt, const void* bm,
-                               long long bb, long long bt, const void* cm, long long cb,
-                               long long ct, const float* dt, const float* A, float* cum,
-                               float* cd, float* hs, const void* dy, const float* dhf,
-                               void* dx, float* dS, float* ws, float* dB, float* dC, int Bn,
-                               int T, int H, int P, int N, int L, void* stream) {
-  Ops o = make_ops(x, xb, xt, bm, bb, bt, cm, cb, ct, dt, A, cum, cd, hs, Bn, T, H, P, N, L);
-  if (!shapes_ok(o)) return -1;
-  o.dy = dy;
-  return bwd(o, dhf, (Elem*)dx, dS, ws, dB, dC, (cudaStream_t)stream);
-}
-#endif
+// and dC (B, T, N) float32, ddt (B, T, H) float32 and dAp (B, nc, H) float32, whose sum
+// over (B, nc) is dA. dS (B, nc, H, P, N) float32 and `ws` (`ws_floats` floats, at least
+// `Work`'s; -2 if fewer) are scratch; nothing needs zeroing.
+#define SSD_BWD(NAME, E)                                                                   \
+  extern "C" int NAME(const void* x, long long xb, long long xt, const void* bm,          \
+                      long long bb, long long bt, const void* cm, long long cb, long long ct, \
+                      const float* dt, const float* A, float* cum, float* cd, float* hs,   \
+                      const void* dy, const float* dhf, void* dx, float* dS, float* ws,    \
+                      long long ws_floats, float* dB, float* dC, float* ddt, float* dAp,   \
+                      int Bn, int T, int H, int P, int N, int L, void* stream) {           \
+    Ops o = make_ops(x, xb, xt, bm, bb, bt, cm, cb, ct, dt, A, cum, cd, hs, Bn, T, H, P, N, \
+                     L);                                                                   \
+    if (!shapes_ok(o)) return -1;                                                          \
+    if (ws_floats < Work(o).floats()) return -2;                                           \
+    o.dy = dy;                                                                             \
+    return bwd(o, dhf, (E*)dx, dS, ws, dB, dC, ddt, dAp, (cudaStream_t)stream);            \
+  }
+SSD_BWD(ssd_chunked_bwd_bf16, __nv_bfloat16)
+SSD_BWD(ssd_chunked_bwd_f32, float)

@@ -9,12 +9,7 @@ seconds), which is loaded with ``ctypes``. Libraries are cached under
 rebuilds and an unchanged one loads at once.
 
 Nothing builds at import time: ``load(name)`` builds on first use, and
-``build_all()`` starts one ``nvcc`` per source, all at once, and waits;
-``start()`` starts them and returns, so that a build can run beside other
-set-up (``load`` and ``build_all`` wait for a build already started). A
-library may be built from a shared source with defines of its own
-(``DEFINES``): B5's one source gives a library per element type and pass,
-which build in parallel.
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits.
 """
 from __future__ import annotations
 
@@ -30,19 +25,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"quantize_ef": CSRC / "quantize_ef.cu",
            "paged_attention": CSRC / "paged_attention.cu",
            "flash_attention": CSRC / "flash_attention.cu",
-           "ssd_fwd_bf16": CSRC / "ssd_chunked.cu",
-           "ssd_bwd_bf16": CSRC / "ssd_chunked.cu",
-           "ssd_fwd_f32": CSRC / "ssd_chunked.cu",
-           "ssd_bwd_f32": CSRC / "ssd_chunked.cu"}
-DEFINES = {f"ssd_{pass_}_{e}": [f"-DSSD_BF16={int(e == 'bf16')}",
-                                f"-DSSD_BWD={int(pass_ == 'bwd')}"]
-           for pass_ in ("fwd", "bwd") for e in ("bf16", "f32")}
+           "ssd_chunked": CSRC / "ssd_chunked.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]  # registers, shared memory and spills per kernel
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-_pending: Dict[str, tuple] = {}   # builds started and not yet waited for
 
 
 def build_dir() -> Path:
@@ -69,7 +57,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + DEFINES.get(name, [])).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -81,8 +69,7 @@ def _start(name: str):
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *DEFINES.get(name, []), "-o", str(tmp),
-           str(SOURCES[name])]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -98,24 +85,13 @@ def _finish(name: str, started) -> str:
     return log
 
 
-def start(names: List[str]) -> None:
-    """Start nvcc for each named library that is neither built nor being
-    built, and return without waiting."""
-    for n in names:
-        if n not in _pending and n not in _loaded:
-            st = _start(n)
-            if st is not None:
-                _pending[n] = st
-
-
 def build_all(names: List[str] = None) -> Dict[str, str]:
     """Compile every (or the named) kernel source, all nvcc processes at
     once; returns {name: compiler output} ("" for a cached library)."""
     names = list(SOURCES) if names is None else list(names)
-    start(names)
+    started = {n: _start(n) for n in names}
     logs, errors = {}, []
-    for n in names:  # wait for every nvcc, then report
-        st = _pending.pop(n, None)
+    for n, st in started.items():  # wait for every nvcc, then report
         try:
             logs[n] = _finish(n, st) if st is not None else ""
         except RuntimeError as e:

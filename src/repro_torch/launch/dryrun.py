@@ -44,7 +44,8 @@ In every record a rank's parameter bytes (`param_bytes_per_rank`) are
 the reference's per-device bytes under the same layout
 (`param_bytes_per_device`).
 A `*_block1024` compressor's kernel is traced as the card runs it: one
-op with its outputs (`kernels.meta`).
+op with its outputs (`kernels.meta`); B5, mamba2's chunked SSD, as the
+allocations its wrapper makes on the card, with no launch (`kernels.ssd`).
 
 The record keeps the JAX package's keys where they mean the same (arch,
 shape, mesh, status, params, active_params, mf, analytic_flops,
@@ -163,13 +164,17 @@ def train_strategy(layout: str, *, exchange: str = "two_phase",
 
 
 def _meta_launches() -> dict:
-    """The kernels' meta-launch counters (`kernels.meta`), by kernel."""
+    """The kernels' meta-launch counters (`kernels.meta`; B5's abstract
+    form, `kernels.ssd`), by kernel."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd as SSD
     return {"quantize_ef": Q.meta_launches,
             "quantize_ef_dyn": Q.meta_launches_dyn,
             "paged_attention": FA.meta_launches,
-            "flash_attention": FA.flash_meta_launches}
+            "flash_attention": FA.flash_meta_launches,
+            "ssd_chunked": SSD.ssd_meta_launches,
+            "ssd_chunked_bwd": SSD.ssd_bwd_meta_launches}
 
 
 def _traced(fn, *args, **kwargs):

@@ -32,7 +32,11 @@ charged to the innermost span around it (``"(none)"`` outside any),
 the clock's finer spans (`tracing.CLOCK_PHASES`) seen through.
 Spans must be on in the traced call for the split; the totals do not
 depend on it. A kernel's abstract form (`kernels.meta`) is one op of the
-``repro_torch`` namespace with its outputs, as the card runs it.
+``repro_torch`` namespace with its outputs, as the card runs it. The
+launches each hand-written kernel made on the card during the call
+(`kernels.launch_counts`: B1-B4, B5's forward and backward) come with the
+records, so a run on CUDA tensors shows which paths went through them; on
+CPU or meta tensors the plain versions run and every count is 0.
 
 On meta tensors an op's outputs depend only on its inputs' shapes,
 strides and dtypes and its other arguments, and many of PyTorch's meta
@@ -53,6 +57,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.kernels import launch_counts, launches_since
 from repro_torch.obs.tracing import CLOCK_PHASES, PREFIX
 
 NONE = "(none)"
@@ -229,12 +234,16 @@ def analyze(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
     - ``held_bytes``: storages live before the call (and any other it
       read that it did not make);
     - ``peak_bytes``: ``held_bytes`` plus the peak of what the call made
-      and had not freed.
+      and had not freed;
+    - ``launches``: {kernel: launches on the card during the call}
+      (`kernels.launch_counts`' names).
     """
     mode = OpAnalysis()
     mode.hold(args, kwargs)
+    before = launch_counts()
     with mode:
         result = fn(*args, **kwargs)
     out = mode.summary()
+    out["launches"] = launches_since(before)
     out["result"] = result
     return out

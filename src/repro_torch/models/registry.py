@@ -41,7 +41,6 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tree as T
-from repro_torch.kernels import ssd as SSD
 from repro_torch.parallel import fsdp as FS
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor as TP
@@ -201,10 +200,6 @@ def build(cfg, mesh=None) -> ModelBundle:
 
 
 def _build(cfg) -> ModelBundle:
-    if ("ssd" in getattr(cfg, "layer_pattern", ())
-            and torch.cuda.is_available()):
-        # B5's libraries build beside the rest of the set-up
-        SSD.prebuild(getattr(torch, cfg.param_dtype))
     if isinstance(cfg, gan_lib.GANConfig):
         return ModelBundle(
             cfg=cfg,

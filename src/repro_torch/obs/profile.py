@@ -69,6 +69,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.kernels import launch_counts, launches_since
+
 from .tracing import DEVICE_PHASES, HOST_PHASES, PREFIX, PhaseClock
 
 DEFAULT_WINDOW = 32
@@ -212,7 +214,8 @@ class StepProfiler:
     ``profile`` event. `device_phases` (spans on) and `trace_dir` run a
     `torch.profiler` capture over the window past its first step, with
     CUDA activity when `device` is a CUDA device; `device_phases` runs a
-    `tracing.PhaseClock` over the same steps."""
+    `tracing.PhaseClock` over the same steps and counts the hand-written
+    kernels' launches in them (`kernels.launch_counts`)."""
 
     def __init__(self, window: int = DEFAULT_WINDOW, trace_dir: str = "",
                  device_phases: bool = False, device=None):
@@ -231,6 +234,7 @@ class StepProfiler:
         self._tracing = False
         self._clock = PhaseClock(self.device) if self.device_phases else None
         self._reading = None
+        self._launches = None     # launch counts at the capture's start
         self._emitted = False
 
     # ------------------------------------------------------------------ #
@@ -295,6 +299,7 @@ class StepProfiler:
         if self._clock is not None:
             # the launcher ended the step just recorded in a synchronize
             self._clock.start()
+            self._launches = launch_counts()
 
     def _stop_trace(self) -> None:
         if not self._tracing:
@@ -303,6 +308,7 @@ class StepProfiler:
             torch.cuda.synchronize(self.device)
         if self._clock is not None:
             self._reading = self._clock.stop()
+            self._launches = launches_since(self._launches)
         self._prof.stop()
         self._tracing = False
         if self.trace_dir:
@@ -350,6 +356,7 @@ class StepProfiler:
                 out["phase_ms"] = r.summary()
                 out["phase_steps"] = r.n_steps
                 out["host_gap_ms"] = None if gap is None else round(gap, 3)
+                out["kernel_launches"] = self._launches
         if self.trace_dir:
             out["trace_dir"] = self.trace_dir
         return out

@@ -24,7 +24,8 @@ Sections (each skipped cleanly when its events are absent):
   allocated bytes per phase from the profiler here, HLO ops and result
   bytes in the JAX package) and, from the port's phase clock, each
   span's device, device-self and host milliseconds a step and the host
-  gap a step.
+  gap a step, and the launches of each hand-written kernel in those
+  steps (`kernels.launch_counts`: B1-B4, B5's forward and backward).
 * **measured vs modeled** — when the file holds enough to calibrate
   (run_meta + timing/profile + comm_summary), the report runs
   `repro_torch.obs.calibrate` on its own events and prints the fitted
@@ -243,6 +244,11 @@ def render(summary: dict) -> str:
         if prof.get("host_gap_ms") is not None:
             lines.append(f"  host gap: {prof['host_gap_ms']:.3f}ms a step "
                          f"with no step phase on the device")
+        if prof.get("kernel_launches"):
+            ran = ", ".join(f"{k} {v}" for k, v in
+                            prof["kernel_launches"].items() if v)
+            lines.append(f"  kernel launches over the {prof['phase_steps']} "
+                         f"clocked steps: {ran or 'none'}")
         if prof.get("trace_dir"):
             lines.append(f"  trace: {prof['trace_dir']}")
 

@@ -1048,6 +1048,26 @@ def test_ssd_kernel_matches_plain_version(B, T, H, P, N, L, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,L,dtype", [
+    (2, 2048, 64, 64, 128, 256, "bfloat16"),   # mamba2-1.3b's training cell
+    (3, 96, 5, 32, 64, 96, "float32")])        # odd heads, a partial tile
+def test_ssd_kernel_is_deterministic(B, T, H, P, N, L, dtype):
+    """B5 twice on the same operands: y, the final state and every
+    gradient bit-equal. No kernel adds to memory by atomics; where CTAs
+    share a sum, each writes its part to a slot and one kernel sums the
+    slots in a fixed order, so a seeded training run repeats bit for
+    bit."""
+    from repro_torch.kernels import ssd as SSD
+    dev = _device()
+    ops = _ssd_operands(T * H, B, T, H, P, N, getattr(torch, dtype), dev)
+    first = _ssd_grads(SSD.ssd_chunked, ops, P, L)
+    for _ in range(2):
+        again = _ssd_grads(SSD.ssd_chunked, ops, P, L)
+        for name, a, b in zip(SSD_NAMES, first, again):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 def test_ssd_kernel_gradients_finite_at_chunk_256_with_large_decays():
     """C4 on the card: at chunk 256 with |A·dt| near 6 a position (masked
     exponents far above float32's range) every gradient is finite, and the
@@ -1104,10 +1124,29 @@ def test_ssd_kernel_refuses_what_it_does_not_take():
         SSD.ssd_chunked(x.half(), Bm.half(), Cm.half(), dt, A, D, 16, 32)
     with pytest.raises(TypeError, match="one dtype"):
         SSD.ssd_chunked(x, Bm.bfloat16(), Cm, dt, A, D, 16, 32)
-    with pytest.raises(ValueError, match="contiguous"):
-        SSD.ssd_chunked(x, Bm.transpose(1, 2).contiguous().transpose(1, 2),
-                        Cm, dt, A, D, 16, 32)
     assert (SSD.ssd_launches, SSD.ssd_bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_copies_operands_it_cannot_load(dtype):
+    """x, B and C as a model rank of 16 holds them for the reduced config
+    (views of rows of H·P + 2 elements, not whole 16 bytes apart) and B
+    strided along its channels: the wrapper hands the kernels contiguous
+    copies, and every output and gradient equals the contiguous operands'
+    bit for bit."""
+    from repro_torch.kernels import ssd as SSD
+    dev = _device()
+    B, T, H, P, N = 2, 64, 2, 16, 16
+    ops = _ssd_operands(11, B, T, H, P, N, getattr(torch, dtype), dev)
+    x, Bm, Cm = ops[:3]
+    rows = torch.cat([x, Bm[..., :1], Cm[..., :1]], -1)   # H·P + 2 a row
+    odd = (rows[..., :H * P],
+           Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm)
+    want = _ssd_grads(SSD.ssd_chunked, ops, P, 32)
+    got = _ssd_grads(SSD.ssd_chunked, odd + ops[3:], P, 32)
+    for name, a, b in zip(SSD_NAMES, got, want):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

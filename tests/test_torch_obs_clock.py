@@ -339,7 +339,33 @@ def test_profiler_window_carries_the_clocks_readings(capsys):
     text = report.render({"profile": dict(s, step_s=s["step_s"])})
     assert "clock (ms a step over 3 steps)" in text
     assert "clock     field:        -         -" in text
+    assert set(s["kernel_launches"].values()) == {0}    # the CPU: none
+    assert "kernel launches over the 3 clocked steps: none" in text
     off = StepProfiler(window=2)
     off.record_step(0, 1e-3)
     off.record_step(1, 1e-3)
     assert "phase_ms" not in off.summary()
+    assert "kernel_launches" not in off.summary()
+
+
+def test_profiler_window_counts_the_kernels_launches(monkeypatch):
+    """Spans on: the event's ``kernel_launches`` holds each kernel's
+    launches in the clocked steps (past the window's first), and the
+    report prints those that ran."""
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.obs import report
+    monkeypatch.setattr(SSD, "ssd_launches", SSD.ssd_launches)
+    monkeypatch.setattr(SSD, "ssd_bwd_launches", SSD.ssd_bwd_launches)
+    p = StepProfiler(window=3, device_phases=True)
+    for i in range(3):
+        with host_span("step"):
+            SSD.ssd_launches += 2     # a step's B5 calls, as on the card
+            SSD.ssd_bwd_launches += 1
+        p.record_step(i, 1e-3)
+    s = p.summary()
+    assert s["kernel_launches"]["ssd_chunked"] == 4
+    assert s["kernel_launches"]["ssd_chunked_bwd"] == 2
+    assert s["kernel_launches"]["quantize_ef"] == 0
+    text = report.render({"profile": dict(s, step_s=s["step_s"])})
+    assert ("kernel launches over the 2 clocked steps: ssd_chunked 4, "
+            "ssd_chunked_bwd 2") in text

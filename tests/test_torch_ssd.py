@@ -62,41 +62,69 @@ def test_cpu_path_is_the_plain_version_and_counts_no_launch(
     assert (SSD.ssd_launches, SSD.ssd_bwd_launches) == (0, 0)
 
 
-def test_meta_operands_trace_the_plain_version(monkeypatch):
-    """Meta operands at mamba2-1.3b's widths (P 64, N 128, chunk 256): the
-    plain version's shapes and dtypes, so the dry-run sees what the CPU
-    runs; no launch counts."""
+def test_meta_operands_trace_the_abstract_form(monkeypatch):
+    """Meta operands at mamba2-1.3b's widths (P 64, N 128, chunk 256) take
+    the kernels' path to its abstract form: the outputs' shapes and dtypes,
+    the tensors the forward saves (cum, the chunk decays, the states
+    entering each chunk) and the backward's gradients, with no launch and
+    none of the plain version's work; the meta calls are counted apart."""
     monkeypatch.setattr(_build, "load", _refuse)
-    calls = []
-    monkeypatch.setattr(SSD, "ssd_chunked_ref",
-                        lambda *a: calls.append(1) or ssd_chunked_ref(*a))
+    monkeypatch.setattr(SSD, "ssd_chunked_ref", _refuse)
     SSD.reset_launches()
     x, Bm, Cm, dt, A, D = _operands(2, 512, 64, 64, 128, torch.bfloat16,
                                     device=META)
-    y, h = SSD.ssd_chunked(x, Bm, Cm, dt, A, D, 64, 256)
+    leaves = [t.requires_grad_() for t in (x, Bm, Cm, dt, A, D)]
+    y, h = SSD.ssd_chunked(*leaves, 64, 256)
     assert (y.device.type, tuple(y.shape), y.dtype) == (
         "meta", (2, 512, 4096), torch.bfloat16)
     assert (tuple(h.shape), h.dtype) == ((2, 64, 64, 128), torch.float32)
-    assert calls == [1]
+    saved = y.grad_fn.next_functions[0][0].next_functions[0][0]
+    grads = torch.autograd.grad((y, h), leaves, (torch.empty_like(y),
+                                                 torch.empty_like(h)))
+    assert [(tuple(g.shape), g.dtype) for g in grads] == [
+        (tuple(t.shape), t.dtype) for t in leaves]
+    assert saved is not None
     assert (SSD.ssd_launches, SSD.ssd_bwd_launches) == (0, 0)
+    assert (SSD.ssd_meta_launches, SSD.ssd_bwd_meta_launches) == (1, 1)
 
 
-def test_dryrun_traces_mamba2_through_the_wrapper(monkeypatch):
+def test_meta_trace_holds_no_chunk_blocks():
+    """The abstract form's allocations at a mamba2 layer's prefill: at most
+    what the card allocates (y, the final state, cum, the chunk decays,
+    the states, and the skip's two bfloat16 temporaries), far below one of
+    the plain version's (B, nc, L, L, H) float32 blocks."""
+    from repro_torch.launch import op_analysis as OA
+    B, T, H, P, N, L = 2, 2048, 64, 64, 128, 256
+    x, Bm, Cm, dt, A, D = _operands(B, T, H, P, N, torch.bfloat16,
+                                    device=META)
+    res = OA.analyze(SSD.ssd_chunked, x, Bm, Cm, dt, A, D, P, L)
+    nc = T // L
+    block = B * nc * L * L * H * 4
+    made = res["peak_bytes"] - res["held_bytes"]
+    card = (2 * B * T * H * P * 2 + 4 * (B * H * P * N + B * T * H
+                                         + B * nc * H + B * nc * H * P * N))
+    assert B * T * H * P * 2 <= made <= card + 2 * B * T * H * P * 2
+    assert made < block / 2
+
+
+def test_dryrun_traces_mamba2_through_the_abstract_form(monkeypatch):
     """`launch.dryrun` on mamba2 (reduced widths, a training step at model
-    16): every SSD call of the traced step goes through the wrapper to the
-    plain version, none to the CUDA path."""
+    16): every SSD call of the traced step takes B5's abstract form,
+    forward twice a layer (the field's and remat's) and backward once,
+    and none the plain version or the CUDA path; the record counts them
+    as meta launches."""
     from repro_torch.launch import dryrun
     get = tcfgs.get
     monkeypatch.setattr(tcfgs, "get", lambda name: get(name).reduced())
     monkeypatch.setattr(_build, "load", _refuse)
-    devices = []
-    monkeypatch.setattr(SSD, "ssd_chunked_ref", lambda *a: devices.append(
-        a[0].device.type) or ssd_chunked_ref(*a))
+    monkeypatch.setattr(SSD, "ssd_chunked_ref", _refuse)
     SSD.reset_launches()
     rec = dryrun.run_combo("mamba2-1.3b", "train_4k", False, exchange="sim",
                            layout="dp", quiet=True)
     assert rec["status"] == "ok", rec.get("error")
-    assert devices and set(devices) == {"meta"}
+    layers = get("mamba2-1.3b").reduced().num_layers
+    assert (SSD.ssd_meta_launches, SSD.ssd_bwd_meta_launches) == (
+        2 * layers, layers)
     assert (SSD.ssd_launches, SSD.ssd_bwd_launches) == (0, 0)
 
 
@@ -157,3 +185,101 @@ def test_t_not_a_multiple_of_the_chunk_is_refused_on_every_path():
     x, Bm, Cm, dt, A, D = _operands(1, 40, 2, 16, 16)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         SSD.ssd_chunked(x, Bm, Cm, dt, A, D, 16, 32)
+
+
+# the kernels' source, read for its C entry points and its sums
+SRC = (_build.CSRC / "ssd_chunked.cu").read_text()
+
+
+def _c_params(head):
+    """The number of parameters of the C function (or the function a
+    macro defines) whose declaration starts with `head`."""
+    sig = SRC[SRC.index(head) + len(head):]
+    return sig[:sig.index(") {")].count(",") + 1
+
+
+def _fake_library():
+    import types
+    return types.SimpleNamespace(**{
+        f"ssd_chunked_{p}_{e}": types.SimpleNamespace()
+        for p in ("fwd", "bwd") for e in ("bf16", "f32")})
+
+
+@pytest.mark.parametrize("pass_,macro", [("fwd", "SSD_FWD"),
+                                         ("bwd", "SSD_BWD")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_argtypes_match_the_sources_entry_points(monkeypatch, pass_,
+                                                         macro, dtype):
+    """Each pass and element type has its C entry point in the one
+    library, and the wrapper declares as many arguments as it takes."""
+    e = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert f"{macro}(ssd_chunked_{pass_}_{e}, " in SRC
+    lib = _fake_library()
+    monkeypatch.setattr(_build, "load", lambda name: (
+        lib if name == "ssd_chunked" else _refuse()))
+    monkeypatch.setattr(SSD, "_fns", {})
+    fn = SSD._fn(pass_, dtype)
+    assert fn is getattr(lib, f"ssd_chunked_{pass_}_{e}")
+    assert len(fn.argtypes) == _c_params(f"#define {macro}(NAME, E)")
+
+
+def test_workspace_size_follows_the_sources_layout():
+    """`ws_floats`, the backward's scratch, part by part as the source's
+    `Work` lays it, each part rounded up to 4 floats: at mamba2-1.3b's cell
+    dcum and dlast (B·T·H each), 4 slots each of dcum and ddt, the d(cd)
+    parts of 32 CTAs over P·N and 10 dG tiles for each of 4 head groups;
+    at T = 35, chunk 7, 3 heads, 16 x 16 the odd counts round up."""
+    bth = 2 * 2048 * 64
+    assert SSD.ws_floats(2, 2048, 64, 64, 128, 256) == (
+        2 * bth + 2 * 4 * bth + 2 * 8 * 64 * 32 + 2 * 8 * 10 * 4 * 64 * 64)
+    assert SSD.ws_floats(1, 35, 3, 16, 16, 7) == (
+        2 * 108 + 2 * 108 + 16 + 5 * 64 * 64)
+    assert "if (ws_floats < Work(o).floats()) return -2;" in SRC
+
+
+def test_kernels_add_by_no_atomic():
+    """The backward's shared sums go through workspace slots summed in a
+    fixed order, so a seeded run repeats bit for bit: no kernel of the
+    source adds to memory by an atomic."""
+    import re
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", SRC)
+    assert "bwd_gbc" in SRC and "dcdp" in SRC
+
+
+def test_launch_counts_read_each_wrappers_counter(monkeypatch):
+    """`kernels.launch_counts` reads B1-B4's counters and B5's two; a
+    CPU call of B5's wrapper adds to none of them."""
+    from repro_torch import kernels
+    from repro_torch.kernels import quantize as Q
+    before = kernels.launch_counts()
+    assert set(before) == {"quantize_ef", "quantize_ef_dyn",
+                           "paged_attention", "flash_attention",
+                           "ssd_chunked", "ssd_chunked_bwd"}
+    x, Bm, Cm, dt, A, D = _operands(1, 64, 2, 16, 16)
+    SSD.ssd_chunked(x, Bm, Cm, dt, A, D, 16, 32)
+    assert set(kernels.launches_since(before).values()) == {0}
+    monkeypatch.setattr(SSD, "ssd_launches", SSD.ssd_launches + 4)
+    monkeypatch.setattr(SSD, "ssd_bwd_launches", SSD.ssd_bwd_launches + 2)
+    monkeypatch.setattr(Q, "launches", Q.launches + 1)
+    assert kernels.launches_since(before) == dict(
+        dict.fromkeys(before, 0), ssd_chunked=4, ssd_chunked_bwd=2,
+        quantize_ef=1)
+
+
+def test_op_analysis_reports_the_calls_launches(monkeypatch):
+    """`op_analysis.analyze` returns each kernel's launches during the
+    call: none for a mamba2 layer on the CPU (the plain version), and
+    what the wrappers count when they launch."""
+    from repro_torch.launch import op_analysis as OA
+    x, Bm, Cm, dt, A, D = _operands(1, 64, 2, 16, 16)
+    res = OA.analyze(SSD.ssd_chunked, x, Bm, Cm, dt, A, D, 16, 32)
+    assert res["launches"]["ssd_chunked"] == 0
+    assert set(res["launches"].values()) == {0}
+
+    def launching(*a):
+        SSD.ssd_launches += 1        # what a call on CUDA tensors counts
+        return ssd_chunked_ref(*a)
+    monkeypatch.setattr(SSD, "ssd_launches", SSD.ssd_launches)
+    res = OA.analyze(launching, x, Bm, Cm, dt, A, D, 16, 32)
+    assert res["launches"]["ssd_chunked"] == 1
+    assert res["launches"]["ssd_chunked_bwd"] == 0
